@@ -1,0 +1,286 @@
+// K3: the fluid solve for beta == 0, on packed pairs of real fields.
+//
+//   y1 + i*y2 = ifftn(Mn * fftn(x1 + i*x2))      over the axes (X, Y, Z)
+//
+// Mn is the full-spectrum scalar multiplier, even in k, so the real and
+// imaginary parts of the result are the operator applied to x1 and x2
+// (lagomorph_tpu/ops/fluid.py:420-426, 555-590).  Replaces the Pallas kernels
+// lagomorph_tpu/ops/pallas/fft_unit.py `_zy_dft_kernel` (via `_zy_dft_call`:
+// z- then y-axis DFT, and its inverse) and `_x_mul_dft_kernel` (via
+// `_x_mul_dft_call`: x-axis DFT, multiply by Mn, inverse x-axis DFT), called
+// by `fluid_flat_mxu`.  The TPU kernel does each axis as a matmul on its
+// matrix unit in a 3-pass bf16 split (`_dot3`) to reach float32 accuracy;
+// Hopper's float32 FMA needs no split.
+//
+// Each pass is a line transform in shared memory.  A block takes TJ lines
+// along one axis (neighbouring lines, so the loads coalesce) and keeps them
+// in shared memory as [n][line].  An axis whose length is a power of two is
+// transformed by a radix-2 Stockham FFT (log2 N stages, ping-pong between
+// two tiles, results in natural order); any other length by the direct sum
+// over n of x[n] * exp(-+2 pi i k n / N).  The twiddles come from a length-N
+// table in shared memory, indexed by (k * n) mod N (direct) or p * s
+// (radix-2), which fits any N.  Five passes over the (F, X, Y, Z) complex
+// scratch:
+//   1. z forward, reading the real pair (x1, x2);
+//   2. y forward;
+//   3. x forward, times Mn, x inverse (one pass: the whole x line is in
+//      shared memory);
+//   4. y inverse;
+//   5. z inverse, writing the real pair (y1, y2).
+// Each inverse pass scales by 1/N of its axis.
+//
+// Bound on the H100.  Direct sums are 8*N float32 flops per output per axis
+// (~77 GFLOP at 128^3 b4, F = 6 pairs, six axis transforms): arithmetic-
+// bound.  Radix-2 needs 5 log2(N) flops per output per axis (~29x fewer at
+// N = 128), which leaves each pass bound by its device-memory traffic: the
+// complex scratch (F = 6 pairs at 128^3 b4: 100.7 MB) read and written once
+// per pass, five passes, ~1 GB per solve.  Design: the warp's 32 lanes take 32 lines at one frequency (or
+// one butterfly), so the twiddle read is a broadcast and the tile accesses
+// are free of bank conflicts; a direct-sum thread sums R frequencies at once
+// to reuse each x[n] it reads from shared memory.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace lagomorph {
+
+constexpr int kThreads = 256;
+constexpr int kR = 4;  // frequencies per thread per sweep
+
+enum InMode { IN_SPLIT = 0, IN_COMPLEX = 1 };
+enum OutMode { OUT_SPLIT = 0, OUT_COMPLEX = 1 };
+
+// element n of line l in a volume viewed as (outer, N, inner)
+__device__ __forceinline__ long line_addr(long l, int n, int N, long inner) {
+  const long o = l / inner;
+  const long i = l - o * inner;
+  return (o * N + n) * inner + i;
+}
+
+// O[k][j] = sum_n S[n][j] * exp(sign * 2 pi i k n / N), for the block's TJ
+// lines; sign = -1 forward, +1 inverse.  Tiles have row pitch TP = TJ + 1
+// (the padding keeps the transposing loads and stores free of bank
+// conflicts).
+__device__ __forceinline__ void dft_tile(const float2* __restrict__ S,
+                                         float2* __restrict__ O,
+                                         const float2* __restrict__ tw, int N,
+                                         int TJ, float sign) {
+  const int TP = TJ + 1;
+  const int KS = blockDim.x / TJ;
+  const int j = threadIdx.x % TJ;
+  const int k0 = threadIdx.x / TJ;
+  for (int kb = k0; kb < N; kb += KS * kR) {
+    int kk[kR], ix[kR];
+    float ar[kR], ai[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int k = kb + r * KS;
+      kk[r] = k < N ? k : 0;  // a masked frequency sums k = 0 and is dropped
+      ix[r] = 0;
+      ar[r] = 0.0f;
+      ai[r] = 0.0f;
+    }
+    for (int n = 0; n < N; ++n) {
+      const float2 x = S[n * TP + j];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const float2 w = tw[ix[r]];
+        const float ws = sign * w.y;
+        ar[r] = fmaf(x.x, w.x, fmaf(-x.y, ws, ar[r]));
+        ai[r] = fmaf(x.y, w.x, fmaf(x.x, ws, ai[r]));
+        ix[r] += kk[r];
+        if (ix[r] >= N) ix[r] -= N;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int k = kb + r * KS;
+      if (k < N) O[k * TP + j] = make_float2(ar[r], ai[r]);
+    }
+  }
+}
+
+// Radix-2 Stockham FFT of the TJ lines in `x` (N a power of two), using `y`
+// as the other buffer of each stage; returns the buffer holding the result.
+// Stage with half-length m and stride s: for p < m, q < s,
+//   y[q + s*2p]     = a + b
+//   y[q + s*(2p+1)] = (a - b) * exp(sign * 2 pi i p s / N)
+// with a = x[q + s*p], b = x[q + s*(p + m)].
+__device__ __forceinline__ float2* fft_tile(float2* x, float2* y,
+                                            const float2* __restrict__ tw,
+                                            int N, int TJ, float sign) {
+  const int TP = TJ + 1;
+  const int KS = blockDim.x / TJ;
+  const int j = threadIdx.x % TJ;
+  const int b0 = threadIdx.x / TJ;
+  const int half = N >> 1;
+  for (int s = 1, lg = 0; s < N; s <<= 1, ++lg) {
+    const int m = half >> lg;  // half-length of this stage
+    for (int b = b0; b < half; b += KS) {
+      const int p = b >> lg;
+      const int q = b & (s - 1);
+      const float2 a = x[(q + s * p) * TP + j];
+      const float2 c = x[(q + s * (p + m)) * TP + j];
+      const float2 w = tw[p * s];
+      const float ws = sign * w.y;
+      const float dr = a.x - c.x, di = a.y - c.y;
+      y[(q + 2 * s * p) * TP + j] = make_float2(a.x + c.x, a.y + c.y);
+      y[(q + s * (2 * p + 1)) * TP + j] =
+          make_float2(dr * w.x - di * ws, di * w.x + dr * ws);
+    }
+    __syncthreads();
+    float2* t = x;
+    x = y;
+    y = t;
+  }
+  return x;
+}
+
+// One transform of the tile in `in`: radix-2 for a power-of-two N, else
+// direct sums into `other`.  Returns the buffer holding the result; ends
+// with the block synchronised.
+__device__ __forceinline__ float2* transform_tile(float2* in, float2* other,
+                                                  const float2* __restrict__ tw,
+                                                  int N, int TJ, float sign) {
+  if ((N & (N - 1)) == 0) return fft_tile(in, other, tw, N, TJ, sign);
+  dft_tile(in, other, tw, N, TJ, sign);
+  __syncthreads();
+  return other;
+}
+
+// One pass over all lines of one axis.  `mult` (pass 3 only) is the
+// multiplier laid out like one (N, inner) slab: forward DFT, times mult,
+// inverse DFT.  Otherwise one DFT of direction `sign`, scaled by `scale`.
+__global__ void dft_pass_kernel(const float* __restrict__ in_re,
+                                const float* __restrict__ in_im,
+                                float2* cbuf, float* __restrict__ out_re,
+                                float* __restrict__ out_im,
+                                const float* __restrict__ mult, int in_mode,
+                                int out_mode, long nlines, int N, long inner,
+                                int TJ, float sign, float scale) {
+  extern __shared__ float2 smem[];
+  const int TP = TJ + 1;      // tile row pitch
+  float2* tw = smem;          // N
+  float2* S = smem + N;       // N * TP
+  float2* O = S + N * TP;     // N * TP
+
+  for (int t = threadIdx.x; t < N; t += blockDim.x) {
+    double s, c;
+    sincospi(2.0 * (double)t / (double)N, &s, &c);
+    tw[t] = make_float2((float)c, (float)s);
+  }
+
+  const long l0 = (long)blockIdx.x * TJ;
+  const int nl = nlines - l0 < TJ ? (int)(nlines - l0) : TJ;
+  const bool contig = inner == 1;  // lines are contiguous rows (z axis)
+  const int total = N * TJ;
+
+  // load: consecutive threads on consecutive addresses
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int j, n;
+    if (contig) { j = e / N; n = e - j * N; } else { n = e / TJ; j = e - n * TJ; }
+    float2 val = make_float2(0.0f, 0.0f);
+    if (j < nl) {
+      const long a = line_addr(l0 + j, n, N, inner);
+      val = in_mode == IN_SPLIT ? make_float2(in_re[a], in_im[a]) : cbuf[a];
+    }
+    S[n * TP + j] = val;
+  }
+  __syncthreads();
+
+  float2* res;
+  if (mult != nullptr) {
+    float2* F = transform_tile(S, O, tw, N, TJ, -1.0f);
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int k = e / TJ, j = e - k * TJ;
+      if (j < nl) {
+        const long l = l0 + j;
+        const float m = mult[(long)k * inner + (l % inner)];
+        const float2 v = F[k * TP + j];
+        F[k * TP + j] = make_float2(v.x * m, v.y * m);
+      }
+    }
+    __syncthreads();
+    res = transform_tile(F, F == S ? O : S, tw, N, TJ, 1.0f);
+  } else {
+    res = transform_tile(S, O, tw, N, TJ, sign);
+  }
+
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int j, k;
+    if (contig) { j = e / N; k = e - j * N; } else { k = e / TJ; j = e - k * TJ; }
+    if (j < nl) {
+      const long a = line_addr(l0 + j, k, N, inner);
+      const float2 v = res[k * TP + j];
+      if (out_mode == OUT_SPLIT) {
+        out_re[a] = v.x * scale;
+        out_im[a] = v.y * scale;
+      } else {
+        cbuf[a] = make_float2(v.x * scale, v.y * scale);
+      }
+    }
+  }
+}
+
+// shared memory of one block: the twiddle table and two tiles
+static size_t smem_bytes(int N, int tj) {
+  return (2L * N * (tj + 1) + N) * sizeof(float2);
+}
+
+// lines per block: the widest TJ whose tiles and table fit in 96 KB, so two
+// blocks share an SM
+static int pick_tj(int N) {
+  for (int tj = 32; tj > 1; tj /= 2)
+    if (smem_bytes(N, tj) <= 96 * 1024) return tj;
+  return 1;
+}
+
+static int launch_pass(const float* in_re, const float* in_im, float2* cbuf,
+                       float* out_re, float* out_im, const float* mult,
+                       int in_mode, int out_mode, long nlines, int N,
+                       long inner, float sign, float scale,
+                       cudaStream_t stream) {
+  const int tj = pick_tj(N);
+  const size_t smem = smem_bytes(N, tj);
+  cudaError_t err = cudaFuncSetAttribute(
+      dft_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (nlines + tj - 1) / tj;
+  dft_pass_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      in_re, in_im, cbuf, out_re, out_im, mult, in_mode, out_mode, nlines, N,
+      inner, tj, sign, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace lagomorph
+
+// x1, x2, y1, y2: (F, X, Y, Z) float32; Mn: (X, Y, Z) float32; scratch:
+// (F, X, Y, Z) complex (float2).  y1/y2 may not alias x1/x2.
+extern "C" int lagomorph_fluid_flat(const float* x1, const float* x2,
+                                    const float* Mn, float* y1, float* y2,
+                                    float* scratch, int F, int X, int Y, int Z,
+                                    void* stream_) {
+  using namespace lagomorph;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  float2* c = reinterpret_cast<float2*>(scratch);
+  const long YZ = (long)Y * Z;
+  int err;
+  // 1. z forward: lines (F*X*Y) of length Z, contiguous
+  err = launch_pass(x1, x2, c, nullptr, nullptr, nullptr, IN_SPLIT, OUT_COMPLEX,
+                    (long)F * X * Y, Z, 1, -1.0f, 1.0f, stream);
+  if (err) return err;
+  // 2. y forward: lines (F*X) x Z of length Y, stride Z
+  err = launch_pass(nullptr, nullptr, c, nullptr, nullptr, nullptr, IN_COMPLEX,
+                    OUT_COMPLEX, (long)F * X * Z, Y, Z, -1.0f, 1.0f, stream);
+  if (err) return err;
+  // 3. x forward, times Mn, x inverse: lines F x (Y*Z) of length X
+  err = launch_pass(nullptr, nullptr, c, nullptr, nullptr, Mn, IN_COMPLEX,
+                    OUT_COMPLEX, (long)F * YZ, X, YZ, 0.0f, 1.0f / X, stream);
+  if (err) return err;
+  // 4. y inverse
+  err = launch_pass(nullptr, nullptr, c, nullptr, nullptr, nullptr, IN_COMPLEX,
+                    OUT_COMPLEX, (long)F * X * Z, Y, Z, 1.0f, 1.0f / Y, stream);
+  if (err) return err;
+  // 5. z inverse, to the real pair
+  return launch_pass(nullptr, nullptr, c, y1, y2, nullptr, IN_COMPLEX,
+                     OUT_SPLIT, (long)F * X * Y, Z, 1, 1.0f, 1.0f / Z, stream);
+}

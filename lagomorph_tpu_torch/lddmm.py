@@ -1,0 +1,148 @@
+"""LDDMM geodesic shooting and the atlas loss (forward).
+
+Port of ``lagomorph_tpu/lddmm.py``: ``EPDiff_step``, ``expmap`` with the
+peeled first step, the hoisted fast path with its validity flag and exact
+fallback, ``shooting_regime_ok`` and ``_lddmm_loss``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import adjrep, deform
+from .ops.interp import in_unit as _in_unit
+from .ops.kernels import epdiff_unit
+
+__all__ = ["EPDiff_step", "expmap", "shooting_regime_ok"]
+
+
+def EPDiff_step(metric, m0, dt, phiinv, mommask=None, transport_mode=None,
+                compose_mode=None):
+    """One step of EPDiff in integrated form: transport the initial momentum
+    with ``Ad^*``, sharp it to a velocity, and compose it into the inverse
+    deformation.  ``transport_mode`` / ``compose_mode`` force the warp tier
+    of the two warps (None: picked from the displacement)."""
+    m = adjrep.Ad_star(phiinv, m0, mode=transport_mode)
+    if mommask is not None:
+        m = m * mommask
+    v = metric.sharp(m)
+    return deform.compose_disp_vel(phiinv, v, dt=-dt, mode=compose_mode)
+
+
+def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
+           transport_mode=None, compose_mode=None, v0=None):
+    """Geodesic shooting: the inverse deformation ``phi^{-1}`` (as a
+    displacement) at time ``T`` from the initial momentum ``m0``.
+
+    ``v0``: optional precomputed ``metric.sharp(m0 * mommask)``, shared with
+    a caller that also needs the initial velocity.  Starting from the
+    identity, the first step is peeled (``Ad*(0, m0) = m0`` and the first
+    composition is ``-dt * v0`` exactly).  With no tier forced, 3D fields
+    then take the hoisted fast path (:func:`_expmap_hoisted`)."""
+    dt = T / num_steps
+    length = num_steps
+    if phiinv is None:
+        if v0 is None:
+            m = m0 if mommask is None else m0 * mommask
+            v0 = metric.sharp(m)
+        phiinv = (-dt) * v0
+        length = num_steps - 1
+        if length <= 0:
+            return phiinv
+        if (transport_mode is None and compose_mode is None
+                and m0.dim() == 5 and m0.shape[1] == 3):
+            return _expmap_hoisted(metric, m0, dt, length, phiinv, mommask)
+    for _ in range(length):
+        phiinv = EPDiff_step(metric, m0, dt, phiinv, mommask=mommask,
+                             transport_mode=transport_mode,
+                             compose_mode=compose_mode)
+    return phiinv
+
+
+def _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask):
+    """The hoisted fast loop: ``length`` substeps on the unit-regime kernels
+    K1 (Ad*) and K2 (compose), accumulating their flags on the device.
+    Returns ``(phiinv, ok)``; ``phiinv`` is exact iff ``ok``."""
+    phiinv = phiinv0
+    ok = torch.ones((), dtype=torch.bool, device=phiinv0.device)
+    for _ in range(length):
+        m, f_transport = epdiff_unit.ad_star(phiinv, m0)
+        if mommask is not None:
+            m = m * mommask
+        v = metric.sharp(m)
+        phiinv, f_compose = epdiff_unit.compose(phiinv, v, -dt)
+        ok = ok & f_transport & f_compose
+    return phiinv, ok
+
+
+def _expmap_general(metric, m0, dt, length, phiinv0, mommask, mode="auto"):
+    """Exact integration in every regime: each substep picks its warp tiers
+    from its own displacements (``mode="auto"``), or takes the forced tier
+    ``mode``."""
+    phiinv = phiinv0
+    for _ in range(length):
+        phiinv = EPDiff_step(metric, m0, dt, phiinv, mommask=mommask,
+                             transport_mode=mode, compose_mode=mode)
+    return phiinv
+
+
+def _expmap_hoisted(metric, m0, dt, length, phiinv0, mommask):
+    """Integrate on the unit-regime kernels with a validity flag, and re-run
+    the exact general integration when any substep left the unit regime.
+
+    The JAX package's ``lax.cond(ok, fast, general)`` becomes one host read
+    of the flag per call.  That sync is why the shooting loop cannot yet be
+    captured in a CUDA graph."""
+    fast, ok = _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask)
+    if bool(ok):
+        return fast
+    return _expmap_general(metric, m0, dt, length, phiinv0, mommask)
+
+
+def shooting_regime_ok(metric, m0, T=1.0, num_steps=10, mommask=None) -> torch.Tensor:
+    """0-dim bool tensor: True iff every substep of ``expmap(metric, m0,
+    ...)`` stays in the unit regime (every warp displacement in ``[-1,
+    1)``), i.e. the hoisted fast path keeps its result.  Runs one
+    general-tier shooting; a spot check, not for the hot loop."""
+    dt = T / num_steps
+    m = m0 if mommask is None else m0 * mommask
+    phiinv = (-dt) * metric.sharp(m)
+    ok = _in_unit(phiinv)
+    for _ in range(num_steps - 1):
+        ok = ok & _in_unit(phiinv)
+        m = adjrep.Ad_star(phiinv, m0, mode="general")
+        if mommask is not None:
+            m = m * mommask
+        v = metric.sharp(m)
+        ok = ok & _in_unit(-dt * v)
+        phiinv = deform.compose_disp_vel(phiinv, v, dt=-dt, mode="general")
+    return ok
+
+
+def _lddmm_loss(I, m, img, metric, reg_weight, integration_steps,
+                image_shape=None, mask=None):
+    """Loss of one minibatch: ``MSE(I o phi^{-1}(m), img) / |Omega| + reg``,
+    returned as ``(loss, reg_term)``.
+
+    ``mask``: optional ``(B,)`` 0/1 weights for padded subjects.  Momenta on
+    another grid than the image (``image_shape``) are not ported."""
+    # one fluid solve serves the regularizer and the peeled first step
+    v = metric.sharp(m)
+    h = expmap(metric, m, num_steps=integration_steps, v0=v)
+    if image_shape is not None and tuple(h.shape[2:]) != tuple(image_shape):
+        raise NotImplementedError(
+            "momenta on a coarser grid than the image (regrid) are not ported"
+        )
+    Idef = deform.interp_auto(I, h)
+    sq = torch.sum((Idef - img) ** 2, dim=tuple(range(1, img.dim())))
+    vm = torch.sum(v * m, dim=tuple(range(1, m.dim())))
+    if mask is None:
+        count = img.shape[0]
+    else:
+        sq = sq * mask
+        vm = vm * mask
+        count = torch.sum(mask)
+    numel = count * float(np.prod(img.shape[1:]))
+    reg_term = reg_weight * torch.sum(vm) / numel
+    loss = torch.sum(sq) / numel + reg_term
+    return loss, reg_term

@@ -1,0 +1,25 @@
+"""Grid operators of the port: sampling, finite differences, the fluid
+operator, interpolation, and the hand-written kernels under ``kernels``."""
+from .boundary import diff_central, shift_clamp
+from .diff import jacobian_times_vectorfield
+from .fluid import fluid_operator
+from .interp import interp, interp_auto
+from .sampling import (
+    identity_grid,
+    sample_displacement_bounded,
+    sample_displacement_unit,
+    sample_linear,
+)
+
+__all__ = [
+    "diff_central",
+    "fluid_operator",
+    "identity_grid",
+    "interp",
+    "interp_auto",
+    "jacobian_times_vectorfield",
+    "sample_displacement_bounded",
+    "sample_displacement_unit",
+    "sample_linear",
+    "shift_clamp",
+]

@@ -1,0 +1,112 @@
+"""Build and load the CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The library lands in ``lagomorph_tpu_torch/_build/`` under a name that
+carries a hash of the sources and flags, so a changed source rebuilds and an
+unchanged one is reused.  Nothing is built when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points: name -> argument types (every one returns cudaError_t)
+SIGNATURES = {
+    # I, disp, out, N, NI, C, X, Y, Z, stream
+    "lagomorph_warp_unit_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # phiinv, m0, out, flag, N, Nm, X, Y, Z, stream
+    "lagomorph_ad_star_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # phiinv, v, s, out, flag, N, X, Y, Z, stream
+    "lagomorph_compose_fwd": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    # x1, x2, Mn, y1, y2, scratch, F, X, Y, Z, stream
+    "lagomorph_fluid_flat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""  # the compiler's output of the build that produced _lib
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc():
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked at $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        so = os.path.join(BUILD_DIR, f"liblagomorph_kernels_{_digest()}.so")
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *_sources()]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            build_log = r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{build_log}"
+                )
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.lagomorph_error_string.argtypes = [ctypes.c_int]
+        lib.lagomorph_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def call(name, *args):
+    """Call C entry point ``name``; raise if it reports a CUDA error."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.lagomorph_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

@@ -1,0 +1,69 @@
+"""K3: the fluid solve for ``beta == 0`` on packed pairs of real fields
+(``csrc/fft_unit.cu``).
+
+``y1 + i*y2 = ifftn(Mn * fftn(x1 + i*x2))`` over the three spatial axes,
+where ``Mn`` is the full-spectrum scalar multiplier (even in k, so the real
+and imaginary parts are the operator applied to ``x1`` and ``x2``).  The
+pairs are the two halves of one ``(2F, X, Y, Z)`` tensor.
+
+Replaces ``lagomorph_tpu/ops/pallas/fft_unit.py`` ``_zy_dft_kernel`` and
+``_x_mul_dft_kernel`` (``fluid_flat_mxu``).  The kernel is five line-
+transform passes in shared memory (radix-2 FFT for power-of-two axes,
+direct DFT sums otherwise, twiddles from a table); it calls no cuFFT or
+cuBLAS.  On the H100 each radix-2 pass is bound by its device-memory
+traffic: the complex scratch (100.7 MB at 128^3 b4) read and written once
+per pass, ~1 GB per solve; direct-sum passes are bound by arithmetic.  Its
+plain version, :func:`fluid_flat_plain`, is the ``torch.fft`` packed
+operator.  See the source for the design.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build, check_cuda_f32, forward_only, register, stream_of, use_kernel
+
+KERNEL = register(
+    "fluid_flat",
+    source="lagomorph_tpu_torch/csrc/fft_unit.cu",
+    replaces="lagomorph_tpu/ops/pallas/fft_unit.py:438, 463",
+)
+
+
+def fluid_flat_plain(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: the ``torch.fft`` packed operator on the
+    complex field ``x[:F] + i*x[F:]`` of shape ``(F, X, Y, Z)``."""
+    F = x.shape[0] // 2
+    c = torch.complex(x[:F], x[F:])
+    y = torch.fft.ifftn(torch.fft.fftn(c, dim=(1, 2, 3)) * Mn, dim=(1, 2, 3))
+    return torch.cat([y.real, y.imag])
+
+
+def _launch(x, Mn):
+    F2, X, Y, Z = x.shape
+    F = F2 // 2
+    y = torch.empty_like(x)
+    scratch = torch.empty((F, X, Y, Z, 2), dtype=x.dtype, device=x.device)
+    _build.call(
+        "lagomorph_fluid_flat",
+        x[:F].data_ptr(), x[F:].data_ptr(), Mn.data_ptr(), y[:F].data_ptr(),
+        y[F:].data_ptr(), scratch.data_ptr(), F, X, Y, Z, stream_of(x),
+    )
+    KERNEL.launches += 1
+    return y
+
+
+def fluid_flat(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
+    """K3: the packed-pair fluid solve.  ``x``: ``(2F, X, Y, Z)``, read as
+    the ``F`` complex fields ``x[:F] + i*x[F:]``; ``Mn``: ``(X, Y, Z)``,
+    real and even in k.  Returns ``y`` of the same layout, with
+    ``y[:F] + i*y[F:] = ifftn(Mn * fftn(x[:F] + i*x[F:]))``.  The kernel on
+    CUDA (float32, contiguous), the plain version on the CPU."""
+    if not use_kernel(x):
+        return fluid_flat_plain(x, Mn)
+    check_cuda_f32("fluid_flat", x, Mn)
+    if x.dim() != 4 or x.shape[0] % 2 or tuple(Mn.shape) != tuple(x.shape[1:]):
+        raise ValueError(
+            f"fluid_flat: x {tuple(x.shape)}, Mn {tuple(Mn.shape)}: want "
+            "(2F, X, Y, Z) pairs and an (X, Y, Z) multiplier"
+        )
+    return forward_only(_launch, x, Mn)

@@ -1,0 +1,173 @@
+"""Multilinear sampling on regular grids (forward).
+
+Port of ``lagomorph_tpu/ops/sampling.py``: the general gather
+(:func:`sample_linear`), the exact 27-tap form for displacements in
+``[-1, 1)`` (:func:`sample_displacement_unit`, the plain version of kernel
+K4) and the dense offset sweep for displacements bounded by a radius
+(:func:`sample_displacement_bounded`).  Same semantics throughout: corner
+index ``floor(x)`` and ``floor(x) + 1``, weights from the unclamped
+coordinate, corner indices clamped (CLAMP boundary) or handled by the
+chosen background strategy.
+"""
+from __future__ import annotations
+
+import itertools
+
+import torch
+
+BACKGROUND_STRATEGIES = ("clamp", "wrap", "zero", "val")
+
+
+def identity_grid(spatial, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``(dim, *spatial)`` identity coordinate grid in voxel units."""
+    axes = [torch.arange(n, dtype=dtype, device=device) for n in spatial]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
+
+
+def _pad_edge(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Replicate-edge pad every spatial axis (dims 2..) by ``lo``/``hi``."""
+    for ax in range(2, x.dim()):
+        n = x.shape[ax]
+        idx = torch.arange(-lo, n + hi, device=x.device).clamp_(0, n - 1)
+        x = x.index_select(ax, idx)
+    return x
+
+
+def sample_linear(I: torch.Tensor, coords: torch.Tensor, background: str = "clamp",
+                  background_value: float = 0.0) -> torch.Tensor:
+    """Batched multilinear sampling at fractional voxel coordinates.
+
+    ``I``: ``(NI, C, *spatial)`` with ``NI`` in ``{1, N}`` (1 broadcasts);
+    ``coords``: ``(N, dim, *out_spatial)``.  Returns ``(N, C, *out_spatial)``.
+    ``background``: ``"clamp"`` (replicate edge), ``"wrap"`` (periodic),
+    ``"zero"`` / ``"val"`` (out-of-range corners contribute
+    ``background_value``, 0 for "zero")."""
+    if background not in BACKGROUND_STRATEGIES:
+        raise ValueError(f"unknown background strategy {background!r}")
+    N, dim = coords.shape[:2]
+    spatial = tuple(I.shape[2:])
+    if len(spatial) != dim:
+        raise ValueError(f"coords dim {dim} does not match image rank {len(spatial)}")
+    if I.shape[0] not in (1, N):
+        raise ValueError(f"Incompatible batch sizes I={I.shape[0]}, coords={N}")
+    C = I.shape[1]
+    out_spatial = tuple(coords.shape[2:])
+    bg = 0.0 if background == "zero" else background_value
+
+    floor = torch.floor(coords)
+    frac = coords - floor  # weights from unclamped coordinates
+    floor = floor.to(torch.int64)
+    strides = []
+    s = 1
+    for n in reversed(spatial):
+        strides.append(s)
+        s *= n
+    strides = strides[::-1]
+    Iflat = I.reshape(I.shape[0], C, -1).expand(N, C, -1)
+
+    out = None
+    for corner in itertools.product((0, 1), repeat=dim):
+        lin = None
+        w = None
+        valid = None
+        for d in range(dim):
+            raw = floor[:, d] + corner[d]
+            if background == "wrap":
+                idx = torch.remainder(raw, spatial[d])
+            else:
+                idx = raw.clamp(0, spatial[d] - 1)
+            if background in ("zero", "val"):
+                vd = (raw >= 0) & (raw < spatial[d])
+                valid = vd if valid is None else valid & vd
+            lin = idx * strides[d] if lin is None else lin + idx * strides[d]
+            wd = frac[:, d] if corner[d] else 1.0 - frac[:, d]
+            w = wd if w is None else w * wd
+        gidx = lin.reshape(N, 1, -1).expand(N, C, -1)
+        vals = torch.gather(Iflat, 2, gidx).reshape((N, C) + out_spatial)
+        if valid is not None:
+            vals = torch.where(valid[:, None], vals, torch.full_like(vals, bg))
+        term = w[:, None] * vals
+        out = term if out is None else out + term
+    return out
+
+
+def sample_displacement_unit(I: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """Exact sampling ``out(x) = I(x + disp(x))`` for every component of
+    ``disp`` in ``[-1, 1)``: a weighted sum of the ``3^dim`` clamped shifts
+    (the plain version of kernel K4).  Outside that regime an axis whose
+    floor is not -1 or 0 gets weight 0.
+
+    I: ``(NI, C, *spatial)`` (``NI in {1, N}``); disp: ``(N, dim, *spatial)``.
+    """
+    dim = disp.shape[1]
+    spatial = disp.shape[2:]
+    N = disp.shape[0]
+    if I.shape[0] not in (1, N):
+        raise ValueError("Incompatible batch sizes")
+    Ib = I.expand((N,) + tuple(I.shape[1:])) if I.shape[0] == 1 and N > 1 else I
+
+    f = torch.floor(disp)
+    t = disp - f
+    is_m1 = (f == -1).to(I.dtype)
+    is_0 = (f == 0).to(I.dtype)
+    # per-axis weights for shifts -1, 0, +1 (elementwise at the output point)
+    w = {
+        -1: is_m1 * (1.0 - t),
+        0: is_m1 * t + is_0 * (1.0 - t),
+        1: is_0 * t,
+    }
+    Ipad = _pad_edge(Ib, 1, 1)
+    out = None
+    for offsets in itertools.product((-1, 0, 1), repeat=dim):
+        wprod = None
+        for d, o in enumerate(offsets):
+            wd = w[o][:, d]
+            wprod = wd if wprod is None else wprod * wd
+        idx = (slice(None), slice(None)) + tuple(
+            slice(1 + o, 1 + o + n) for o, n in zip(offsets, spatial)
+        )
+        term = wprod[:, None] * Ipad[idx]
+        out = term if out is None else out + term
+    return out
+
+
+def _offset_weight(f, t, o):
+    """Per-axis shift weight: offset ``o`` receives (1-t) when floor==o and
+    t when floor==o-1 (the two stencil corners that land on o)."""
+    return (f == o).to(t.dtype) * (1.0 - t) + (f == (o - 1)).to(t.dtype) * t
+
+
+def sample_displacement_bounded(I: torch.Tensor, disp: torch.Tensor,
+                                radius: int) -> torch.Tensor:
+    """Exact sampling ``out(x) = I(x + disp(x))`` for every component of
+    ``disp`` in ``[-radius, radius + 1)``: a sweep over the integer offsets
+    ``o in [-radius, radius + 1]^dim``, each a slice of the edge-padded
+    volume times a mask-weight.  Out-of-range points contribute zero.
+
+    I: ``(N or 1, C, *spatial)``; disp: ``(N, dim, *spatial)``."""
+    dim = disp.shape[1]
+    spatial = tuple(disp.shape[2:])
+    N = disp.shape[0]
+    Ib = I.expand((N,) + tuple(I.shape[1:])) if I.shape[0] == 1 and N > 1 else I
+    Ipad = _pad_edge(Ib, radius, radius + 1)
+    f = torch.floor(disp).to(torch.int64)
+    t = disp - torch.floor(disp)
+    offsets = range(-radius, radius + 2)
+    inner = list(itertools.product(offsets, repeat=dim - 1))
+
+    out = torch.zeros((N, Ib.shape[1]) + spatial, dtype=I.dtype, device=I.device)
+    for o0 in offsets:
+        sl0 = Ipad[:, :, radius + o0: radius + o0 + spatial[0]]
+        w0 = _offset_weight(f[:, 0], t[:, 0], o0)
+        term0 = None
+        for oin in inner:
+            w = w0
+            for d, o in enumerate(oin):
+                w = w * _offset_weight(f[:, d + 1], t[:, d + 1], o)
+            idx = (slice(None), slice(None), slice(None)) + tuple(
+                slice(radius + o, radius + o + n) for o, n in zip(oin, spatial[1:])
+            )
+            contrib = w[:, None] * sl0[idx]
+            term0 = contrib if term0 is None else term0 + contrib
+        out = out + term0
+    return out

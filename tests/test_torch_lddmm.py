@@ -1,0 +1,153 @@
+"""The port's shooting and atlas loss against the JAX package, on the CPU
+in float64: ``expmap`` in the unit regime (hoisted fast path kept) and with
+momenta that trip its flag (exact general integration re-run), the
+regime probe, ``_lddmm_loss`` with a batch-1 atlas and with a mask, and the
+state conversion.
+
+Tolerance: 1e-9 relative to max|ref| (every step goes through a fluid
+solve, and the two libraries' FFTs round differently, ~1e-15).
+"""
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import lagomorph_tpu as lm
+from lagomorph_tpu import lddmm as jlddmm
+import lagomorph_tpu_torch as lt
+from lagomorph_tpu_torch import convert, lddmm as tlddmm
+
+torch.set_num_threads(2)
+
+FFT_RTOL = 1e-9
+PARAMS = (0.1, 0.0, 0.01)
+SHAPE = (2, 3, 16, 12, 20)
+STEPS = 5
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def close_rel(ref, got, rtol=FFT_RTOL):
+    ref = np.asarray(ref)
+    got = got.detach().numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rtol * float(np.abs(ref).max()))
+
+
+def momenta(rng, max_v0, shape=SHAPE):
+    """Momenta scaled so that the initial velocity peaks at ``max_v0``
+    voxels: 0.5 stays in the unit regime over 5 substeps; 6 leaves it
+    (a substep moves up to 1.2 voxels)."""
+    m = rng.standard_normal(shape)
+    v0 = lt.FluidMetric(PARAMS).sharp(t(m))
+    return m * (max_v0 / float(v0.abs().max()))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_shoot():
+    """The JAX ``expmap`` and ``shooting_regime_ok`` at this file's config,
+    jitted once and shared by the cases (one compile is cheaper than
+    op-by-op dispatch)."""
+    metric = lm.FluidMetric(PARAMS)
+    return (jax.jit(lambda m: lm.expmap(metric, m, num_steps=STEPS)),
+            jax.jit(lambda m: jlddmm.shooting_regime_ok(metric, m, num_steps=STEPS)))
+
+
+@pytest.mark.parametrize("max_v0,hoisted", [(0.5, True), (6.0, False)])
+def test_expmap_matches_jax(rng, max_v0, hoisted):
+    m = momenta(rng, max_v0)
+    metric = lt.FluidMetric(PARAMS)
+    dt = 1.0 / STEPS
+    phi0 = -dt * metric.sharp(t(m))
+    fast, ok = tlddmm._expmap_fast_flagged(metric, t(m), dt, STEPS - 1, phi0, None)
+    assert bool(ok) is hoisted
+    jexpmap, jregime_ok = _jax_shoot()
+    ref = jexpmap(jnp.asarray(m))
+    got = lt.expmap(metric, t(m), num_steps=STEPS)
+    close_rel(ref, got)
+    if hoisted:
+        assert torch.equal(got, fast)
+    else:
+        assert float(np.abs(np.asarray(ref)).max()) > 2.0  # the general tiers ran
+        assert torch.equal(got, tlddmm._expmap_general(metric, t(m), dt, STEPS - 1, phi0, None))
+    jok = jregime_ok(jnp.asarray(m))
+    assert bool(tlddmm.shooting_regime_ok(metric, t(m), num_steps=STEPS)) is bool(jok) is hoisted
+
+
+def test_expmap_forced_modes_and_mask(rng):
+    """A momentum mask, through the hoisted path (no tier forced) and
+    through the per-step loop with forced warp tiers."""
+    m = momenta(rng, 0.5, (1, 3, 9, 8, 7))
+    mask = (rng.uniform(size=(1, 1, 9, 8, 7)) > 0.3).astype(np.float64)
+    for mode in (None, "unit", "general"):
+        ref = jax.jit(lambda m_, k_: lm.expmap(
+            lm.FluidMetric(PARAMS), m_, num_steps=3, mommask=k_, transport_mode=mode,
+            compose_mode=mode))(jnp.asarray(m), jnp.asarray(mask))
+        got = lt.expmap(lt.FluidMetric(PARAMS), t(m), num_steps=3, mommask=t(mask),
+                        transport_mode=mode, compose_mode=mode)
+        close_rel(ref, got)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_loss(use_mask):
+    """The JAX ``_lddmm_loss`` at this file's config, jitted once per mask
+    case (one compile is cheaper than op-by-op dispatch, and the cases
+    share it)."""
+    metric = lm.FluidMetric(PARAMS)
+    if use_mask:
+        return jax.jit(lambda I, m, img, mask: jlddmm._lddmm_loss(
+            I, m, img, metric, 0.1, STEPS, False, mask=mask))
+    return jax.jit(lambda I, m, img: jlddmm._lddmm_loss(I, m, img, metric, 0.1, STEPS, False))
+
+
+@pytest.mark.parametrize("max_v0", [0.5, 6.0])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_lddmm_loss_matches_jax(rng, max_v0, use_mask):
+    """The atlas loss with a batch-1 atlas broadcast over the batch, with
+    and without a mask over padded subjects."""
+    m = momenta(rng, max_v0)
+    I = rng.standard_normal((1, 1) + SHAPE[2:])
+    img = rng.standard_normal((SHAPE[0], 1) + SHAPE[2:])
+    mask = np.array([1.0, 0.0]) if use_mask else None
+    tm = None if mask is None else t(mask)
+    args = (jnp.asarray(I), jnp.asarray(m), jnp.asarray(img))
+    ref = _jax_loss(use_mask)(*args, *(() if mask is None else (jnp.asarray(mask),)))
+    got = tlddmm._lddmm_loss(t(I), t(m), t(img), lt.FluidMetric(PARAMS), 0.1, STEPS, mask=tm)
+    for r, g in zip(ref, got):
+        assert abs(float(g) - float(r)) <= FFT_RTOL * abs(float(r))
+
+
+def test_lddmm_loss_regrid_not_ported(rng):
+    m = momenta(rng, 0.5, (1, 3, 9, 8, 7))
+    with pytest.raises(NotImplementedError):
+        tlddmm._lddmm_loss(t(np.zeros((1, 1, 18, 16, 14))), t(m), t(np.zeros((1, 1, 18, 16, 14))),
+                           lt.FluidMetric(PARAMS), 0.1, 3, image_shape=(18, 16, 14))
+
+
+def test_convert_atlas_state(rng, tmp_path):
+    """The JAX package's state, as arrays and as a saved atlas file, becomes
+    the port's metric and tensors on the requested device and dtype."""
+    h5py = pytest.importorskip("h5py")
+    atlas = rng.standard_normal((1, 1, 6, 5, 4)).astype(np.float32)
+    ms = rng.standard_normal((3, 3, 6, 5, 4)).astype(np.float32)
+    jmetric = lm.FluidMetric(PARAMS)
+    metric, I, m = convert.atlas_state(jmetric.params, jnp.asarray(atlas), jnp.asarray(ms),
+                                       "cpu", torch.float64)
+    assert metric.params == jmetric.params and I.dtype == m.dtype == torch.float64
+    np.testing.assert_array_equal(I.numpy(), atlas)
+    path = tmp_path / "atlas.h5"
+    with h5py.File(path, "w") as f:  # the datasets LDDMMAtlasBuilder.save writes
+        f.create_dataset("atlas", data=atlas)
+        f.create_dataset("momenta", data=ms)
+    with h5py.File(path, "r") as f:
+        metric2, I2, m2 = convert.atlas_state_from_saved(f, jmetric.params, "cpu",
+                                                         subjects=slice(1, 3))
+    assert m2.dtype == torch.float32 and tuple(m2.shape) == (2, 3, 6, 5, 4)
+    np.testing.assert_array_equal(m2.numpy(), ms[1:3])
+    np.testing.assert_array_equal(I2.numpy(), atlas)
+    assert metric2.params == jmetric.params
