@@ -3,26 +3,40 @@
 
     python3 chip_smoke.py [--trace PATH]
 
-Drives the port's 3D shoot-and-warp slice (``lagomorph_tpu_torch``) at the
-headline size of the JAX package's bench (128^3, batch 4, 5 integration
-steps, ``FluidMetric([0.1, 0.0, 0.01])``), forward:
+Drives the port's 3D atlas step (``lagomorph_tpu_torch``) at the headline
+size of the JAX package's bench (128^3, batch 4, 5 integration steps,
+``FluidMetric([0.1, 0.0, 0.01])``, ``reg_weight=0.1``,
+``learning_rate_pose=1e-6``; bench.py:81-103):
 
 1. device: needs a CUDA card; prints the card's name and power limit;
-2. build: compiles the hand-written kernels from ``lagomorph_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   128^3 b4 and at a non-cubic, non-power-of-two shape, plus inputs that
-   leave the unit regime so the flags must come out false;
-4. slice: ``_lddmm_loss`` through the kernels and through the plain
-   versions, at the bench's momenta and at momenta scaled to a deformation
-   of about half a voxel; the launch counters show the path went through
-   every kernel;
+2. build: compiles the hand-written kernels from ``lagomorph_tpu_torch/csrc``
+   (one nvcc per source, in parallel);
+3. kernels: each forward kernel against its plain PyTorch version on the
+   card, at 128^3 b4 and at a non-cubic, non-power-of-two shape, plus
+   inputs that leave the unit regime so the flags must come out false;
+   then each backward kernel (K5, K6, K7, and K3 through autograd) against
+   the plain versions' gradients at both shapes;
+4. slice: ``_lddmm_loss`` forward through the kernels and through the
+   plain versions, at the bench's momenta and at momenta scaled to a
+   deformation of about half a voxel; the launch counters show the forward
+   went through every forward kernel;
 5. fallback: momenta whose substeps leave the unit regime, so ``expmap``
    re-runs the exact general integration;
-6. timings: CUDA-event times of each kernel beside its plain version, and
-   of the slice both ways;
-7. trace (only with ``--trace PATH``): a ``torch.profiler`` trace of 5
-   slices, written to ``PATH``, with the device time by kernel, the busy
-   share and the idle gaps.
+6. atlas steps, the main path: three chained ``make_lddmm_atlas_step``
+   steps (``m_new`` feeds the next step, then one atlas update) through the
+   kernels and through the plain versions, at the bench's momenta and at
+   max|v0| = 0.5, each step's momentum gradient held against a float64
+   one; the launch counters, set to 0 just before the bench momenta's
+   steps and read just after, show every kernel ran, with the launches of
+   each step checked; then one step on fallback momenta;
+7. timings: CUDA-event times of each kernel beside its plain version, the
+   bound of its work on the card and, where one PyTorch call computes the
+   same function, that call; the slice and the atlas step both ways, with
+   the peak device memory of each step;
+8. trace (only with ``--trace PATH``): ``torch.profiler`` traces of 5
+   slices (``PATH``) and of 5 atlas steps (``PATH`` with ``_steps`` before
+   its extension), with the device time by kernel, the busy share and the
+   idle gaps.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON record of the kernels; the last line, printed only when every
@@ -31,6 +45,7 @@ phase passed, is ``{"ok": true, "device": {...}}``.  Imports no jax.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -46,6 +61,24 @@ ODD = (3, 3, 96, 80, 112)  # non-cubic, non-power-of-two
 PARAMS = (0.1, 0.0, 0.01)
 REG_WEIGHT = 0.1
 STEPS = 5
+LR_POSE = 1e-6  # bench.py:85
+LR_IMAGE = 1e4  # lddmm_atlas's default learning_rate_image
+CHAIN = 3  # chained atlas steps per comparison
+# the momentum gradient through the kernels against a float64 one, in
+# relative L2 norm (step_compare); the fallback's general tiers take more
+# rounding
+P_TOL = 2e-4
+FALLBACK_P_TOL = 5e-3
+# the fallback step runs at a reduced size: autograd of the plain bounded
+# warp tier keeps every tap's intermediates, 11.5 GiB at 64^3 b2 through
+# the kernels, ~184 GiB at 128^3 b4
+FALLBACK = (2, 3, 64, 64, 64)
+# launches of each kernel in one atlas step on the hoisted fast path
+STEP_LAUNCHES = {"ad_star_fwd": 4, "compose_fwd": 4, "fluid_flat": 10, "warp_unit_fwd": 1,
+                 "warp_unit_bwd": 1, "ad_star_bwd": 4, "compose_bwd": 4}
+FORWARD = ("warp_unit_fwd", "ad_star_fwd", "compose_fwd", "fluid_flat")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def log(*parts):
@@ -97,8 +130,9 @@ def compare(name, got, ref, tol_rel, offset=1.0):
 
 
 def kernel_checks(lt, device, shape, seed):
-    """Phase 3 at one shape: every kernel against its plain version, on the
-    same inputs, in and out of the unit regime.  Returns {kernel: err}."""
+    """Phase 3 at one shape: every forward kernel against its plain
+    version, on the same inputs, in and out of the unit regime.  Returns
+    {kernel: err}."""
     from lagomorph_tpu_torch.ops.kernels import epdiff_unit, fft_unit, plain_versions, warp_unit
 
     N, _, X, Y, Z = shape
@@ -172,6 +206,54 @@ def kernel_checks(lt, device, shape, seed):
     return errs
 
 
+def backward_checks(lt, device, shape, seed):
+    """Phase 3, backward, at one shape: the gradients through each backward
+    kernel against autograd of the plain versions, on the same inputs and
+    cotangent: K5 with the atlas (1, 1) and a batch-N three-channel image,
+    K6 with batch-1 and batch-N m0, K7 at s = -0.2, K3 (its own backward)
+    through the packed solve.  Returns {kernel: err}."""
+    from lagomorph_tpu_torch.ops.kernels import (epdiff_unit, fft_unit, launch_counts,
+                                                 plain_versions, warp_unit)
+
+    N, _, X, Y, Z = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    phiinv = t(rng.uniform(-0.99, 0.99, shape))
+    Mn = lt.FluidMetric(PARAMS).multiplier(shape, torch.float32, device, True)
+    cases = [
+        ("warp_unit_bwd", "I(1,1)", warp_unit.sample_displacement_unit,
+         (t(rng.standard_normal((1, 1, X, Y, Z))), phiinv), 1e-5, 1.0),
+        ("warp_unit_bwd", "I(N,3)", warp_unit.sample_displacement_unit,
+         (t(rng.standard_normal(shape)), phiinv), 1e-5, 1.0),
+        ("ad_star_bwd", "m0(1,3)", lambda a, b: epdiff_unit.ad_star(a, b)[0],
+         (phiinv, t(rng.standard_normal((1, 3, X, Y, Z)))), 1e-5, 1.0),
+        ("ad_star_bwd", "m0(N,3)", lambda a, b: epdiff_unit.ad_star(a, b)[0],
+         (phiinv, t(rng.standard_normal(shape))), 1e-5, 1.0),
+        ("compose_bwd", "s=-0.2", lambda a, b: epdiff_unit.compose(a, b, -0.2)[0],
+         (phiinv, t(rng.uniform(-4.9, 4.9, shape))), 1e-5, 1.0),
+        ("fluid_flat", "backward", lambda a: fft_unit.fluid_flat(a, Mn),
+         (t(rng.standard_normal((2 * ((N * 3 + 1) // 2), X, Y, Z))),), 1e-4, 0.0),
+    ]
+    log(f"backward kernels at {'x'.join(map(str, shape))}:")
+    errs = {}
+    for name, label, fn, args, tol, offset in cases:
+        leaves, refs = ([a.clone().requires_grad_(True) for a in args] for _ in range(2))
+        out = fn(*leaves)
+        with plain_versions():
+            ref_out = fn(*refs)
+        cot = t(rng.standard_normal(tuple(out.shape)))
+        before = launch_counts()[name]
+        got = torch.autograd.grad(out, leaves, cot)
+        check(launch_counts()[name] == before + 1, f"{name} {label}: backward kernel not launched")
+        for i, (g, r) in enumerate(zip(got, torch.autograd.grad(ref_out, refs, cot))):
+            err = compare(f"{name} {label} d_arg{i}", g, r, tol, offset)
+            errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
 def bench_inputs(device):
     """The JAX bench's inputs (bench.py:92-103), from seed 0."""
     X = FULL[2:]
@@ -208,8 +290,9 @@ def slice_check(metric, I, m, img, loss, launched, label):
     check(np.isfinite(loss) and tuple(h.shape) == FULL, f"{label}: bad output")
     check(herr <= 1e-4, f"{label}: phiinv differs by {herr:.3e} voxel > 1e-4")
     check(rel <= 1e-5, f"{label}: loss differs by {rel:.3e} relative > 1e-5")
-    want = {"ad_star_fwd": STEPS - 1, "compose_fwd": STEPS - 1, "fluid_flat": STEPS,
-            "warp_unit_fwd": 1 if tier == "unit" else 0}
+    want = {k: 0 for k in launched}
+    want.update({"ad_star_fwd": STEPS - 1, "compose_fwd": STEPS - 1, "fluid_flat": STEPS,
+                 "warp_unit_fwd": 1 if tier == "unit" else 0})
     check(launched == want, f"{label}: launches {launched}, want {want}")
 
 
@@ -237,39 +320,323 @@ def fallback_run(metric, m):
     check(err <= 1e-4 * scale, f"fallback: differs from plain by {err:.3e} > {1e-4 * scale:.3e}")
 
 
-def timings(device, card, metric, I, m, img):
-    """Per-call ms of each kernel and its plain version at 128^3 b4, and of
-    the slice both ways (order: plain, kernel, kernel, plain)."""
+def make_step(lt, metric):
+    """The atlas step at the bench's configuration (bench.py:81-89)."""
+    return lt.make_lddmm_atlas_step(metric, reg_weight=REG_WEIGHT, learning_rate_pose=LR_POSE,
+                                    lddmm_steps=1, integration_steps=STEPS)
+
+
+def step_chain(step, I, m, img, mode, steps=CHAIN):
+    """``steps`` chained atlas steps from ``m`` (``m_new`` feeds the next
+    step), then one atlas update ``I - LR_IMAGE * sum(I_grad) / steps``
+    (lddmm.py:849-850), through the kernels (``mode`` "kernels") or the
+    plain versions ("plain").  Returns per step ``(m, m_new, I_grad, loss,
+    launches)`` and the atlas update."""
+    from lagomorph_tpu_torch.ops.kernels import launch_counts, plain_versions
+
+    out = []
+    grad_sum = torch.zeros_like(I)
+    with plain_versions() if mode != "kernels" else contextlib.nullcontext():
+        for _ in range(steps):
+            before = launch_counts()
+            m_new, I_grad, loss, _reg = step(I, m, img)
+            after = launch_counts()
+            out.append((m, m_new, I_grad, float(loss), {k: after[k] - before[k] for k in after}))
+            grad_sum += I_grad
+            m = m_new
+    return out, -LR_IMAGE * grad_sum / steps
+
+
+def momentum_grads(metric, I, ms, img, mode):
+    """The gradient ``p`` in the momenta that the atlas step applies
+    (``lddmm_steps=1``, no preconditioning: ``m_new = m - LR_POSE * p``),
+    at each momenta of ``ms``, by the step's own autograd call: through the
+    kernels (``mode`` "kernels"), the plain versions ("plain", float32) or
+    the plain versions on float64 copies of the inputs ("float64", the
+    reference).  Returns ``[(p, loss)]``."""
+    from lagomorph_tpu_torch import lddmm
+    from lagomorph_tpu_torch.ops.kernels import plain_versions
+
+    dtype = torch.float64 if mode == "float64" else torch.float32
+    out = []
+    with plain_versions() if mode != "kernels" else contextlib.nullcontext():
+        for m in ms:
+            m_ = m.detach().to(dtype).requires_grad_(True)
+            I_ = I.detach().to(dtype).requires_grad_(True)
+            loss, _ = lddmm._lddmm_loss(I_, m_, img.to(dtype), metric, REG_WEIGHT, STEPS)
+            out.append((torch.autograd.grad(loss, (m_, I_))[0], float(loss.detach())))
+    return out
+
+
+def rel_l2(a, ref):
+    return float((a.double() - ref.double()).norm() / ref.double().norm())
+
+
+def top_share(a, ref, k=100):
+    """The share of ``|a - ref|^2`` carried by its ``k`` largest voxels."""
+    sq = (a.double() - ref.double()).flatten() ** 2
+    return float(sq.topk(k).values.sum() / sq.sum())
+
+
+def step_compare(label, got, ref, grads, p_tol, grad_tol=1e-5, loss_tol=1e-5):
+    """Hold the kernel path's atlas steps (``got``) against the plain
+    versions' (``ref``, float32), and the momentum gradient that each step
+    applied against a float64 one.
+
+    The loss (relative) and the atlas gradient (relative to max|ref|) are
+    held to the plain float32 path.  ``grads[mode]`` holds
+    ``momentum_grads`` at each of the kernel path's momenta: the kernels'
+    ``p`` must lie within ``p_tol`` of the float64 ``p`` in relative L2
+    norm, with the plain float32 ``p`` logged beside it as the control, and
+    the step's ``m_new`` must be ``m - LR_POSE * p`` to within one float32
+    ulp of max|m| (plus 1e-5 of max|LR_POSE * p| for the atomic sums of
+    autograd's gather backward on the fallback), so the ``p`` held is the
+    one applied.  The largest error of ``p`` is logged, not held: it sits in
+    a few voxels (the share of the squared error that the worst 100 voxels
+    carry is logged), and moves between steps whose momenta barely differ.
+    The update ``m_new - m`` is not compared either: ``m_new`` is rounded at
+    |m|, so the update carries up to half an ulp of |m|, 2e-4 of
+    max|update| at the bench momenta and 0.15 at max|v0| = 0.5."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g_m, g_new, g_I, g_loss, _ = g
+        _, _, r_I, r_loss, _ = r
+        (p_k, _), (p_p, _), (p_64, loss64) = (grads[k][i] for k in ("kernels", "plain", "float64"))
+        scale = float(p_64.abs().max())
+        l2_k, l2_p, l2_kp = rel_l2(p_k, p_64), rel_l2(p_p, p_64), rel_l2(p_k, p_p)
+        top = [top_share(p, p_64) for p in (p_k, p_p)]
+        applied = max_err(g_new, g_m - LR_POSE * p_k)
+        ulp = float(g_m.abs().max()) * 2.0**-23 + LR_POSE * 1e-5 * float(p_k.abs().max())
+        rel = abs(g_loss - r_loss) / abs(r_loss)
+        e_I = max_err(g_I, r_I) / float(r_I.abs().max())
+        log(f"  {label} step {i + 1}: loss={g_loss!r} plain={r_loss!r} float64={loss64!r} "
+            f"rel={rel:.3e}; I_grad rel err={e_I:.3e}; p vs float64, l2 (max): kernels "
+            f"{l2_k:.3e} ({max_err(p_k, p_64) / scale:.3e}), plain {l2_p:.3e} "
+            f"({max_err(p_p, p_64) / scale:.3e}), kernels vs plain {l2_kp:.3e} "
+            f"({max_err(p_k, p_p) / scale:.3e}); worst 100 voxels' share of the squared error: "
+            f"kernels {top[0]:.3f}, plain {top[1]:.3f}; max|p|={scale:.4e}; "
+            f"m_new - (m - lr p) {applied:.3e} (bound {ulp:.3e}), max|m|={float(g_m.abs().max()):.4e}")
+        check(np.isfinite(applied) and applied <= ulp,
+              f"{label} step {i + 1}: m_new is not m - lr * p ({applied:.3e} > {ulp:.3e})")
+        for name, err, tol in (("loss", rel, loss_tol), ("I_grad", e_I, grad_tol),
+                               ("p (relative l2)", l2_k, p_tol)):
+            check(np.isfinite(err) and err <= tol,
+                  f"{label} step {i + 1}: {name} differs by {err:.3e} relative > {tol:.3e}")
+
+
+def atlas_steps(lt, metric, I, m, img, m_half):
+    """Phase 6, the main path: ``CHAIN`` chained atlas steps through the
+    kernels and through the plain versions, at the bench's momenta and at
+    max|v0| = 0.5, with the momentum gradient at each of the kernel path's
+    momenta through the kernels, the plain versions and in float64.  The
+    launch counters are set to 0 just before the bench momenta's kernel
+    steps and read just after: every kernel must have run, and each step
+    must make ``STEP_LAUNCHES``.  Returns those counts."""
+    from lagomorph_tpu_torch.ops import kernels
+
+    step = make_step(lt, metric)
+    main = None
+    for label, mm in (("bench momenta (x2e-6)", m), ("max|v0| = 0.5", m_half)):
+        if main is None:
+            kernels.reset_launches()
+        got, dI = step_chain(step, I, mm, img, "kernels")
+        if main is None:
+            main = kernels.launch_counts()
+        ref, dI_ref = step_chain(step, I, mm, img, "plain")
+        grads = {mode: momentum_grads(metric, I, [g[0] for g in got], img, mode)
+                 for mode in ("kernels", "plain", "float64")}
+        log(f"atlas steps, {label}: {CHAIN} chained steps through the kernels vs the plain "
+            "versions (float32); momentum gradients vs float64")
+        for i, g in enumerate(got):
+            check(g[4] == STEP_LAUNCHES, f"{label} step {i + 1}: launches {g[4]}, want {STEP_LAUNCHES}")
+            check(tuple(g[1].shape) == FULL and tuple(g[2].shape) == tuple(I.shape),
+                  f"{label}: step outputs of the wrong shape")
+        check(all(sum(r[4].values()) == 0 for r in ref),
+              f"{label}: the plain path launched a kernel")
+        step_compare(label, got, ref, grads, P_TOL)
+        e = max_err(dI, dI_ref) / float(dI_ref.abs().max())
+        log(f"  {label} atlas update: rel err={e:.3e} (max|dI|={float(dI_ref.abs().max()):.4e}); "
+            f"launches per step {got[0][4]}")
+        check(e <= 1e-5, f"{label}: atlas update differs by {e:.3e} relative > 1e-5")
+        del got, ref, grads
+    log(f"main path (atlas steps at the bench momenta) launches: {main}")
+    check(all(n > 0 for n in main.values()), f"a kernel was not launched: {main}")
+    return main
+
+
+def fallback_step(lt, device):
+    """One atlas step on momenta whose substeps leave the unit regime
+    (max|v0| = 8), at the reduced size ``FALLBACK``: through the kernels
+    (the shooting re-runs the general integration) and through the plain
+    versions, with its momentum gradient held against a float64 one."""
+    from lagomorph_tpu_torch import lddmm
+
+    rng = np.random.default_rng(3)
+    metric = lt.FluidMetric(PARAMS)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    m = t(rng.standard_normal(FALLBACK))
+    m = m * (8.0 / float(metric.sharp(m).abs().max()))
+    I = t(rng.standard_normal((1, 1) + FALLBACK[2:]))
+    img = t(rng.standard_normal((FALLBACK[0], 1) + FALLBACK[2:]))
+    dt = 1.0 / STEPS
+    v0 = metric.sharp(m)
+    _, ok = lddmm._expmap_fast_flagged(metric, m, dt, STEPS - 1, -dt * v0, None)
+    check(not bool(ok), "fallback step: the hoisted flag did not trip")
+    step = make_step(lt, metric)
+    runs = {}
+    for mode in ("kernels", "plain"):
+        torch.cuda.reset_peak_memory_stats(device)
+        runs[mode] = step_chain(step, I, m, img, mode, steps=1)[0]
+        log(f"  fallback step ({mode}): peak device memory "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    grads = {mode: momentum_grads(metric, I, [m], img, mode)
+             for mode in ("kernels", "plain", "float64")}
+    launched = runs["kernels"][0][4]
+    log(f"fallback step at {'x'.join(map(str, FALLBACK))}, max|v0| = 8: launches {launched}")
+    check(launched["ad_star_fwd"] >= STEPS - 1, "fallback step: the fast path did not run first")
+    step_compare("fallback", runs["kernels"], runs["plain"], grads, FALLBACK_P_TOL,
+                 grad_tol=1e-4)
+
+
+def bound(nbytes, flops):
+    """The least time in ms the card could take for work that must move
+    ``nbytes`` bytes and do ``flops`` float32 operations, and which of the
+    two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Float32 operations per voxel of the unit-regime stencils, counted from the
+# plain versions' formulas (each multiply, add, compare and floor one):
+AXIS_W = 27  # three axes of weights: floor, subtract, 2 compares, 4 mul, 1 add
+TAP_W = 36  # 27 tap weights: 9 (x, y) products, 27 products with z
+
+
+def warp_ops(C):  # forward warp: 27 products and 26 sums per channel
+    return AXIS_W + TAP_W + 53 * C
+
+
+def transpose_ops(C):  # its transpose: one product and one sum per (tap, channel)
+    return AXIS_W + TAP_W + 54 * C
+
+
+def weight_grad_ops(C):  # d_disp: weights and slopes, 27 (x, y) pair products,
+    # per tap the channel dot product (2C - 1) and three products and sums (9)
+    return AXIS_W + 9 + 27 + 27 * (2 * C - 1 + 9)
+
+
+JAC_OPS = 36  # 9 central differences (2 each), 9 products, 6 sums, 3 diagonal adds
+DIV_OPS = 51  # 9 transposed differences of products (5 each), 6 sums
+
+
+def work(name, N, V, F=None):
+    """(bytes, operations) that kernel ``name`` must move and do at the
+    timed shapes: fields of ``N`` subjects of ``V`` voxels, float32, a
+    batch-1 one-channel atlas for the warp, batch-N momenta for Ad*, ``F``
+    complex fields for the fluid solve.  Each input read once, each output
+    written once."""
+    f3 = 4 * 3 * N * V  # one 3-channel field
+    f1 = 4 * N * V  # one 1-channel batch-N field
+    atlas = 4 * V
+    if name == "warp_unit_fwd":  # read d, I; write out
+        return f3 + atlas + f1, N * V * warp_ops(1)
+    if name == "warp_unit_bwd":  # read d, g, I; write dI, d_disp
+        return 2 * f3 + f1 + 2 * atlas, N * V * (transpose_ops(1) + weight_grad_ops(1))
+    if name == "ad_star_fwd":  # read phi, m0; write out
+        return 3 * f3, N * V * (warp_ops(3) + JAC_OPS + 6)
+    if name == "compose_fwd":  # read phi, v; write out
+        return 3 * f3, N * V * (3 + warp_ops(3) + 3 + 6)
+    if name == "ad_star_bwd":  # read phi, m0, g, mw; write d_phi, d_m0
+        return 6 * f3, N * V * (JAC_OPS + weight_grad_ops(3) + DIV_OPS + 3 + transpose_ops(3))
+    if name == "compose_bwd":  # read phi, v, g; write d_phi, d_v
+        return 5 * f3, N * V * (3 + transpose_ops(3) + 3 + weight_grad_ops(3) + 9)
+    if name == "fluid_flat":  # read x, Mn; write y; two 3D complex FFTs per field
+        return 4 * (2 * 2 * F * V + V), F * (2 * 5 * V * np.log2(V) + 2 * V)
+    raise KeyError(name)
+
+
+def grid_of(disp):
+    """``F.grid_sample``'s grid (align_corners=True) for sampling at
+    ``x + disp(x)``: ``(N, X, Y, Z, 3)``, last axis (z, y, x) in [-1, 1]."""
+    from lagomorph_tpu_torch.ops.sampling import identity_grid
+
+    _, _, X, Y, Z = disp.shape
+    coords = identity_grid((X, Y, Z), dtype=disp.dtype, device=disp.device)[None] + disp
+    size = torch.tensor([X, Y, Z], dtype=disp.dtype, device=disp.device).view(1, 3, 1, 1, 1)
+    return (2.0 * coords / (size - 1) - 1.0).flip(1).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def timings(device, card, lt, metric, I, m, img):
+    """Per-call ms at 128^3 b4 of each kernel, its plain version and, where
+    one PyTorch call computes the same function, that call (order: plain,
+    kernel, kernel, plain, library), beside the bound of its work; then the
+    slice and the atlas step both ways, with each step's peak device
+    memory.  Returns {kernel: {ms, plain_ms, library_ms, bound_ms,
+    bound_by}}."""
+    import torch.nn.functional as Fn
+
     from lagomorph_tpu_torch import lddmm
     from lagomorph_tpu_torch.ops.kernels import epdiff_unit, fft_unit, plain_versions, warp_unit
 
     rng = np.random.default_rng(7)
-    X = FULL[2:]
+    N, _, X, Y, Z = FULL
+    V = X * Y * Z
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
     phiinv = t(rng.uniform(-0.99, 0.99, FULL))
     v = t(rng.uniform(-4.9, 4.9, FULL))
-    x = t(rng.standard_normal((12,) + X))
+    x = t(rng.standard_normal((12,) + FULL[2:]))
+    g1 = t(rng.standard_normal((N, 1) + FULL[2:]))
+    g3 = t(rng.standard_normal(FULL))
     Mn = metric.multiplier(FULL, torch.float32, device, True)
+    _, _, mw = epdiff_unit._launch_ad_star(phiinv, m, want_mw=True)
+    grid = grid_of(phiinv)
+    I_N = I.expand(N, -1, -1, -1, -1)
+    cx = torch.complex(x[:6], x[6:])
+    gs = Fn.grid_sample(I_N, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    log(f"grid_sample yardstick vs K4 at 128^3 b4: max diff "
+        f"{max_err(gs, warp_unit.sample_displacement_unit(I, phiinv)):.3e}")
+    # kernel name: (kernel path, plain version, one library call or None)
     calls = {
-        "warp_unit_fwd": lambda: warp_unit.sample_displacement_unit(I, phiinv),
-        "ad_star_fwd": lambda: epdiff_unit.ad_star(phiinv, m),
-        "compose_fwd": lambda: epdiff_unit.compose(phiinv, v, -0.2),
-        "fluid_flat": lambda: fft_unit.fluid_flat(x, Mn),
+        "warp_unit_fwd": (lambda: warp_unit.sample_displacement_unit(I, phiinv),
+                          lambda: warp_unit.sample_displacement_unit_plain(I, phiinv),
+                          lambda: Fn.grid_sample(I_N, grid, mode="bilinear",
+                                                 padding_mode="border", align_corners=True)),
+        "warp_unit_bwd": (lambda: warp_unit._launch_bwd(I, phiinv, g1),
+                          lambda: warp_unit.sample_displacement_unit_bwd_plain(I, phiinv, g1),
+                          lambda: torch.ops.aten.grid_sampler_3d_backward(
+                              g1, I_N, grid, 0, 1, True, [True, True])),
+        "ad_star_fwd": (lambda: epdiff_unit.ad_star(phiinv, m),
+                        lambda: epdiff_unit.ad_star_plain(phiinv, m), None),
+        "ad_star_bwd": (lambda: epdiff_unit._launch_ad_star_bwd(phiinv, m, g3, mw),
+                        lambda: epdiff_unit.ad_star_bwd_plain(phiinv, m, g3, mw), None),
+        "compose_fwd": (lambda: epdiff_unit.compose(phiinv, v, -0.2),
+                        lambda: epdiff_unit.compose_plain(phiinv, v, -0.2), None),
+        "compose_bwd": (lambda: epdiff_unit._launch_compose_bwd(phiinv, v, -0.2, g3),
+                        lambda: epdiff_unit.compose_bwd_plain(phiinv, v, -0.2, g3), None),
+        "fluid_flat": (lambda: fft_unit.fluid_flat(x, Mn),
+                       lambda: fft_unit.fluid_flat_plain(x, Mn),
+                       lambda: torch.fft.ifftn(torch.fft.fftn(cx, dim=(1, 2, 3)) * Mn,
+                                               dim=(1, 2, 3))),
     }
     out = {}
-    for name, fn in calls.items():
-        with plain_versions():
-            p1 = time_ms(fn, device, 10)
+    for name, (fn, plain, library) in calls.items():
+        p1 = time_ms(plain, device, 10)
         k1 = time_ms(fn, device, 10)
         k2 = time_ms(fn, device, 10)
-        with plain_versions():
-            p2 = time_ms(fn, device, 10)
-        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-            f"per call at 128^3 b4 [{card}]")
+        p2 = time_ms(plain, device, 10)
+        lib = time_ms(library, device, 10) if library is not None else None
+        b_ms, b_by = bound(*work(name, N, V, F=6))
+        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
+            f"({b_by}) per call at 128^3 b4 [{card}]")
 
     def loss():
         return float(lddmm._lddmm_loss(I, m, img, metric, REG_WEIGHT, STEPS)[0])
@@ -282,29 +649,46 @@ def timings(device, card, metric, I, m, img):
         p2 = time_ms(loss, device, 3, warmup=1)
     log(f"time slice (_lddmm_loss forward, 128^3 b4, 5 steps): kernels "
         f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms per call [{card}]")
+
+    step = make_step(lt, metric)
+
+    def atlas_step():
+        return float(step(I, m, img)[2])
+
+    samples = {False: [], True: []}
+    for is_plain in (True, False, False, True):
+        with plain_versions() if is_plain else contextlib.nullcontext():
+            samples[is_plain].append(time_ms(atlas_step, device, 3, warmup=1))
+    peak = {}
+    for is_plain in (False, True):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        with plain_versions() if is_plain else contextlib.nullcontext():
+            atlas_step()
+        peak[is_plain] = torch.cuda.max_memory_allocated(device) / 2**30
+    k, p = samples[False], samples[True]
+    log(f"time atlas step (make_lddmm_atlas_step, 128^3 b4, 5 steps): kernels "
+        f"{k[0]:.3f}/{k[1]:.3f} ms ({2000 / (k[0] + k[1]):.2f} steps/s), plain "
+        f"{p[0]:.3f}/{p[1]:.3f} ms per step; peak device memory per step: kernels "
+        f"{peak[False]:.2f} GiB, plain {peak[True]:.2f} GiB [{card}]")
     return out
 
 
-def trace_run(device, card, metric, I, m, img, path, slices=5):
+def trace_run(device, card, fn, label, path, n=5):
     """Optional phase (``--trace PATH``): a ``torch.profiler`` trace of
-    ``slices`` kernel-path forwards of the slice, written to ``path`` as a
-    Chrome trace.  Prints the device time per slice of each kernel, the
+    ``n`` calls of ``fn`` (``label`` names one call), written to ``path`` as
+    a Chrome trace.  Prints the device time per call of each kernel, the
     device's busy share over the traced span, and its idle gaps."""
     from torch.profiler import ProfilerActivity, profile
 
-    from lagomorph_tpu_torch import lddmm
-
-    def loss():
-        return float(lddmm._lddmm_loss(I, m, img, metric, REG_WEIGHT, STEPS)[0])
-
-    loss()
+    fn()
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(slices):
-            loss()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize(device)
-        wall = (time.perf_counter() - t0) * 1e3 / slices
+        wall = (time.perf_counter() - t0) * 1e3 / n
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -312,12 +696,12 @@ def trace_run(device, card, metric, I, m, img, path, slices=5):
     dev = sorted((e for e in events if e.get("ph") == "X"
                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
                  key=lambda e: e["ts"])
-    check(dev, "trace: no device activity in the trace")
+    check(dev, f"trace ({label}): no device activity in the trace")
     per = {}
     busy, gaps, end = 0.0, [], dev[0]["ts"]
     for e in dev:
-        ms, n = per.get(e["name"], (0.0, 0))
-        per[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+        ms, k = per.get(e["name"], (0.0, 0))
+        per[e["name"]] = (ms + e["dur"] / 1e3, k + 1)
         start, stop = e["ts"], e["ts"] + e["dur"]
         if start > end:
             gaps.append(start - end)
@@ -325,13 +709,13 @@ def trace_run(device, card, metric, I, m, img, path, slices=5):
         end = max(end, stop)
     span = end - dev[0]["ts"]
     gaps.sort(reverse=True)
-    log(f"trace: {slices} slices, wall {wall:.3f} ms per slice under the profiler; "
-        f"device busy {busy / 1e3 / slices:.3f} ms per slice, busy share "
+    log(f"trace: {n} {label}s, wall {wall:.3f} ms per {label} under the profiler; "
+        f"device busy {busy / 1e3 / n:.3f} ms per {label}, busy share "
         f"{busy / span:.3f} of the traced span [{card}]")
     log(f"trace: {len(gaps)} idle gaps, {sum(g > 50 for g in gaps)} over 50 us; "
         f"largest (us): {', '.join(f'{g:.0f}' for g in gaps[:8])}")
-    for name, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"trace: {ms / slices:8.3f} ms/slice {n / slices:5.1f} calls/slice  {name[:90]}")
+    for name, (ms, k) in sorted(per.items(), key=lambda kv: -kv[1][0])[:16]:
+        log(f"trace: {ms / n:8.3f} ms/{label} {k / n:5.1f} calls/{label}  {name[:90]}")
     log(f"trace: written to {path}")
 
 
@@ -348,18 +732,21 @@ def run(device, card, trace_path=None):
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, "
-        f"{len(_build._sources())} sources)")
+        f"{len(_build._sources())} sources in parallel)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions, forward and backward
     errs = kernel_checks(lt, device, FULL, seed=1)
     kernel_checks(lt, device, ODD, seed=2)
+    for name, err in backward_checks(lt, device, FULL, seed=3).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    backward_checks(lt, device, ODD, seed=4)
 
-    # 4. the slice, at the bench's momenta and at momenta scaled to a
-    # half-voxel deformation: the main path, through the kernels, with the
-    # launch counters set to 0 just before and read just after
+    # 4. the slice forward, at the bench's momenta and at momenta scaled to
+    # a half-voxel deformation, with the launch counters set to 0 just
+    # before and read just after
     metric = lt.FluidMetric(PARAMS)
     I, m, img = bench_inputs(device)
     m_half = m * (0.5 / float(metric.sharp(m).abs().max()))
@@ -372,23 +759,34 @@ def run(device, card, trace_path=None):
         after = kernels.launch_counts()
         runs.append((label, mm, loss, {k: after[k] - before[k] for k in after}))
     launches = kernels.launch_counts()
-    log(f"main path launches: {launches}")
-    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    log(f"slice launches: {launches}")
+    check(all(launches[k] > 0 for k in FORWARD), f"a forward kernel was not launched: {launches}")
     for label, mm, loss, launched in runs:
         slice_check(metric, I, mm, img, loss, launched, label)
 
-    # 5. fallback
+    # 5. fallback of the shooting
     fallback_run(metric, m * (8.0 / float(metric.sharp(m).abs().max())))
 
-    # 6. timings
-    times = timings(device, card, metric, I, m, img)
+    # 6. the main path: atlas steps, then one step on fallback momenta
+    main = atlas_steps(lt, metric, I, m, img, m_half)
+    fallback_step(lt, device)
+
+    # 7. timings
+    times = timings(device, card, lt, metric, I, m, img)
+
+    # 8. traces
     if trace_path:
-        trace_run(device, card, metric, I, m, img, trace_path)
+        step = make_step(lt, metric)
+        trace_run(device, card,
+                  lambda: float(lddmm._lddmm_loss(I, m, img, metric, REG_WEIGHT, STEPS)[0]),
+                  "slice", trace_path)
+        base, ext = os.path.splitext(trace_path)
+        trace_run(device, card, lambda: float(step(I, m, img)[2]), "step",
+                  f"{base}_steps{ext or '.json'}")
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": launches[k.name], "max_abs_err": errs[k.name],
-         "ms": times[k.name][0], "plain_ms": times[k.name][1]}
+         "launches": main[k.name], "max_abs_err": errs[k.name], **times[k.name]}
         for k in kernels.KERNELS.values()
     ]}
     return record
@@ -397,8 +795,10 @@ def run(device, card, trace_path=None):
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--trace", metavar="PATH",
-                    help="also trace 5 slices with torch.profiler into this Chrome-trace "
-                         "file and print the device time by kernel and the busy share")
+                    help="also trace 5 slices (into this Chrome-trace file) and 5 atlas "
+                         "steps (into PATH with _steps before its extension) with "
+                         "torch.profiler, and print the device time by kernel and the "
+                         "busy share")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",

@@ -36,7 +36,41 @@
 // the 6 difference neighbours come from L1/L2.  Design: one thread per voxel,
 // z fastest across the warp; weights and tap offsets computed once per voxel
 // and reused for all three channels; the flag costs one ballot per warp and
-// at most one atomic per warp.
+// at most one atomic per warp.  When autograd needs it, K1 also writes the
+// warped momentum mw (the `_mw` variants' residual, epdiff_unit.py:214,
+// padres.py:249), which K6 reads instead of re-enumerating the warp; the
+// forward-only path passes no mw buffer and moves no extra bytes.
+//
+// K6, Ad* backward (cotangent g of out; math at epdiff_unit.py:459-497):
+//   d_mw  = (J + I)^T g                               (pointwise)
+//   d_m0  = warp transpose of d_mw at weights(phiinv)  (gather form)
+//   d_phi = weight-gradient path (image m0, cotangent d_mw)
+//           + sum_a D_a^T (g * mw_a)                   (divergence path)
+// Replaces epdiff_unit.py `_adstar_bwd_fused_dispatch` (kernels
+// `_adstar_bwd_kernel`, `_adstar_bwd_kernel_yb`, body `_adstar_yb_bwd_body`)
+// and padres.py `_adstar_bwd_pr` (`_adstar_bwd_kernel_pr`).  Two passes: the
+// first computes d_mw, writes it to a scratch field, and finishes d_phi (it
+// needs d_mw only at its own voxel); the second is the gather transpose of
+// d_mw (warp_unit.cu), which needs d_mw at 27 neighbours.  Recomputing d_mw
+// at every neighbour instead would save the scratch round trip (2 x 100.7 MB
+// at 128^3 b4) at 27x the Jacobian work; the two-pass form is the simple
+// one.  A batch-1 m0 gets d_m0 summed over N in the gather, no atomics.
+//
+// K7, compose backward (cotangent g of out = s v + phi(x + s v); math at
+// epdiff_unit.py:711-725, padres.py:518-551):
+//   d_phi = warp transpose of g at weights(s v)
+//   d_v   = s g + s * (weight-gradient path, image phi, cotangent g)
+// Replaces epdiff_unit.py `_compose_bwd_fused_dispatch` (`_compose_bwd_kernel`,
+// `_compose_bwd_kernel_yb`, body `_compose_yb_bwd_body`) and padres.py
+// `_compose_bwd_pr` (`_compose_bwd_kernel_pr`).  s v is formed in each pass
+// with the forward's rounding (__fmul_rn), never stored.
+//
+// Bound on the H100 (128^3 b4, 100.7 MB per 3-channel field): K6 must move
+// 6 fields (read phi, m0, g, mw; write d_phi, d_m0), ~180 us at 3.35 TB/s;
+// its two passes move 11 (the scratch d_mw and a second read of phi).  K7
+// must move 5 (read phi, v, g; write d_phi, d_v), ~150 us; its passes move
+// 7.  Like K5, the gather passes are heavy in operations (27 neighbours, 81
+// axis weights per voxel) rather than in bytes.
 #include "stencil.cuh"
 
 namespace lagomorph {
@@ -48,7 +82,8 @@ __device__ __forceinline__ void clear_flag_if(bool bad, int* flag) {
 
 __global__ void ad_star_fwd_kernel(const float* __restrict__ phiinv,
                                    const float* __restrict__ m0,
-                                   float* __restrict__ out, int* flag, int N,
+                                   float* __restrict__ out,
+                                   float* __restrict__ mw_out, int* flag, int N,
                                    int Nm, int X, int Y, int Z) {
   const long V = (long)X * Y * Z;
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -72,6 +107,11 @@ __global__ void ad_star_fwd_kernel(const float* __restrict__ phiinv,
     float mw[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) mw[a] = warp_sum(T, mb + (long)a * V);
+    if (mw_out != nullptr) {
+      float* w = mw_out + (long)n * 3 * V + p;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) w[(long)a * V] = mw[a];
+    }
 
     // out_c = sum_a (g_ca [+1 if a == c]) * mw_a, accumulated over a in order
     const AxisIdx* ax[3] = {&ix, &iy, &iz};
@@ -125,6 +165,105 @@ __global__ void compose_fwd_kernel(const float* __restrict__ phiinv,
   clear_flag_if(bad, flag);
 }
 
+// K6, first pass: d_mw (to scratch) and d_phi; one thread per (n, p)
+__global__ void ad_star_bwd_kernel(const float* __restrict__ phiinv,
+                                   const float* __restrict__ m0,
+                                   const float* __restrict__ g,
+                                   const float* __restrict__ mw,
+                                   float* __restrict__ d_mw,
+                                   float* __restrict__ d_phi, int N, int Nm,
+                                   int X, int Y, int Z) {
+  const long V = (long)X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)N * V) return;
+  const int n = (int)(idx / V);
+  const long p = idx - (long)n * V;
+  const int z = (int)(p % Z);
+  const int y = (int)((p / Z) % Y);
+  const int x = (int)(p / ((long)Y * Z));
+  const AxisIdx ix = axis_idx(x, X), iy = axis_idx(y, Y), iz = axis_idx(z, Z);
+  const AxisIdx* ax[3] = {&ix, &iy, &iz};
+  const int pos[3] = {x, y, z};
+  const int len[3] = {X, Y, Z};
+  const int stride[3] = {Y * Z, Z, 1};
+
+  const float* ph = phiinv + (long)n * 3 * V;
+  const float* gn = g + (long)n * 3 * V;
+  const float* mwn = mw + (long)n * 3 * V;
+  float gc[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) gc[c] = __ldg(gn + (long)c * V + p);
+
+  // d_mw_a = sum_c (D_a phi_c + delta_ca) g_c, accumulated over c in order
+  float dmw[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float j = diff_central(ph + (long)c * V, p, *ax[a], stride[a]);
+      if (a == c) j = __fadd_rn(j, 1.0f);
+      const float term = __fmul_rn(j, gc[c]);
+      acc = c == 0 ? term : __fadd_rn(acc, term);
+    }
+    dmw[a] = acc;
+    d_mw[(long)n * 3 * V + (long)a * V + p] = acc;
+  }
+
+  // weight-gradient path: image m0, cotangent d_mw, displacement phi
+  AxisWeights W[3], dW[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float d = __ldg(ph + (long)a * V + p);
+    W[a] = axis_weights(d);
+    dW[a] = axis_dweights(d);
+  }
+  const float* mb = m0 + (Nm == 1 ? 0L : (long)n * 3 * V);
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int ox = 0; ox < 3; ++ox) {
+    const float wx = weight_at(W[0], ox - 1), dwx = weight_at(dW[0], ox - 1);
+#pragma unroll
+    for (int oy = 0; oy < 3; ++oy) {
+      const float wy = weight_at(W[1], oy - 1), dwy = weight_at(dW[1], oy - 1);
+      const float a_xy = __fmul_rn(dwx, wy);
+      const float b_xy = __fmul_rn(wx, dwy);
+      const float c_xy = __fmul_rn(wx, wy);
+#pragma unroll
+      for (int oz = 0; oz < 3; ++oz) {
+        const float wz = weight_at(W[2], oz - 1), dwz = weight_at(dW[2], oz - 1);
+        const long off = ((long)ix.i[ox] * Y + iy.i[oy]) * Z + iz.i[oz];
+        float t = __fmul_rn(dmw[0], __ldg(mb + off));
+        t = __fadd_rn(t, __fmul_rn(dmw[1], __ldg(mb + V + off)));
+        t = __fadd_rn(t, __fmul_rn(dmw[2], __ldg(mb + 2 * V + off)));
+        acc[0] = __fadd_rn(acc[0], __fmul_rn(__fmul_rn(a_xy, wz), t));
+        acc[1] = __fadd_rn(acc[1], __fmul_rn(__fmul_rn(b_xy, wz), t));
+        acc[2] = __fadd_rn(acc[2], __fmul_rn(__fmul_rn(c_xy, dwz), t));
+      }
+    }
+  }
+
+  // divergence path: d_phi_c += sum_a D_a^T (mw_a * g_c), over a in order
+  float* o = d_phi + (long)n * 3 * V + p;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float div = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const long lo = p + (long)(ax[a]->i[0] - pos[a]) * stride[a];
+      const long hi = p + (long)(ax[a]->i[2] - pos[a]) * stride[a];
+      const float* w = mwn + (long)a * V;
+      const float* q = gn + (long)c * V;
+      const float qm = __fmul_rn(__ldg(w + lo), __ldg(q + lo));
+      const float q0 = __fmul_rn(__ldg(w + p), gc[c]);
+      const float qp = __fmul_rn(__ldg(w + hi), __ldg(q + hi));
+      const float term = diff_central_adjoint(qm, q0, qp, pos[a], len[a]);
+      div = a == 0 ? term : __fadd_rn(div, term);
+    }
+    o[(long)c * V] = __fadd_rn(acc[c], div);
+  }
+}
+
 }  // namespace lagomorph
 
 static inline unsigned grid_for(long total, int threads) {
@@ -132,13 +271,41 @@ static inline unsigned grid_for(long total, int threads) {
 }
 
 extern "C" int lagomorph_ad_star_fwd(const float* phiinv, const float* m0,
-                                     float* out, int* flag, int N, int Nm,
-                                     int X, int Y, int Z, void* stream) {
+                                     float* out, float* mw, int* flag, int N,
+                                     int Nm, int X, int Y, int Z, void* stream) {
   const int threads = 256;
   lagomorph::ad_star_fwd_kernel<<<grid_for((long)N * X * Y * Z, threads),
                                   threads, 0, (cudaStream_t)stream>>>(
-      phiinv, m0, out, flag, N, Nm, X, Y, Z);
+      phiinv, m0, out, mw, flag, N, Nm, X, Y, Z);
   return (int)cudaGetLastError();
+}
+
+extern "C" int lagomorph_ad_star_bwd(const float* phiinv, const float* m0,
+                                     const float* g, const float* mw,
+                                     float* d_mw, float* d_phiinv, float* d_m0,
+                                     int N, int Nm, int X, int Y, int Z,
+                                     void* stream) {
+  const int threads = 256;
+  const cudaStream_t st = (cudaStream_t)stream;
+  lagomorph::ad_star_bwd_kernel<<<grid_for((long)N * X * Y * Z, threads),
+                                  threads, 0, st>>>(phiinv, m0, g, mw, d_mw,
+                                                    d_phiinv, N, Nm, X, Y, Z);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)lagomorph::launch_warp_transpose(phiinv, 1.0f, d_mw, d_m0, N, Nm,
+                                               3, X, Y, Z, st);
+}
+
+extern "C" int lagomorph_compose_bwd(const float* phiinv, const float* v,
+                                     float s, const float* g, float* d_phiinv,
+                                     float* d_v, int N, int X, int Y, int Z,
+                                     void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = lagomorph::launch_warp_transpose(v, s, g, d_phiinv, N,
+                                                           N, 3, X, Y, Z, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)lagomorph::launch_warp_dd(phiinv, v, s, g, d_v, N, N, 3, X, Y, Z,
+                                        true, st);
 }
 
 extern "C" int lagomorph_compose_fwd(const float* phiinv, const float* v,

@@ -1,5 +1,5 @@
 // Per-voxel math shared by the unit-regime stencil kernels (warp_unit.cu,
-// epdiff_unit.cu).
+// epdiff_unit.cu), forward and backward.
 //
 // The discretization is that of the JAX package's
 // ops/sampling.py::sample_displacement_unit and ops/boundary.py::diff_central:
@@ -100,5 +100,78 @@ __device__ __forceinline__ float diff_central(const float* __restrict__ f, long 
 
 // the unit regime of one displacement value: [-1, 1) (NaN is outside)
 __device__ __forceinline__ bool in_unit(float d) { return d >= -1.0f && d < 1.0f; }
+
+// ---------------------------------------------------------------------------
+// Backward math.
+// ---------------------------------------------------------------------------
+
+// derivatives of the per-axis weights with respect to the displacement
+// (warp_unit.py:422-429, `dw_s`): t = d - floor(d) has slope 1 and the floor
+// masks are constant, so dw_-1 = -[f == -1], dw_0 = [f == -1] - [f == 0],
+// dw_+1 = [f == 0]
+__device__ __forceinline__ AxisWeights axis_dweights(float d) {
+  const float f = floorf(d);
+  const float is_m1 = (f == -1.0f) ? 1.0f : 0.0f;
+  const float is_0 = (f == 0.0f) ? 1.0f : 0.0f;
+  AxisWeights w;
+  w.m = -is_m1;
+  w.z = __fsub_rn(is_m1, is_0);
+  w.p = is_0;
+  return w;
+}
+
+// The transposed taps of the warp along one axis: the three pairs (u, o)
+// with clamp(u + o) == v, which the gather form of the transpose reads at
+// output index v.  Slot k (0..2) has offset o = k - 1 and source u = v - o
+// when u lies in [0, n); otherwise u + o would be clamped, and the slot
+// holds the clamp fold instead: u = v, o = -(k - 1) (at v == 0 the tap
+// (0, -1), at v == n - 1 the tap (n - 1, +1); warp_unit.py:477-502
+// `where(edge, ...)`).  So every axis has exactly three pairs, edges
+// included.  Computed from k, not stored, so a loop over k need not be
+// unrolled to stay in registers.
+__device__ __forceinline__ void transposed_tap(int v, int n, int k, int& u, int& o) {
+  o = k - 1;
+  u = v - o;
+  if (u < 0 || u >= n) {
+    u = v;
+    o = -o;
+  }
+}
+
+// D^T, the exact transpose of the clamped central difference along one
+// axis (ops/boundary.py::diff_central_adjoint), at index i of n, from the
+// values q at i - 1, i, i + 1 (those outside [0, n) are not read):
+//   i == 0:     -0.5 * (q[0] + q[1])
+//   interior:    0.5 * (q[i-1] - q[i+1])
+//   i == n - 1:  0.5 * (q[n-1] + q[n-2])
+__device__ __forceinline__ float diff_central_adjoint(float qm, float q0, float qp,
+                                                      int i, int n) {
+  if (i == 0) return __fmul_rn(-0.5f, __fadd_rn(q0, qp));
+  if (i == n - 1) return __fmul_rn(0.5f, __fadd_rn(q0, qm));
+  return __fmul_rn(0.5f, __fsub_rn(qm, qp));
+}
+
+}  // namespace lagomorph
+
+// ---------------------------------------------------------------------------
+// Host launchers of the two warp-backward passes, defined in warp_unit.cu and
+// shared by the backward entry points of warp_unit.cu and epdiff_unit.cu.
+// Each launches on `stream` and returns cudaGetLastError().
+// ---------------------------------------------------------------------------
+namespace lagomorph {
+
+// out[nI, c](v) = sum_{n of nI} sum_{(u, o): clamp(u + o) == v}
+//                 w_o(s * disp[n](u)) * cot[n, c](u)
+// (the gather-form transpose of the warp; NI == 1 < N sums the N subjects)
+cudaError_t launch_warp_transpose(const float* disp, float s, const float* cot,
+                                  float* out, int N, int NI, int C, int X, int Y,
+                                  int Z, cudaStream_t stream);
+
+// dd_a(p) = sum_o dw_a(o_a) prod_{b != a} w_b(o_b) sum_c cot_c(p) I_c[clamp(p + o)]
+// at displacement s * disp; out_a = dd_a, or s * cot_a + s * dd_a when
+// `compose` (the d_v of the compose step, C == 3)
+cudaError_t launch_warp_dd(const float* I, const float* disp, float s,
+                           const float* cot, float* out, int N, int NI, int C,
+                           int X, int Y, int Z, bool compose, cudaStream_t stream);
 
 }  // namespace lagomorph

@@ -14,9 +14,10 @@ from .ops.sampling import identity_grid
 __all__ = ["identity", "compose", "compose_disp_vel"]
 
 
-def identity(defshape, dtype=torch.float32, device=None) -> torch.Tensor:
+def identity(defshape, dtype=torch.float32, *, device) -> torch.Tensor:
     """Identity coordinate field ``(N, dim, *spatial)`` for a deformation
-    shape in NC(D)HW order."""
+    shape in NC(D)HW order, on ``device`` (required: nothing is built on a
+    default device)."""
     spatial = tuple(defshape[2:])
     grid = identity_grid(spatial, dtype=dtype, device=device)
     return grid[None].expand((defshape[0], len(spatial)) + spatial)

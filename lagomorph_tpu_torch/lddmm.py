@@ -1,8 +1,10 @@
-"""LDDMM geodesic shooting and the atlas loss (forward).
+"""LDDMM geodesic shooting, the atlas loss and the atlas step.
 
 Port of ``lagomorph_tpu/lddmm.py``: ``EPDiff_step``, ``expmap`` with the
 peeled first step, the hoisted fast path with its validity flag and exact
-fallback, ``shooting_regime_ok`` and ``_lddmm_loss``.
+fallback, ``shooting_regime_ok``, ``_lddmm_loss`` and
+``make_lddmm_atlas_step`` (the loss, its gradients by autograd through the
+kernels' backwards, and the update of the momenta).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from . import adjrep, deform
 from .ops.interp import in_unit as _in_unit
 from .ops.kernels import epdiff_unit
 
-__all__ = ["EPDiff_step", "expmap", "shooting_regime_ok"]
+__all__ = ["EPDiff_step", "expmap", "make_lddmm_atlas_step", "shooting_regime_ok"]
 
 
 def EPDiff_step(metric, m0, dt, phiinv, mommask=None, transport_mode=None,
@@ -119,13 +121,20 @@ def shooting_regime_ok(metric, m0, T=1.0, num_steps=10, mommask=None) -> torch.T
     return ok
 
 
-def _lddmm_loss(I, m, img, metric, reg_weight, integration_steps,
+def _lddmm_loss(I, m, img, metric, reg_weight, integration_steps, checkpoints=False,
                 image_shape=None, mask=None):
     """Loss of one minibatch: ``MSE(I o phi^{-1}(m), img) / |Omega| + reg``,
-    returned as ``(loss, reg_term)``.
+    returned as ``(loss, reg_term)``.  The JAX package's signature.
 
-    ``mask``: optional ``(B,)`` 0/1 weights for padded subjects.  Momenta on
-    another grid than the image (``image_shape``) are not ported."""
+    ``mask``: optional ``(B,)`` 0/1 weights for padded subjects.  Not
+    ported: ``checkpoints=True`` (rematerialised shooting) and momenta on
+    another grid than the image (``image_shape``, the regrid branch); both
+    raise ``NotImplementedError``."""
+    if checkpoints:
+        raise NotImplementedError(
+            "checkpoints=True (gradient checkpointing of the shooting, "
+            "rematerialised in the backward) is not ported"
+        )
     # one fluid solve serves the regularizer and the peeled first step
     v = metric.sharp(m)
     h = expmap(metric, m, num_steps=integration_steps, v0=v)
@@ -146,3 +155,49 @@ def _lddmm_loss(I, m, img, metric, reg_weight, integration_steps,
     reg_term = reg_weight * torch.sum(vm) / numel
     loss = torch.sum(sq) / numel + reg_term
     return loss, reg_term
+
+
+def make_lddmm_atlas_step(metric, reg_weight=1e2, learning_rate_pose=2e2, lddmm_steps=1,
+                          integration_steps=5, momentum_preconditioning=False,
+                          checkpoints=False, image_shape=None, spatial_mesh=None,
+                          spatial_axis="data"):
+    """The per-minibatch atlas update of the JAX package's
+    ``make_lddmm_atlas_step``.
+
+    Returns ``step(I, m, img, mask=None) -> (m_new, I_grad, loss, reg_term)``:
+    ``lddmm_steps`` gradient steps on the momenta, ``m <- m - lr * p`` with
+    ``p`` the gradient of :func:`_lddmm_loss` in ``m`` (``metric.flat`` of it
+    with ``momentum_preconditioning``); ``I_grad``, the gradient in the
+    atlas image of the last step's loss (shaped like ``I``, summed over the
+    batch), is for the caller to accumulate.  Every output is a detached
+    tensor on the inputs' device; the step reads nothing on the host beyond
+    the shooting's flag and the atlas warp's tier.
+
+    Not ported: ``spatial_mesh`` (spatially sharded shooting), which
+    raises here, and, at the first call, ``checkpoints=True`` and an
+    ``image_shape`` other than the momenta's grid (see :func:`_lddmm_loss`)."""
+    if spatial_mesh is not None:
+        raise NotImplementedError(
+            f"spatial_mesh (shooting sharded over the {spatial_axis!r} axis of a "
+            "device mesh) is not ported"
+        )
+
+    def step(I, m, img, mask=None):
+        loss = reg = I_grad = None
+        for it in range(lddmm_steps):
+            last = it == lddmm_steps - 1
+            with torch.enable_grad():
+                m_ = m.detach().requires_grad_(True)
+                I_ = I.detach().requires_grad_(last)
+                loss, reg = _lddmm_loss(I_, m_, img, metric, reg_weight, integration_steps,
+                                        checkpoints, image_shape=image_shape, mask=mask)
+                if last:
+                    gm, I_grad = torch.autograd.grad(loss, (m_, I_))
+                else:
+                    (gm,) = torch.autograd.grad(loss, (m_,))
+            with torch.no_grad():
+                p = metric.flat(gm) if momentum_preconditioning else gm
+                m = m - learning_rate_pose * p
+        return m, I_grad, loss.detach(), reg.detach()
+
+    return step

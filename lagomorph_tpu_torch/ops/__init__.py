@@ -1,7 +1,7 @@
 """Grid operators of the port: sampling, finite differences, the fluid
 operator, interpolation, and the hand-written kernels under ``kernels``."""
-from .boundary import diff_central, shift_clamp
-from .diff import jacobian_times_vectorfield
+from .boundary import diff_central, diff_central_adjoint, shift_clamp
+from .diff import jacobian_times_vectorfield, jacobian_times_vectorfield_adjoint
 from .fluid import fluid_operator
 from .interp import interp, interp_auto
 from .sampling import (
@@ -13,11 +13,13 @@ from .sampling import (
 
 __all__ = [
     "diff_central",
+    "diff_central_adjoint",
     "fluid_operator",
     "identity_grid",
     "interp",
     "interp_auto",
     "jacobian_times_vectorfield",
+    "jacobian_times_vectorfield_adjoint",
     "sample_displacement_bounded",
     "sample_displacement_unit",
     "sample_linear",

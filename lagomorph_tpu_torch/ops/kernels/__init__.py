@@ -14,6 +14,15 @@ wrapper runs its plain version on any device.  That is how a caller puts the
 kernels and their plain versions side by side on the card; nothing in the
 package enters it on its own.
 
+Under autograd, a kernel launch goes through a ``torch.autograd.Function``
+of its module whose backward launches the backward kernel (K3's backward is
+K3 itself, the solve being self-adjoint).  Flag outputs are marked
+non-differentiable.  Autograd hands a backward zeros for an output that
+was not used (it materialises them), and may hand it an expanded or
+strided view (the cotangent of a ``sum`` has stride 0), so every backward
+makes its cotangent contiguous before the launch.  A plain version is
+ordinary torch code, which autograd differentiates.
+
 Every kernel is a :class:`Kernel` record in :data:`KERNELS` whose
 ``launches`` counts the launches of that kernel (not the plain-version calls),
 so a run can show that its main path went through the kernels.
@@ -29,6 +38,7 @@ import torch
 __all__ = [
     "Kernel",
     "KERNELS",
+    "grad_needed",
     "launch_counts",
     "plain_versions",
     "reset_launches",
@@ -109,32 +119,7 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: kernel takes contiguous tensors")
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Autograd node for a kernel launch: the backward kernels are not
-    ported yet, so differentiating through a kernel raises."""
-
-    @staticmethod
-    def forward(ctx, launch, *args):
-        outs = launch(*args)
-        ctx.mark_non_differentiable(
-            *[o for o in (outs if isinstance(outs, tuple) else (outs,))
-              if not o.is_floating_point()]
-        )
-        return outs
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "backward kernel: not ported yet (differentiate on the CPU, "
-            "through the plain versions)"
-        )
-
-
-def forward_only(launch, *args):
-    """Call ``launch(*args)``; under autograd, through a node whose backward
-    raises (the kernels have no backward yet)."""
-    if torch.is_grad_enabled() and any(
-        isinstance(a, torch.Tensor) and a.requires_grad for a in args
-    ):
-        return _ForwardOnly.apply(launch, *args)
-    return launch(*args)
+def grad_needed(*tensors: torch.Tensor) -> bool:
+    """True when autograd records an operation on ``tensors``: grad mode is
+    on and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)

@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
-The library lands in ``lagomorph_tpu_torch/_build/`` under a name that
-carries a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one is reused.  Nothing is built when a module is imported.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package to an
+object file, one process per source, all started together, and links the
+objects into one shared library with a plain C interface, which is loaded
+with ``ctypes``.  The library lands in ``lagomorph_tpu_torch/_build/`` under
+a name that carries a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one is reused.  Nothing is built when a module is
+imported.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -34,10 +36,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     # I, disp, out, N, NI, C, X, Y, Z, stream
     "lagomorph_warp_unit_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # phiinv, m0, out, flag, N, Nm, X, Y, Z, stream
-    "lagomorph_ad_star_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # I, disp, g, dI, d_disp, N, NI, C, X, Y, Z, stream
+    "lagomorph_warp_unit_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # phiinv, m0, out, mw (or NULL), flag, N, Nm, X, Y, Z, stream
+    "lagomorph_ad_star_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # phiinv, m0, g, mw, d_mw (scratch), d_phiinv, d_m0, N, Nm, X, Y, Z, stream
+    "lagomorph_ad_star_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # phiinv, v, s, out, flag, N, X, Y, Z, stream
     "lagomorph_compose_fwd": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    # phiinv, v, s, g, d_phiinv, d_v, N, X, Y, Z, stream
+    "lagomorph_compose_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     # x1, x2, Mn, y1, y2, scratch, F, X, Y, Z, stream
     "lagomorph_fluid_flat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -74,6 +82,37 @@ def _nvcc():
     )
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first that
+    fails.  Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _compile_and_link(so):
+    """Compile every source to an object in parallel, link them into
+    ``so`` (written under a temporary name, then moved in place); returns
+    the compiler's output."""
+    nvcc = _nvcc()
+    tag = f"{so}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in _sources()]
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+                        for obj, src in zip(objs, _sources())])
+        log += _run_all([[nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", f"{tag}.tmp", *objs]])
+        os.replace(f"{tag}.tmp", so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return log
+
+
 def library():
     """The loaded kernel library, built on first use."""
     global _lib, build_log
@@ -83,15 +122,7 @@ def library():
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"liblagomorph_kernels_{_digest()}.so")
         if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *_sources()]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = r.stdout + r.stderr
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{build_log}"
-                )
-            os.replace(tmp, so)
+            build_log = _compile_and_link(so)
         lib = ctypes.CDLL(so)
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -15,12 +15,16 @@ traffic: the complex scratch (100.7 MB at 128^3 b4) read and written once
 per pass, ~1 GB per solve; direct-sum passes are bound by arithmetic.  Its
 plain version, :func:`fluid_flat_plain`, is the ``torch.fft`` packed
 operator.  See the source for the design.
+
+The operator is self-adjoint (``Mn`` real and even in k makes
+``ifftn(Mn * fftn(.))`` Hermitian), so its backward is K3 again on the
+cotangent, as in the JAX package's ``_fluid_cvjp`` (ops/fluid.py:273-286).
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, check_cuda_f32, forward_only, register, stream_of, use_kernel
+from . import _build, check_cuda_f32, grad_needed, register, stream_of, use_kernel
 
 KERNEL = register(
     "fluid_flat",
@@ -52,12 +56,29 @@ def _launch(x, Mn):
     return y
 
 
+class _FluidFlat(torch.autograd.Function):
+    """K3 under autograd; the operator is self-adjoint, so its backward is
+    K3 on the cotangent (no gradient for the multiplier)."""
+
+    @staticmethod
+    def forward(ctx, x, Mn):
+        ctx.save_for_backward(Mn)
+        return _launch(x, Mn)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (Mn,) = ctx.saved_tensors
+        return _launch(g.contiguous(), Mn), None
+
+
 def fluid_flat(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
     """K3: the packed-pair fluid solve.  ``x``: ``(2F, X, Y, Z)``, read as
     the ``F`` complex fields ``x[:F] + i*x[F:]``; ``Mn``: ``(X, Y, Z)``,
     real and even in k.  Returns ``y`` of the same layout, with
     ``y[:F] + i*y[F:] = ifftn(Mn * fftn(x[:F] + i*x[F:]))``.  The kernel on
-    CUDA (float32, contiguous), the plain version on the CPU."""
+    CUDA (float32, contiguous; differentiable through K3 itself), the plain
+    version on the CPU."""
     if not use_kernel(x):
         return fluid_flat_plain(x, Mn)
     check_cuda_f32("fluid_flat", x, Mn)
@@ -66,4 +87,6 @@ def fluid_flat(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
             f"fluid_flat: x {tuple(x.shape)}, Mn {tuple(Mn.shape)}: want "
             "(2F, X, Y, Z) pairs and an (X, Y, Z) multiplier"
         )
-    return forward_only(_launch, x, Mn)
+    if grad_needed(x):
+        return _FluidFlat.apply(x, Mn)
+    return _launch(x, Mn)

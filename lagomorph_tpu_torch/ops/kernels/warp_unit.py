@@ -1,20 +1,26 @@
-"""K4: the unit-regime warp, forward (``csrc/warp_unit.cu``).
+"""K4 and K5: the unit-regime warp, forward and backward
+(``csrc/warp_unit.cu``).
 
 ``out(p) = sum_{o in {-1,0,1}^3} w_o(d(p)) * I[clamp(p + o)]``: exact
 multilinear CLAMP sampling of ``I`` at ``p + d(p)`` wherever every
 displacement component lies in ``[-1, 1)``.
 
-Replaces ``lagomorph_tpu/ops/pallas/warp_unit.py`` ``_fwd_kernel`` and
-``_fwd_kernel_yb`` (the forward of ``sample_displacement_unit_pallas``).  On
-the H100 the kernel is bound by memory (one read of the displacement, one
-write of the output; the 27 taps of ``I`` come from cache); see the source
-for the design.
+* K4 replaces ``lagomorph_tpu/ops/pallas/warp_unit.py`` ``_fwd_kernel`` and
+  ``_fwd_kernel_yb`` (the forward of ``sample_displacement_unit_pallas``).
+* K5, its backward, gives ``dI`` (the transpose of the warp, in gather form;
+  summed over the subjects for a batch-1 image) and ``d_disp`` (the
+  weight-gradient path).  It replaces ``warp_unit.py``
+  ``_warp_unit_bwd_pallas`` and ``_warp_unit_bwd_yb`` (``_sdu_bwd``).
+
+On the H100 both are bound by memory traffic and per-voxel arithmetic from
+L1/L2; see the source for the design.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, check_cuda_f32, forward_only, register, stream_of, use_kernel
+from . import (_build, check_cuda_f32, grad_needed, register, stream_of,
+               use_kernel)
 from ..sampling import sample_displacement_unit as sample_displacement_unit_plain
 
 KERNEL = register(
@@ -22,6 +28,23 @@ KERNEL = register(
     source="lagomorph_tpu_torch/csrc/warp_unit.cu",
     replaces="lagomorph_tpu/ops/pallas/warp_unit.py:273, 758",
 )
+BWD = register(
+    "warp_unit_bwd",
+    source="lagomorph_tpu_torch/csrc/warp_unit.cu",
+    replaces="lagomorph_tpu/ops/pallas/warp_unit.py:607, 627, 1007, 1027",
+)
+
+
+def sample_displacement_unit_bwd_plain(I: torch.Tensor, disp: torch.Tensor,
+                                       g: torch.Tensor):
+    """Plain version of K5: ``(dI, d_disp)``, the vector-Jacobian product of
+    the plain warp with cotangent ``g`` (``dI`` has ``I``'s batch)."""
+    with torch.enable_grad():
+        I_ = I.detach().requires_grad_(True)
+        d_ = disp.detach().requires_grad_(True)
+        out = sample_displacement_unit_plain(I_, d_)
+        dI, dd = torch.autograd.grad(out, (I_, d_), g)
+    return dI, dd
 
 
 def _launch(I, disp):
@@ -37,10 +60,40 @@ def _launch(I, disp):
     return out
 
 
+def _launch_bwd(I, disp, g):
+    N, _, X, Y, Z = disp.shape
+    NI, C = I.shape[:2]
+    dI = torch.empty_like(I)
+    dd = torch.empty_like(disp)
+    _build.call(
+        "lagomorph_warp_unit_bwd",
+        I.data_ptr(), disp.data_ptr(), g.data_ptr(), dI.data_ptr(), dd.data_ptr(),
+        N, NI, C, X, Y, Z, stream_of(disp),
+    )
+    BWD.launches += 1
+    return dI, dd
+
+
+class _Warp(torch.autograd.Function):
+    """K4 under autograd; its backward is K5."""
+
+    @staticmethod
+    def forward(ctx, I, disp):
+        ctx.save_for_backward(I, disp)
+        return _launch(I, disp)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        I, disp = ctx.saved_tensors
+        return _launch_bwd(I, disp, g.contiguous())
+
+
 def sample_displacement_unit(I: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     """Unit-regime warp of ``I`` (``(N or 1, C, X, Y, Z)``) by ``disp``
-    (``(N, 3, X, Y, Z)``).  The kernel on CUDA, the plain version on the
-    CPU; values equal :func:`..sampling.sample_displacement_unit`."""
+    (``(N, 3, X, Y, Z)``).  The kernel on CUDA (differentiable through K5),
+    the plain version on the CPU; values equal
+    :func:`..sampling.sample_displacement_unit`."""
     if not use_kernel(disp):
         return sample_displacement_unit_plain(I, disp)
     check_cuda_f32("sample_displacement_unit", I, disp)
@@ -50,4 +103,6 @@ def sample_displacement_unit(I: torch.Tensor, disp: torch.Tensor) -> torch.Tenso
         raise ValueError(
             f"I {tuple(I.shape)} does not match disp {tuple(disp.shape)}"
         )
-    return forward_only(_launch, I, disp)
+    if grad_needed(I, disp):
+        return _Warp.apply(I, disp)
+    return _launch(I, disp)

@@ -18,8 +18,9 @@ import torch
 BACKGROUND_STRATEGIES = ("clamp", "wrap", "zero", "val")
 
 
-def identity_grid(spatial, dtype=torch.float32, device=None) -> torch.Tensor:
-    """``(dim, *spatial)`` identity coordinate grid in voxel units."""
+def identity_grid(spatial, dtype=torch.float32, *, device) -> torch.Tensor:
+    """``(dim, *spatial)`` identity coordinate grid in voxel units, on
+    ``device`` (required: nothing is built on a default device)."""
     axes = [torch.arange(n, dtype=dtype, device=device) for n in spatial]
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
 

@@ -1,5 +1,5 @@
-"""The port's hand-written kernels against their plain PyTorch versions,
-on a CUDA card (skipped without one).
+"""The port's hand-written kernels, forward and backward, against their
+plain PyTorch versions on a CUDA card (skipped without one).
 
 This file imports no jax, so it also runs on a machine without it:
 
@@ -7,10 +7,11 @@ This file imports no jax, so it also runs on a machine without it:
 
 (``--noconftest``: the suite's conftest imports jax.)  Tolerances, float32
 kernel against float32 plain version on the same inputs: 1e-5 * (1 +
-max|ref|) for the stencils (they round each operation like the plain
-version and come out bit-equal; the bound leaves room for a libm
-difference), 1e-4 * max|ref| for the fluid solve (shared-memory transforms
-against cuFFT, with low frequencies amplified by 1/gamma^2 = 1e4).
+max|ref|) for the stencils (the forwards round each operation like the
+plain version and come out bit-equal; the backwards sum in another order
+than autograd), 1e-4 * max|ref| for the fluid solve (shared-memory
+transforms against cuFFT, with low frequencies amplified by 1/gamma^2 =
+1e4).
 """
 import numpy as np
 import pytest
@@ -37,12 +38,13 @@ def _compare(got, ref, rel, offset=1.0):
 @pytest.mark.parametrize("shape", [(2, 3, 32, 24, 40), (3, 3, 17, 9, 12)])
 @pytest.mark.parametrize("m_batch", ["one", "N"])
 def test_kernels_match_plain_on_cuda(cuda, shape, m_batch):
-    """Every kernel against its plain version on the card (the first shape
-    mixes power-of-two and other axis lengths, so K3 runs both of its line
-    transforms; K1 takes batch-1 momenta read with stride 0, and batch-N
-    momenta as expmap passes them), with the launch counters moving only
-    for the kernel calls, the flags true in the unit regime, backward
-    raising, and float64 refused."""
+    """Every forward kernel against its plain version on the card (the
+    first shape mixes power-of-two and other axis lengths, so K3 runs both
+    of its line transforms; K1 takes batch-1 momenta read with stride 0, and
+    batch-N momenta as expmap passes them), with the launch counters moving
+    only for the kernel calls, the flags true in the unit regime, autograd
+    through K4 giving the plain version's gradients, and float64
+    refused."""
     rng = np.random.default_rng(3)
 
     def c(a):
@@ -66,12 +68,65 @@ def test_kernels_match_plain_on_cuda(cuda, shape, m_batch):
         with kernels.plain_versions():
             ref = fn(*args)
         _compare(got, ref, rel, offset)
-    assert all(n == 1 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert all(counts[k] == 1 for k in ("warp_unit_fwd", "ad_star_fwd", "compose_fwd",
+                                        "fluid_flat"))
+    assert all(counts[k] == 0 for k in ("warp_unit_bwd", "ad_star_bwd", "compose_bwd"))
     assert bool(epdiff_unit.ad_star(p, m0)[1]) and bool(epdiff_unit.compose(p, v, -0.2)[1])
-    with pytest.raises(NotImplementedError):
-        warp_unit.sample_displacement_unit(I.clone().requires_grad_(True), p).sum().backward()
+    grads = []
+    for plain in (False, True):
+        Ig, pg = I.clone().requires_grad_(True), p.clone().requires_grad_(True)
+        with kernels.plain_versions() if plain else torch.enable_grad():
+            warp_unit.sample_displacement_unit(Ig, pg).sum().backward()
+        grads.append((Ig.grad, pg.grad))
+    for got, ref in zip(*grads):
+        _compare(got, ref, 1e-5)
+    assert kernels.launch_counts()["warp_unit_bwd"] == 1
     with pytest.raises(TypeError):
         warp_unit.sample_displacement_unit(I.double(), p.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 32, 24, 40), (3, 3, 17, 9, 12)])
+@pytest.mark.parametrize("batch", ["one", "N"])
+def test_backward_kernels_match_plain_on_cuda(cuda, shape, batch):
+    """K5, K6, K7 and K3's backward (K3 itself) against the plain versions'
+    gradients on the card: K5 with a batch-1 one-channel image (the atlas)
+    or a batch-N three-channel one, K6 with batch-1 or batch-N momenta
+    (dI and d_m0 summed over the batch in the kernel for batch 1), K7 at
+    s = -0.2, K3 through the packed fluid solve.  Each backward kernel
+    launches once per backward."""
+    rng = np.random.default_rng(5)
+
+    def c(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    N, _, X, Y, Z = shape
+    nb = 1 if batch == "one" else N
+    p = c(rng.uniform(-0.99, 0.99, shape))
+    cases = {
+        "warp_unit_bwd": (warp_unit.sample_displacement_unit,
+                          (c(rng.standard_normal((nb, 1 if batch == "one" else 3, X, Y, Z))), p)),
+        "ad_star_bwd": (lambda a, b: epdiff_unit.ad_star(a, b)[0],
+                        (p, c(rng.standard_normal((nb, 3, X, Y, Z))))),
+        "compose_bwd": (lambda a, b: epdiff_unit.compose(a, b, -0.2)[0],
+                        (p, c(rng.uniform(-4.9, 4.9, shape)))),
+        "fluid_flat": (lt.FluidMetric((0.1, 0.0, 0.01)).sharp, (c(rng.standard_normal(shape)),)),
+    }
+    for name, (fn, args) in cases.items():
+        leaves, refs = ([a.clone().requires_grad_(True) for a in args] for _ in range(2))
+        out = fn(*leaves)
+        with kernels.plain_versions():
+            ref_out = fn(*refs)
+        cot = c(rng.standard_normal(tuple(out.shape)))
+        kernels.reset_launches()
+        got = torch.autograd.grad(out, leaves, cot)
+        assert kernels.launch_counts()[name] == 1, name
+        for g, r in zip(got, torch.autograd.grad(ref_out, refs, cot)):
+            if name == "fluid_flat":
+                _compare(g, r, 1e-4, 0.0)
+            else:
+                _compare(g, r, 1e-5)
 
 
 @pytest.mark.cuda

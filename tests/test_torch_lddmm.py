@@ -1,8 +1,9 @@
-"""The port's shooting and atlas loss against the JAX package, on the CPU
-in float64: ``expmap`` in the unit regime (hoisted fast path kept) and with
-momenta that trip its flag (exact general integration re-run), the
-regime probe, ``_lddmm_loss`` with a batch-1 atlas and with a mask, and the
-state conversion.
+"""The port's shooting, atlas loss and atlas step against the JAX package,
+on the CPU in float64: ``expmap`` in the unit regime (hoisted fast path
+kept) and with momenta that trip its flag (exact general integration
+re-run), the regime probe, ``_lddmm_loss`` with a batch-1 atlas and with a
+mask, ``make_lddmm_atlas_step`` (momenta update, atlas gradient, loss), and
+the state conversion.
 
 Tolerance: 1e-9 relative to max|ref| (every step goes through a fluid
 solve, and the two libraries' FFTs round differently, ~1e-15).
@@ -17,6 +18,7 @@ import torch
 
 import lagomorph_tpu as lm
 from lagomorph_tpu import lddmm as jlddmm
+from lagomorph_tpu.ops import set_warp_mode
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch import convert, lddmm as tlddmm
 
@@ -123,10 +125,77 @@ def test_lddmm_loss_matches_jax(rng, max_v0, use_mask):
 
 
 def test_lddmm_loss_regrid_not_ported(rng):
+    """What is not ported raises: the regrid branch, checkpoints=True (the
+    JAX signature's seventh argument), and a step on a spatial mesh."""
     m = momenta(rng, 0.5, (1, 3, 9, 8, 7))
+    img = t(np.zeros((1, 1, 18, 16, 14)))
     with pytest.raises(NotImplementedError):
-        tlddmm._lddmm_loss(t(np.zeros((1, 1, 18, 16, 14))), t(m), t(np.zeros((1, 1, 18, 16, 14))),
-                           lt.FluidMetric(PARAMS), 0.1, 3, image_shape=(18, 16, 14))
+        tlddmm._lddmm_loss(img, t(m), img, lt.FluidMetric(PARAMS), 0.1, 3, False,
+                           image_shape=(18, 16, 14))
+    with pytest.raises(NotImplementedError, match="checkpoints"):
+        tlddmm._lddmm_loss(img[..., :9, :8, :7], t(m), img[..., :9, :8, :7],
+                           lt.FluidMetric(PARAMS), 0.1, 3, True)
+    step = lt.make_lddmm_atlas_step(lt.FluidMetric(PARAMS), image_shape=(18, 16, 14))
+    with pytest.raises(NotImplementedError):
+        step(img, t(m), img)
+    with pytest.raises(NotImplementedError, match="spatial_mesh"):
+        lt.make_lddmm_atlas_step(lt.FluidMetric(PARAMS), spatial_mesh=object())
+
+
+# learning rates that move the momenta by 0.3-5% of max|m| per step here
+LR_POSE = {False: 1e-4, True: 5e-3}  # by momentum_preconditioning
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(lddmm_steps, preconditioning, use_mask):
+    """The JAX atlas step, jitted once per configuration; traced under the
+    JAX package's "general" warp tier (one branch per warp to compile, the
+    same function in every tier's regime)."""
+    step = jlddmm.make_lddmm_atlas_step(
+        lm.FluidMetric(PARAMS), reg_weight=0.1, learning_rate_pose=LR_POSE[preconditioning],
+        lddmm_steps=lddmm_steps, integration_steps=STEPS,
+        momentum_preconditioning=preconditioning)
+    jstep = jax.jit(step if use_mask else (lambda I, m, img: step(I, m, img)))
+
+    def call(*args):
+        prev = set_warp_mode("general")
+        try:
+            return jstep(*args)
+        finally:
+            set_warp_mode(prev)
+    return call
+
+
+@pytest.mark.parametrize("lddmm_steps,preconditioning,use_mask", [
+    (1, False, False), (2, True, True)])
+@pytest.mark.parametrize("max_v0", [0.5, 6.0])
+def test_atlas_step_matches_jax(rng, lddmm_steps, preconditioning, use_mask, max_v0):
+    """``make_lddmm_atlas_step``: the new momenta (and the update), the
+    atlas gradient, the loss and the regulariser, in the unit regime and
+    on the fallback (max|v0| = 6), with a batch-1 atlas."""
+    m = momenta(rng, max_v0)
+    I = rng.standard_normal((1, 1) + SHAPE[2:])
+    img = rng.standard_normal((SHAPE[0], 1) + SHAPE[2:])
+    mask = np.array([1.0, 0.0]) if use_mask else None
+    extra = () if mask is None else (mask,)
+    ref = _jax_step(lddmm_steps, preconditioning, use_mask)(
+        *(jnp.asarray(a) for a in (I, m, img) + extra))
+    step = lt.make_lddmm_atlas_step(
+        lt.FluidMetric(PARAMS), reg_weight=0.1, learning_rate_pose=LR_POSE[preconditioning],
+        lddmm_steps=lddmm_steps, integration_steps=STEPS,
+        momentum_preconditioning=preconditioning)
+    tI = t(I)
+    got = step(tI, t(m), t(img), *(t(a) for a in extra))
+    m_new, I_grad, loss, reg = got
+    assert not any(x.requires_grad for x in got) and not tI.requires_grad
+    assert tuple(I_grad.shape) == I.shape and loss.dim() == reg.dim() == 0
+    close_rel(ref[0], m_new)
+    update = np.asarray(ref[0]) - m
+    assert np.abs(update).max() > 1e-3 * np.abs(m).max()  # the step moved the momenta
+    close_rel(update, m_new - t(m))
+    close_rel(ref[1], I_grad)
+    for r, g in zip(ref[2:], (loss, reg)):
+        assert abs(float(g) - float(r)) <= FFT_RTOL * abs(float(r))
 
 
 def test_convert_atlas_state(rng, tmp_path):

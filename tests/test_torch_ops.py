@@ -65,11 +65,47 @@ def test_jacobian_times_vectorfield(rng, shape, displacement, transpose):
     close(ref, lt.jacobian_times_vectorfield(t(v), t(w), displacement, transpose))
 
 
+def close_adjoint(ref, got):
+    """1e-10 * (1 + max|ref|): the adjoints sum the same float64 terms, in
+    an order that may differ from the JAX package's by one rounding."""
+    close(ref, got, atol=1e-10 * (1.0 + float(np.abs(np.asarray(ref)).max())))
+
+
+@pytest.mark.parametrize("n", [2, 3, 7])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_diff_central_adjoint(rng, n, axis):
+    """The port's transpose against the JAX package's, and against the
+    transpose of diff_central's matrix (<D a, p> == <a, D^T p>)."""
+    shape = [4, 5, 3]
+    shape[axis] = n
+    p = rng.standard_normal(shape)
+    got = tb.diff_central_adjoint(t(p), axis)
+    close_adjoint(jb.diff_central_adjoint(jnp.asarray(p), axis), got)
+    a = rng.standard_normal(shape)
+    lhs = float((tb.diff_central(t(a), axis) * t(p)).sum())
+    rhs = float((t(a) * got).sum())
+    assert abs(lhs - rhs) <= 1e-12 * (1.0 + abs(lhs))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_jacobian_times_vectorfield_adjoint(rng, shape):
+    z = rng.standard_normal(shape)
+    w = rng.standard_normal(shape)
+    ref = lm.jacobian_times_vectorfield_adjoint(jnp.asarray(z), jnp.asarray(w))
+    close_adjoint(ref, lt.jacobian_times_vectorfield_adjoint(t(z), t(w)))
+
+
 def test_identity_grid():
+    """The identity functions take ``device`` as a required keyword: nothing
+    is built on a default device."""
     close(jsamp.identity_grid((4, 3, 5), dtype=jnp.float64),
-          tsamp.identity_grid((4, 3, 5), dtype=torch.float64))
+          tsamp.identity_grid((4, 3, 5), dtype=torch.float64, device="cpu"))
     close(lm.identity((2, 3, 4, 3, 5), dtype=np.float64),
-          lt.identity((2, 3, 4, 3, 5), dtype=torch.float64))
+          lt.identity((2, 3, 4, 3, 5), dtype=torch.float64, device="cpu"))
+    with pytest.raises(TypeError):
+        tsamp.identity_grid((4, 3, 5), dtype=torch.float64)
+    with pytest.raises(TypeError):
+        lt.identity((2, 3, 4, 3, 5), torch.float64, "cpu")
 
 
 @pytest.mark.parametrize("background", ["clamp", "wrap", "zero", "val"])
