@@ -6,7 +6,8 @@
 Drives the port's 3D atlas step (``lagomorph_tpu_torch``) at the headline
 size of the JAX package's bench (128^3, batch 4, 5 integration steps,
 ``FluidMetric([0.1, 0.0, 0.01])``, ``reg_weight=0.1``,
-``learning_rate_pose=1e-6``; bench.py:81-103):
+``learning_rate_pose=1e-6``; bench.py:81-103), and its 2D atlas step at
+the bench's 2D configurations (256^2 and 512^2, batch 8; bench.py:342-345):
 
 1. device: needs a CUDA card; prints the card's name and power limit;
 2. build: compiles the hand-written kernels from ``lagomorph_tpu_torch/csrc``
@@ -15,7 +16,11 @@ size of the JAX package's bench (128^3, batch 4, 5 integration steps,
    card, at 128^3 b4 and at a non-cubic, non-power-of-two shape, plus
    inputs that leave the unit regime so the flags must come out false;
    then each backward kernel (K5, K6, K7, and K3 through autograd) against
-   the plain versions' gradients at both shapes;
+   the plain versions' gradients at both shapes; then the 2D whole-shoot
+   kernels K8 (phiinv_T, flag and stashed trajectory) and K9 (both
+   gradients) against their plain versions at 256^2 b8, 512^2 b8 and
+   (3, 2, 96, 80), with batch-1 and batch-N momenta and a tripped flag,
+   launched directly and through the wrapper under autograd;
 4. slice: ``_lddmm_loss`` forward through the kernels and through the
    plain versions, at the bench's momenta and at momenta scaled to a
    deformation of about half a voxel; the launch counters show the forward
@@ -28,15 +33,23 @@ size of the JAX package's bench (128^3, batch 4, 5 integration steps,
    max|v0| = 0.5, each step's momentum gradient held against a float64
    one; the launch counters, set to 0 just before the bench momenta's
    steps and read just after, show every kernel ran, with the launches of
-   each step checked; then one step on fallback momenta;
+   each step checked; then one step on fallback momenta at 128^3 b4, with
+   its peak device memory;
+6b. 2D atlas steps, the 2D main path: three chained steps at 256^2 b8 and
+   at 512^2 b8 (bench.py's inputs), and at 256^2 b8 at max|v0| = 0.5,
+   both ways, with each step's momentum
+   gradient held against a float64 one; the counters, set to 0 just before
+   the 256^2 kernel steps and read just after, show K8 and K9 each
+   launched once per step and no 3D kernel;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call; the slice and the atlas step both ways, with
-   the peak device memory of each step;
+   the peak device memory of each step; K8 and K9 at 256^2 b8 and the 2D
+   atlas step both ways at 256^2 b8 and 512^2 b8, with peak memory;
 8. trace (only with ``--trace PATH``): ``torch.profiler`` traces of 5
-   slices (``PATH``) and of 5 atlas steps (``PATH`` with ``_steps`` before
-   its extension), with the device time by kernel, the busy share and the
-   idle gaps.
+   slices (``PATH``), of 5 atlas steps (``PATH`` with ``_steps`` before its
+   extension) and of 5 2D atlas steps at 256^2 b8 (``_steps2d``), with the
+   device time by kernel, the busy share and the idle gaps.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON record of the kernels; the last line, printed only when every
@@ -69,14 +82,21 @@ CHAIN = 3  # chained atlas steps per comparison
 # rounding
 P_TOL = 2e-4
 FALLBACK_P_TOL = 5e-3
-# the fallback step runs at a reduced size: autograd of the plain bounded
-# warp tier keeps every tap's intermediates, 11.5 GiB at 64^3 b2 through
-# the kernels, ~184 GiB at 128^3 b4
-FALLBACK = (2, 3, 64, 64, 64)
+# the fallback step runs at the headline size (the bounded warp tier's
+# backward keeps only its inputs)
+FALLBACK = FULL
+FULL2D = (8, 2, 256, 256)  # bench.py:342, 2d_256sq_b8
+FULL2D_512 = (8, 2, 512, 512)  # bench.py:345, 2d_512sq_b8
+ODD2D = (3, 2, 96, 80)  # non-square, non-power-of-two
 # launches of each kernel in one atlas step on the hoisted fast path
 STEP_LAUNCHES = {"ad_star_fwd": 4, "compose_fwd": 4, "fluid_flat": 10, "warp_unit_fwd": 1,
                  "warp_unit_bwd": 1, "ad_star_bwd": 4, "compose_bwd": 4}
 FORWARD = ("warp_unit_fwd", "ad_star_fwd", "compose_fwd", "fluid_flat")
+KERNELS_2D = ("shoot2d_fwd", "shoot2d_bwd")
+# launches in one 2D atlas step: the whole shooting is one K8, its backward
+# one K9; the 2D fluid solve and warps are plain PyTorch (as in the JAX
+# package) and no 3D kernel runs
+STEP2D_LAUNCHES = {"shoot2d_fwd": 1, "shoot2d_bwd": 1}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -254,13 +274,15 @@ def backward_checks(lt, device, shape, seed):
     return errs
 
 
-def bench_inputs(device):
-    """The JAX bench's inputs (bench.py:92-103), from seed 0."""
-    X = FULL[2:]
+def bench_inputs(device, shape=None):
+    """The JAX bench's inputs (bench.py:92-103) at ``shape`` (``FULL`` when
+    None), from seed 0."""
+    shape = FULL if shape is None else shape
+    X = shape[2:]
     rng = np.random.default_rng(0)
     I = rng.standard_normal((1, 1) + X)
-    m = rng.standard_normal(FULL) * 2e-6
-    img = rng.standard_normal((FULL[0], 1) + X)
+    m = rng.standard_normal(shape) * 2e-6
+    img = rng.standard_normal((shape[0], 1) + X)
     return [torch.as_tensor(a, dtype=torch.float32, device=device) for a in (I, m, img)]
 
 
@@ -446,8 +468,10 @@ def atlas_steps(lt, metric, I, m, img, m_half):
                  for mode in ("kernels", "plain", "float64")}
         log(f"atlas steps, {label}: {CHAIN} chained steps through the kernels vs the plain "
             "versions (float32); momentum gradients vs float64")
+        want = {k: 0 for k in got[0][4]}
+        want.update(STEP_LAUNCHES)
         for i, g in enumerate(got):
-            check(g[4] == STEP_LAUNCHES, f"{label} step {i + 1}: launches {g[4]}, want {STEP_LAUNCHES}")
+            check(g[4] == want, f"{label} step {i + 1}: launches {g[4]}, want {want}")
             check(tuple(g[1].shape) == FULL and tuple(g[2].shape) == tuple(I.shape),
                   f"{label}: step outputs of the wrong shape")
         check(all(sum(r[4].values()) == 0 for r in ref),
@@ -459,15 +483,18 @@ def atlas_steps(lt, metric, I, m, img, m_half):
         check(e <= 1e-5, f"{label}: atlas update differs by {e:.3e} relative > 1e-5")
         del got, ref, grads
     log(f"main path (atlas steps at the bench momenta) launches: {main}")
-    check(all(n > 0 for n in main.values()), f"a kernel was not launched: {main}")
+    check(all(n > 0 for k, n in main.items() if k not in KERNELS_2D),
+          f"a kernel of the 3D path was not launched: {main}")
+    check(all(main[k] == 0 for k in KERNELS_2D), f"a 2D kernel ran in a 3D step: {main}")
     return main
 
 
 def fallback_step(lt, device):
     """One atlas step on momenta whose substeps leave the unit regime
-    (max|v0| = 8), at the reduced size ``FALLBACK``: through the kernels
-    (the shooting re-runs the general integration) and through the plain
-    versions, with its momentum gradient held against a float64 one."""
+    (max|v0| = 8), at ``FALLBACK``: through the kernels (the shooting
+    re-runs the general integration) and through the plain versions, with
+    its momentum gradient held against a float64 one and the peak device
+    memory of each."""
     from lagomorph_tpu_torch import lddmm
 
     rng = np.random.default_rng(3)
@@ -500,6 +527,139 @@ def fallback_step(lt, device):
                  grad_tol=1e-4)
 
 
+def shoot2d_checks(lt, device, shape, seed):
+    """Phase 3, 2D, at one shape: K8 (phiinv_T, the flag, the stashed
+    trajectory) and K9 (d_phiinv0, d_m0 on the plain trajectory) against
+    their plain versions on the same inputs, 4 substeps at s = -0.2 from
+    momenta scaled to max|v0| = 0.5 (batch N and batch 1, whose d_m0 K9
+    sums over the subjects), within 1e-4 * max|ref| (float32 transforms
+    against cuFFT, as K3), and a displacement of 1.5 in phiinv0 must trip
+    both flags; then the wrapper ``shoot2d.shoot2d`` under
+    ``torch.autograd.grad`` (K8 forward, K9 backward, one launch each, with
+    a non-contiguous cotangent) against autograd of the plain versions, on
+    momenta whose displacements stay off the integers.  Returns {kernel:
+    err}."""
+    from lagomorph_tpu_torch.ops.kernels import launch_counts, plain_versions, shoot2d
+
+    N, _, H, W = shape
+    rng = np.random.default_rng(seed)
+    Mn = lt.FluidMetric(PARAMS).packed_multiplier((H, W), torch.float32, device)
+    s, T = -1.0 / STEPS, STEPS - 1
+    errs = {"shoot2d_fwd": 0.0, "shoot2d_bwd": 0.0}
+    tag = "x".join(map(str, shape))
+    log(f"2D whole-shoot kernels at {tag}:")
+
+    def hold(name, label, pairs):
+        for what, g, r in pairs:
+            errs[name] = max(errs[name], compare(f"{name} {label} {what}", g, r, 1e-4, 0.0))
+
+    for label, nb in (("m0(N,2)", N), ("m0(1,2)", 1)):
+        m0 = torch.as_tensor(rng.standard_normal((nb, 2, H, W)), dtype=torch.float32, device=device)
+        m0 = m0 * (0.5 / float(shoot2d.fluid2d_plain(m0, Mn).abs().max()))
+        phiinv0 = (s * shoot2d.fluid2d_plain(m0, Mn)).expand(N, -1, -1, -1).contiguous()
+        got = shoot2d._launch_fwd(phiinv0, m0, Mn, s, T, True)
+        ref = shoot2d.shoot2d_fwd_plain(phiinv0, m0, Mn, s, T)
+        hold("shoot2d_fwd", label, zip(("phiinv_T", "traj_phiinv", "traj_v", "traj_mw"),
+                                       got[:1] + got[2:], ref[:1] + ref[2:]))
+        check(bool(got[1]) and bool(ref[1]), f"shoot2d_fwd {label}: in-regime flag false")
+        cot = torch.as_tensor(rng.standard_normal((N, 2, H, W)), dtype=torch.float32, device=device)
+        hold("shoot2d_bwd", label, zip(("d_phiinv0", "d_m0"),
+                                       shoot2d._launch_bwd(m0, cot, *ref[2:], Mn, s),
+                                       shoot2d.shoot2d_bwd_plain(m0, cot, *ref[2:], Mn, s)))
+        bad = phiinv0.clone()
+        bad.view(-1)[bad.numel() // 3] = 1.5
+        _, gf = shoot2d.shoot2d(bad, m0, Mn, s, T)
+        _, rf = shoot2d.shoot2d_fwd_plain(bad, m0, Mn, s, T, stash=False)
+        check(not bool(gf) and not bool(rf), f"shoot2d_fwd {label}: tripped flag not false")
+    log("  flags: equal in and out of the unit regime")
+
+    # The wrapper and its autograd.Function, as the main path calls them,
+    # against autograd of the plain versions.  The two float32 forwards
+    # differ by ~1e-7 voxel, and where a warp displacement lies that close to
+    # an integer the weights' slopes jump, so the gradients would differ by
+    # O(1) there.  These momenta drift by s*v = -0.15 per substep, with a
+    # perturbation of at most 0.01, which keeps every displacement of the
+    # trajectory 0.05 or more from the integers (checked).  The cotangent is
+    # a transposed view, which the backward must make contiguous.
+    for label, nb in (("m0(N,2)", N), ("m0(1,2)", 1)):
+        pert = torch.as_tensor(rng.standard_normal((nb, 2, H, W)), dtype=torch.float32,
+                               device=device)
+        pert = pert * (0.01 / abs(s) / float(shoot2d.fluid2d_plain(pert, Mn).abs().max()))
+        m0 = pert + 0.15 / abs(s) / float(Mn[0, 0])  # Mn[0, 0]: the solve's gain at k = 0
+        phiinv0 = (s * shoot2d.fluid2d_plain(m0, Mn)).expand(N, -1, -1, -1).contiguous()
+        _, _, traj_p, traj_v, _ = shoot2d.shoot2d_fwd_plain(phiinv0, m0, Mn, s, T)
+        gap = min(float((d - d.round()).abs().min()) for d in (traj_p, s * traj_v))
+        check(gap >= 0.05, f"shoot2d {label}: a displacement lies {gap:.3e} from an integer")
+        leaves, refs = ([x.clone().requires_grad_(True) for x in (phiinv0, m0)] for _ in range(2))
+        cot_t = torch.as_tensor(rng.standard_normal((N, 2, W, H)), dtype=torch.float32,
+                                device=device).transpose(2, 3)
+        before = launch_counts()
+        out, flag = shoot2d.shoot2d(*leaves, Mn, s, T)
+        d_got = torch.autograd.grad(out, leaves, cot_t)
+        after = launch_counts()
+        check(after["shoot2d_fwd"] == before["shoot2d_fwd"] + 1
+              and after["shoot2d_bwd"] == before["shoot2d_bwd"] + 1,
+              f"shoot2d {label}: the wrapper did not launch K8 and K9 once each")
+        with plain_versions():
+            ref_out, ref_flag = shoot2d.shoot2d(*refs, Mn, s, T)
+        d_ref = torch.autograd.grad(ref_out, refs, cot_t)
+        check(bool(flag) and bool(ref_flag), f"shoot2d {label}: in-regime flag false")
+        check(tuple(d_got[1].shape) == (nb, 2, H, W), f"shoot2d {label}: d_m0 of the wrong shape")
+        hold("shoot2d_fwd", f"{label} wrapper", [("phiinv_T", out.detach(), ref_out.detach())])
+        hold("shoot2d_bwd", f"{label} autograd", zip(("d_phiinv0", "d_m0"), d_got, d_ref))
+    log(f"  wrapper under autograd: K8 and K9 once per call; displacements >= {gap:.3f} "
+        "from the integers")
+    return errs
+
+
+def atlas_steps_2d(lt, device):
+    """Phase 6b, the 2D main path: ``CHAIN`` chained 2D atlas steps at
+    256^2 b8 and 512^2 b8 on bench.py's inputs, and at 256^2 b8 on its
+    momenta scaled to max|v0| = 0.5, through the kernels and the plain
+    versions, each step's momentum gradient held against a float64 one.
+    The counters are set to 0 just before the 256^2 bench momenta's kernel
+    steps and read just after: K8 and K9 must each run once per step, and no
+    3D kernel.  Returns those counts."""
+    from lagomorph_tpu_torch.ops import kernels
+
+    metric = lt.FluidMetric(PARAMS)
+    step = make_step(lt, metric)
+    main = None
+    for shape, half in ((FULL2D, False), (FULL2D, True), (FULL2D_512, False)):
+        I, m, img = bench_inputs(device, shape)
+        label = f"2D {shape[2]}^2 b{shape[0]}, bench momenta (x2e-6)"
+        if half:
+            m = m * (0.5 / float(metric.sharp(m).abs().max()))
+            label = f"2D {shape[2]}^2 b{shape[0]}, max|v0| = 0.5"
+        if main is None:
+            kernels.reset_launches()
+        got, dI = step_chain(step, I, m, img, "kernels")
+        if main is None:
+            main = kernels.launch_counts()
+        ref, dI_ref = step_chain(step, I, m, img, "plain")
+        grads = {mode: momentum_grads(metric, I, [g[0] for g in got], img, mode)
+                 for mode in ("kernels", "plain", "float64")}
+        log(f"atlas steps, {label}: {CHAIN} chained steps through the kernels vs the plain "
+            "versions (float32); momentum gradients vs float64")
+        want = {k: 0 for k in got[0][4]}
+        want.update(STEP2D_LAUNCHES)
+        for i, g in enumerate(got):
+            check(g[4] == want, f"{label} step {i + 1}: launches {g[4]}, want {want}")
+            check(tuple(g[1].shape) == shape and tuple(g[2].shape) == tuple(I.shape),
+                  f"{label}: step outputs of the wrong shape")
+        check(all(sum(r[4].values()) == 0 for r in ref), f"{label}: the plain path launched a kernel")
+        step_compare(label, got, ref, grads, P_TOL)
+        e = max_err(dI, dI_ref) / float(dI_ref.abs().max())
+        log(f"  {label} atlas update: rel err={e:.3e}; launches per step {got[0][4]}")
+        check(e <= 1e-5, f"{label}: atlas update differs by {e:.3e} relative > 1e-5")
+        del got, ref, grads
+    log(f"2D main path (atlas steps at 256^2 b8) launches: {main}")
+    check(all(main[k] > 0 for k in KERNELS_2D), f"a 2D kernel was not launched: {main}")
+    check(all(n == 0 for k, n in main.items() if k not in KERNELS_2D),
+          f"a 3D kernel ran in a 2D step: {main}")
+    return main
+
+
 def bound(nbytes, flops):
     """The least time in ms the card could take for work that must move
     ``nbytes`` bytes and do ``flops`` float32 operations, and which of the
@@ -530,14 +690,26 @@ def weight_grad_ops(C):  # d_disp: weights and slopes, 27 (x, y) pair products,
 
 JAC_OPS = 36  # 9 central differences (2 each), 9 products, 6 sums, 3 diagonal adds
 DIV_OPS = 51  # 9 transposed differences of products (5 each), 6 sums
+# the 2D stencils, per pixel, counted the same way: two axes of weights (9
+# each), 9 tap weights, 9 products and 8 sums per channel
+AXIS_W2, TAP_W2 = 18, 9
+WARP2 = AXIS_W2 + TAP_W2 + 17 * 2
+AD2 = WARP2 + 14  # + 4 central differences (2 each), 2 diagonal adds, 4 products
+COMPOSE2 = WARP2 + 4  # + s*v (2) and the two sums
+FLAG2 = 8  # two compares per component, s*v and phiinv
+# the transposed warp, counted as the 3D one: the weights once per pixel, a
+# product and a sum per (tap, channel)
+TRANSPOSE2 = AXIS_W2 + TAP_W2 + 18 * 2
+WGRAD2 = 2 * AXIS_W2 + 9 * (3 + 2 * 3)  # weights and slopes; per tap <c, I> and 2 products and sums
 
 
 def work(name, N, V, F=None):
     """(bytes, operations) that kernel ``name`` must move and do at the
     timed shapes: fields of ``N`` subjects of ``V`` voxels, float32, a
     batch-1 one-channel atlas for the warp, batch-N momenta for Ad*, ``F``
-    complex fields for the fluid solve.  Each input read once, each output
-    written once."""
+    complex fields for the fluid solve, or, for the 2D whole-shoot kernels,
+    ``F`` substeps of 2-channel fields of ``V`` pixels.  Each input read
+    once, each output written once."""
     f3 = 4 * 3 * N * V  # one 3-channel field
     f1 = 4 * N * V  # one 1-channel batch-N field
     atlas = 4 * V
@@ -555,6 +727,13 @@ def work(name, N, V, F=None):
         return 5 * f3, N * V * (3 + transpose_ops(3) + 3 + weight_grad_ops(3) + 9)
     if name == "fluid_flat":  # read x, Mn; write y; two 3D complex FFTs per field
         return 4 * (2 * 2 * F * V + V), F * (2 * 5 * V * np.log2(V) + 2 * V)
+    fft2 = 2 * 5 * V * np.log2(V) + 2 * V  # one packed 2D solve per subject
+    f2 = 4 * 2 * N * V  # one 2-channel batch-N 2D field
+    if name == "shoot2d_fwd":  # read phi0, m0, Mn; write phi_T and 3T stash fields
+        return (3 + 3 * F) * f2 + 4 * V, F * N * (V * (AD2 + COMPOSE2 + FLAG2) + fft2)
+    if name == "shoot2d_bwd":  # read m0, g, Mn and the 3T stash; write d_phi0, d_m0
+        return (4 + 3 * F) * f2 + 4 * V, F * N * (
+            V * (2 * TRANSPOSE2 + 2 * WGRAD2 + 4 + 12 + 2 * 10 + 4) + fft2)
     raise KeyError(name)
 
 
@@ -674,6 +853,69 @@ def timings(device, card, lt, metric, I, m, img):
     return out
 
 
+def timings2d(device, card, lt):
+    """Per-call ms at 256^2 b8 of K8 (with the stash, as under autograd) and
+    K9 beside their plain versions (order: plain, kernel, kernel, plain) and
+    the bound of their work (no PyTorch call computes either function);
+    then the 2D atlas step both ways at 256^2 b8 and 512^2 b8, with the peak
+    device memory of each step.  Returns {kernel: {ms, plain_ms,
+    library_ms, bound_ms, bound_by}}."""
+    from lagomorph_tpu_torch.ops.kernels import plain_versions, shoot2d
+
+    N, _, H, W = FULL2D
+    metric = lt.FluidMetric(PARAMS)
+    Mn = metric.packed_multiplier((H, W), torch.float32, device)
+    _, m, _ = bench_inputs(device, FULL2D)
+    s, T = -1.0 / STEPS, STEPS - 1
+    phiinv0 = s * metric.sharp(m)
+    traj = shoot2d._launch_fwd(phiinv0, m, Mn, s, T, True)[2:]
+    g = torch.as_tensor(np.random.default_rng(8).standard_normal(FULL2D), dtype=torch.float32,
+                        device=device)
+    calls = {
+        "shoot2d_fwd": (lambda: shoot2d._launch_fwd(phiinv0, m, Mn, s, T, True),
+                        lambda: shoot2d.shoot2d_fwd_plain(phiinv0, m, Mn, s, T)),
+        "shoot2d_bwd": (lambda: shoot2d._launch_bwd(m, g, *traj, Mn, s),
+                        lambda: shoot2d.shoot2d_bwd_plain(m, g, *traj, Mn, s)),
+    }
+    out = {}
+    for name, (fn, plain) in calls.items():
+        p1 = time_ms(plain, device, 10)
+        k1 = time_ms(fn, device, 10)
+        k2 = time_ms(fn, device, 10)
+        p2 = time_ms(plain, device, 10)
+        b_ms, b_by = bound(*work(name, N, H * W, F=T))
+        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+            f"library none, bound {b_ms:.4f} ms ({b_by}) per call at 256^2 b8, "
+            f"{T} substeps [{card}]")
+
+    step = make_step(lt, metric)
+    for shape in (FULL2D, FULL2D_512):
+        I, m, img = bench_inputs(device, shape)
+
+        def atlas_step():
+            return float(step(I, m, img)[2])
+
+        samples = {False: [], True: []}
+        for is_plain in (True, False, False, True):
+            with plain_versions() if is_plain else contextlib.nullcontext():
+                samples[is_plain].append(time_ms(atlas_step, device, 5, warmup=1))
+        peak = {}
+        for is_plain in (False, True):
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            with plain_versions() if is_plain else contextlib.nullcontext():
+                atlas_step()
+            peak[is_plain] = torch.cuda.max_memory_allocated(device) / 2**30
+        k, p = samples[False], samples[True]
+        log(f"time 2D atlas step ({shape[2]}^2 b{shape[0]}, 5 steps): kernels "
+            f"{k[0]:.3f}/{k[1]:.3f} ms ({2000 / (k[0] + k[1]):.2f} steps/s), plain "
+            f"{p[0]:.3f}/{p[1]:.3f} ms per step; peak device memory per step: kernels "
+            f"{peak[False]:.3f} GiB, plain {peak[True]:.3f} GiB [{card}]")
+    return out
+
+
 def trace_run(device, card, fn, label, path, n=5):
     """Optional phase (``--trace PATH``): a ``torch.profiler`` trace of
     ``n`` calls of ``fn`` (``label`` names one call), written to ``path`` as
@@ -743,6 +985,10 @@ def run(device, card, trace_path=None):
     for name, err in backward_checks(lt, device, FULL, seed=3).items():
         errs[name] = max(errs.get(name, 0.0), err)
     backward_checks(lt, device, ODD, seed=4)
+    errs.update(shoot2d_checks(lt, device, FULL2D, seed=5))
+    for name, err in shoot2d_checks(lt, device, FULL2D_512, seed=9).items():
+        errs[name] = max(errs[name], err)
+    shoot2d_checks(lt, device, ODD2D, seed=6)
 
     # 4. the slice forward, at the bench's momenta and at momenta scaled to
     # a half-voxel deformation, with the launch counters set to 0 just
@@ -770,9 +1016,13 @@ def run(device, card, trace_path=None):
     # 6. the main path: atlas steps, then one step on fallback momenta
     main = atlas_steps(lt, metric, I, m, img, m_half)
     fallback_step(lt, device)
+    # 6b. the 2D main path: its kernels' launches come from its own run
+    main2d = atlas_steps_2d(lt, device)
+    main.update({k: main2d[k] for k in KERNELS_2D})
 
     # 7. timings
     times = timings(device, card, lt, metric, I, m, img)
+    times.update(timings2d(device, card, lt))
 
     # 8. traces
     if trace_path:
@@ -783,6 +1033,9 @@ def run(device, card, trace_path=None):
         base, ext = os.path.splitext(trace_path)
         trace_run(device, card, lambda: float(step(I, m, img)[2]), "step",
                   f"{base}_steps{ext or '.json'}")
+        I2, m2, img2 = bench_inputs(device, FULL2D)
+        trace_run(device, card, lambda: float(step(I2, m2, img2)[2]), "2D step",
+                  f"{base}_steps2d{ext or '.json'}")
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
@@ -795,10 +1048,10 @@ def run(device, card, trace_path=None):
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--trace", metavar="PATH",
-                    help="also trace 5 slices (into this Chrome-trace file) and 5 atlas "
-                         "steps (into PATH with _steps before its extension) with "
-                         "torch.profiler, and print the device time by kernel and the "
-                         "busy share")
+                    help="also trace 5 slices (into this Chrome-trace file), 5 atlas "
+                         "steps (into PATH with _steps before its extension) and 5 2D "
+                         "atlas steps at 256^2 b8 (_steps2d) with torch.profiler, and "
+                         "print the device time by kernel and the busy share")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",

@@ -1,8 +1,8 @@
 """lagomorph_tpu_torch: the PyTorch and CUDA port of lagomorph_tpu.
 
-The 3D LDDMM atlas step: geodesic shooting of momenta to an inverse
-deformation, the atlas warp, the atlas loss, its gradients and the update
-of the momenta (``make_lddmm_atlas_step``), forward and backward on
+The LDDMM atlas step in 3D and 2D: geodesic shooting of momenta to an
+inverse deformation, the atlas warp, the atlas loss, its gradients and the
+update of the momenta (``make_lddmm_atlas_step``), forward and backward on
 hand-written Hopper kernels (``ops/kernels``, sources in ``csrc/``) for CUDA
 tensors and on their plain PyTorch versions for CPU tensors.  Tensors are
 NC(D)HW, as in the JAX package.  This package imports torch and numpy, never

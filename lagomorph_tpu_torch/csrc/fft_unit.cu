@@ -12,7 +12,8 @@
 // matrix unit in a 3-pass bf16 split (`_dot3`) to reach float32 accuracy;
 // Hopper's float32 FMA needs no split.
 //
-// Each pass is a line transform in shared memory.  A block takes TJ lines
+// Each pass is a line transform in shared memory (fft_lines.cuh, shared
+// with the 2D whole-shoot kernels of shoot2d.cu).  A block takes TJ lines
 // along one axis (neighbouring lines, so the loads coalesce) and keeps them
 // in shared memory as [n][line].  An axis whose length is a power of two is
 // transformed by a radix-2 Stockham FFT (log2 N stages, ping-pong between
@@ -38,114 +39,16 @@
 // one butterfly), so the twiddle read is a broadcast and the tile accesses
 // are free of bank conflicts; a direct-sum thread sums R frequencies at once
 // to reuse each x[n] it reads from shared memory.
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "fft_lines.cuh"
 
 namespace lagomorph {
 
 constexpr int kThreads = 256;
-constexpr int kR = 4;  // frequencies per thread per sweep
 
 enum InMode { IN_SPLIT = 0, IN_COMPLEX = 1 };
 enum OutMode { OUT_SPLIT = 0, OUT_COMPLEX = 1 };
-
-// element n of line l in a volume viewed as (outer, N, inner)
-__device__ __forceinline__ long line_addr(long l, int n, int N, long inner) {
-  const long o = l / inner;
-  const long i = l - o * inner;
-  return (o * N + n) * inner + i;
-}
-
-// O[k][j] = sum_n S[n][j] * exp(sign * 2 pi i k n / N), for the block's TJ
-// lines; sign = -1 forward, +1 inverse.  Tiles have row pitch TP = TJ + 1
-// (the padding keeps the transposing loads and stores free of bank
-// conflicts).
-__device__ __forceinline__ void dft_tile(const float2* __restrict__ S,
-                                         float2* __restrict__ O,
-                                         const float2* __restrict__ tw, int N,
-                                         int TJ, float sign) {
-  const int TP = TJ + 1;
-  const int KS = blockDim.x / TJ;
-  const int j = threadIdx.x % TJ;
-  const int k0 = threadIdx.x / TJ;
-  for (int kb = k0; kb < N; kb += KS * kR) {
-    int kk[kR], ix[kR];
-    float ar[kR], ai[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int k = kb + r * KS;
-      kk[r] = k < N ? k : 0;  // a masked frequency sums k = 0 and is dropped
-      ix[r] = 0;
-      ar[r] = 0.0f;
-      ai[r] = 0.0f;
-    }
-    for (int n = 0; n < N; ++n) {
-      const float2 x = S[n * TP + j];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const float2 w = tw[ix[r]];
-        const float ws = sign * w.y;
-        ar[r] = fmaf(x.x, w.x, fmaf(-x.y, ws, ar[r]));
-        ai[r] = fmaf(x.y, w.x, fmaf(x.x, ws, ai[r]));
-        ix[r] += kk[r];
-        if (ix[r] >= N) ix[r] -= N;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int k = kb + r * KS;
-      if (k < N) O[k * TP + j] = make_float2(ar[r], ai[r]);
-    }
-  }
-}
-
-// Radix-2 Stockham FFT of the TJ lines in `x` (N a power of two), using `y`
-// as the other buffer of each stage; returns the buffer holding the result.
-// Stage with half-length m and stride s: for p < m, q < s,
-//   y[q + s*2p]     = a + b
-//   y[q + s*(2p+1)] = (a - b) * exp(sign * 2 pi i p s / N)
-// with a = x[q + s*p], b = x[q + s*(p + m)].
-__device__ __forceinline__ float2* fft_tile(float2* x, float2* y,
-                                            const float2* __restrict__ tw,
-                                            int N, int TJ, float sign) {
-  const int TP = TJ + 1;
-  const int KS = blockDim.x / TJ;
-  const int j = threadIdx.x % TJ;
-  const int b0 = threadIdx.x / TJ;
-  const int half = N >> 1;
-  for (int s = 1, lg = 0; s < N; s <<= 1, ++lg) {
-    const int m = half >> lg;  // half-length of this stage
-    for (int b = b0; b < half; b += KS) {
-      const int p = b >> lg;
-      const int q = b & (s - 1);
-      const float2 a = x[(q + s * p) * TP + j];
-      const float2 c = x[(q + s * (p + m)) * TP + j];
-      const float2 w = tw[p * s];
-      const float ws = sign * w.y;
-      const float dr = a.x - c.x, di = a.y - c.y;
-      y[(q + 2 * s * p) * TP + j] = make_float2(a.x + c.x, a.y + c.y);
-      y[(q + s * (2 * p + 1)) * TP + j] =
-          make_float2(dr * w.x - di * ws, di * w.x + dr * ws);
-    }
-    __syncthreads();
-    float2* t = x;
-    x = y;
-    y = t;
-  }
-  return x;
-}
-
-// One transform of the tile in `in`: radix-2 for a power-of-two N, else
-// direct sums into `other`.  Returns the buffer holding the result; ends
-// with the block synchronised.
-__device__ __forceinline__ float2* transform_tile(float2* in, float2* other,
-                                                  const float2* __restrict__ tw,
-                                                  int N, int TJ, float sign) {
-  if ((N & (N - 1)) == 0) return fft_tile(in, other, tw, N, TJ, sign);
-  dft_tile(in, other, tw, N, TJ, sign);
-  __syncthreads();
-  return other;
-}
 
 // One pass over all lines of one axis.  `mult` (pass 3 only) is the
 // multiplier laid out like one (N, inner) slab: forward DFT, times mult,

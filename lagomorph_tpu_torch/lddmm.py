@@ -2,7 +2,8 @@
 
 Port of ``lagomorph_tpu/lddmm.py``: ``EPDiff_step``, ``expmap`` with the
 peeled first step, the hoisted fast path with its validity flag and exact
-fallback, ``shooting_regime_ok``, ``_lddmm_loss`` and
+fallback (3D on the per-substep kernels, 2D in one launch of the
+whole-shoot kernel), ``shooting_regime_ok``, ``_lddmm_loss`` and
 ``make_lddmm_atlas_step`` (the loss, its gradients by autograd through the
 kernels' backwards, and the update of the momenta).
 """
@@ -12,8 +13,9 @@ import numpy as np
 import torch
 
 from . import adjrep, deform
+from .metric import FluidMetric
 from .ops.interp import in_unit as _in_unit
-from .ops.kernels import epdiff_unit
+from .ops.kernels import epdiff_unit, shoot2d
 
 __all__ = ["EPDiff_step", "expmap", "make_lddmm_atlas_step", "shooting_regime_ok"]
 
@@ -39,8 +41,10 @@ def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
     ``v0``: optional precomputed ``metric.sharp(m0 * mommask)``, shared with
     a caller that also needs the initial velocity.  Starting from the
     identity, the first step is peeled (``Ad*(0, m0) = m0`` and the first
-    composition is ``-dt * v0`` exactly).  With no tier forced, 3D fields
-    then take the hoisted fast path (:func:`_expmap_hoisted`)."""
+    composition is ``-dt * v0`` exactly).  With no tier forced, the rest
+    takes the hoisted fast path (:func:`_expmap_hoisted`) on the flagged
+    integrator that :func:`_fast_integrator` picks; otherwise the per-step
+    loop."""
     dt = T / num_steps
     length = num_steps
     if phiinv is None:
@@ -51,14 +55,44 @@ def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
         length = num_steps - 1
         if length <= 0:
             return phiinv
-        if (transport_mode is None and compose_mode is None
-                and m0.dim() == 5 and m0.shape[1] == 3):
-            return _expmap_hoisted(metric, m0, dt, length, phiinv, mommask)
+        if transport_mode is None and compose_mode is None:
+            fast = _fast_integrator(metric, m0, dt, mommask)
+            if fast is not None:
+                return _expmap_hoisted(metric, m0, dt, length, phiinv, mommask, fast)
     for _ in range(length):
         phiinv = EPDiff_step(metric, m0, dt, phiinv, mommask=mommask,
                              transport_mode=transport_mode,
                              compose_mode=compose_mode)
     return phiinv
+
+
+def _fast_integrator(metric, m0, dt, mommask):
+    """The flagged fast integrator for these momenta, by dimension:
+    :func:`_expmap_fast_flagged` (the per-substep kernels K1, K2) for 3D
+    three-channel fields, :func:`_shoot2d_flagged` (the whole shooting in
+    one launch of K8) for 2D two-channel fields under the JAX package's
+    conditions (``lagomorph_tpu/lddmm.py:276-280``,
+    ``lagomorph_tpu/ops/pallas/shoot2d.py:104-111``): no ``mommask``, a
+    ``FluidMetric`` with ``beta == 0``, a Python number ``dt``.  None: the
+    per-step loop.  The TPU-only conditions of the JAX gate (``H % 8``,
+    ``W % 128``, ``H, W <= 512``, ``T <= 32`` and the VMEM budget,
+    ``shoot2d.py:64-86, 112-115``) do not apply to the card's kernel and are
+    dropped."""
+    if m0.dim() == 5 and m0.shape[1] == 3:
+        return _expmap_fast_flagged
+    if (m0.dim() == 4 and m0.shape[1] == 2 and mommask is None
+            and isinstance(metric, FluidMetric) and metric.params[1] == 0.0
+            and isinstance(dt, (int, float))):
+        return _shoot2d_flagged
+    return None
+
+
+def _shoot2d_flagged(metric, m0, dt, length, phiinv0, mommask):
+    """The 2D hoisted fast path: all ``length`` substeps in one launch of K8
+    (its backward one launch of K9).  ``mommask`` is always None here (see
+    :func:`_fast_integrator`).  Returns ``(phiinv, ok)``."""
+    Mn = metric.packed_multiplier(m0.shape[2:], m0.dtype, m0.device)
+    return shoot2d.shoot2d(phiinv0, m0, Mn, -dt, length)
 
 
 def _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask):
@@ -88,16 +122,18 @@ def _expmap_general(metric, m0, dt, length, phiinv0, mommask, mode="auto"):
     return phiinv
 
 
-def _expmap_hoisted(metric, m0, dt, length, phiinv0, mommask):
-    """Integrate on the unit-regime kernels with a validity flag, and re-run
-    the exact general integration when any substep left the unit regime.
+def _expmap_hoisted(metric, m0, dt, length, phiinv0, mommask, fast_fn):
+    """Integrate on the unit-regime kernels with a validity flag
+    (``fast_fn``, from :func:`_fast_integrator`), and re-run the exact
+    general integration when any substep left the unit regime.
 
     The JAX package's ``lax.cond(ok, fast, general)`` becomes one host read
     of the flag per call.  That sync is why the shooting loop cannot yet be
     captured in a CUDA graph."""
-    fast, ok = _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask)
+    fast, ok = fast_fn(metric, m0, dt, length, phiinv0, mommask)
     if bool(ok):
         return fast
+    del fast  # frees its autograd graph before the re-run builds its own
     return _expmap_general(metric, m0, dt, length, phiinv0, mommask)
 
 

@@ -29,13 +29,21 @@ class FluidMetric:
         """The multiplier ``fluid_operator`` uses on fields of ``shape``:
         the full-spectrum scalar for the packed path, else the
         half-spectrum ``d x d`` entries.  Built once per key."""
-        spatial = tuple(shape[2:])
-        flat = flat_path(shape, self.params)
-        key = (spatial, dtype, torch.device(device), bool(inverse))
+        return self._entries(tuple(shape[2:]), dtype, device, inverse,
+                             flat_path(shape, self.params))
+
+    def packed_multiplier(self, spatial, dtype: torch.dtype, device) -> torch.Tensor:
+        """The full-spectrum scalar multiplier of ``sharp`` on a grid of
+        ``spatial`` size, as the packed-pair solves take it (the 2D
+        whole-shoot kernels; valid for ``beta == 0``).  Built once per key."""
+        return self._entries(tuple(spatial), dtype, device, True, True)
+
+    def _entries(self, spatial, dtype, device, inverse, full):
+        key = (spatial, dtype, torch.device(device), bool(inverse), full)
         if key not in self._multipliers:
             M = fluid_multiplier_entries(spatial, self.params, inverse, dtype,
-                                         device, full_spectrum=flat)
-            self._multipliers[key] = M[(0, 0)] if flat else M
+                                         device, full_spectrum=full)
+            self._multipliers[key] = M[(0, 0)] if full else M
         return self._multipliers[key]
 
     def operator(self, mv: torch.Tensor, inverse: bool) -> torch.Tensor:

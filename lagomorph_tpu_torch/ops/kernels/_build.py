@@ -48,6 +48,12 @@ SIGNATURES = {
     "lagomorph_compose_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     # x1, x2, Mn, y1, y2, scratch, F, X, Y, Z, stream
     "lagomorph_fluid_flat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # phi0, m0, Mn, out, flag, traj_p, traj_v, traj_mw (or 3 NULL), pp (or NULL),
+    # cbuf, N, Nm, H, W, T, s, stream
+    "lagomorph_shoot2d_fwd": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # m0, g, Mn, traj_p, traj_v, traj_mw, d_m0, d_phi0, cbuf, dm, dmw, gbuf,
+    # N, Nm, H, W, T, s, stream
+    "lagomorph_shoot2d_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,11 @@
-"""Multilinear sampling on regular grids (forward).
+"""Multilinear sampling on regular grids.
 
 Port of ``lagomorph_tpu/ops/sampling.py``: the general gather
 (:func:`sample_linear`), the exact 27-tap form for displacements in
 ``[-1, 1)`` (:func:`sample_displacement_unit`, the plain version of kernel
 K4) and the dense offset sweep for displacements bounded by a radius
-(:func:`sample_displacement_bounded`).  Same semantics throughout: corner
+(:func:`sample_displacement_bounded`, with the JAX package's scatter-free
+custom backward).  Same semantics throughout: corner
 index ``floor(x)`` and ``floor(x) + 1``, weights from the unclamped
 coordinate, corner indices clamped (CLAMP boundary) or handled by the
 chosen background strategy.
@@ -138,37 +139,119 @@ def _offset_weight(f, t, o):
     return (f == o).to(t.dtype) * (1.0 - t) + (f == (o - 1)).to(t.dtype) * t
 
 
+def _offset_slope(f, o, dtype):
+    """Slope of :func:`_offset_weight` in the displacement (``t`` has slope
+    1, the floor masks none): ``[f == o - 1] - [f == o]``."""
+    return (f == (o - 1)).to(dtype) - (f == o).to(dtype)
+
+
+def _unpad_edge(d: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Transpose of :func:`_pad_edge`: the pad strips of every spatial axis
+    are summed back onto that axis's edge slices (dense, no scatter)."""
+    for ax in range(2, d.dim()):
+        n = d.shape[ax] - lo - hi
+        core = d.narrow(ax, lo, n).clone()
+        core.narrow(ax, 0, 1).add_(d.narrow(ax, 0, lo).sum(ax, keepdim=True))
+        core.narrow(ax, n - 1, 1).add_(d.narrow(ax, lo + n, hi).sum(ax, keepdim=True))
+        d = core
+    return d
+
+
+class _SampleBounded(torch.autograd.Function):
+    """The bounded tier with the JAX package's scatter-free custom VJP
+    (``ops/sampling.py`` ``_sdb_fwd`` / ``_sdb_bwd``): the forward saves only
+    ``I`` and ``disp``, and the backward sweeps the offsets again, adding
+    each tap's transposed weighted slice into an edge-padded ``d_I`` and the
+    weights' slopes times ``<g, tap>`` into ``d_disp``.  Autograd of the
+    sweep itself would keep every tap's intermediates: (2R + 2)^dim of them."""
+
+    @staticmethod
+    def forward(ctx, I, disp, radius):
+        ctx.save_for_backward(I, disp)
+        ctx.radius = radius
+        dim = disp.shape[1]
+        spatial = tuple(disp.shape[2:])
+        N = disp.shape[0]
+        Ib = I.expand((N,) + tuple(I.shape[1:])) if I.shape[0] == 1 and N > 1 else I
+        Ipad = _pad_edge(Ib, radius, radius + 1)
+        f = torch.floor(disp).to(torch.int64)
+        t = disp - torch.floor(disp)
+        offsets = range(-radius, radius + 2)
+        inner = list(itertools.product(offsets, repeat=dim - 1))
+
+        out = torch.zeros((N, Ib.shape[1]) + spatial, dtype=I.dtype, device=I.device)
+        for o0 in offsets:
+            sl0 = Ipad[:, :, radius + o0: radius + o0 + spatial[0]]
+            w0 = _offset_weight(f[:, 0], t[:, 0], o0)
+            term0 = None
+            for oin in inner:
+                w = w0
+                for d, o in enumerate(oin):
+                    w = w * _offset_weight(f[:, d + 1], t[:, d + 1], o)
+                idx = (slice(None), slice(None), slice(None)) + tuple(
+                    slice(radius + o, radius + o + n) for o, n in zip(oin, spatial[1:])
+                )
+                contrib = w[:, None] * sl0[idx]
+                term0 = contrib if term0 is None else term0 + contrib
+            out = out + term0
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        I, disp = ctx.saved_tensors
+        radius = ctx.radius
+        dim = disp.shape[1]
+        spatial = tuple(disp.shape[2:])
+        N = disp.shape[0]
+        broadcasting = I.shape[0] == 1 and N > 1
+        Ib = I.expand((N,) + tuple(I.shape[1:])) if broadcasting else I
+        Ipad = _pad_edge(Ib, radius, radius + 1)
+        f = torch.floor(disp).to(torch.int64)
+        t = disp - torch.floor(disp)
+        offsets = range(-radius, radius + 2)
+        inner = list(itertools.product(offsets, repeat=dim - 1))
+
+        d_Ipad = torch.zeros_like(Ipad)
+        d_t = [torch.zeros_like(t[:, d]) for d in range(dim)]
+        for o0 in offsets:
+            lead = slice(radius + o0, radius + o0 + spatial[0])
+            sl0 = Ipad[:, :, lead]
+            w0 = _offset_weight(f[:, 0], t[:, 0], o0)
+            dw0 = _offset_slope(f[:, 0], o0, t.dtype)
+            d_sl0 = d_Ipad[:, :, lead]
+            for oin in inner:
+                ws_in = [_offset_weight(f[:, d + 1], t[:, d + 1], o) for d, o in enumerate(oin)]
+                w_in = None
+                for wd in ws_in:
+                    w_in = wd if w_in is None else w_in * wd
+                w = w0 if w_in is None else w0 * w_in
+                idx = (slice(None), slice(None), slice(None)) + tuple(
+                    slice(radius + o, radius + o + n) for o, n in zip(oin, spatial[1:])
+                )
+                d_sl0[idx] += w[:, None] * g  # transpose of the weighted slice, in place
+                gsl = torch.sum(g * sl0[idx], dim=1)
+                d_t[0] += (dw0 if w_in is None else dw0 * w_in) * gsl
+                for d, o in enumerate(oin):
+                    others = w0
+                    for e, we in enumerate(ws_in):
+                        if e != d:
+                            others = others * we
+                    d_t[d + 1] += _offset_slope(f[:, d + 1], o, t.dtype) * others * gsl
+        d_I = _unpad_edge(d_Ipad, radius, radius + 1)
+        if broadcasting:
+            d_I = torch.sum(d_I, dim=0, keepdim=True)
+        return d_I, torch.stack(d_t, dim=1), None
+
+
 def sample_displacement_bounded(I: torch.Tensor, disp: torch.Tensor,
                                 radius: int) -> torch.Tensor:
     """Exact sampling ``out(x) = I(x + disp(x))`` for every component of
     ``disp`` in ``[-radius, radius + 1)``: a sweep over the integer offsets
     ``o in [-radius, radius + 1]^dim``, each a slice of the edge-padded
     volume times a mask-weight.  Out-of-range points contribute zero.
+    Differentiable through the scatter-free backward of
+    :class:`_SampleBounded`, which keeps only ``I`` and ``disp``.
 
     I: ``(N or 1, C, *spatial)``; disp: ``(N, dim, *spatial)``."""
-    dim = disp.shape[1]
-    spatial = tuple(disp.shape[2:])
-    N = disp.shape[0]
-    Ib = I.expand((N,) + tuple(I.shape[1:])) if I.shape[0] == 1 and N > 1 else I
-    Ipad = _pad_edge(Ib, radius, radius + 1)
-    f = torch.floor(disp).to(torch.int64)
-    t = disp - torch.floor(disp)
-    offsets = range(-radius, radius + 2)
-    inner = list(itertools.product(offsets, repeat=dim - 1))
-
-    out = torch.zeros((N, Ib.shape[1]) + spatial, dtype=I.dtype, device=I.device)
-    for o0 in offsets:
-        sl0 = Ipad[:, :, radius + o0: radius + o0 + spatial[0]]
-        w0 = _offset_weight(f[:, 0], t[:, 0], o0)
-        term0 = None
-        for oin in inner:
-            w = w0
-            for d, o in enumerate(oin):
-                w = w * _offset_weight(f[:, d + 1], t[:, d + 1], o)
-            idx = (slice(None), slice(None), slice(None)) + tuple(
-                slice(radius + o, radius + o + n) for o, n in zip(oin, spatial[1:])
-            )
-            contrib = w[:, None] * sl0[idx]
-            term0 = contrib if term0 is None else term0 + contrib
-        out = out + term0
-    return out
+    return _SampleBounded.apply(I, disp, int(radius))

@@ -19,7 +19,7 @@ import torch
 
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
-from lagomorph_tpu_torch.ops.kernels import epdiff_unit, fft_unit, warp_unit
+from lagomorph_tpu_torch.ops.kernels import epdiff_unit, fft_unit, shoot2d, warp_unit
 
 
 @pytest.fixture
@@ -141,3 +141,55 @@ def test_sharp_through_k3_matches_plain_on_cuda(cuda):
     with kernels.plain_versions():
         ref = metric.sharp(m)
     _compare(got, ref, 1e-4, 0.0)
+
+
+def shoot2d_inputs(rng, shape, m_batch, device, max_v0=0.5):
+    """``(phiinv0, m0, Mn)`` as ``expmap`` hands them to K8: momenta scaled
+    so that the initial velocity peaks at ``max_v0`` voxels, and the peeled
+    first step ``phiinv0 = -0.2 * v0``."""
+    N, _, H, W = shape
+    Mn = lt.FluidMetric((0.1, 0.0, 0.01)).packed_multiplier((H, W), torch.float32, device)
+    m0 = torch.as_tensor(rng.standard_normal(((1 if m_batch == "one" else N), 2, H, W)),
+                         dtype=torch.float32, device=device)
+    v0 = shoot2d.fluid2d_plain(m0, Mn)
+    m0 = m0 * (max_v0 / float(v0.abs().max()))
+    phiinv0 = (-0.2 * shoot2d.fluid2d_plain(m0, Mn)).expand(N, -1, -1, -1).contiguous()
+    return phiinv0, m0.contiguous(), Mn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 32, 64), (3, 2, 17, 12)])
+@pytest.mark.parametrize("m_batch", ["one", "N"])
+def test_shoot2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
+    """K8 (phiinv_T, the flag and, under autograd, the stashed trajectories)
+    and K9 (both gradients, d_m0 summed over the subjects for batch-1
+    momenta) against their plain versions on the card, at a power-of-two
+    and an odd shape (both line transforms), 4 substeps at s = -0.2, within
+    1e-4 * max|ref| (float32 transforms against cuFFT, as K3); a tripped
+    flag (a displacement of 1.5) comes out false both ways.  One launch of
+    each per call."""
+    rng = np.random.default_rng(6)
+    phiinv0, m0, Mn = shoot2d_inputs(rng, shape, m_batch, cuda)
+    kernels.reset_launches()
+    out, ok, tp, tv, tm = shoot2d._launch_fwd(phiinv0, m0, Mn, -0.2, 4, True)
+    r_out, r_ok, r_tp, r_tv, r_tm = shoot2d.shoot2d_fwd_plain(phiinv0, m0, Mn, -0.2, 4)
+    for got, ref in ((out, r_out), (tp, r_tp), (tv, r_tv), (tm, r_tm)):
+        _compare(got, ref, 1e-4, 0.0)
+    assert bool(ok) and bool(r_ok)
+    out2, ok2 = shoot2d.shoot2d(phiinv0, m0, Mn, -0.2, 4)  # no stash: ping-pong planes
+    assert torch.equal(out2, out) and bool(ok2)
+    g = torch.as_tensor(rng.standard_normal(tuple(out.shape)), dtype=torch.float32, device=cuda)
+    d_phi, d_m0 = shoot2d._launch_bwd(m0, g, tp, tv, tm, Mn, -0.2)
+    r_phi, r_m0 = shoot2d.shoot2d_bwd_plain(m0, g, r_tp, r_tv, r_tm, Mn, -0.2)
+    _compare(d_phi, r_phi, 1e-4, 0.0)
+    _compare(d_m0, r_m0, 1e-4, 0.0)
+    assert kernels.launch_counts()["shoot2d_fwd"] == 2 and kernels.launch_counts()["shoot2d_bwd"] == 1
+    leaves = [phiinv0.clone().requires_grad_(True), m0.clone().requires_grad_(True)]
+    got = torch.autograd.grad(shoot2d.shoot2d(*leaves, Mn, -0.2, 4)[0], leaves, g)
+    assert kernels.launch_counts()["shoot2d_bwd"] == 2
+    for a, b in zip(got, (d_phi, d_m0)):
+        assert torch.equal(a, b)
+    bad = phiinv0.clone()
+    bad.view(-1)[bad.numel() // 3] = 1.5
+    assert not bool(shoot2d.shoot2d(bad, m0, Mn, -0.2, 4)[1])
+    assert not bool(shoot2d.shoot2d_fwd_plain(bad, m0, Mn, -0.2, 4, stash=False)[1])

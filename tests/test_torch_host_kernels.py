@@ -13,6 +13,13 @@ in float32, before the card sees them; the card itself is checked by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  K3 (shared-memory
 transforms) is not emulated: its wrapper runs its plain version here.
 
+The per-pixel functions of ``csrc/stencil2d.cuh`` (the 2D stencils of K8
+and K9) are ``__host__ __device__`` and compile with g++ as they are;
+``tests/cuda_host/stencil2d_host.cpp`` loops them over the pixels and the
+test holds them against the plain 2D ops.  K8 and K9 themselves
+(cooperative launches, grid barriers, shared-memory line transforms) do not
+fit this emulation and are checked on the card only.
+
 Tolerances, float32 against the plain version on the same inputs: the
 forwards round each operation like the plain version (bit-equal); the
 backwards sum in another order than autograd (1e-5 * (1 + max|ref|)).
@@ -35,6 +42,8 @@ torch.set_num_threads(2)
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host")
 SOURCES = ("warp_unit.cu", "epdiff_unit.cu")
+# entry points of the kernels with shared memory or grid barriers
+NOT_EMULATED = ("lagomorph_fluid_flat", "lagomorph_shoot2d_fwd", "lagomorph_shoot2d_bwd")
 BWD_RTOL = 1e-5
 LAUNCH = re.compile(r"([\w:]+)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
 
@@ -78,7 +87,7 @@ def host_library(tmp_path_factory):
     assert r.returncode == 0, r.stderr
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _build.SIGNATURES.items():
-        if name != "lagomorph_fluid_flat":
+        if name not in NOT_EMULATED:
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
     lib.lagomorph_error_string.argtypes = [ctypes.c_int]
@@ -156,7 +165,8 @@ def test_host_kernels_match_plain(rng, host_kernels, shape):
     bad.view(-1)[bad.numel() // 2 + 5] = 1.0  # the unit regime's upper bound is open
     assert not bool(epdiff_unit.ad_star(bad, bad)[1])
     assert not bool(epdiff_unit.compose(bad, bad, 1.0)[1])
-    assert all(n > 0 for k, n in kernels.launch_counts().items() if k != "fluid_flat")
+    assert all(n > 0 for k, n in kernels.launch_counts().items()
+               if k not in ("fluid_flat", "shoot2d_fwd", "shoot2d_bwd"))
 
 
 def test_host_atlas_step_matches_plain(rng, host_kernels):
@@ -173,7 +183,8 @@ def test_host_atlas_step_matches_plain(rng, host_kernels):
     got = step(I, m, img)
     assert kernels.launch_counts() == {
         "fluid_flat": 0, "warp_unit_fwd": 1, "warp_unit_bwd": 1, "ad_star_fwd": 4,
-        "compose_fwd": 4, "ad_star_bwd": 4, "compose_bwd": 4}
+        "compose_fwd": 4, "ad_star_bwd": 4, "compose_bwd": 4, "shoot2d_fwd": 0,
+        "shoot2d_bwd": 0}
     assert not fft_unit.use_kernel(m)  # K3 took its plain version
     with kernels.plain_versions():
         ref = step(I, m, img)
@@ -181,3 +192,76 @@ def test_host_atlas_step_matches_plain(rng, host_kernels):
     assert float((update - r_update).abs().max()) <= 1e-5 * float(r_update.abs().max())
     assert float((got[1] - ref[1]).abs().max()) <= 1e-5 * float(ref[1].abs().max())
     assert abs(float(got[2]) - float(ref[2])) <= 1e-6 * abs(float(ref[2]))
+
+
+@pytest.fixture(scope="module")
+def stencil2d_library(tmp_path_factory):
+    """``stencil2d.cuh``'s per-pixel functions, looped over the pixels by
+    ``tests/cuda_host/stencil2d_host.cpp``, as a host library."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels' sources for the host")
+    so = tmp_path_factory.mktemp("host_stencil2d") / "libhost_stencil2d.so"
+    cmd = [gxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC", "-w", "-I", SHIM,
+           "-I", _build.CSRC, "-o", str(so), os.path.join(SHIM, "stencil2d_host.cpp")]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+    lib = ctypes.CDLL(str(so))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, argtypes in (("host_adstar2d", [P, P, P, P, I, I, I, I]),
+                           ("host_compose2d", [P, P, F, P, I, I, I]),
+                           ("host_compose2d_bwd", [P, P, F, P, P, P, I, I, I]),
+                           ("host_adstar2d_bwd", [P] * 7 + [I] * 4)):
+        getattr(lib, name).argtypes = argtypes
+    return lib
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 9, 12), (3, 2, 2, 7)])
+def test_host_stencil2d_matches_plain(rng, stencil2d_library, shape):
+    """The 2D per-pixel functions against the plain 2D ops in float32: Ad*
+    (with the warped momentum ``mw``) with batch-1 and batch-N momenta and
+    compose at s = -0.2 round each operation like the plain versions
+    (bit-equal); their backwards (d_phiinv and d_m0, summed over the
+    subjects for batch-1 momenta; d_phiinv and d_v) within 1e-5 * (1 +
+    max|ref|); the regime flags."""
+    lib = stencil2d_library
+    N, _, H, W = shape
+
+    def ptr(t):
+        return t.data_ptr()
+
+    for p in (f32(rng.uniform(-0.99, 0.99, shape)),
+              f32(np.where(rng.uniform(size=shape) < 0.5, -0.999, 0.999))):
+        for nb in (1, N):
+            m0 = f32(rng.standard_normal((nb, 2, H, W)))
+            out, mw = torch.empty(shape), torch.empty(shape)
+            ok = lib.host_adstar2d(ptr(p), ptr(m0), ptr(out), ptr(mw), N, nb, H, W)
+            r_out, r_flag, r_mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)
+            close("Ad*", out, r_out, 0.0)
+            close("Ad* mw", mw, r_mw, 0.0)
+            assert bool(ok) is bool(r_flag) is True
+            g = f32(rng.standard_normal(shape))
+            d_phi, d_m0, scratch = torch.empty(shape), torch.empty_like(m0), torch.empty(shape)
+            lib.host_adstar2d_bwd(ptr(p), ptr(m0), ptr(g), ptr(mw), ptr(scratch), ptr(d_phi),
+                                  ptr(d_m0), N, nb, H, W)
+            r_phi, r_m0 = epdiff_unit.ad_star_bwd_plain(p, m0, g, r_mw)
+            close("Ad* bwd d_phiinv", d_phi, r_phi, BWD_RTOL)
+            close("Ad* bwd d_m0", d_m0, r_m0, BWD_RTOL)
+        v = f32(rng.uniform(-4.9, 4.9, shape))
+        out = torch.empty(shape)
+        ok = lib.host_compose2d(ptr(p), ptr(v), -0.2, ptr(out), N, H, W)
+        r_out, r_flag = epdiff_unit.compose_plain(p, v, -0.2)
+        close("compose", out, r_out, 0.0)
+        assert bool(ok) is bool(r_flag) is True
+        g = f32(rng.standard_normal(shape))
+        d_phi, d_v = torch.empty(shape), torch.empty(shape)
+        lib.host_compose2d_bwd(ptr(p), ptr(v), -0.2, ptr(g), ptr(d_phi), ptr(d_v), N, H, W)
+        r_phi, r_v = epdiff_unit.compose_bwd_plain(p, v, -0.2, g)
+        close("compose bwd d_phiinv", d_phi, r_phi, BWD_RTOL)
+        close("compose bwd d_v", d_v, r_v, BWD_RTOL)
+    bad = f32(rng.uniform(-0.9, 0.9, shape))
+    bad.view(-1)[bad.numel() // 2 + 1] = 1.0  # the unit regime's upper bound is open
+    out = torch.empty(shape)
+    assert not lib.host_adstar2d(ptr(bad), ptr(bad), ptr(out), ptr(torch.empty(shape)),
+                                 N, N, H, W)
+    assert not lib.host_compose2d(ptr(bad), ptr(bad), 1.0, ptr(out), N, H, W)
