@@ -7,7 +7,9 @@ Drives the port's 3D atlas step (``lagomorph_tpu_torch``) at the headline
 size of the JAX package's bench (128^3, batch 4, 5 integration steps,
 ``FluidMetric([0.1, 0.0, 0.01])``, ``reg_weight=0.1``,
 ``learning_rate_pose=1e-6``; bench.py:81-103), and its 2D atlas step at
-the bench's 2D configurations (256^2 and 512^2, batch 8; bench.py:342-345):
+the bench's 2D configurations (256^2 and 512^2, batch 8; bench.py:342-345),
+with that metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
+--fluid_beta 0.05``):
 
 1. device: needs a CUDA card; prints the card's name and power limit;
 2. build: compiles the hand-written kernels from ``lagomorph_tpu_torch/csrc``
@@ -20,7 +22,9 @@ the bench's 2D configurations (256^2 and 512^2, batch 8; bench.py:342-345):
    kernels K8 (phiinv_T, flag and stashed trajectory) and K9 (both
    gradients) against their plain versions at 256^2 b8, 512^2 b8 and
    (3, 2, 96, 80), with batch-1 and batch-N momenta and a tripped flag,
-   launched directly and through the wrapper under autograd;
+   launched directly and through the wrapper under autograd; then the 2D
+   per-substep kernels K10-K13 (Ad*, compose and their backwards) against
+   their plain versions at the same three shapes, the same way;
 4. slice: ``_lddmm_loss`` forward through the kernels and through the
    plain versions, at the bench's momenta and at momenta scaled to a
    deformation of about half a voxel; the launch counters show the forward
@@ -41,15 +45,24 @@ the bench's 2D configurations (256^2 and 512^2, batch 8; bench.py:342-345):
    gradient held against a float64 one; the counters, set to 0 just before
    the 256^2 kernel steps and read just after, show K8 and K9 each
    launched once per step and no 3D kernel;
+6c. 2D atlas steps with ``beta = 0.05``, the path of K10-K13: the same
+   three chains, the counters set to 0 just before the 256^2 kernel steps
+   and read just after showing K10-K13 four times each per step and no
+   other kernel; then one step at 256^2 b8 on momenta whose flag trips
+   (max|v0| = 8, and 2), re-run on the exact general integration, whose
+   unit-regime warps run K10-K13;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call; the slice and the atlas step both ways, with
-   the peak device memory of each step; K8 and K9 at 256^2 b8 and the 2D
-   atlas step both ways at 256^2 b8 and 512^2 b8, with peak memory;
+   the peak device memory of each step; K8 and K9, and K10-K13 at one
+   substep's shapes, at 256^2 b8, and the 2D atlas step both ways, with
+   ``beta = 0`` and ``beta = 0.05``, at 256^2 b8 and 512^2 b8, with peak
+   memory;
 8. trace (only with ``--trace PATH``): ``torch.profiler`` traces of 5
    slices (``PATH``), of 5 atlas steps (``PATH`` with ``_steps`` before its
-   extension) and of 5 2D atlas steps at 256^2 b8 (``_steps2d``), with the
-   device time by kernel, the busy share and the idle gaps.
+   extension), of 5 2D atlas steps at 256^2 b8 (``_steps2d``) and of 5 such
+   steps with ``beta = 0.05`` (``_steps2d_beta``), with the device time by
+   kernel, the busy share and the idle gaps.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON record of the kernels; the last line, printed only when every
@@ -93,10 +106,17 @@ STEP_LAUNCHES = {"ad_star_fwd": 4, "compose_fwd": 4, "fluid_flat": 10, "warp_uni
                  "warp_unit_bwd": 1, "ad_star_bwd": 4, "compose_bwd": 4}
 FORWARD = ("warp_unit_fwd", "ad_star_fwd", "compose_fwd", "fluid_flat")
 KERNELS_2D = ("shoot2d_fwd", "shoot2d_bwd")
+KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
 # launches in one 2D atlas step: the whole shooting is one K8, its backward
 # one K9; the 2D fluid solve and warps are plain PyTorch (as in the JAX
 # package) and no 3D kernel runs
 STEP2D_LAUNCHES = {"shoot2d_fwd": 1, "shoot2d_bwd": 1}
+# the 2D step with a compressible fluid metric (`lddmm atlas --fluid_beta
+# 0.05`): K8's gate is closed by beta, so each of the 4 substeps after the
+# peeled first runs K10 (Ad*), the plain rfftn solve and K11 (compose), and
+# the backward K12 and K13 per substep
+PARAMS_BETA = (0.1, 0.05, 0.01)
+STEP2D_BETA_LAUNCHES = {k: STEPS - 1 for k in KERNELS_2D_PER_OP}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -483,48 +503,62 @@ def atlas_steps(lt, metric, I, m, img, m_half):
         check(e <= 1e-5, f"{label}: atlas update differs by {e:.3e} relative > 1e-5")
         del got, ref, grads
     log(f"main path (atlas steps at the bench momenta) launches: {main}")
-    check(all(n > 0 for k, n in main.items() if k not in KERNELS_2D),
+    check(all(n > 0 for k, n in main.items() if k not in KERNELS_2D + KERNELS_2D_PER_OP),
           f"a kernel of the 3D path was not launched: {main}")
-    check(all(main[k] == 0 for k in KERNELS_2D), f"a 2D kernel ran in a 3D step: {main}")
+    check(all(main[k] == 0 for k in KERNELS_2D + KERNELS_2D_PER_OP),
+          f"a 2D kernel ran in a 3D step: {main}")
     return main
 
 
-def fallback_step(lt, device):
-    """One atlas step on momenta whose substeps leave the unit regime
-    (max|v0| = 8), at ``FALLBACK``: through the kernels (the shooting
-    re-runs the general integration) and through the plain versions, with
-    its momentum gradient held against a float64 one and the peak device
-    memory of each."""
+def fallback_inputs(device, shape, seed):
+    """Standard normal momenta, atlas and images at ``shape`` from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=device)
+            for s in (shape, (1, 1) + shape[2:], (shape[0], 1) + shape[2:])]
+
+
+def fallback_step(lt, device, params, max_v0, m, I, img):
+    """One atlas step with ``FluidMetric(params)`` on the momenta ``m``
+    scaled so that their substeps leave the unit regime, the initial
+    velocity peaking at ``max_v0`` voxels (8: from the first substep; 2:
+    from the third): the hoisted path's flag trips and the shooting re-runs
+    ``_expmap_general``, which picks each warp's tier, so in 2D its
+    unit-regime warps run K10-K13.  Through the kernels and the plain
+    versions, with its momentum gradient held against a float64 one and the
+    peak device memory of each."""
     from lagomorph_tpu_torch import lddmm
 
-    rng = np.random.default_rng(3)
-    metric = lt.FluidMetric(PARAMS)
-
-    def t(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
-
-    m = t(rng.standard_normal(FALLBACK))
-    m = m * (8.0 / float(metric.sharp(m).abs().max()))
-    I = t(rng.standard_normal((1, 1) + FALLBACK[2:]))
-    img = t(rng.standard_normal((FALLBACK[0], 1) + FALLBACK[2:]))
+    metric = lt.FluidMetric(params)
+    shape = tuple(m.shape)
+    m = m * (max_v0 / float(metric.sharp(m).abs().max()))
+    label = f"fallback {'x'.join(map(str, shape))}, beta={params[1]}, max|v0| = {max_v0:g}"
     dt = 1.0 / STEPS
     v0 = metric.sharp(m)
     _, ok = lddmm._expmap_fast_flagged(metric, m, dt, STEPS - 1, -dt * v0, None)
-    check(not bool(ok), "fallback step: the hoisted flag did not trip")
+    check(not bool(ok), f"{label}: the hoisted flag did not trip")
     step = make_step(lt, metric)
     runs = {}
     for mode in ("kernels", "plain"):
         torch.cuda.reset_peak_memory_stats(device)
         runs[mode] = step_chain(step, I, m, img, mode, steps=1)[0]
-        log(f"  fallback step ({mode}): peak device memory "
+        log(f"  {label} ({mode}): peak device memory "
             f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
     grads = {mode: momentum_grads(metric, I, [m], img, mode)
              for mode in ("kernels", "plain", "float64")}
-    launched = runs["kernels"][0][4]
-    log(f"fallback step at {'x'.join(map(str, FALLBACK))}, max|v0| = 8: launches {launched}")
-    check(launched["ad_star_fwd"] >= STEPS - 1, "fallback step: the fast path did not run first")
-    step_compare("fallback", runs["kernels"], runs["plain"], grads, FALLBACK_P_TOL,
-                 grad_tol=1e-4)
+    launched = {k: n for k, n in runs["kernels"][0][4].items() if n}
+    log(f"{label}: launches {launched}")
+    fast = ("ad_star_fwd", "compose_fwd") if len(shape) == 5 else KERNELS_2D_PER_OP[:2]
+    check(all(launched.get(k, 0) >= STEPS - 1 for k in fast),
+          f"{label}: the fast path did not run first")
+    if len(shape) == 4:
+        check(all(k in KERNELS_2D_PER_OP for k in launched),
+              f"{label}: a kernel off the 2D per-substep path ran: {launched}")
+        check(max_v0 > 2 or (launched["ad_star2d_fwd"] > STEPS - 1
+                             and launched.get("ad_star2d_bwd", 0) > 0
+                             and launched.get("compose2d_bwd", 0) > 0),
+              f"{label}: the general re-run took no kernel on its unit-regime warps")
+    step_compare(label, runs["kernels"], runs["plain"], grads, FALLBACK_P_TOL, grad_tol=1e-4)
 
 
 def shoot2d_checks(lt, device, shape, seed):
@@ -612,25 +646,115 @@ def shoot2d_checks(lt, device, shape, seed):
     return errs
 
 
-def atlas_steps_2d(lt, device):
-    """Phase 6b, the 2D main path: ``CHAIN`` chained 2D atlas steps at
-    256^2 b8 and 512^2 b8 on bench.py's inputs, and at 256^2 b8 on its
-    momenta scaled to max|v0| = 0.5, through the kernels and the plain
-    versions, each step's momentum gradient held against a float64 one.
-    The counters are set to 0 just before the 256^2 bench momenta's kernel
-    steps and read just after: K8 and K9 must each run once per step, and no
-    3D kernel.  Returns those counts."""
+def epdiff2d_checks(device, shape, seed):
+    """Phase 3, 2D per-substep kernels, at one shape: K10 (out, ``mw``,
+    flag) and K11 (out, flag; s = -0.2) against their plain versions, K12
+    and K13 against the plain backwards on the same inputs, with batch-1
+    (d_m0 summed over the subjects) and batch-N momenta, all within 1e-5 *
+    (1 + max|ref|); inputs that trip each flag (and an in-regime edge
+    value) give equal flags both ways; then the wrappers ``ad_star2d`` and
+    ``compose2d`` under ``torch.autograd.grad`` (forward and backward
+    kernel once each, a transposed cotangent) against autograd of the plain
+    versions.  Returns {kernel: err}."""
+    from lagomorph_tpu_torch.ops.kernels import epdiff2d, launch_counts, plain_versions
+
+    N, _, H, W = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    p = t(rng.uniform(-0.99, 0.99, shape))
+    v = t(rng.uniform(-4.9, 4.9, shape))  # s*v in (-0.98, 0.98) at s = -0.2
+    s = -0.2
+    errs = {k: 0.0 for k in KERNELS_2D_PER_OP}
+    log(f"2D per-substep kernels at {'x'.join(map(str, shape))}:")
+
+    def hold(name, label, pairs):
+        for what, g, r in pairs:
+            errs[name] = max(errs[name], compare(f"{name} {label} {what}", g, r, 1e-5))
+
+    for label, nb in (("m0(N,2)", N), ("m0(1,2)", 1)):
+        m0 = t(rng.standard_normal((nb, 2, H, W)))
+        out, flag, mw = epdiff2d._launch_ad_star(p, m0, want_mw=True)
+        r_out, r_flag, r_mw = epdiff2d.ad_star2d_plain(p, m0, want_mw=True)
+        hold("ad_star2d_fwd", label, [("out", out, r_out), ("mw", mw, r_mw)])
+        check(bool(flag) and bool(r_flag), f"ad_star2d_fwd {label}: in-regime flag false")
+        g = t(rng.standard_normal(shape))
+        hold("ad_star2d_bwd", label, zip(("d_phiinv", "d_m0"),
+                                         epdiff2d._launch_ad_star_bwd(p, m0, g, r_mw),
+                                         epdiff2d.ad_star2d_bwd_plain(p, m0, g, r_mw)))
+        bad = p.clone()
+        bad.view(-1)[:: 1 + bad.numel() // 7] = 1.0  # the upper bound is open
+        bad.view(-1)[5] = -1.5
+        _, gf = epdiff2d.ad_star2d(bad, m0)
+        with plain_versions():
+            _, rf = epdiff2d.ad_star2d(bad, m0)
+        check(not bool(gf) and not bool(rf), f"ad_star2d_fwd {label}: tripped flag not false")
+    out, flag = epdiff2d.compose2d(p, v, s)
+    r_out, r_flag = epdiff2d.compose2d_plain(p, v, s)
+    hold("compose2d_fwd", "s=-0.2", [("out", out, r_out)])
+    check(bool(flag) and bool(r_flag), "compose2d_fwd: in-regime flag false")
+    g = t(rng.standard_normal(shape))
+    hold("compose2d_bwd", "s=-0.2", zip(("d_phiinv", "d_v"),
+                                        epdiff2d._launch_compose_bwd(p, v, s, g),
+                                        epdiff2d.compose2d_bwd_plain(p, v, s, g)))
+    # s*v = 1.02 lies outside; s*v == -1.0 inside (the lower bound is closed)
+    for value, inside in ((-5.1, False), (5.0, True)):
+        edge_v = v.clone()
+        edge_v.view(-1)[edge_v.numel() // 2] = value
+        _, gf = epdiff2d.compose2d(p, edge_v, s)
+        _, rf = epdiff2d.compose2d_plain(p, edge_v, s)
+        check(bool(gf) is bool(rf) is inside,
+              f"compose2d_fwd: flags {bool(gf)}, {bool(rf)} at s*v = {s * value}")
+    log("  flags: equal in and out of the unit regime")
+
+    # the wrappers and their autograd.Functions, as the main path calls them
+    cases = (("ad_star2d", lambda a, b: epdiff2d.ad_star2d(a, b),
+              (p, t(rng.standard_normal((1, 2, H, W))))),
+             ("compose2d", lambda a, b: epdiff2d.compose2d(a, b, s), (p, v)))
+    for name, fn, args in cases:
+        leaves, refs = ([x.clone().requires_grad_(True) for x in args] for _ in range(2))
+        cot = t(rng.standard_normal((N, 2, W, H))).transpose(2, 3)
+        before = launch_counts()
+        out, flag = fn(*leaves)
+        d_got = torch.autograd.grad(out, leaves, cot)
+        after = launch_counts()
+        check(after[f"{name}_fwd"] == before[f"{name}_fwd"] + 1
+              and after[f"{name}_bwd"] == before[f"{name}_bwd"] + 1,
+              f"{name}: the wrapper did not launch its forward and backward kernels once each")
+        with plain_versions():
+            ref_out, ref_flag = fn(*refs)
+        d_ref = torch.autograd.grad(ref_out, refs, cot)
+        check(bool(flag) and bool(ref_flag), f"{name} wrapper: in-regime flag false")
+        hold(f"{name}_fwd", "wrapper", [("out", out.detach(), ref_out.detach())])
+        hold(f"{name}_bwd", "autograd", zip(("d_arg0", "d_arg1"), d_got, d_ref))
+    log("  wrappers under autograd: forward and backward kernels once per call")
+    return errs
+
+
+def atlas_steps_2d(lt, device, params=PARAMS, launches=STEP2D_LAUNCHES):
+    """Phases 6b and 6c, the 2D main paths: ``CHAIN`` chained 2D atlas steps
+    with ``FluidMetric(params)`` at 256^2 b8 and 512^2 b8 on bench.py's
+    inputs, and at 256^2 b8 on its momenta scaled to max|v0| = 0.5, through
+    the kernels and the plain versions, each step's momentum gradient held
+    against a float64 one.  The counters are set to 0 just before the 256^2
+    bench momenta's kernel steps and read just after: each step must make
+    ``launches`` (6b, ``beta == 0``: K8 and K9 once; 6c, ``beta != 0``:
+    K10-K13 four times each), and no other kernel may run.  Returns those
+    counts."""
     from lagomorph_tpu_torch.ops import kernels
 
-    metric = lt.FluidMetric(PARAMS)
+    metric = lt.FluidMetric(params)
     step = make_step(lt, metric)
+    tag = f"2D beta={params[1]}"
     main = None
     for shape, half in ((FULL2D, False), (FULL2D, True), (FULL2D_512, False)):
         I, m, img = bench_inputs(device, shape)
-        label = f"2D {shape[2]}^2 b{shape[0]}, bench momenta (x2e-6)"
+        label = f"{tag} {shape[2]}^2 b{shape[0]}, bench momenta (x2e-6)"
         if half:
             m = m * (0.5 / float(metric.sharp(m).abs().max()))
-            label = f"2D {shape[2]}^2 b{shape[0]}, max|v0| = 0.5"
+            label = f"{tag} {shape[2]}^2 b{shape[0]}, max|v0| = 0.5"
         if main is None:
             kernels.reset_launches()
         got, dI = step_chain(step, I, m, img, "kernels")
@@ -642,7 +766,7 @@ def atlas_steps_2d(lt, device):
         log(f"atlas steps, {label}: {CHAIN} chained steps through the kernels vs the plain "
             "versions (float32); momentum gradients vs float64")
         want = {k: 0 for k in got[0][4]}
-        want.update(STEP2D_LAUNCHES)
+        want.update(launches)
         for i, g in enumerate(got):
             check(g[4] == want, f"{label} step {i + 1}: launches {g[4]}, want {want}")
             check(tuple(g[1].shape) == shape and tuple(g[2].shape) == tuple(I.shape),
@@ -653,10 +777,10 @@ def atlas_steps_2d(lt, device):
         log(f"  {label} atlas update: rel err={e:.3e}; launches per step {got[0][4]}")
         check(e <= 1e-5, f"{label}: atlas update differs by {e:.3e} relative > 1e-5")
         del got, ref, grads
-    log(f"2D main path (atlas steps at 256^2 b8) launches: {main}")
-    check(all(main[k] > 0 for k in KERNELS_2D), f"a 2D kernel was not launched: {main}")
-    check(all(n == 0 for k, n in main.items() if k not in KERNELS_2D),
-          f"a 3D kernel ran in a 2D step: {main}")
+    log(f"{tag} main path (atlas steps at 256^2 b8) launches: {main}")
+    check(all(main[k] > 0 for k in launches), f"a {tag} kernel was not launched: {main}")
+    check(all(n == 0 for k, n in main.items() if k not in launches),
+          f"a kernel off the {tag} path ran: {main}")
     return main
 
 
@@ -701,6 +825,11 @@ FLAG2 = 8  # two compares per component, s*v and phiinv
 # product and a sum per (tap, channel)
 TRANSPOSE2 = AXIS_W2 + TAP_W2 + 18 * 2
 WGRAD2 = 2 * AXIS_W2 + 9 * (3 + 2 * 3)  # weights and slopes; per tap <c, I> and 2 products and sums
+# per pixel: Ad*'s backward (d_mw 12, the divergence path 2 x 10, sums 4)
+# and compose's (s g + s dd, 4), each with a transposed warp and a weight
+# gradient
+ADSTAR2_BWD = TRANSPOSE2 + WGRAD2 + 12 + 2 * 10 + 4
+COMPOSE2_BWD = TRANSPOSE2 + WGRAD2 + 4
 
 
 def work(name, N, V, F=None):
@@ -732,8 +861,17 @@ def work(name, N, V, F=None):
     if name == "shoot2d_fwd":  # read phi0, m0, Mn; write phi_T and 3T stash fields
         return (3 + 3 * F) * f2 + 4 * V, F * N * (V * (AD2 + COMPOSE2 + FLAG2) + fft2)
     if name == "shoot2d_bwd":  # read m0, g, Mn and the 3T stash; write d_phi0, d_m0
-        return (4 + 3 * F) * f2 + 4 * V, F * N * (
-            V * (2 * TRANSPOSE2 + 2 * WGRAD2 + 4 + 12 + 2 * 10 + 4) + fft2)
+        return (4 + 3 * F) * f2 + 4 * V, F * N * (V * (ADSTAR2_BWD + COMPOSE2_BWD) + fft2)
+    # the 2D per-substep kernels, one substep at batch-N momenta, each
+    # counted as its share of K8's and K9's stencils
+    if name == "ad_star2d_fwd":  # read phi, m0; write out, mw (under autograd)
+        return 4 * f2, N * V * (AD2 + FLAG2 // 2)
+    if name == "compose2d_fwd":  # read phi, v; write out
+        return 3 * f2, N * V * (COMPOSE2 + FLAG2 // 2)
+    if name == "ad_star2d_bwd":  # read phi, m0, g, mw; write d_phi, d_m0
+        return 6 * f2, N * V * ADSTAR2_BWD
+    if name == "compose2d_bwd":  # read phi, v, g; write d_phi, d_v
+        return 5 * f2, N * V * COMPOSE2_BWD
     raise KeyError(name)
 
 
@@ -855,12 +993,14 @@ def timings(device, card, lt, metric, I, m, img):
 
 def timings2d(device, card, lt):
     """Per-call ms at 256^2 b8 of K8 (with the stash, as under autograd) and
-    K9 beside their plain versions (order: plain, kernel, kernel, plain) and
-    the bound of their work (no PyTorch call computes either function);
-    then the 2D atlas step both ways at 256^2 b8 and 512^2 b8, with the peak
-    device memory of each step.  Returns {kernel: {ms, plain_ms,
-    library_ms, bound_ms, bound_by}}."""
-    from lagomorph_tpu_torch.ops.kernels import plain_versions, shoot2d
+    K9, and of K10 (writing ``mw``, as under autograd), K11, K12 and K13 at
+    one substep of the ``beta = 0.05`` shooting, each beside its plain
+    version (order: plain, kernel, kernel, plain) and the bound of its work
+    (no PyTorch call computes any of these functions); then the 2D atlas
+    step both ways with ``beta = 0`` and ``beta = 0.05`` at 256^2 b8 and
+    512^2 b8, with the peak device memory of each step.  Returns {kernel:
+    {ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    from lagomorph_tpu_torch.ops.kernels import epdiff2d, plain_versions, shoot2d
 
     N, _, H, W = FULL2D
     metric = lt.FluidMetric(PARAMS)
@@ -871,56 +1011,70 @@ def timings2d(device, card, lt):
     traj = shoot2d._launch_fwd(phiinv0, m, Mn, s, T, True)[2:]
     g = torch.as_tensor(np.random.default_rng(8).standard_normal(FULL2D), dtype=torch.float32,
                         device=device)
+    # the operands of the beta = 0.05 shooting's second substep
+    v0 = lt.FluidMetric(PARAMS_BETA).sharp(m)
+    phi1 = s * v0
+    _, _, mw = epdiff2d._launch_ad_star(phi1, m, want_mw=True)
     calls = {
         "shoot2d_fwd": (lambda: shoot2d._launch_fwd(phiinv0, m, Mn, s, T, True),
-                        lambda: shoot2d.shoot2d_fwd_plain(phiinv0, m, Mn, s, T)),
+                        lambda: shoot2d.shoot2d_fwd_plain(phiinv0, m, Mn, s, T), T),
         "shoot2d_bwd": (lambda: shoot2d._launch_bwd(m, g, *traj, Mn, s),
-                        lambda: shoot2d.shoot2d_bwd_plain(m, g, *traj, Mn, s)),
+                        lambda: shoot2d.shoot2d_bwd_plain(m, g, *traj, Mn, s), T),
+        "ad_star2d_fwd": (lambda: epdiff2d._launch_ad_star(phi1, m, want_mw=True),
+                          lambda: epdiff2d.ad_star2d_plain(phi1, m, want_mw=True), 1),
+        "compose2d_fwd": (lambda: epdiff2d._launch_compose(phi1, v0, s),
+                          lambda: epdiff2d.compose2d_plain(phi1, v0, s), 1),
+        "ad_star2d_bwd": (lambda: epdiff2d._launch_ad_star_bwd(phi1, m, g, mw),
+                          lambda: epdiff2d.ad_star2d_bwd_plain(phi1, m, g, mw), 1),
+        "compose2d_bwd": (lambda: epdiff2d._launch_compose_bwd(phi1, v0, s, g),
+                          lambda: epdiff2d.compose2d_bwd_plain(phi1, v0, s, g), 1),
     }
     out = {}
-    for name, (fn, plain) in calls.items():
+    for name, (fn, plain, substeps) in calls.items():
         p1 = time_ms(plain, device, 10)
         k1 = time_ms(fn, device, 10)
         k2 = time_ms(fn, device, 10)
         p2 = time_ms(plain, device, 10)
-        b_ms, b_by = bound(*work(name, N, H * W, F=T))
+        b_ms, b_by = bound(*work(name, N, H * W, F=substeps))
         out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
                      "bound_ms": b_ms, "bound_by": b_by}
         log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
             f"library none, bound {b_ms:.4f} ms ({b_by}) per call at 256^2 b8, "
-            f"{T} substeps [{card}]")
+            f"{substeps} substep{'s' if substeps > 1 else ''} [{card}]")
 
-    step = make_step(lt, metric)
-    for shape in (FULL2D, FULL2D_512):
-        I, m, img = bench_inputs(device, shape)
+    for params in (PARAMS, PARAMS_BETA):
+        step = make_step(lt, lt.FluidMetric(params))
+        for shape in (FULL2D, FULL2D_512):
+            I, m, img = bench_inputs(device, shape)
 
-        def atlas_step():
-            return float(step(I, m, img)[2])
+            def atlas_step():
+                return float(step(I, m, img)[2])
 
-        samples = {False: [], True: []}
-        for is_plain in (True, False, False, True):
-            with plain_versions() if is_plain else contextlib.nullcontext():
-                samples[is_plain].append(time_ms(atlas_step, device, 5, warmup=1))
-        peak = {}
-        for is_plain in (False, True):
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
-            with plain_versions() if is_plain else contextlib.nullcontext():
-                atlas_step()
-            peak[is_plain] = torch.cuda.max_memory_allocated(device) / 2**30
-        k, p = samples[False], samples[True]
-        log(f"time 2D atlas step ({shape[2]}^2 b{shape[0]}, 5 steps): kernels "
-            f"{k[0]:.3f}/{k[1]:.3f} ms ({2000 / (k[0] + k[1]):.2f} steps/s), plain "
-            f"{p[0]:.3f}/{p[1]:.3f} ms per step; peak device memory per step: kernels "
-            f"{peak[False]:.3f} GiB, plain {peak[True]:.3f} GiB [{card}]")
+            samples = {False: [], True: []}
+            for is_plain in (True, False, False, True):
+                with plain_versions() if is_plain else contextlib.nullcontext():
+                    samples[is_plain].append(time_ms(atlas_step, device, 5, warmup=1))
+            peak = {}
+            for is_plain in (False, True):
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                with plain_versions() if is_plain else contextlib.nullcontext():
+                    atlas_step()
+                peak[is_plain] = torch.cuda.max_memory_allocated(device) / 2**30
+            k, p = samples[False], samples[True]
+            log(f"time 2D atlas step (beta={params[1]}, {shape[2]}^2 b{shape[0]}, 5 steps): "
+                f"kernels {k[0]:.3f}/{k[1]:.3f} ms ({2000 / (k[0] + k[1]):.2f} steps/s), plain "
+                f"{p[0]:.3f}/{p[1]:.3f} ms per step; peak device memory per step: kernels "
+                f"{peak[False]:.3f} GiB, plain {peak[True]:.3f} GiB [{card}]")
     return out
 
 
 def trace_run(device, card, fn, label, path, n=5):
     """Optional phase (``--trace PATH``): a ``torch.profiler`` trace of
     ``n`` calls of ``fn`` (``label`` names one call), written to ``path`` as
-    a Chrome trace.  Prints the device time per call of each kernel, the
-    device's busy share over the traced span, and its idle gaps."""
+    a Chrome trace.  Prints the device time per call of the 16 largest
+    kernels and of every kernel of the port, the device's busy share over
+    the traced span, and its idle gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -956,8 +1110,10 @@ def trace_run(device, card, fn, label, path, n=5):
         f"{busy / span:.3f} of the traced span [{card}]")
     log(f"trace: {len(gaps)} idle gaps, {sum(g > 50 for g in gaps)} over 50 us; "
         f"largest (us): {', '.join(f'{g:.0f}' for g in gaps[:8])}")
-    for name, (ms, k) in sorted(per.items(), key=lambda kv: -kv[1][0])[:16]:
-        log(f"trace: {ms / n:8.3f} ms/{label} {k / n:5.1f} calls/{label}  {name[:90]}")
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (ms, k)) in enumerate(ranked):
+        if i < 16 or name.startswith("lagomorph::"):
+            log(f"trace: {ms / n:8.3f} ms/{label} {k / n:5.1f} calls/{label}  {name[:90]}")
     log(f"trace: written to {path}")
 
 
@@ -976,7 +1132,7 @@ def run(device, card, trace_path=None):
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, "
         f"{len(_build._sources())} sources in parallel)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
     # 3. kernels against their plain versions, forward and backward
@@ -989,6 +1145,10 @@ def run(device, card, trace_path=None):
     for name, err in shoot2d_checks(lt, device, FULL2D_512, seed=9).items():
         errs[name] = max(errs[name], err)
     shoot2d_checks(lt, device, ODD2D, seed=6)
+    errs.update(epdiff2d_checks(device, FULL2D, seed=10))
+    for shape, seed in ((FULL2D_512, 11), (ODD2D, 12)):
+        for name, err in epdiff2d_checks(device, shape, seed).items():
+            errs[name] = max(errs[name], err)
 
     # 4. the slice forward, at the bench's momenta and at momenta scaled to
     # a half-voxel deformation, with the launch counters set to 0 just
@@ -1015,10 +1175,16 @@ def run(device, card, trace_path=None):
 
     # 6. the main path: atlas steps, then one step on fallback momenta
     main = atlas_steps(lt, metric, I, m, img, m_half)
-    fallback_step(lt, device)
+    fallback_step(lt, device, PARAMS, 8.0, *fallback_inputs(device, FALLBACK, seed=3))
     # 6b. the 2D main path: its kernels' launches come from its own run
     main2d = atlas_steps_2d(lt, device)
     main.update({k: main2d[k] for k in KERNELS_2D})
+    # 6c. the 2D path with beta != 0 on K10-K13, and its fallback
+    main2d = atlas_steps_2d(lt, device, PARAMS_BETA, STEP2D_BETA_LAUNCHES)
+    main.update({k: main2d[k] for k in KERNELS_2D_PER_OP})
+    I2, m2, img2 = bench_inputs(device, FULL2D)
+    for max_v0 in (8.0, 2.0):
+        fallback_step(lt, device, PARAMS_BETA, max_v0, m2, I2, img2)
 
     # 7. timings
     times = timings(device, card, lt, metric, I, m, img)
@@ -1036,6 +1202,9 @@ def run(device, card, trace_path=None):
         I2, m2, img2 = bench_inputs(device, FULL2D)
         trace_run(device, card, lambda: float(step(I2, m2, img2)[2]), "2D step",
                   f"{base}_steps2d{ext or '.json'}")
+        step_beta = make_step(lt, lt.FluidMetric(PARAMS_BETA))
+        trace_run(device, card, lambda: float(step_beta(I2, m2, img2)[2]), "2D beta step",
+                  f"{base}_steps2d_beta{ext or '.json'}")
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
@@ -1049,9 +1218,10 @@ def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--trace", metavar="PATH",
                     help="also trace 5 slices (into this Chrome-trace file), 5 atlas "
-                         "steps (into PATH with _steps before its extension) and 5 2D "
-                         "atlas steps at 256^2 b8 (_steps2d) with torch.profiler, and "
-                         "print the device time by kernel and the busy share")
+                         "steps (into PATH with _steps before its extension), 5 2D "
+                         "atlas steps at 256^2 b8 (_steps2d) and 5 with beta = 0.05 "
+                         "(_steps2d_beta) with torch.profiler, and print the device "
+                         "time by kernel and the busy share")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",

@@ -4,9 +4,12 @@ The LDDMM atlas step in 3D and 2D: geodesic shooting of momenta to an
 inverse deformation, the atlas warp, the atlas loss, its gradients and the
 update of the momenta (``make_lddmm_atlas_step``), forward and backward on
 hand-written Hopper kernels (``ops/kernels``, sources in ``csrc/``) for CUDA
-tensors and on their plain PyTorch versions for CPU tensors.  Tensors are
-NC(D)HW, as in the JAX package.  This package imports torch and numpy, never
-jax.
+tensors and on their plain PyTorch versions for CPU tensors: in 3D the
+per-substep kernels of ``ops/kernels/epdiff_unit``, in 2D the whole-shoot
+kernels of ``ops/kernels/shoot2d`` or, for a momentum mask or a fluid
+metric with ``beta != 0``, the per-substep kernels of
+``ops/kernels/epdiff2d``.  Tensors are NC(D)HW, as in the JAX package.
+This package imports torch and numpy, never jax.
 """
 from .ops import (
     diff_central,

@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from .ops.interp import interp_auto, warp_tier
-from .ops.kernels import epdiff_unit
+from .ops.kernels import epdiff2d, epdiff_unit
 from .ops.sampling import identity_grid
 
 __all__ = ["identity", "compose", "compose_disp_vel"]
@@ -23,25 +23,31 @@ def identity(defshape, dtype=torch.float32, *, device) -> torch.Tensor:
     return grid[None].expand((defshape[0], len(spatial)) + spatial)
 
 
-def _k2_covers(u, v):
-    return (u.dim() == 5 and u.shape[1] == 3 and v.shape[1] == 3
-            and v.shape[0] == u.shape[0] and v.shape[2:] == u.shape[2:])
+def _unit_kernel(u, v):
+    """The unit-regime compose kernel covering these fields: K2 for 3D
+    three-channel fields, K11 for 2D two-channel ones, both of one batch
+    and grid, else None."""
+    dim = u.dim() - 2
+    if (dim not in (2, 3) or u.shape[1] != dim or v.dim() != u.dim() or v.shape[1] != dim
+            or v.shape[0] != u.shape[0] or v.shape[2:] != u.shape[2:]):
+        return None
+    return epdiff_unit.compose if dim == 3 else epdiff2d.compose2d
 
 
 def compose(u: torch.Tensor, v: torch.Tensor, ds: float = 1.0, dt: float = 1.0,
             mode: str | None = None) -> torch.Tensor:
     """``ds*u(x) + dt*v(x + ds*u(x))``.
 
-    With ``dt == 1`` on 3D fields the unit regime runs kernel K2: always for
-    ``mode="unit"``; for ``mode`` None or "auto" when the warp tier of
-    ``ds*u`` (read on the host once) is "unit", else that tier's warp.
-    ``mode`` "bounded" / "general" forces that warp tier."""
+    With ``dt == 1`` the unit regime runs kernel K2 on 3D fields, K11 on 2D
+    ones: always for ``mode="unit"``; for ``mode`` None or "auto" when the
+    warp tier of ``ds*u`` (read on the host once) is "unit", else that
+    tier's warp.  ``mode`` "bounded" / "general" forces that warp tier."""
     mode = "auto" if mode is None else mode
-    k2 = isinstance(ds, (int, float)) and dt == 1.0 and _k2_covers(u, v)
-    if k2 and mode == "auto":
+    kernel = _unit_kernel(u, v) if isinstance(ds, (int, float)) and dt == 1.0 else None
+    if kernel is not None and mode == "auto":
         mode = warp_tier(ds * u)
-    if k2 and mode == "unit":
-        return epdiff_unit.compose(v, u, float(ds))[0]
+    if kernel is not None and mode == "unit":
+        return kernel(v, u, float(ds))[0]
     return ds * u + dt * interp_auto(v, u, dt=ds, mode=mode)
 
 

@@ -2,10 +2,11 @@
 
 Port of ``lagomorph_tpu/lddmm.py``: ``EPDiff_step``, ``expmap`` with the
 peeled first step, the hoisted fast path with its validity flag and exact
-fallback (3D on the per-substep kernels, 2D in one launch of the
-whole-shoot kernel), ``shooting_regime_ok``, ``_lddmm_loss`` and
-``make_lddmm_atlas_step`` (the loss, its gradients by autograd through the
-kernels' backwards, and the update of the momenta).
+fallback (on the per-substep kernels; 2D with ``beta == 0`` and no
+momentum mask in one launch of the whole-shoot kernel),
+``shooting_regime_ok``, ``_lddmm_loss`` and ``make_lddmm_atlas_step`` (the
+loss, its gradients by autograd through the kernels' backwards, and the
+update of the momenta).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 from . import adjrep, deform
 from .metric import FluidMetric
 from .ops.interp import in_unit as _in_unit
-from .ops.kernels import epdiff_unit, shoot2d
+from .ops.kernels import epdiff2d, epdiff_unit, shoot2d
 
 __all__ = ["EPDiff_step", "expmap", "make_lddmm_atlas_step", "shooting_regime_ok"]
 
@@ -68,45 +69,52 @@ def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
 
 def _fast_integrator(metric, m0, dt, mommask):
     """The flagged fast integrator for these momenta, by dimension:
-    :func:`_expmap_fast_flagged` (the per-substep kernels K1, K2) for 3D
-    three-channel fields, :func:`_shoot2d_flagged` (the whole shooting in
-    one launch of K8) for 2D two-channel fields under the JAX package's
-    conditions (``lagomorph_tpu/lddmm.py:276-280``,
-    ``lagomorph_tpu/ops/pallas/shoot2d.py:104-111``): no ``mommask``, a
-    ``FluidMetric`` with ``beta == 0``, a Python number ``dt``.  None: the
-    per-step loop.  The TPU-only conditions of the JAX gate (``H % 8``,
-    ``W % 128``, ``H, W <= 512``, ``T <= 32`` and the VMEM budget,
-    ``shoot2d.py:64-86, 112-115``) do not apply to the card's kernel and are
-    dropped."""
-    if m0.dim() == 5 and m0.shape[1] == 3:
-        return _expmap_fast_flagged
-    if (m0.dim() == 4 and m0.shape[1] == 2 and mommask is None
-            and isinstance(metric, FluidMetric) and metric.params[1] == 0.0
-            and isinstance(dt, (int, float))):
+    :func:`_expmap_fast_flagged` (the per-substep kernels: K1, K2 for 3D
+    three-channel fields, K10, K11 for 2D two-channel ones), except that 2D
+    fields take :func:`_shoot2d_flagged` (the whole shooting in one launch
+    of K8) under the JAX package's conditions (``lagomorph_tpu/lddmm.py:
+    276-294``, ``lagomorph_tpu/ops/pallas/shoot2d.py:104-111``): no
+    ``mommask``, a ``FluidMetric`` with ``beta == 0``, a Python number
+    ``dt``.  None: the per-step loop.  The TPU-only conditions of the JAX
+    gates (``H % 8``, ``W % 128``, ``H, W <= 512``, ``T <= 32`` and the VMEM
+    budgets, ``shoot2d.py:64-86, 112-115``, ``epdiff2d.py:52-72``) do not
+    apply to the card's kernels and are dropped."""
+    dim = m0.dim() - 2
+    if dim not in (2, 3) or m0.shape[1] != dim:
+        return None
+    if (dim == 2 and mommask is None and isinstance(metric, FluidMetric)
+            and metric.params[1] == 0.0 and isinstance(dt, (int, float))):
         return _shoot2d_flagged
-    return None
+    return _expmap_fast_flagged
 
 
 def _shoot2d_flagged(metric, m0, dt, length, phiinv0, mommask):
-    """The 2D hoisted fast path: all ``length`` substeps in one launch of K8
-    (its backward one launch of K9).  ``mommask`` is always None here (see
-    :func:`_fast_integrator`).  Returns ``(phiinv, ok)``."""
+    """The 2D hoisted fast path for ``beta == 0``: all ``length`` substeps
+    in one launch of K8 (its backward one launch of K9).  ``mommask`` is
+    always None here (see :func:`_fast_integrator`).  Returns ``(phiinv,
+    ok)``."""
     Mn = metric.packed_multiplier(m0.shape[2:], m0.dtype, m0.device)
     return shoot2d.shoot2d(phiinv0, m0, Mn, -dt, length)
 
 
 def _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask):
-    """The hoisted fast loop: ``length`` substeps on the unit-regime kernels
-    K1 (Ad*) and K2 (compose), accumulating their flags on the device.
-    Returns ``(phiinv, ok)``; ``phiinv`` is exact iff ``ok``."""
+    """The hoisted fast loop: ``length`` substeps on the unit-regime
+    kernels for the fields' dimension (3D: K1 Ad*, K2 compose; 2D: K10,
+    K11; ``lagomorph_tpu/lddmm.py:_hoisted_fused_pair``), accumulating
+    their flags on the device.  Returns ``(phiinv, ok)``; ``phiinv`` is
+    exact iff ``ok``."""
+    if m0.dim() == 5:
+        ad_star, compose = epdiff_unit.ad_star, epdiff_unit.compose
+    else:
+        ad_star, compose = epdiff2d.ad_star2d, epdiff2d.compose2d
     phiinv = phiinv0
     ok = torch.ones((), dtype=torch.bool, device=phiinv0.device)
     for _ in range(length):
-        m, f_transport = epdiff_unit.ad_star(phiinv, m0)
+        m, f_transport = ad_star(phiinv, m0)
         if mommask is not None:
             m = m * mommask
         v = metric.sharp(m)
-        phiinv, f_compose = epdiff_unit.compose(phiinv, v, -dt)
+        phiinv, f_compose = compose(phiinv, v, -dt)
         ok = ok & f_transport & f_compose
     return phiinv, ok
 

@@ -1,9 +1,9 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
 Each kernel module (``warp_unit``, ``epdiff_unit``, ``fft_unit``,
-``shoot2d``) holds, for every kernel, a wrapper that launches the CUDA
-kernel for tensors on a CUDA device and the plain PyTorch function of the
-same signature that it is held against.  Dispatch is by device only:
+``shoot2d``, ``epdiff2d``) holds, for every kernel, a wrapper that launches
+the CUDA kernel for tensors on a CUDA device and the plain PyTorch function
+of the same signature that it is held against.  Dispatch is by device only:
 
 * a CPU tensor goes to the plain version;
 * a CUDA tensor launches the kernel, or the wrapper raises (wrong dtype,

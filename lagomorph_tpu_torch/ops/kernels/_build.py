@@ -48,6 +48,14 @@ SIGNATURES = {
     "lagomorph_compose_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     # x1, x2, Mn, y1, y2, scratch, F, X, Y, Z, stream
     "lagomorph_fluid_flat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # phiinv, m0, out, mw (or NULL), flag, N, Nm, H, W, stream
+    "lagomorph_ad_star2d_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # phiinv, m0, g, mw, d_mw (scratch), d_phiinv, d_m0, N, Nm, H, W, stream
+    "lagomorph_ad_star2d_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # phiinv, v, s, out, flag, N, H, W, stream
+    "lagomorph_compose2d_fwd": [_P, _P, _F, _P, _P, _I, _I, _I, _P],
+    # phiinv, v, s, g, d_phiinv, d_v, N, H, W, stream
+    "lagomorph_compose2d_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     # phi0, m0, Mn, out, flag, traj_p, traj_v, traj_mw (or 3 NULL), pp (or NULL),
     # cbuf, N, Nm, H, W, T, s, stream
     "lagomorph_shoot2d_fwd": [_P] * 10 + [_I] * 5 + [_F, _P],

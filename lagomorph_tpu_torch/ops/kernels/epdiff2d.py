@@ -1,0 +1,208 @@
+"""K10-K13: the two stencil steps of one 2D EPDiff substep, each with the
+unit-regime flag of its warp displacement, and their backwards
+(``csrc/epdiff2d.cu``).  They carry the 2D shootings that the whole-shoot
+kernels K8/K9 do not take (a momentum mask, ``beta != 0``) and the
+unit-regime substeps of the exact general integration.
+
+* K10, :func:`ad_star2d`: ``out_c = sum_a (D_a phiinv_c + delta_ca) *
+  mw_a`` with ``mw = sample_displacement_unit(m0, phiinv)`` (9 taps), and
+  the flag of ``phiinv``; under autograd it also writes ``mw`` for the
+  backward.  Replaces ``lagomorph_tpu/ops/pallas/epdiff2d.py``
+  ``_adstar2d_fwd_kernel`` (``_adstar2d_fwd_dispatch``).
+* K11, :func:`compose2d`: ``d = s * v``; ``out = d + phiinv(x + d)``, and
+  the flag of ``d``.  Replaces ``epdiff2d.py`` ``_compose2d_fwd_kernel``
+  (``compose2d_pallas``).
+* K12, K10's backward: ``(d_phiinv, d_m0)`` (``d_m0`` summed over the
+  subjects for a batch-1 ``m0``).  Replaces ``epdiff2d.py``
+  ``_adstar2d_bwd_kernel`` (``_adstar2d_bwd``).
+* K13, K11's backward: ``(d_phiinv, d_v)``.  Replaces ``epdiff2d.py``
+  ``_compose2d_bwd_kernel`` (``_compose2d_bwd``).
+
+Fields are ``(N, 2, H, W)``, any ``H, W >= 2``.  A flag is a 0-dim bool
+tensor on the fields' device, true iff every component of the displacement
+lies in ``[-1, 1)``.  The plain versions are the 3D ones' formulas, which
+hold in any dimension; see the source for the kernels' design.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build, check_cuda_f32, grad_needed, register, stream_of, use_kernel
+from .epdiff_unit import ad_star_bwd_plain, ad_star_plain, compose_bwd_plain, compose_plain
+
+AD_STAR = register(
+    "ad_star2d_fwd",
+    source="lagomorph_tpu_torch/csrc/epdiff2d.cu",
+    replaces="lagomorph_tpu/ops/pallas/epdiff2d.py:281",
+)
+COMPOSE = register(
+    "compose2d_fwd",
+    source="lagomorph_tpu_torch/csrc/epdiff2d.cu",
+    replaces="lagomorph_tpu/ops/pallas/epdiff2d.py:456",
+)
+AD_STAR_BWD = register(
+    "ad_star2d_bwd",
+    source="lagomorph_tpu_torch/csrc/epdiff2d.cu",
+    replaces="lagomorph_tpu/ops/pallas/epdiff2d.py:324",
+)
+COMPOSE_BWD = register(
+    "compose2d_bwd",
+    source="lagomorph_tpu_torch/csrc/epdiff2d.cu",
+    replaces="lagomorph_tpu/ops/pallas/epdiff2d.py:490",
+)
+
+
+def ad_star2d_plain(phiinv: torch.Tensor, m0: torch.Tensor, want_mw: bool = False):
+    """Plain version of K10: ``(Ad*(phiinv, m0), in_unit(phiinv))``, and the
+    warped momentum ``mw`` third when ``want_mw``."""
+    return ad_star_plain(phiinv, m0, want_mw)
+
+
+def compose2d_plain(phiinv: torch.Tensor, v: torch.Tensor, s: float):
+    """Plain version of K11: ``(s*v + phiinv(x + s*v), in_unit(s*v))``."""
+    return compose_plain(phiinv, v, s)
+
+
+def ad_star2d_bwd_plain(phiinv: torch.Tensor, m0: torch.Tensor, g: torch.Tensor,
+                        mw: torch.Tensor):
+    """Plain version of K12: ``(d_phiinv, d_m0)`` for the cotangent ``g``:
+    ``d_mw = (J + I)^T g``; the warp's backward with cotangent ``d_mw`` gives
+    ``d_m0`` and the weight-gradient term; plus ``sum_a D_a^T (g * mw_a)``."""
+    return ad_star_bwd_plain(phiinv, m0, g, mw)
+
+
+def compose2d_bwd_plain(phiinv: torch.Tensor, v: torch.Tensor, s: float, g: torch.Tensor):
+    """Plain version of K13: ``(d_phiinv, d_v)`` for the cotangent ``g``: the
+    warp's backward at ``s*v`` gives ``(d_phiinv, d_d)``; ``d_v = s*g +
+    s*d_d``."""
+    return compose_bwd_plain(phiinv, v, s, g)
+
+
+def _check(name, phiinv, other):
+    check_cuda_f32(name, phiinv, other)
+    if phiinv.dim() != 4 or phiinv.shape[1] != 2 or min(phiinv.shape[2:]) < 2:
+        raise ValueError(f"{name}: phiinv must be (N, 2, H, W), H, W >= 2, got "
+                         f"{tuple(phiinv.shape)}")
+    if other.dim() != 4 or other.shape[1] != 2 or other.shape[2:] != phiinv.shape[2:]:
+        raise ValueError(
+            f"{name}: field {tuple(other.shape)} does not match phiinv {tuple(phiinv.shape)}"
+        )
+
+
+def _launch_ad_star(phiinv, m0, want_mw=False):
+    N, _, H, W = phiinv.shape
+    out = torch.empty_like(phiinv)
+    mw = torch.empty_like(phiinv) if want_mw else None
+    flag = torch.ones((), dtype=torch.int32, device=phiinv.device)
+    _build.call(
+        "lagomorph_ad_star2d_fwd",
+        phiinv.data_ptr(), m0.data_ptr(), out.data_ptr(),
+        None if mw is None else mw.data_ptr(), flag.data_ptr(),
+        N, m0.shape[0], H, W, stream_of(phiinv),
+    )
+    AD_STAR.launches += 1
+    return (out, flag.bool(), mw) if want_mw else (out, flag.bool())
+
+
+def _launch_compose(phiinv, v, s):
+    N, _, H, W = phiinv.shape
+    out = torch.empty_like(phiinv)
+    flag = torch.ones((), dtype=torch.int32, device=phiinv.device)
+    _build.call(
+        "lagomorph_compose2d_fwd",
+        phiinv.data_ptr(), v.data_ptr(), float(s), out.data_ptr(), flag.data_ptr(),
+        N, H, W, stream_of(phiinv),
+    )
+    COMPOSE.launches += 1
+    return out, flag.bool()
+
+
+def _launch_ad_star_bwd(phiinv, m0, g, mw):
+    N, _, H, W = phiinv.shape
+    d_mw = torch.empty_like(phiinv)  # scratch of the first pass
+    d_p = torch.empty_like(phiinv)
+    d_m0 = torch.empty_like(m0)
+    _build.call(
+        "lagomorph_ad_star2d_bwd",
+        phiinv.data_ptr(), m0.data_ptr(), g.data_ptr(), mw.data_ptr(),
+        d_mw.data_ptr(), d_p.data_ptr(), d_m0.data_ptr(),
+        N, m0.shape[0], H, W, stream_of(phiinv),
+    )
+    AD_STAR_BWD.launches += 1
+    return d_p, d_m0
+
+
+def _launch_compose_bwd(phiinv, v, s, g):
+    N, _, H, W = phiinv.shape
+    d_p = torch.empty_like(phiinv)
+    d_v = torch.empty_like(v)
+    _build.call(
+        "lagomorph_compose2d_bwd",
+        phiinv.data_ptr(), v.data_ptr(), float(s), g.data_ptr(), d_p.data_ptr(),
+        d_v.data_ptr(), N, H, W, stream_of(phiinv),
+    )
+    COMPOSE_BWD.launches += 1
+    return d_p, d_v
+
+
+class _AdStar2d(torch.autograd.Function):
+    """K10 (writing ``mw``) under autograd; its backward is K12."""
+
+    @staticmethod
+    def forward(ctx, phiinv, m0):
+        out, flag, mw = _launch_ad_star(phiinv, m0, want_mw=True)
+        ctx.mark_non_differentiable(flag)
+        ctx.save_for_backward(phiinv, m0, mw)
+        return out, flag
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, _g_flag):
+        phiinv, m0, mw = ctx.saved_tensors
+        return _launch_ad_star_bwd(phiinv, m0, g.contiguous(), mw)
+
+
+class _Compose2d(torch.autograd.Function):
+    """K11 under autograd; its backward is K13."""
+
+    @staticmethod
+    def forward(ctx, phiinv, v, s):
+        out, flag = _launch_compose(phiinv, v, s)
+        ctx.mark_non_differentiable(flag)
+        ctx.save_for_backward(phiinv, v)
+        ctx.s = s
+        return out, flag
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, _g_flag):
+        phiinv, v = ctx.saved_tensors
+        return (*_launch_compose_bwd(phiinv, v, ctx.s, g.contiguous()), None)
+
+
+def ad_star2d(phiinv: torch.Tensor, m0: torch.Tensor):
+    """K10: ``(Ad*(phiinv, m0), flag of phiinv)`` for 2D fields; ``m0`` may
+    have batch 1.  The result is exact where the flag is true; under
+    autograd its backward is K12."""
+    if not use_kernel(phiinv):
+        return ad_star2d_plain(phiinv, m0)
+    _check("ad_star2d", phiinv, m0)
+    if m0.shape[0] not in (1, phiinv.shape[0]):
+        raise ValueError(f"ad_star2d: m0 batch {m0.shape[0]} vs phiinv {phiinv.shape[0]}")
+    if grad_needed(phiinv, m0):
+        return _AdStar2d.apply(phiinv, m0)
+    return _launch_ad_star(phiinv, m0)
+
+
+def compose2d(phiinv: torch.Tensor, v: torch.Tensor, s: float):
+    """K11: ``(s*v + phiinv(x + s*v), flag of s*v)`` for 2D fields of equal
+    batch.  The result is exact where the flag is true; under autograd its
+    backward is K13."""
+    if not use_kernel(phiinv):
+        return compose2d_plain(phiinv, v, s)
+    _check("compose2d", phiinv, v)
+    if v.shape[0] != phiinv.shape[0]:
+        raise ValueError(f"compose2d: v batch {v.shape[0]} vs phiinv {phiinv.shape[0]}")
+    if grad_needed(phiinv, v):
+        return _Compose2d.apply(phiinv, v, float(s))
+    return _launch_compose(phiinv, v, s)

@@ -1,6 +1,7 @@
 // Host stand-in for the CUDA runtime, so that the per-thread stencil
-// kernels of lagomorph_tpu_torch/csrc (warp_unit.cu, epdiff_unit.cu)
-// compile with g++ and run on the CPU (tests/test_torch_host_kernels.py).
+// kernels of lagomorph_tpu_torch/csrc (warp_unit.cu, epdiff_unit.cu,
+// epdiff2d.cu) compile with g++ and run on the CPU
+// (tests/test_torch_host_kernels.py).
 //
 // A launch `k<<<grid, block, ...>>>(args);` is rewritten by the test as
 // `emu_launch(grid, block, [&] { k(args); });`, which runs every thread of

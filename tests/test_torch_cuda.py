@@ -19,7 +19,7 @@ import torch
 
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
-from lagomorph_tpu_torch.ops.kernels import epdiff_unit, fft_unit, shoot2d, warp_unit
+from lagomorph_tpu_torch.ops.kernels import epdiff2d, epdiff_unit, fft_unit, shoot2d, warp_unit
 
 
 @pytest.fixture
@@ -193,3 +193,60 @@ def test_shoot2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     bad.view(-1)[bad.numel() // 3] = 1.5
     assert not bool(shoot2d.shoot2d(bad, m0, Mn, -0.2, 4)[1])
     assert not bool(shoot2d.shoot2d_fwd_plain(bad, m0, Mn, -0.2, 4, stash=False)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 32, 64), (3, 2, 17, 12)])
+@pytest.mark.parametrize("m_batch", ["one", "N"])
+def test_epdiff2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
+    """K10 (with ``mw`` and the flag) and K11 at s = -0.2 against their
+    plain versions on the card (bit-equal in practice, held within 1e-5 *
+    (1 + max|ref|)), K12 (d_m0 summed over the subjects for batch-1
+    momenta) and K13 against the plain backwards, directly and through the
+    wrappers under autograd (one launch of each backward per call); flags
+    false out of the unit regime, at a power-of-two and an odd shape."""
+    rng = np.random.default_rng(7)
+
+    def c(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    N = shape[0]
+    p = c(rng.uniform(-0.99, 0.99, shape))
+    m0 = c(rng.standard_normal(((1 if m_batch == "one" else N),) + shape[1:]))
+    v = c(rng.uniform(-4.9, 4.9, shape))
+    g = c(rng.standard_normal(shape))
+    kernels.reset_launches()
+    out, flag, mw = epdiff2d._launch_ad_star(p, m0, want_mw=True)
+    r_out, r_flag, r_mw = epdiff2d.ad_star2d_plain(p, m0, want_mw=True)
+    _compare(out, r_out, 1e-5)
+    _compare(mw, r_mw, 1e-5)
+    assert bool(flag) and bool(r_flag)
+    for got, ref in zip(epdiff2d._launch_ad_star_bwd(p, m0, g, mw),
+                        epdiff2d.ad_star2d_bwd_plain(p, m0, g, r_mw)):
+        _compare(got, ref, 1e-5)
+    out, flag = epdiff2d.compose2d(p, v, -0.2)
+    r_out, r_flag = epdiff2d.compose2d_plain(p, v, -0.2)
+    _compare(out, r_out, 1e-5)
+    assert bool(flag) and bool(r_flag)
+    for got, ref in zip(epdiff2d._launch_compose_bwd(p, v, -0.2, g),
+                        epdiff2d.compose2d_bwd_plain(p, v, -0.2, g)):
+        _compare(got, ref, 1e-5)
+    cases = ((lambda a, b: epdiff2d.ad_star2d(a, b)[0], (p, m0), "ad_star2d_bwd"),
+             (lambda a, b: epdiff2d.compose2d(a, b, -0.2)[0], (p, v), "compose2d_bwd"))
+    for fn, args, name in cases:
+        leaves, refs = ([a.clone().requires_grad_(True) for a in args] for _ in range(2))
+        before = kernels.launch_counts()[name]
+        got = torch.autograd.grad(fn(*leaves), leaves, g)
+        assert kernels.launch_counts()[name] == before + 1, name
+        with kernels.plain_versions():
+            ref = torch.autograd.grad(fn(*refs), refs, g)
+        for a, b in zip(got, ref):
+            _compare(a, b, 1e-5)
+    bad = p.clone()
+    bad.view(-1)[bad.numel() // 3] = 1.0  # the unit regime's upper bound is open
+    assert not bool(epdiff2d.ad_star2d(bad, m0)[1])
+    bad_v = v.clone()
+    bad_v.view(-1)[bad_v.numel() // 2] = -5.1  # s*v = 1.02
+    assert not bool(epdiff2d.compose2d(p, bad_v, -0.2)[1])
+    with pytest.raises(TypeError):
+        epdiff2d.ad_star2d(p.double(), m0.double())

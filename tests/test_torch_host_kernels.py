@@ -2,10 +2,11 @@
 CPU against their plain versions.
 
 K1, K2, K4 and the backwards K5, K6, K7 (``lagomorph_tpu_torch/csrc/
-warp_unit.cu``, ``epdiff_unit.cu``) are per-thread code: no shared memory,
-no barriers, one ballot.  With every ``k<<<grid, block, ...>>>(args)``
-launch rewritten as a loop over the grid's threads and
-``tests/cuda_host/cuda_runtime.h`` standing in for the CUDA runtime, g++
+warp_unit.cu``, ``epdiff_unit.cu``) and the 2D K10-K13 (``epdiff2d.cu``) are
+per-thread code: no shared memory, no barriers, one ballot.  With every
+``k<<<grid, block, ...>>>(args)`` launch rewritten as a loop over the
+grid's threads and ``tests/cuda_host/cuda_runtime.h`` standing in for the
+CUDA runtime, g++
 compiles them into a host library with the same C entry points, which the
 kernel wrappers then call in place of the card's library.  So the kernels'
 arithmetic, indexing, clamp folds, batch-1 sums and flags are checked here,
@@ -13,12 +14,10 @@ in float32, before the card sees them; the card itself is checked by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  K3 (shared-memory
 transforms) is not emulated: its wrapper runs its plain version here.
 
-The per-pixel functions of ``csrc/stencil2d.cuh`` (the 2D stencils of K8
-and K9) are ``__host__ __device__`` and compile with g++ as they are;
-``tests/cuda_host/stencil2d_host.cpp`` loops them over the pixels and the
-test holds them against the plain 2D ops.  K8 and K9 themselves
-(cooperative launches, grid barriers, shared-memory line transforms) do not
-fit this emulation and are checked on the card only.
+K10-K13 run the per-pixel functions of ``csrc/stencil2d.cuh``, which K8
+and K9 share; K8 and K9 themselves (cooperative launches, grid barriers,
+shared-memory line transforms) do not fit this emulation and are checked
+on the card only.
 
 Tolerances, float32 against the plain version on the same inputs: the
 forwards round each operation like the plain version (bit-equal); the
@@ -36,12 +35,13 @@ import torch
 
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
-from lagomorph_tpu_torch.ops.kernels import _build, epdiff_unit, fft_unit, warp_unit
+from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d, epdiff_unit, fft_unit, warp_unit
 
 torch.set_num_threads(2)
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host")
-SOURCES = ("warp_unit.cu", "epdiff_unit.cu")
+SOURCES = ("warp_unit.cu", "epdiff_unit.cu", "epdiff2d.cu")
+KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
 # entry points of the kernels with shared memory or grid barriers
 NOT_EMULATED = ("lagomorph_fluid_flat", "lagomorph_shoot2d_fwd", "lagomorph_shoot2d_bwd")
 BWD_RTOL = 1e-5
@@ -77,7 +77,7 @@ def host_library(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' sources for the host")
     out = tmp_path_factory.mktemp("host_kernels")
-    for name in ("stencil.cuh",) + SOURCES:
+    for name in ("stencil.cuh", "stencil2d.cuh") + SOURCES:
         with open(os.path.join(_build.CSRC, name)) as f:
             (out / name).write_text(_host_source(f.read()))
     so = out / "libhost_kernels.so"
@@ -105,7 +105,7 @@ def host_kernels(monkeypatch, host_library):
                 raise ValueError(f"{name}: kernel takes contiguous float32 tensors")
 
     monkeypatch.setattr(_build, "library", lambda: host_library)
-    for mod in (warp_unit, epdiff_unit):
+    for mod in (warp_unit, epdiff_unit, epdiff2d):
         monkeypatch.setattr(mod, "use_kernel", lambda _t: not kernels._PLAIN.get())
         monkeypatch.setattr(mod, "check_cuda_f32", check_cpu_f32)
         monkeypatch.setattr(mod, "stream_of", lambda _t: None)
@@ -166,7 +166,7 @@ def test_host_kernels_match_plain(rng, host_kernels, shape):
     assert not bool(epdiff_unit.ad_star(bad, bad)[1])
     assert not bool(epdiff_unit.compose(bad, bad, 1.0)[1])
     assert all(n > 0 for k, n in kernels.launch_counts().items()
-               if k not in ("fluid_flat", "shoot2d_fwd", "shoot2d_bwd"))
+               if k not in ("fluid_flat", "shoot2d_fwd", "shoot2d_bwd") + KERNELS_2D_PER_OP)
 
 
 def test_host_atlas_step_matches_plain(rng, host_kernels):
@@ -184,7 +184,8 @@ def test_host_atlas_step_matches_plain(rng, host_kernels):
     assert kernels.launch_counts() == {
         "fluid_flat": 0, "warp_unit_fwd": 1, "warp_unit_bwd": 1, "ad_star_fwd": 4,
         "compose_fwd": 4, "ad_star_bwd": 4, "compose_bwd": 4, "shoot2d_fwd": 0,
-        "shoot2d_bwd": 0}
+        "shoot2d_bwd": 0, "ad_star2d_fwd": 0, "compose2d_fwd": 0, "ad_star2d_bwd": 0,
+        "compose2d_bwd": 0}
     assert not fft_unit.use_kernel(m)  # K3 took its plain version
     with kernels.plain_versions():
         ref = step(I, m, img)
@@ -194,74 +195,78 @@ def test_host_atlas_step_matches_plain(rng, host_kernels):
     assert abs(float(got[2]) - float(ref[2])) <= 1e-6 * abs(float(ref[2]))
 
 
-@pytest.fixture(scope="module")
-def stencil2d_library(tmp_path_factory):
-    """``stencil2d.cuh``'s per-pixel functions, looped over the pixels by
-    ``tests/cuda_host/stencil2d_host.cpp``, as a host library."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels' sources for the host")
-    so = tmp_path_factory.mktemp("host_stencil2d") / "libhost_stencil2d.so"
-    cmd = [gxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC", "-w", "-I", SHIM,
-           "-I", _build.CSRC, "-o", str(so), os.path.join(SHIM, "stencil2d_host.cpp")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr
-    lib = ctypes.CDLL(str(so))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, argtypes in (("host_adstar2d", [P, P, P, P, I, I, I, I]),
-                           ("host_compose2d", [P, P, F, P, I, I, I]),
-                           ("host_compose2d_bwd", [P, P, F, P, P, P, I, I, I]),
-                           ("host_adstar2d_bwd", [P] * 7 + [I] * 4)):
-        getattr(lib, name).argtypes = argtypes
-    return lib
-
-
 @pytest.mark.parametrize("shape", [(2, 2, 9, 12), (3, 2, 2, 7)])
-def test_host_stencil2d_matches_plain(rng, stencil2d_library, shape):
-    """The 2D per-pixel functions against the plain 2D ops in float32: Ad*
-    (with the warped momentum ``mw``) with batch-1 and batch-N momenta and
-    compose at s = -0.2 round each operation like the plain versions
-    (bit-equal); their backwards (d_phiinv and d_m0, summed over the
-    subjects for batch-1 momenta; d_phiinv and d_v) within 1e-5 * (1 +
-    max|ref|); the regime flags."""
-    lib = stencil2d_library
+def test_host_stencil2d_matches_plain(rng, host_kernels, shape):
+    """K10-K13 (``csrc/epdiff2d.cu``, built on ``stencil2d.cuh``'s per-pixel
+    functions, which K8/K9 share) against their plain versions in float32:
+    K10 (with the warped momentum ``mw``) with batch-1 and batch-N momenta
+    and K11 at s = -0.2 round each operation like the plain versions
+    (bit-equal); K12 (d_phiinv, and d_m0 summed over the subjects for
+    batch-1 momenta) and K13 (d_phiinv, d_v) within 1e-5 * (1 + max|ref|);
+    the flags, in the unit regime, at its edges and out of it."""
     N, _, H, W = shape
-
-    def ptr(t):
-        return t.data_ptr()
-
+    kernels.reset_launches()
     for p in (f32(rng.uniform(-0.99, 0.99, shape)),
               f32(np.where(rng.uniform(size=shape) < 0.5, -0.999, 0.999))):
         for nb in (1, N):
             m0 = f32(rng.standard_normal((nb, 2, H, W)))
-            out, mw = torch.empty(shape), torch.empty(shape)
-            ok = lib.host_adstar2d(ptr(p), ptr(m0), ptr(out), ptr(mw), N, nb, H, W)
-            r_out, r_flag, r_mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)
-            close("Ad*", out, r_out, 0.0)
-            close("Ad* mw", mw, r_mw, 0.0)
-            assert bool(ok) is bool(r_flag) is True
+            out, flag, mw = epdiff2d._launch_ad_star(p, m0, want_mw=True)
+            r_out, r_flag, r_mw = epdiff2d.ad_star2d_plain(p, m0, want_mw=True)
+            close("K10", out, r_out, 0.0)
+            close("K10 mw", mw, r_mw, 0.0)
+            assert bool(flag) is bool(r_flag) is True
             g = f32(rng.standard_normal(shape))
-            d_phi, d_m0, scratch = torch.empty(shape), torch.empty_like(m0), torch.empty(shape)
-            lib.host_adstar2d_bwd(ptr(p), ptr(m0), ptr(g), ptr(mw), ptr(scratch), ptr(d_phi),
-                                  ptr(d_m0), N, nb, H, W)
-            r_phi, r_m0 = epdiff_unit.ad_star_bwd_plain(p, m0, g, r_mw)
-            close("Ad* bwd d_phiinv", d_phi, r_phi, BWD_RTOL)
-            close("Ad* bwd d_m0", d_m0, r_m0, BWD_RTOL)
+            for name, got, ref in zip(("K12 d_phiinv", "K12 d_m0"),
+                                      epdiff2d._launch_ad_star_bwd(p, m0, g, mw),
+                                      epdiff2d.ad_star2d_bwd_plain(p, m0, g, r_mw)):
+                close(name, got, ref, BWD_RTOL)
         v = f32(rng.uniform(-4.9, 4.9, shape))
-        out = torch.empty(shape)
-        ok = lib.host_compose2d(ptr(p), ptr(v), -0.2, ptr(out), N, H, W)
-        r_out, r_flag = epdiff_unit.compose_plain(p, v, -0.2)
-        close("compose", out, r_out, 0.0)
-        assert bool(ok) is bool(r_flag) is True
+        out, flag = epdiff2d.compose2d(p, v, -0.2)
+        r_out, r_flag = epdiff2d.compose2d_plain(p, v, -0.2)
+        close("K11", out, r_out, 0.0)
+        assert bool(flag) is bool(r_flag) is True
         g = f32(rng.standard_normal(shape))
-        d_phi, d_v = torch.empty(shape), torch.empty(shape)
-        lib.host_compose2d_bwd(ptr(p), ptr(v), -0.2, ptr(g), ptr(d_phi), ptr(d_v), N, H, W)
-        r_phi, r_v = epdiff_unit.compose_bwd_plain(p, v, -0.2, g)
-        close("compose bwd d_phiinv", d_phi, r_phi, BWD_RTOL)
-        close("compose bwd d_v", d_v, r_v, BWD_RTOL)
+        for name, got, ref in zip(("K13 d_phiinv", "K13 d_v"),
+                                  epdiff2d._launch_compose_bwd(p, v, -0.2, g),
+                                  epdiff2d.compose2d_bwd_plain(p, v, -0.2, g)):
+            close(name, got, ref, BWD_RTOL)
     bad = f32(rng.uniform(-0.9, 0.9, shape))
     bad.view(-1)[bad.numel() // 2 + 1] = 1.0  # the unit regime's upper bound is open
-    out = torch.empty(shape)
-    assert not lib.host_adstar2d(ptr(bad), ptr(bad), ptr(out), ptr(torch.empty(shape)),
-                                 N, N, H, W)
-    assert not lib.host_compose2d(ptr(bad), ptr(bad), 1.0, ptr(out), N, H, W)
+    assert not bool(epdiff2d.ad_star2d(bad, bad)[1])
+    assert not bool(epdiff2d.compose2d(bad, bad, 1.0)[1])
+    edge = f32(rng.uniform(-0.9, 0.9, shape))
+    edge.view(-1)[3] = -1.0  # its lower bound is closed
+    assert bool(epdiff2d.ad_star2d(edge, edge)[1]) and bool(epdiff2d.compose2d(edge, edge, 1.0)[1])
+    assert all(kernels.launch_counts()[k] > 0 for k in KERNELS_2D_PER_OP)
+
+
+def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
+    """Two chained 2D atlas steps with ``beta != 0`` (the per-substep
+    kernels K10-K13, emulated; the fluid solve and the atlas warp plain on
+    both sides) against the plain versions, at momenta in the unit regime
+    (max|v0| = 0.5), with 4 launches of each per step and no other kernel."""
+    shape = (2, 2, 12, 10)
+    metric = lt.FluidMetric((0.1, 0.05, 0.01))
+    m = f32(rng.standard_normal(shape))
+    m = m * (0.5 / float(metric.sharp(m).abs().max()))
+    I = f32(rng.standard_normal((1, 1) + shape[2:]))
+    img = f32(rng.standard_normal((2, 1) + shape[2:]))
+    step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1,
+                                    learning_rate_pose=1e-6)  # moves m by ~1%
+    got, mm = [], m
+    for _ in range(2):
+        kernels.reset_launches()
+        got.append(step(I, mm, img))
+        mm = got[-1][0]
+        assert kernels.launch_counts() == {k: (4 if k in KERNELS_2D_PER_OP else 0)
+                                           for k in kernels.KERNELS}
+    ref, mm = [], m
+    with kernels.plain_versions():
+        for _ in range(2):
+            ref.append(step(I, mm, img))
+            mm = ref[-1][0]
+    for (g_m, g_I, g_loss, _), (r_m, r_I, r_loss, _) in zip(got, ref):
+        update, r_update = g_m - m, r_m - m
+        assert float((update - r_update).abs().max()) <= 1e-4 * float(r_update.abs().max())
+        assert float((g_I - r_I).abs().max()) <= 1e-5 * float(r_I.abs().max())
+        assert abs(float(g_loss) - float(r_loss)) <= 1e-6 * abs(float(r_loss))

@@ -124,7 +124,8 @@ def test_plain_versions_context_and_counters(rng):
     kernels.reset_launches()
     assert set(kernels.launch_counts()) == {
         "warp_unit_fwd", "ad_star_fwd", "compose_fwd", "fluid_flat",
-        "warp_unit_bwd", "ad_star_bwd", "compose_bwd", "shoot2d_fwd", "shoot2d_bwd"}
+        "warp_unit_bwd", "ad_star_bwd", "compose_bwd", "shoot2d_fwd", "shoot2d_bwd",
+        "ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd"}
     a = epdiff_unit.ad_star(p, p)[0]
     with kernels.plain_versions():
         assert kernels._PLAIN.get()
