@@ -6,9 +6,12 @@
 Drives the port's 3D atlas step (``lagomorph_tpu_torch``) at the headline
 size of the JAX package's bench (128^3, batch 4, 5 integration steps,
 ``FluidMetric([0.1, 0.0, 0.01])``, ``reg_weight=0.1``,
-``learning_rate_pose=1e-6``; bench.py:81-103), and its 2D atlas step at
-the bench's 2D configurations (256^2 and 512^2, batch 8; bench.py:342-345),
-with that metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
+``learning_rate_pose=1e-6``; bench.py:81-103), on its default fluid solve
+(K3) and on the radix-2 solve (``--fluid_transform radix``: K14, K15), the
+3D step at the bench's 64^3 b4 (bench.py:340) on the whole-volume solve
+(``set_fluid_mxu_whole(True)``: K16), and its 2D atlas step at the bench's
+2D configurations (256^2 and 512^2, batch 8; bench.py:342-345), with that
+metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
 --fluid_beta 0.05``):
 
 1. device: needs a CUDA card; prints the card's name and power limit;
@@ -24,7 +27,12 @@ with that metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    (3, 2, 96, 80), with batch-1 and batch-N momenta and a tripped flag,
    launched directly and through the wrapper under autograd; then the 2D
    per-substep kernels K10-K13 (Ad*, compose and their backwards) against
-   their plain versions at the same three shapes, the same way;
+   their plain versions at the same three shapes, the same way; then the
+   fluid solves that the selectors reach: K14 (both directions), K15 and
+   the pipeline K14, K15, K14 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128) and
+   (1, 3, 4, 256, 256) (planes too large for one block: two line passes),
+   and K16 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128) and (3, 3, 96, 80,
+   112), directly and under autograd;
 4. slice: ``_lddmm_loss`` forward through the kernels and through the
    plain versions, at the bench's momenta and at momenta scaled to a
    deformation of about half a voxel; the launch counters show the forward
@@ -51,18 +59,32 @@ with that metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    other kernel; then one step at 256^2 b8 on momenta whose flag trips
    (max|v0| = 8, and 2), re-run on the exact general integration, whose
    unit-regime warps run K10-K13;
+6d. the radix path: three chained atlas steps at 128^3 b4 under
+   ``set_fluid_fft_kernel("radix")``, both ways, each step's momentum
+   gradient held against a float64 one; the counters, set to 0 just before
+   the kernel steps and read just after, show K14 20 and K15 10 launches per
+   step, no K3, and the other 3D kernels as on the default path;
+6e. the whole-volume path: the same at 64^3 b4 under
+   ``set_fluid_mxu_whole(True)`` (K16 10 launches per step, no K3), then
+   one step at 64^3 b4 on the default selectors (K3), with the route each
+   setting takes logged;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call; the slice and the atlas step both ways, with
    the peak device memory of each step; K8 and K9, and K10-K13 at one
    substep's shapes, at 256^2 b8, and the 2D atlas step both ways, with
    ``beta = 0`` and ``beta = 0.05``, at 256^2 b8 and 512^2 b8, with peak
-   memory;
+   memory; K14, K15 and the pipeline at 128^3 b4 and K16 at 64^3 b4 (the
+   library call of the pipeline and of K16: ``ifftn(Mn * fftn(.))`` on the
+   packed pairs), and the radix step at 128^3 b4 and the whole and default
+   steps at 64^3 b4, both ways, with peak memory;
 8. trace (only with ``--trace PATH``): ``torch.profiler`` traces of 5
    slices (``PATH``), of 5 atlas steps (``PATH`` with ``_steps`` before its
-   extension), of 5 2D atlas steps at 256^2 b8 (``_steps2d``) and of 5 such
-   steps with ``beta = 0.05`` (``_steps2d_beta``), with the device time by
-   kernel, the busy share and the idle gaps.
+   extension), of 5 2D atlas steps at 256^2 b8 (``_steps2d``), of 5 such
+   steps with ``beta = 0.05`` (``_steps2d_beta``), of 5 radix steps at
+   128^3 b4 (``_steps_radix``) and of 5 whole-volume steps at 64^3 b4
+   (``_steps64_whole``), with the device time by kernel, the busy share and
+   the idle gaps.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON record of the kernels; the last line, printed only when every
@@ -117,6 +139,16 @@ STEP2D_LAUNCHES = {"shoot2d_fwd": 1, "shoot2d_bwd": 1}
 # the backward K12 and K13 per substep
 PARAMS_BETA = (0.1, 0.05, 0.01)
 STEP2D_BETA_LAUNCHES = {k: STEPS - 1 for k in KERNELS_2D_PER_OP}
+# the fluid solves of the selectors: K14, K15 (`set_fluid_fft_kernel("radix")`,
+# the CLI's `--fluid_transform radix`) and K16 (`set_fluid_mxu_whole(True)`);
+# each of a 3D step's 10 solves (5 forward, 5 backward) is K14, K15, K14 or
+# one K16 in place of K3
+KERNELS_SOLVE = ("fluid_radix_zy", "fluid_radix_x", "fluid_whole")
+FULL64 = (4, 3, 64, 64, 64)  # bench.py:340, 64cubed_b4
+RADIX_ODD = (3, 3, 32, 64, 128)  # non-cubic, power-of-two axes
+RADIX_WIDE = (1, 3, 4, 256, 256)  # (Y, Z) planes beyond one block: two line passes
+RADIX_STEP_LAUNCHES = {**STEP_LAUNCHES, "fluid_flat": 0, "fluid_radix_zy": 20, "fluid_radix_x": 10}
+WHOLE_STEP_LAUNCHES = {**STEP_LAUNCHES, "fluid_flat": 0, "fluid_whole": 10}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -503,10 +535,11 @@ def atlas_steps(lt, metric, I, m, img, m_half):
         check(e <= 1e-5, f"{label}: atlas update differs by {e:.3e} relative > 1e-5")
         del got, ref, grads
     log(f"main path (atlas steps at the bench momenta) launches: {main}")
-    check(all(n > 0 for k, n in main.items() if k not in KERNELS_2D + KERNELS_2D_PER_OP),
+    others = KERNELS_2D + KERNELS_2D_PER_OP + KERNELS_SOLVE
+    check(all(n > 0 for k, n in main.items() if k not in others),
           f"a kernel of the 3D path was not launched: {main}")
-    check(all(main[k] == 0 for k in KERNELS_2D + KERNELS_2D_PER_OP),
-          f"a 2D kernel ran in a 3D step: {main}")
+    check(all(main[k] == 0 for k in others),
+          f"a 2D kernel or a selector's solve ran in a default 3D step: {main}")
     return main
 
 
@@ -733,6 +766,76 @@ def epdiff2d_checks(device, shape, seed):
     return errs
 
 
+def solve_checks(lt, device, shape, seed, radix=True, whole=True):
+    """Phase 3, the fluid solves of the selectors, at one shape: K14
+    forward (a bit-reversed spectrum) and inverse, K15 on that spectrum and
+    the pipeline K14, K15, K14 against their plain versions (power-of-two
+    axes), and K16 against its plain version (the ``torch.fft`` packed
+    solve), on the packed pairs ``fluid_operator`` builds (an odd slab count
+    carries one zero slab), within 1e-4 * max|ref| (as K3); then the
+    pipeline and K16 under ``torch.autograd.grad`` (3 launches, or 1, each
+    way; a transposed cotangent) against autograd of the plain versions.
+    Returns {kernel: err}."""
+    from lagomorph_tpu_torch.ops import fluid
+    from lagomorph_tpu_torch.ops.kernels import fft_radix, fft_whole, launch_counts, plain_versions
+
+    N, _, X, Y, Z = shape
+    rng = np.random.default_rng(seed)
+    F = (N * 3 + 1) // 2
+    x = torch.as_tensor(rng.standard_normal((2 * F, X, Y, Z)), dtype=torch.float32, device=device)
+    if (N * 3) % 2:
+        x[-1] = 0
+
+    def multiplier(route):
+        return fluid.form_multiplier(fluid.multiplier_form(route), (X, Y, Z), PARAMS, True,
+                                     torch.float32, device)
+
+    def both(fn, *args):
+        got = fn(*args)
+        with plain_versions():
+            ref = fn(*args)
+        return got, ref
+
+    def hold(name, label, got, ref):
+        errs[name] = max(errs.get(name, 0.0), compare(f"{name} {label}", got, ref, 1e-4, 0.0))
+
+    def under_autograd(names, per_call, fn, label):
+        leaf, ref_leaf = (x.clone().requires_grad_(True) for _ in range(2))
+        cot = torch.as_tensor(rng.standard_normal((2 * F, Z, Y, X)), dtype=torch.float32,
+                              device=device).transpose(1, 3)
+        before = launch_counts()
+        out = fn(leaf)
+        (got,) = torch.autograd.grad(out, leaf, cot)
+        after = launch_counts()
+        check(all(after[k] == before[k] + 2 * n for k, n in zip(names, per_call)),
+              f"{label}: launches {[after[k] - before[k] for k in names]} under autograd, "
+              f"want {[2 * n for n in per_call]}")
+        with plain_versions():
+            (ref,) = torch.autograd.grad(fn(ref_leaf), ref_leaf, cot)
+        for k in names:
+            hold(k, f"{label} autograd", got, ref)
+
+    errs = {}
+    log(f"fluid solves of the selectors at {'x'.join(map(str, shape))}:")
+    if radix:
+        Mbr = multiplier("fluid_radix")
+        spec, ref = both(fft_radix.radix_zy, x, False)
+        hold("fluid_radix_zy", "forward", spec, ref)
+        hold("fluid_radix_zy", "inverse", *both(fft_radix.radix_zy, spec, True))
+        hold("fluid_radix_x", "on the spectrum", *both(fft_radix.radix_x, spec, Mbr))
+        got, ref = both(fft_radix.fluid_radix, x, Mbr)
+        for k in ("fluid_radix_zy", "fluid_radix_x"):
+            hold(k, "pipeline", got, ref)
+        under_autograd(("fluid_radix_zy", "fluid_radix_x"), (2, 1),
+                       lambda a: fft_radix.fluid_radix(a, Mbr), "pipeline")
+    if whole:
+        Mn = multiplier("fluid_whole")
+        hold("fluid_whole", "forward", *both(fft_whole.fluid_whole, x, Mn))
+        under_autograd(("fluid_whole",), (1,), lambda a: fft_whole.fluid_whole(a, Mn),
+                       "fluid_whole")
+    return errs
+
+
 def atlas_steps_2d(lt, device, params=PARAMS, launches=STEP2D_LAUNCHES):
     """Phases 6b and 6c, the 2D main paths: ``CHAIN`` chained 2D atlas steps
     with ``FluidMetric(params)`` at 256^2 b8 and 512^2 b8 on bench.py's
@@ -784,6 +887,82 @@ def atlas_steps_2d(lt, device, params=PARAMS, launches=STEP2D_LAUNCHES):
     return main
 
 
+@contextlib.contextmanager
+def selected(setter, value):
+    """The selector ``setter`` at ``value`` for the block, restored after
+    it."""
+    prev = setter(value)
+    try:
+        yield
+    finally:
+        setter(prev)
+
+
+def selector_steps(lt, device, shape, setter, value, launches):
+    """Phases 6d and 6e: ``CHAIN`` chained 3D atlas steps at ``shape`` on
+    bench.py's inputs with the selector ``setter`` at ``value`` (restored
+    after), through the kernels and the plain versions, each step's
+    momentum gradient held against a float64 one (``P_TOL``) and ``m_new ==
+    m - lr p`` to an ulp.  The counters are set to 0 just before the kernel
+    steps and read just after: each step must make ``launches`` and no
+    other kernel may run.  Returns those counts."""
+    from lagomorph_tpu_torch.ops import fluid, kernels
+
+    metric = lt.FluidMetric(PARAMS)
+    step = make_step(lt, metric)
+    I, m, img = bench_inputs(device, shape)
+    label = f"{setter.__name__}({value!r}) {shape[2]}^3 b{shape[0]}, bench momenta (x2e-6)"
+    with selected(setter, value):
+        route = fluid.fluid_route(shape, PARAMS)
+        kernels.reset_launches()
+        got, dI = step_chain(step, I, m, img, "kernels")
+        main = kernels.launch_counts()
+        ref, dI_ref = step_chain(step, I, m, img, "plain")
+        grads = {mode: momentum_grads(metric, I, [g[0] for g in got], img, mode)
+                 for mode in ("kernels", "plain", "float64")}
+    log(f"atlas steps, {label}: route {route}; {CHAIN} chained steps through the kernels vs the "
+        "plain versions (float32); momentum gradients vs float64")
+    want = {k: 0 for k in got[0][4]}
+    want.update(launches)
+    for i, g in enumerate(got):
+        check(g[4] == want, f"{label} step {i + 1}: launches {g[4]}, want {want}")
+        check(tuple(g[1].shape) == shape and tuple(g[2].shape) == tuple(I.shape),
+              f"{label}: step outputs of the wrong shape")
+    check(all(sum(r[4].values()) == 0 for r in ref), f"{label}: the plain path launched a kernel")
+    step_compare(label, got, ref, grads, P_TOL)
+    e = max_err(dI, dI_ref) / float(dI_ref.abs().max())
+    log(f"  {label} atlas update: rel err={e:.3e}; launches per step {got[0][4]}")
+    check(e <= 1e-5, f"{label}: atlas update differs by {e:.3e} relative > 1e-5")
+    log(f"{label} main path launches: {main}")
+    return main
+
+
+def default_step_64(lt, device):
+    """Phase 6e, beside the whole-volume path: the route each setting of
+    ``set_fluid_mxu_whole`` gives at 64^3 b4 and at 128^3 b4, then one
+    atlas step at 64^3 b4 on the default selectors (K3, as every default 3D
+    step) against the plain versions."""
+    from lagomorph_tpu_torch.ops import fluid
+
+    for value in (False, "auto", True):
+        with selected(lt.set_fluid_mxu_whole, value):
+            log(f"route at 64^3 b4 / 128^3 b4 under set_fluid_mxu_whole({value!r}): "
+                f"{fluid.fluid_route(FULL64, PARAMS)} / {fluid.fluid_route(FULL, PARAMS)}")
+    check(fluid.fluid_route(FULL64, PARAMS) == "fluid_flat", "the default route is not K3")
+    step = make_step(lt, lt.FluidMetric(PARAMS))
+    I, m, img = bench_inputs(device, FULL64)
+    got = step_chain(step, I, m, img, "kernels", steps=1)[0]
+    ref = step_chain(step, I, m, img, "plain", steps=1)[0]
+    want = {k: 0 for k in got[0][4]}
+    want.update(STEP_LAUNCHES)
+    check(got[0][4] == want, f"default step at 64^3 b4: launches {got[0][4]}, want {want}")
+    rel = abs(got[0][3] - ref[0][3]) / abs(ref[0][3])
+    e_I = max_err(got[0][2], ref[0][2]) / float(ref[0][2].abs().max())
+    log(f"default step at 64^3 b4 (route fluid_flat): loss rel {rel:.3e}, I_grad rel {e_I:.3e}; "
+        f"launches {got[0][4]}")
+    check(rel <= 1e-5 and e_I <= 1e-5, "default step at 64^3 b4 differs from the plain versions")
+
+
 def bound(nbytes, flops):
     """The least time in ms the card could take for work that must move
     ``nbytes`` bytes and do ``flops`` float32 operations, and which of the
@@ -832,13 +1011,14 @@ ADSTAR2_BWD = TRANSPOSE2 + WGRAD2 + 12 + 2 * 10 + 4
 COMPOSE2_BWD = TRANSPOSE2 + WGRAD2 + 4
 
 
-def work(name, N, V, F=None):
+def work(name, N, V, F=None, axes=None):
     """(bytes, operations) that kernel ``name`` must move and do at the
     timed shapes: fields of ``N`` subjects of ``V`` voxels, float32, a
     batch-1 one-channel atlas for the warp, batch-N momenta for Ad*, ``F``
-    complex fields for the fluid solve, or, for the 2D whole-shoot kernels,
-    ``F`` substeps of 2-channel fields of ``V`` pixels.  Each input read
-    once, each output written once."""
+    complex fields for the fluid solves (of spatial ``axes`` for the
+    radix-2 kernels), or, for the 2D whole-shoot kernels, ``F`` substeps of
+    2-channel fields of ``V`` pixels.  Each input read once, each output
+    written once."""
     f3 = 4 * 3 * N * V  # one 3-channel field
     f1 = 4 * N * V  # one 1-channel batch-N field
     atlas = 4 * V
@@ -854,8 +1034,12 @@ def work(name, N, V, F=None):
         return 6 * f3, N * V * (JAC_OPS + weight_grad_ops(3) + DIV_OPS + 3 + transpose_ops(3))
     if name == "compose_bwd":  # read phi, v, g; write d_phi, d_v
         return 5 * f3, N * V * (3 + transpose_ops(3) + 3 + weight_grad_ops(3) + 9)
-    if name == "fluid_flat":  # read x, Mn; write y; two 3D complex FFTs per field
+    if name in ("fluid_flat", "fluid_whole"):  # read x, Mn; write y; two 3D complex FFTs per field
         return 4 * (2 * 2 * F * V + V), F * (2 * 5 * V * np.log2(V) + 2 * V)
+    if name == "fluid_radix_zy":  # read x, write y; 5 flops per element per radix-2 stage
+        return 4 * 2 * 2 * F * V, F * 5 * V * np.log2(axes[1] * axes[2])
+    if name == "fluid_radix_x":  # and read Mbr; stages along x both ways, the product
+        return 4 * (2 * 2 * F * V + V), F * (2 * 5 * V * np.log2(axes[0]) + 2 * V)
     fft2 = 2 * 5 * V * np.log2(V) + 2 * V  # one packed 2D solve per subject
     f2 = 4 * 2 * N * V  # one 2-channel batch-N 2D field
     if name == "shoot2d_fwd":  # read phi0, m0, Mn; write phi_T and 3T stash fields
@@ -1069,6 +1253,107 @@ def timings2d(device, card, lt):
     return out
 
 
+def step_times(lt, device, card, shape, label, setter=None, value=None, reps=3):
+    """The atlas step at ``shape`` on bench.py's inputs, through the kernels
+    and the plain versions (order: plain, kernel, kernel, plain), with the
+    selector ``setter`` at ``value`` if given, and the peak device memory of
+    one step each way."""
+    from lagomorph_tpu_torch.ops.kernels import plain_versions
+
+    step = make_step(lt, lt.FluidMetric(PARAMS))
+    I, m, img = bench_inputs(device, shape)
+
+    def atlas_step():
+        return float(step(I, m, img)[2])
+
+    with selected(setter, value) if setter else contextlib.nullcontext():
+        samples = {False: [], True: []}
+        for is_plain in (True, False, False, True):
+            with plain_versions() if is_plain else contextlib.nullcontext():
+                samples[is_plain].append(time_ms(atlas_step, device, reps, warmup=1))
+        peak = {}
+        for is_plain in (False, True):
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            with plain_versions() if is_plain else contextlib.nullcontext():
+                atlas_step()
+            peak[is_plain] = torch.cuda.max_memory_allocated(device) / 2**30
+    k, p = samples[False], samples[True]
+    log(f"time atlas step ({label}, {shape[2]}^3 b{shape[0]}, 5 steps): kernels "
+        f"{k[0]:.3f}/{k[1]:.3f} ms ({2000 / (k[0] + k[1]):.2f} steps/s), plain "
+        f"{p[0]:.3f}/{p[1]:.3f} ms per step; peak device memory per step: kernels "
+        f"{peak[False]:.3f} GiB, plain {peak[True]:.3f} GiB [{card}]")
+
+
+def timings_solves(device, card, lt):
+    """Per-call ms of K14 (forward; the inverse logged), K15 and the
+    pipeline K14, K15, K14 at 128^3 b4, and of K16 at 64^3 b4 (and, logged,
+    at 128^3 b4 beside K3), each beside its plain version (order: plain,
+    kernel, kernel, plain), the library call (``ifftn(Mn * fftn(.))`` on the
+    packed pairs, for the pipeline and K16; none computes K14 or K15 alone)
+    and the bound of its work; then the radix step at 128^3 b4 and the
+    whole-volume and default steps at 64^3 b4, both ways, with peak memory.
+    Returns {kernel: {ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    from lagomorph_tpu_torch.ops import fluid
+    from lagomorph_tpu_torch.ops.kernels import fft_radix, fft_unit, fft_whole, plain_versions
+
+    rng = np.random.default_rng(11)
+    out = {}
+
+    def timed(name, shape, fn, library, work_name=None, record=True):
+        """Time ``fn`` and, under ``plain_versions()``, its plain version."""
+        def plain():
+            with plain_versions():
+                return fn()
+
+        N, _, X, Y, Z = shape
+        p1 = time_ms(plain, device, 10)
+        k1 = time_ms(fn, device, 10)
+        k2 = time_ms(fn, device, 10)
+        p2 = time_ms(plain, device, 10)
+        lib = time_ms(library, device, 10) if library is not None else None
+        b_ms, b_by = bound(*work(work_name or name, N, X * Y * Z, F=(N * 3 + 1) // 2,
+                                 axes=(X, Y, Z)))
+        if record:
+            out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                         "bound_ms": b_ms, "bound_by": b_by}
+        log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
+            f"({b_by}) per call at {X}x{Y}x{Z} b{N} [{card}]")
+
+    def operands(shape):
+        N, _, X, Y, Z = shape
+        F = (N * 3 + 1) // 2
+        x = torch.as_tensor(rng.standard_normal((2 * F, X, Y, Z)), dtype=torch.float32,
+                            device=device)
+        Mn, Mbr = (fluid.form_multiplier(fluid.multiplier_form(r), (X, Y, Z), PARAMS, True,
+                                         torch.float32, device)
+                   for r in ("fluid_flat", "fluid_radix"))
+        cx = torch.complex(x[:F], x[F:])
+        return x, Mn, Mbr, lambda: torch.fft.ifftn(torch.fft.fftn(cx, dim=(1, 2, 3)) * Mn,
+                                                   dim=(1, 2, 3))
+
+    x, Mn, Mbr, library = operands(FULL)
+    spec = fft_radix.radix_zy(x, False)
+    timed("fluid_radix_zy", FULL, lambda: fft_radix.radix_zy(x, False), None)
+    timed("fluid_radix_zy inverse", FULL, lambda: fft_radix.radix_zy(spec, True), None,
+          work_name="fluid_radix_zy", record=False)
+    timed("fluid_radix_x", FULL, lambda: fft_radix.radix_x(spec, Mbr), None)
+    timed("pipeline K14, K15, K14", FULL, lambda: fft_radix.fluid_radix(x, Mbr), library,
+          work_name="fluid_flat", record=False)
+    timed("fluid_whole", FULL, lambda: fft_whole.fluid_whole(x, Mn), library, record=False)
+    del spec
+    x, Mn, Mbr, library = operands(FULL64)
+    timed("fluid_whole", FULL64, lambda: fft_whole.fluid_whole(x, Mn), library)
+    timed("fluid_flat", FULL64, lambda: fft_unit.fluid_flat(x, Mn), library, record=False)
+    del x, Mn, Mbr, library
+
+    step_times(lt, device, card, FULL, "radix: K14, K15", lt.set_fluid_fft_kernel, "radix")
+    step_times(lt, device, card, FULL64, "whole: K16", lt.set_fluid_mxu_whole, True, reps=5)
+    step_times(lt, device, card, FULL64, "default: K3", reps=5)
+    return out
+
+
 def trace_run(device, card, fn, label, path, n=5):
     """Optional phase (``--trace PATH``): a ``torch.profiler`` trace of
     ``n`` calls of ``fn`` (``label`` names one call), written to ``path`` as
@@ -1149,6 +1434,11 @@ def run(device, card, trace_path=None):
     for shape, seed in ((FULL2D_512, 11), (ODD2D, 12)):
         for name, err in epdiff2d_checks(device, shape, seed).items():
             errs[name] = max(errs[name], err)
+    for shape, seed, radix, whole in ((FULL, 13, True, True), (FULL64, 14, True, True),
+                                      (RADIX_ODD, 15, True, True), (RADIX_WIDE, 16, True, False),
+                                      (ODD, 17, False, True)):
+        for name, err in solve_checks(lt, device, shape, seed, radix, whole).items():
+            errs[name] = max(errs.get(name, 0.0), err)
 
     # 4. the slice forward, at the bench's momenta and at momenta scaled to
     # a half-voxel deformation, with the launch counters set to 0 just
@@ -1185,10 +1475,19 @@ def run(device, card, trace_path=None):
     I2, m2, img2 = bench_inputs(device, FULL2D)
     for max_v0 in (8.0, 2.0):
         fallback_step(lt, device, PARAMS_BETA, max_v0, m2, I2, img2)
+    # 6d. the radix path at 128^3 b4 (K14, K15 in place of K3)
+    radix = selector_steps(lt, device, FULL, lt.set_fluid_fft_kernel, "radix", RADIX_STEP_LAUNCHES)
+    main.update({k: radix[k] for k in ("fluid_radix_zy", "fluid_radix_x")})
+    # 6e. the whole-volume path at 64^3 b4 (K16 in place of K3), and the
+    # default route beside it
+    whole = selector_steps(lt, device, FULL64, lt.set_fluid_mxu_whole, True, WHOLE_STEP_LAUNCHES)
+    main["fluid_whole"] = whole["fluid_whole"]
+    default_step_64(lt, device)
 
     # 7. timings
     times = timings(device, card, lt, metric, I, m, img)
     times.update(timings2d(device, card, lt))
+    times.update(timings_solves(device, card, lt))
 
     # 8. traces
     if trace_path:
@@ -1205,6 +1504,13 @@ def run(device, card, trace_path=None):
         step_beta = make_step(lt, lt.FluidMetric(PARAMS_BETA))
         trace_run(device, card, lambda: float(step_beta(I2, m2, img2)[2]), "2D beta step",
                   f"{base}_steps2d_beta{ext or '.json'}")
+        with selected(lt.set_fluid_fft_kernel, "radix"):
+            trace_run(device, card, lambda: float(step(I, m, img)[2]), "radix step",
+                      f"{base}_steps_radix{ext or '.json'}")
+        I64, m64, img64 = bench_inputs(device, FULL64)
+        with selected(lt.set_fluid_mxu_whole, True):
+            trace_run(device, card, lambda: float(step(I64, m64, img64)[2]), "whole step 64^3",
+                      f"{base}_steps64_whole{ext or '.json'}")
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
@@ -1219,9 +1525,11 @@ def main():
     ap.add_argument("--trace", metavar="PATH",
                     help="also trace 5 slices (into this Chrome-trace file), 5 atlas "
                          "steps (into PATH with _steps before its extension), 5 2D "
-                         "atlas steps at 256^2 b8 (_steps2d) and 5 with beta = 0.05 "
-                         "(_steps2d_beta) with torch.profiler, and print the device "
-                         "time by kernel and the busy share")
+                         "atlas steps at 256^2 b8 (_steps2d), 5 with beta = 0.05 "
+                         "(_steps2d_beta), 5 radix steps at 128^3 b4 (_steps_radix) "
+                         "and 5 whole-volume steps at 64^3 b4 (_steps64_whole) with "
+                         "torch.profiler, and print the device time by kernel and the "
+                         "busy share")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",

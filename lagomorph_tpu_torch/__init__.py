@@ -8,8 +8,14 @@ tensors and on their plain PyTorch versions for CPU tensors: in 3D the
 per-substep kernels of ``ops/kernels/epdiff_unit``, in 2D the whole-shoot
 kernels of ``ops/kernels/shoot2d`` or, for a momentum mask or a fluid
 metric with ``beta != 0``, the per-substep kernels of
-``ops/kernels/epdiff2d``.  Tensors are NC(D)HW, as in the JAX package.
-This package imports torch and numpy, never jax.
+``ops/kernels/epdiff2d``.  The fluid solves of the 3D step run on K3
+(``ops/kernels/fft_unit``) by default; the JAX package's selectors put them
+on the radix-2 kernels K14/K15 (``set_fluid_fft_kernel("radix")``,
+``ops/kernels/fft_radix``), the whole-volume kernel K16
+(``set_fluid_mxu_whole``, ``ops/kernels/fft_whole``) or the plain
+``torch.fft`` / DFT routes (``set_fluid_fft_kernel(False)``,
+``set_fluid_packing``, ``set_fluid_dft``).  Tensors are NC(D)HW, as in the
+JAX package.  This package imports torch and numpy, never jax.
 """
 from .ops import (
     diff_central,
@@ -23,6 +29,10 @@ from .ops import (
     sample_displacement_bounded,
     sample_displacement_unit,
     sample_linear,
+    set_fluid_dft,
+    set_fluid_fft_kernel,
+    set_fluid_mxu_whole,
+    set_fluid_packing,
     shift_clamp,
 )
 from .deform import identity, compose, compose_disp_vel

@@ -47,12 +47,10 @@ namespace lagomorph {
 
 constexpr int kThreads = 256;
 
-enum InMode { IN_SPLIT = 0, IN_COMPLEX = 1 };
-enum OutMode { OUT_SPLIT = 0, OUT_COMPLEX = 1 };
-
-// One pass over all lines of one axis.  `mult` (pass 3 only) is the
-// multiplier laid out like one (N, inner) slab: forward DFT, times mult,
-// inverse DFT.  Otherwise one DFT of direction `sign`, scaled by `scale`.
+// One pass over all lines of one axis, one tile of TJ lines per block
+// (line_tile in fft_lines.cuh).  `mult` (pass 3 only) is the multiplier
+// laid out like one (N, inner) slab: forward DFT, times mult, inverse DFT.
+// Otherwise one DFT of direction `sign`, scaled by `scale`.
 __global__ void dft_pass_kernel(const float* __restrict__ in_re,
                                 const float* __restrict__ in_im,
                                 float2* cbuf, float* __restrict__ out_re,
@@ -61,80 +59,12 @@ __global__ void dft_pass_kernel(const float* __restrict__ in_re,
                                 int out_mode, long nlines, int N, long inner,
                                 int TJ, float sign, float scale) {
   extern __shared__ float2 smem[];
-  const int TP = TJ + 1;      // tile row pitch
-  float2* tw = smem;          // N
-  float2* S = smem + N;       // N * TP
-  float2* O = S + N * TP;     // N * TP
-
-  for (int t = threadIdx.x; t < N; t += blockDim.x) {
-    double s, c;
-    sincospi(2.0 * (double)t / (double)N, &s, &c);
-    tw[t] = make_float2((float)c, (float)s);
-  }
-
-  const long l0 = (long)blockIdx.x * TJ;
-  const int nl = nlines - l0 < TJ ? (int)(nlines - l0) : TJ;
-  const bool contig = inner == 1;  // lines are contiguous rows (z axis)
-  const int total = N * TJ;
-
-  // load: consecutive threads on consecutive addresses
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    int j, n;
-    if (contig) { j = e / N; n = e - j * N; } else { n = e / TJ; j = e - n * TJ; }
-    float2 val = make_float2(0.0f, 0.0f);
-    if (j < nl) {
-      const long a = line_addr(l0 + j, n, N, inner);
-      val = in_mode == IN_SPLIT ? make_float2(in_re[a], in_im[a]) : cbuf[a];
-    }
-    S[n * TP + j] = val;
-  }
-  __syncthreads();
-
-  float2* res;
-  if (mult != nullptr) {
-    float2* F = transform_tile(S, O, tw, N, TJ, -1.0f);
-    for (int e = threadIdx.x; e < total; e += blockDim.x) {
-      const int k = e / TJ, j = e - k * TJ;
-      if (j < nl) {
-        const long l = l0 + j;
-        const float m = mult[(long)k * inner + (l % inner)];
-        const float2 v = F[k * TP + j];
-        F[k * TP + j] = make_float2(v.x * m, v.y * m);
-      }
-    }
-    __syncthreads();
-    res = transform_tile(F, F == S ? O : S, tw, N, TJ, 1.0f);
-  } else {
-    res = transform_tile(S, O, tw, N, TJ, sign);
-  }
-
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    int j, k;
-    if (contig) { j = e / N; k = e - j * N; } else { k = e / TJ; j = e - k * TJ; }
-    if (j < nl) {
-      const long a = line_addr(l0 + j, k, N, inner);
-      const float2 v = res[k * TP + j];
-      if (out_mode == OUT_SPLIT) {
-        out_re[a] = v.x * scale;
-        out_im[a] = v.y * scale;
-      } else {
-        cbuf[a] = make_float2(v.x * scale, v.y * scale);
-      }
-    }
-  }
-}
-
-// shared memory of one block: the twiddle table and two tiles
-static size_t smem_bytes(int N, int tj) {
-  return (2L * N * (tj + 1) + N) * sizeof(float2);
-}
-
-// lines per block: the widest TJ whose tiles and table fit in 96 KB, so two
-// blocks share an SM
-static int pick_tj(int N) {
-  for (int tj = 32; tj > 1; tj /= 2)
-    if (smem_bytes(N, tj) <= 96 * 1024) return tj;
-  return 1;
+  float2* tw = smem;              // N
+  float2* S = smem + N;           // N * (TJ + 1)
+  float2* O = S + N * (TJ + 1);   // N * (TJ + 1)
+  fill_twiddles(tw, N);
+  line_tile(in_re, in_im, cbuf, out_re, out_im, mult, in_mode, out_mode, nlines, N,
+            inner, TJ, sign, scale, (long)blockIdx.x * TJ, tw, S, O);
 }
 
 static int launch_pass(const float* in_re, const float* in_im, float2* cbuf,
@@ -142,8 +72,8 @@ static int launch_pass(const float* in_re, const float* in_im, float2* cbuf,
                        int in_mode, int out_mode, long nlines, int N,
                        long inner, float sign, float scale,
                        cudaStream_t stream) {
-  const int tj = pick_tj(N);
-  const size_t smem = smem_bytes(N, tj);
+  const int tj = line_pick_tj(N);
+  const size_t smem = line_smem_bytes(N, tj);
   cudaError_t err = cudaFuncSetAttribute(
       dft_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -63,6 +63,7 @@
 // intermediate plane in L2 and runs 3 (K8) or 4 (K9) barriers per substep.
 #include <cooperative_groups.h>
 
+#include "cooperative.cuh"
 #include "fft_lines.cuh"
 #include "stencil2d.cuh"
 
@@ -99,14 +100,6 @@ __device__ __forceinline__ Tiles carve(float2* smem, int H, int W, int TJ) {
   t.S = t.twW + W;
   t.O = t.S + (long)L * (TJ + 1);
   return t;
-}
-
-__device__ __forceinline__ void fill_twiddles(float2* tw, int N) {
-  for (int t = threadIdx.x; t < N; t += blockDim.x) {
-    double sn, cs;
-    sincospi(2.0 * (double)t / (double)N, &sn, &cs);
-    tw[t] = make_float2((float)cs, (float)sn);
-  }
 }
 
 // Phase B / 2: every column line (N * W of them, length H, stride W) of the
@@ -387,26 +380,6 @@ shoot2d_bwd_kernel(const float* __restrict__ m0, const float* __restrict__ g_in,
   }
 }
 
-// The cooperative launch: as many blocks as the card holds at once.
-static int launch_cooperative(const void* kernel, size_t smem, void** args,
-                              cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev, sms, per_sm;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kShootThreads,
-                                                           smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  err = cudaLaunchCooperativeKernel(kernel, dim3(per_sm * sms), dim3(kShootThreads), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace lagomorph
 
 // phi0, out: (N, 2, H, W); m0: (Nm, 2, H, W), Nm in {1, N}; Mn: (H, W);
@@ -422,8 +395,8 @@ extern "C" int lagomorph_shoot2d_fwd(const float* phi0, const float* m0, const f
   float2* c = reinterpret_cast<float2*>(cbuf);
   void* args[] = {&phi0, &m0, &Mn, &out, &flag, &traj_p, &traj_v, &traj_mw, &pp, &c,
                   &N, &Nm, &H, &W, &T, &s, &tj};
-  return launch_cooperative((const void*)shoot2d_fwd_kernel, shoot_smem(H, W, tj), args,
-                            (cudaStream_t)stream);
+  return launch_cooperative((const void*)shoot2d_fwd_kernel, kShootThreads,
+                            shoot_smem(H, W, tj), args, (cudaStream_t)stream);
 }
 
 // m0, d_m0: (Nm, 2, H, W); g, d_phi0: (N, 2, H, W); traj_*: (T, N, 2, H, W)
@@ -439,6 +412,6 @@ extern "C" int lagomorph_shoot2d_bwd(const float* m0, const float* g, const floa
   float2* c = reinterpret_cast<float2*>(cbuf);
   void* args[] = {&m0, &g, &Mn, &traj_p, &traj_v, &traj_mw, &d_m0, &d_phi0, &c, &dm, &dmw,
                   &gbuf, &N, &Nm, &H, &W, &T, &s, &tj};
-  return launch_cooperative((const void*)shoot2d_bwd_kernel, shoot_smem(H, W, tj), args,
-                            (cudaStream_t)stream);
+  return launch_cooperative((const void*)shoot2d_bwd_kernel, kShootThreads,
+                            shoot_smem(H, W, tj), args, (cudaStream_t)stream);
 }

@@ -3,13 +3,14 @@
 Port of ``lagomorph_tpu/metric.py``: ``FluidMetric`` applies the Green's
 function of ``L'L = (-alpha Laplacian - beta grad div + gamma)^2``
 (:mod:`.ops.fluid`), keeping the per-frequency multiplier it built for each
-field shape, dtype and device.
+field shape, dtype, device and multiplier form (the form of the route the
+selectors give: half or full spectrum, natural or bit-reversed order).
 """
 from __future__ import annotations
 
 import torch
 
-from .ops.fluid import flat_path, fluid_multiplier_entries, fluid_operator
+from .ops.fluid import fluid_operator, fluid_route, form_multiplier, multiplier_form
 
 __all__ = ["FluidMetric"]
 
@@ -26,24 +27,24 @@ class FluidMetric:
         self._multipliers = {}
 
     def multiplier(self, shape, dtype: torch.dtype, device, inverse: bool):
-        """The multiplier ``fluid_operator`` uses on fields of ``shape``:
-        the full-spectrum scalar for the packed path, else the
-        half-spectrum ``d x d`` entries.  Built once per key."""
-        return self._entries(tuple(shape[2:]), dtype, device, inverse,
-                             flat_path(shape, self.params))
+        """The multiplier ``fluid_operator`` uses on fields of ``shape`` on
+        the route the selectors give now: the full-spectrum scalar (in
+        bit-reversed order on the radix route) for the packed solves, else
+        the ``d x d`` entries.  Built once per key."""
+        form = multiplier_form(fluid_route(shape, self.params))
+        return self._entries(tuple(shape[2:]), dtype, device, inverse, form)
 
     def packed_multiplier(self, spatial, dtype: torch.dtype, device) -> torch.Tensor:
         """The full-spectrum scalar multiplier of ``sharp`` on a grid of
         ``spatial`` size, as the packed-pair solves take it (the 2D
         whole-shoot kernels; valid for ``beta == 0``).  Built once per key."""
-        return self._entries(tuple(spatial), dtype, device, True, True)
+        return self._entries(tuple(spatial), dtype, device, True, multiplier_form("fluid_flat"))
 
-    def _entries(self, spatial, dtype, device, inverse, full):
-        key = (spatial, dtype, torch.device(device), bool(inverse), full)
+    def _entries(self, spatial, dtype, device, inverse, form):
+        key = (spatial, dtype, torch.device(device), bool(inverse), form)
         if key not in self._multipliers:
-            M = fluid_multiplier_entries(spatial, self.params, inverse, dtype,
-                                         device, full_spectrum=full)
-            self._multipliers[key] = M[(0, 0)] if full else M
+            self._multipliers[key] = form_multiplier(form, spatial, self.params, inverse,
+                                                     dtype, device)
         return self._multipliers[key]
 
     def operator(self, mv: torch.Tensor, inverse: bool) -> torch.Tensor:

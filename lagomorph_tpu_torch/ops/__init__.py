@@ -2,7 +2,13 @@
 operator, interpolation, and the hand-written kernels under ``kernels``."""
 from .boundary import diff_central, diff_central_adjoint, shift_clamp
 from .diff import jacobian_times_vectorfield, jacobian_times_vectorfield_adjoint
-from .fluid import fluid_operator
+from .fluid import (
+    fluid_operator,
+    set_fluid_dft,
+    set_fluid_fft_kernel,
+    set_fluid_mxu_whole,
+    set_fluid_packing,
+)
 from .interp import interp, interp_auto
 from .sampling import (
     identity_grid,
@@ -23,5 +29,9 @@ __all__ = [
     "sample_displacement_bounded",
     "sample_displacement_unit",
     "sample_linear",
+    "set_fluid_dft",
+    "set_fluid_fft_kernel",
+    "set_fluid_mxu_whole",
+    "set_fluid_packing",
     "shift_clamp",
 ]

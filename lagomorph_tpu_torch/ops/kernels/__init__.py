@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
 Each kernel module (``warp_unit``, ``epdiff_unit``, ``fft_unit``,
-``shoot2d``, ``epdiff2d``) holds, for every kernel, a wrapper that launches
-the CUDA kernel for tensors on a CUDA device and the plain PyTorch function
-of the same signature that it is held against.  Dispatch is by device only:
+``fft_radix``, ``fft_whole``, ``shoot2d``, ``epdiff2d``) holds, for every
+kernel, a wrapper that launches the CUDA kernel for tensors on a CUDA
+device and the plain PyTorch function of the same signature that it is held
+against.  Dispatch is by device only:
 
 * a CPU tensor goes to the plain version;
 * a CUDA tensor launches the kernel, or the wrapper raises (wrong dtype,
@@ -15,8 +16,8 @@ kernels and their plain versions side by side on the card; nothing in the
 package enters it on its own.
 
 Under autograd, a kernel launch goes through a ``torch.autograd.Function``
-of its module whose backward launches the backward kernel (K3's backward is
-K3 itself, the solve being self-adjoint).  Flag outputs are marked
+of its module whose backward launches the backward kernel (the fluid
+solves K3, K14-K15 and K16 are their own backwards, being self-adjoint).  Flag outputs are marked
 non-differentiable.  Autograd hands a backward zeros for an output that
 was not used (it materialises them), and may hand it an expanded or
 strided view (the cotangent of a ``sum`` has stride 0), so every backward

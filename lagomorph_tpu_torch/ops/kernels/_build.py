@@ -48,6 +48,12 @@ SIGNATURES = {
     "lagomorph_compose_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     # x1, x2, Mn, y1, y2, scratch, F, X, Y, Z, stream
     "lagomorph_fluid_flat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # re, im, out_re, out_im, F, X, Y, Z, inverse, stream
+    "lagomorph_fluid_radix_zy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # re, im, Mbr, out_re, out_im, F, X, Y, Z, stream
+    "lagomorph_fluid_radix_x": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x1, x2, Mn, y1, y2, scratch, F, X, Y, Z, stream
+    "lagomorph_fluid_whole": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # phiinv, m0, out, mw (or NULL), flag, N, Nm, H, W, stream
     "lagomorph_ad_star2d_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # phiinv, m0, g, mw, d_mw (scratch), d_phiinv, d_m0, N, Nm, H, W, stream

@@ -35,10 +35,12 @@ KERNEL = register(
 
 def fluid_flat_plain(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: the ``torch.fft`` packed operator on the
-    complex field ``x[:F] + i*x[F:]`` of shape ``(F, X, Y, Z)``."""
+    complex field ``x[:F] + i*x[F:]`` of shape ``(F, X, Y, Z)`` (or of any
+    number of spatial axes, the packed solve of the fluid routes)."""
     F = x.shape[0] // 2
+    dims = tuple(range(1, x.dim()))
     c = torch.complex(x[:F], x[F:])
-    y = torch.fft.ifftn(torch.fft.fftn(c, dim=(1, 2, 3)) * Mn, dim=(1, 2, 3))
+    y = torch.fft.ifftn(torch.fft.fftn(c, dim=dims) * Mn, dim=dims)
     return torch.cat([y.real, y.imag])
 
 

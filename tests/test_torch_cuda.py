@@ -9,9 +9,9 @@ This file imports no jax, so it also runs on a machine without it:
 kernel against float32 plain version on the same inputs: 1e-5 * (1 +
 max|ref|) for the stencils (the forwards round each operation like the
 plain version and come out bit-equal; the backwards sum in another order
-than autograd), 1e-4 * max|ref| for the fluid solve (shared-memory
-transforms against cuFFT, with low frequencies amplified by 1/gamma^2 =
-1e4).
+than autograd), 1e-4 * max|ref| for the fluid solves K3, K14-K16
+(shared-memory transforms against cuFFT or the plain radix stages, with
+low frequencies amplified by 1/gamma^2 = 1e4).
 """
 import numpy as np
 import pytest
@@ -19,7 +19,9 @@ import torch
 
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
-from lagomorph_tpu_torch.ops.kernels import epdiff2d, epdiff_unit, fft_unit, shoot2d, warp_unit
+from lagomorph_tpu_torch.ops import fluid
+from lagomorph_tpu_torch.ops.kernels import (epdiff2d, epdiff_unit, fft_radix, fft_unit, fft_whole,
+                                             shoot2d, warp_unit)
 
 
 @pytest.fixture
@@ -250,3 +252,92 @@ def test_epdiff2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     assert not bool(epdiff2d.compose2d(p, bad_v, -0.2)[1])
     with pytest.raises(TypeError):
         epdiff2d.ad_star2d(p.double(), m0.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 16, 32, 64), (1, 3, 4, 256, 128)])
+def test_radix_kernels_match_plain_on_cuda(cuda, shape):
+    """K14 (both directions), K15 and the pipeline K14, K15, K14 against
+    their plain versions on the card, at a (Y, Z) plane that one block
+    holds and at one that takes two line passes (256 x 128); the pipeline
+    under autograd (3 launches forward, 3 backward, a transposed cotangent)
+    against autograd of the plain version; ``sharp`` on the radix route;
+    float64 and axes that are no power of two refused."""
+    rng = np.random.default_rng(8)
+    N, _, X, Y, Z = shape
+    F = (N * 3 + 1) // 2
+    x = torch.as_tensor(rng.standard_normal((2 * F, X, Y, Z)), dtype=torch.float32, device=cuda)
+    Mbr = fluid.form_multiplier(fluid.multiplier_form("fluid_radix"), (X, Y, Z), (0.1, 0.0, 0.01),
+                                True, torch.float32, cuda)
+    kernels.reset_launches()
+    for fn, args in ((fft_radix.radix_zy, (x, False)), (fft_radix.radix_zy, (x, True)),
+                     (fft_radix.radix_x, (x, Mbr)), (fft_radix.fluid_radix, (x, Mbr))):
+        got = fn(*args)
+        with kernels.plain_versions():
+            ref = fn(*args)
+        _compare(got, ref, 1e-4, 0.0)
+    assert kernels.launch_counts()["fluid_radix_zy"] == 4
+    assert kernels.launch_counts()["fluid_radix_x"] == 2
+    cot = torch.as_tensor(rng.standard_normal((2 * F, Z, Y, X)), dtype=torch.float32,
+                          device=cuda).transpose(1, 3)
+    grads = []
+    for plain in (False, True):
+        leaf = x.clone().requires_grad_(True)
+        with kernels.plain_versions() if plain else torch.enable_grad():
+            grads.append(torch.autograd.grad(fft_radix.fluid_radix(leaf, Mbr), leaf, cot)[0])
+    _compare(grads[0], grads[1], 1e-4, 0.0)
+    assert kernels.launch_counts()["fluid_radix_zy"] == 8
+    metric = lt.FluidMetric((0.1, 0.0, 0.01))
+    m = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda)
+    prev = lt.set_fluid_fft_kernel("radix")
+    try:
+        got = metric.sharp(m)
+        with kernels.plain_versions():
+            ref = metric.sharp(m)
+        with pytest.raises(TypeError):
+            metric.sharp(m.double())
+    finally:
+        lt.set_fluid_fft_kernel(prev)
+    _compare(got, ref, 1e-4, 0.0)
+    assert kernels.launch_counts()["fluid_radix_x"] == 5
+    with pytest.raises(ValueError):
+        fft_radix.fluid_radix(x[:, :, :, : Z - 1].contiguous(), Mbr[:, :, : Z - 1].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 32, 24, 40), (4, 3, 16, 16, 16)])
+def test_fluid_whole_matches_plain_on_cuda(cuda, shape):
+    """K16 against its plain version (the torch.fft packed solve) on the
+    card, at a mixed-radix and a power-of-two shape, directly, under
+    autograd (one launch each way) and through ``sharp`` under
+    ``set_fluid_mxu_whole(True)``; float64 refused."""
+    rng = np.random.default_rng(9)
+    N, _, X, Y, Z = shape
+    F = (N * 3 + 1) // 2
+    x = torch.as_tensor(rng.standard_normal((2 * F, X, Y, Z)), dtype=torch.float32, device=cuda)
+    Mn = lt.FluidMetric((0.1, 0.0, 0.01)).multiplier(shape, torch.float32, cuda, True)
+    kernels.reset_launches()
+    got = fft_whole.fluid_whole(x, Mn)
+    _compare(got, fft_unit.fluid_flat_plain(x, Mn), 1e-4, 0.0)
+    cot = torch.as_tensor(rng.standard_normal(tuple(x.shape)), dtype=torch.float32, device=cuda)
+    grads = []
+    for plain in (False, True):
+        leaf = x.clone().requires_grad_(True)
+        with kernels.plain_versions() if plain else torch.enable_grad():
+            grads.append(torch.autograd.grad(fft_whole.fluid_whole(leaf, Mn), leaf, cot)[0])
+    _compare(grads[0], grads[1], 1e-4, 0.0)
+    assert kernels.launch_counts()["fluid_whole"] == 3
+    m = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda)
+    metric = lt.FluidMetric((0.1, 0.0, 0.01))
+    prev = lt.set_fluid_mxu_whole(True)
+    try:
+        got = metric.sharp(m)
+        with kernels.plain_versions():
+            ref = metric.sharp(m)
+    finally:
+        lt.set_fluid_mxu_whole(prev)
+    _compare(got, ref, 1e-4, 0.0)
+    counts = kernels.launch_counts()
+    assert counts["fluid_whole"] == 4 and counts["fluid_flat"] == 0
+    with pytest.raises(TypeError):
+        fft_whole.fluid_whole(x.double(), Mn.double())

@@ -11,13 +11,14 @@ compiles them into a host library with the same C entry points, which the
 kernel wrappers then call in place of the card's library.  So the kernels'
 arithmetic, indexing, clamp folds, batch-1 sums and flags are checked here,
 in float32, before the card sees them; the card itself is checked by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  K3 (shared-memory
-transforms) is not emulated: its wrapper runs its plain version here.
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  K3 and K14-K16
+(shared-memory transforms) are not emulated here: their wrappers run their
+plain versions (``tests/test_torch_host_barrier_kernels.py`` runs them, and
+K8/K9, on a threaded emulation).
 
 K10-K13 run the per-pixel functions of ``csrc/stencil2d.cuh``, which K8
 and K9 share; K8 and K9 themselves (cooperative launches, grid barriers,
-shared-memory line transforms) do not fit this emulation and are checked
-on the card only.
+shared-memory line transforms) do not fit this emulation.
 
 Tolerances, float32 against the plain version on the same inputs: the
 forwards round each operation like the plain version (bit-equal); the
@@ -43,7 +44,9 @@ SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host")
 SOURCES = ("warp_unit.cu", "epdiff_unit.cu", "epdiff2d.cu")
 KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
 # entry points of the kernels with shared memory or grid barriers
-NOT_EMULATED = ("lagomorph_fluid_flat", "lagomorph_shoot2d_fwd", "lagomorph_shoot2d_bwd")
+NOT_EMULATED_KERNELS = ("fluid_flat", "shoot2d_fwd", "shoot2d_bwd", "fluid_radix_zy",
+                        "fluid_radix_x", "fluid_whole")
+NOT_EMULATED = tuple(f"lagomorph_{k}" for k in NOT_EMULATED_KERNELS)
 BWD_RTOL = 1e-5
 LAUNCH = re.compile(r"([\w:]+)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
 
@@ -166,7 +169,7 @@ def test_host_kernels_match_plain(rng, host_kernels, shape):
     assert not bool(epdiff_unit.ad_star(bad, bad)[1])
     assert not bool(epdiff_unit.compose(bad, bad, 1.0)[1])
     assert all(n > 0 for k, n in kernels.launch_counts().items()
-               if k not in ("fluid_flat", "shoot2d_fwd", "shoot2d_bwd") + KERNELS_2D_PER_OP)
+               if k not in NOT_EMULATED_KERNELS + KERNELS_2D_PER_OP)
 
 
 def test_host_atlas_step_matches_plain(rng, host_kernels):
@@ -185,7 +188,7 @@ def test_host_atlas_step_matches_plain(rng, host_kernels):
         "fluid_flat": 0, "warp_unit_fwd": 1, "warp_unit_bwd": 1, "ad_star_fwd": 4,
         "compose_fwd": 4, "ad_star_bwd": 4, "compose_bwd": 4, "shoot2d_fwd": 0,
         "shoot2d_bwd": 0, "ad_star2d_fwd": 0, "compose2d_fwd": 0, "ad_star2d_bwd": 0,
-        "compose2d_bwd": 0}
+        "compose2d_bwd": 0, "fluid_radix_zy": 0, "fluid_radix_x": 0, "fluid_whole": 0}
     assert not fft_unit.use_kernel(m)  # K3 took its plain version
     with kernels.plain_versions():
         ref = step(I, m, img)
