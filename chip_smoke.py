@@ -19,9 +19,10 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    (one nvcc per source, in parallel);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at 128^3 b4 and at a non-cubic, non-power-of-two shape, plus
-   inputs that leave the unit regime so the flags must come out false;
-   then each backward kernel (K5, K6, K7, and K3 through autograd) against
-   the plain versions' gradients at both shapes; then the 2D whole-shoot
+   inputs that leave the unit regime so the flags must come out false (K4
+   bit-equal); then each backward kernel (K5, K6, K7, and K3 through
+   autograd) against the plain versions' gradients at both shapes, and two
+   launches each of K5 and K7 bit-identical; then the 2D whole-shoot
    kernels K8 (phiinv_T, flag and stashed trajectory) and K9 (both
    gradients) against their plain versions at 256^2 b8, 512^2 b8 and
    (3, 2, 96, 80), with batch-1 and batch-N momenta and a tripped flag,
@@ -70,7 +71,10 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    setting takes logged;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
-   same function, that call; the slice and the atlas step both ways, with
+   same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
+   over the subjects); each pass of the warp's backward launchers, which
+   K5, K6 and K7 share, at the four operand shapes of the step, beside its
+   bound; the slice and the atlas step both ways, with
    the peak device memory of each step; K8 and K9, and K10-K13 at one
    substep's shapes, at 256^2 b8, and the 2D atlas step both ways, with
    ``beta = 0`` and ``beta = 0.05``, at 256^2 b8 and 512^2 b8, with peak
@@ -234,11 +238,12 @@ def kernel_checks(lt, device, shape, seed):
     log(f"kernels at {tag}:")
     # K4, batch-1 image (the atlas warp), and batch-N 3-channel (the
     # fallback's unit tier)
+    # K4 sums its 8 live taps in the plain version's order and rounding: bit-equal
     got, ref = both(warp_unit.sample_displacement_unit, I, phiinv)
-    errs["warp_unit_fwd"] = compare("warp_unit_fwd I(1,1)", got, ref, 1e-5)
+    errs["warp_unit_fwd"] = compare("warp_unit_fwd I(1,1)", got, ref, 0.0)
     got, ref = both(warp_unit.sample_displacement_unit, I3, phiinv)
     errs["warp_unit_fwd"] = max(errs["warp_unit_fwd"],
-                                compare("warp_unit_fwd I(N,3)", got, ref, 1e-5))
+                                compare("warp_unit_fwd I(N,3)", got, ref, 0.0))
     # K1 with batch-1 m0 (read with batch stride 0) and with batch-N m0 (the
     # main path's operand)
     errs["ad_star_fwd"] = 0.0
@@ -310,6 +315,8 @@ def backward_checks(lt, device, shape, seed):
          (t(rng.standard_normal((2 * ((N * 3 + 1) // 2), X, Y, Z))),), 1e-4, 0.0),
     ]
     log(f"backward kernels at {'x'.join(map(str, shape))}:")
+    g1 = t(rng.standard_normal((N, 1, X, Y, Z)))
+    g3 = t(rng.standard_normal(shape))
     errs = {}
     for name, label, fn, args, tol, offset in cases:
         leaves, refs = ([a.clone().requires_grad_(True) for a in args] for _ in range(2))
@@ -323,6 +330,17 @@ def backward_checks(lt, device, shape, seed):
         for i, (g, r) in enumerate(zip(got, torch.autograd.grad(ref_out, refs, cot))):
             err = compare(f"{name} {label} d_arg{i}", g, r, tol, offset)
             errs[name] = max(errs.get(name, 0.0), err)
+    # the gather passes sum each output in one fixed order: two launches of
+    # K5 (atlas and batch-N image) and of K7 agree bit for bit
+    for label, launch in (
+            ("warp_unit_bwd I(1,1)", lambda: warp_unit._launch_bwd(cases[0][3][0], phiinv, g1)),
+            ("warp_unit_bwd I(N,3)", lambda: warp_unit._launch_bwd(cases[1][3][0], phiinv, g3)),
+            ("compose_bwd", lambda: epdiff_unit._launch_compose_bwd(phiinv, cases[4][3][1], -0.2,
+                                                                    g3))):
+        first, second = launch(), launch()
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"{label}: two launches differ")
+    log("  K5, K7: two launches bit-identical")
     return errs
 
 
@@ -1059,6 +1077,19 @@ def work(name, N, V, F=None, axes=None):
     raise KeyError(name)
 
 
+def pass_work(kind, N, NI, C, V, compose=False):
+    """(bytes, operations) of one pass of the warp's backward launchers, as
+    K5, K6 and K7 run them: the transpose (read the displacement and the
+    cotangent, write the ``NI``-batch image gradient) or the weight
+    gradient (``kind == "dd"``: read the image, the displacement and the
+    cotangent, write the displacement gradient; with the compose epilogue,
+    s g + s dd)."""
+    if kind == "transpose":
+        return 4 * V * (3 * N + N * C + NI * C), N * V * transpose_ops(C)
+    return 4 * V * (NI * C + 3 * N + N * C + 3 * N), N * V * (weight_grad_ops(C)
+                                                            + (3 if compose else 0))
+
+
 def grid_of(disp):
     """``F.grid_sample``'s grid (align_corners=True) for sampling at
     ``x + disp(x)``: ``(N, X, Y, Z, 3)``, last axis (z, y, x) in [-1, 1]."""
@@ -1080,7 +1111,8 @@ def timings(device, card, lt, metric, I, m, img):
     import torch.nn.functional as Fn
 
     from lagomorph_tpu_torch import lddmm
-    from lagomorph_tpu_torch.ops.kernels import epdiff_unit, fft_unit, plain_versions, warp_unit
+    from lagomorph_tpu_torch.ops.kernels import (_build, epdiff_unit, fft_unit, plain_versions,
+                                                 stream_of, warp_unit)
 
     rng = np.random.default_rng(7)
     N, _, X, Y, Z = FULL
@@ -1102,6 +1134,11 @@ def timings(device, card, lt, metric, I, m, img):
     gs = Fn.grid_sample(I_N, grid, mode="bilinear", padding_mode="border", align_corners=True)
     log(f"grid_sample yardstick vs K4 at 128^3 b4: max diff "
         f"{max_err(gs, warp_unit.sample_displacement_unit(I, phiinv)):.3e}")
+
+    def grid_sample_bwd():  # K5's function: the atlas gradient summed over the subjects
+        dI, dgrid = torch.ops.aten.grid_sampler_3d_backward(g1, I_N, grid, 0, 1, True,
+                                                           [True, True])
+        return dI.sum(0, keepdim=True), dgrid
     # kernel name: (kernel path, plain version, one library call or None)
     calls = {
         "warp_unit_fwd": (lambda: warp_unit.sample_displacement_unit(I, phiinv),
@@ -1110,8 +1147,7 @@ def timings(device, card, lt, metric, I, m, img):
                                                  padding_mode="border", align_corners=True)),
         "warp_unit_bwd": (lambda: warp_unit._launch_bwd(I, phiinv, g1),
                           lambda: warp_unit.sample_displacement_unit_bwd_plain(I, phiinv, g1),
-                          lambda: torch.ops.aten.grid_sampler_3d_backward(
-                              g1, I_N, grid, 0, 1, True, [True, True])),
+                          grid_sample_bwd),
         "ad_star_fwd": (lambda: epdiff_unit.ad_star(phiinv, m),
                         lambda: epdiff_unit.ad_star_plain(phiinv, m), None),
         "ad_star_bwd": (lambda: epdiff_unit._launch_ad_star_bwd(phiinv, m, g3, mw),
@@ -1138,6 +1174,37 @@ def timings(device, card, lt, metric, I, m, img):
         log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
             f"({b_by}) per call at 128^3 b4 [{card}]")
+
+    # each pass of the warp's backward launchers at the operand shapes the
+    # step runs: the transpose of K5 (C = 1, the atlas summed over the N
+    # subjects) and of K6 and K7 (C = 3, NI = N), the weight gradient of K5
+    # (C = 1) and of K7 (C = 3, the compose epilogue)
+    st = stream_of(phiinv)
+    dI1 = torch.empty_like(I)
+    d3 = torch.empty_like(phiinv)
+
+    def transpose(disp, s, cot, out, NI, C):
+        return lambda: _build.call("lagomorph_warp_transpose", disp.data_ptr(), s,
+                                   cot.data_ptr(), out.data_ptr(), N, NI, C, X, Y, Z, st)
+
+    def dd(img_, disp, s, cot, NI, C, compose):
+        return lambda: _build.call("lagomorph_warp_dd", img_.data_ptr(), disp.data_ptr(), s,
+                                   cot.data_ptr(), d3.data_ptr(), N, NI, C, X, Y, Z,
+                                   int(compose), st)
+
+    for label, kind, NI, C, compose, fn in (
+            ("transpose C=1 NI=1 (K5)", "transpose", 1, 1, False,
+             transpose(phiinv, 1.0, g1, dI1, 1, 1)),
+            ("transpose C=3 NI=N (K6, K7)", "transpose", N, 3, False,
+             transpose(v, -0.2, g3, d3, N, 3)),
+            ("weight gradient C=1 (K5)", "dd", 1, 1, False, dd(I, phiinv, 1.0, g1, 1, 1, False)),
+            ("weight gradient C=3 compose (K7)", "dd", N, 3, True,
+             dd(phiinv, v, -0.2, g3, N, 3, True))):
+        k1 = time_ms(fn, device, 10)
+        k2 = time_ms(fn, device, 10)
+        b_ms, b_by = bound(*pass_work(kind, N, NI, C, V, compose))
+        log(f"time pass {label}: {k1:.4f}/{k2:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b4 [{card}]")
 
     def loss():
         return float(lddmm._lddmm_loss(I, m, img, metric, REG_WEIGHT, STEPS)[0])

@@ -69,8 +69,9 @@
 // 6 fields (read phi, m0, g, mw; write d_phi, d_m0), ~180 us at 3.35 TB/s;
 // its two passes move 11 (the scratch d_mw and a second read of phi).  K7
 // must move 5 (read phi, v, g; write d_phi, d_v), ~150 us; its passes move
-// 7.  Like K5, the gather passes are heavy in operations (27 neighbours, 81
-// axis weights per voxel) rather than in bytes.
+// 7.  The transpose and weight-gradient passes are K5's (warp_unit.cu:
+// bricks staged in shared memory with a halo, the 8 live taps); K6's first
+// pass stays one thread per voxel.
 #include "stencil.cuh"
 
 namespace lagomorph {

@@ -1,0 +1,405 @@
+// Variants of the unit-regime warp's kernels, for profile_warp.py only (not
+// part of the kernel library; built by that script).  They isolate the
+// three costs the previous kernels paid:
+//
+//   old_fwd_kernel, old_transpose_kernel, old_dd_kernel: the kernels of
+//     csrc/warp_unit.cu before their redesign (27 taps per voxel; the
+//     transpose recomputing a source's weights for each of its 27 slots;
+//     one thread per voxel, nothing staged);
+//   weights_kernel + preweighted_transpose_kernel: the old transpose with
+//     each source's 9 per-axis weights computed once into a global buffer
+//     and read per slot (the recomputation gone, nothing staged);
+//   live_dd_kernel: the old weight-gradient pass on the 8 live taps, read
+//     through L1 (the 19 dead taps gone, nothing staged);
+//   transpose_variant_kernel: the current transpose (csrc/warp_unit.cu,
+//     its march along x included) staging alone (MODE 1), or accumulating
+//     alone on its first staging (2).
+#include "../warp_unit.cu"
+
+namespace lagomorph_profile {
+using namespace lagomorph;
+
+// The transposed taps of the warp along one axis: the three pairs (u, o)
+// with clamp(u + o) == v, which the gather form of the transpose reads at
+// output index v.  Slot k (0..2) has offset o = k - 1 and source u = v - o
+// when u lies in [0, n); otherwise u + o would be clamped, and the slot
+// holds the clamp fold instead: u = v, o = -(k - 1) (at v == 0 the tap
+// (0, -1), at v == n - 1 the tap (n - 1, +1); warp_unit.py:477-502
+// `where(edge, ...)`).  So every axis has exactly three pairs, edges
+// included.  Computed from k, not stored, so a loop over k need not be
+// unrolled to stay in registers.  (The
+// current transpose folds these edges into its staged weights instead.)
+__device__ __forceinline__ void transposed_tap(int v, int n, int k, int& u, int& o) {
+  o = k - 1;
+  u = v - o;
+  if (u < 0 || u >= n) {
+    u = v;
+    o = -o;
+  }
+}
+
+__global__ void old_fwd_kernel(const float* __restrict__ I,
+                                     const float* __restrict__ disp,
+                                     float* __restrict__ out, int N, int NI,
+                                     int C, int X, int Y, int Z) {
+  const long V = (long)X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)N * V) return;
+  const int n = (int)(idx / V);
+  const long p = idx - (long)n * V;
+  const int z = (int)(p % Z);
+  const int y = (int)((p / Z) % Y);
+  const int x = (int)(p / ((long)Y * Z));
+
+  const float* d = disp + (long)n * 3 * V + p;
+  AxisWeights W[3];
+  W[0] = axis_weights(d[0]);
+  W[1] = axis_weights(d[V]);
+  W[2] = axis_weights(d[2 * V]);
+  Taps T;
+  make_taps(T, W, axis_idx(x, X), axis_idx(y, Y), axis_idx(z, Z), Y, Z);
+
+  const float* Ib = I + (NI == 1 ? 0L : (long)n * C * V);
+  float* o = out + (long)n * C * V + p;
+  for (int c = 0; c < C; ++c) o[(long)c * V] = warp_sum(T, Ib + (long)c * V);
+}
+
+// the gather-form transpose (see stencil.cuh launch_warp_transpose); one
+// thread per (nI, v), channels in chunks of 4 accumulators.  Offsets within
+// one field are 32-bit (a field of up to 2^31 voxels); the x-slot loop is
+// not unrolled, which keeps the kernel's registers well below the 255 a
+// fully unrolled 27-tap loop took.
+__global__ void old_transpose_kernel(const float* __restrict__ disp, float s,
+                                      const float* __restrict__ cot,
+                                      float* __restrict__ out, int N, int NI,
+                                      int C, int X, int Y, int Z) {
+  const int V = X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)NI * V) return;
+  const int nI = (int)(idx / V);
+  const int v = (int)(idx - (long)nI * V);
+  const int z = v % Z;
+  const int y = (v / Z) % Y;
+  const int x = v / (Y * Z);
+  const int n0 = NI == 1 ? 0 : nI;
+  const int n1 = NI == 1 ? N : nI + 1;
+
+  for (int c0 = 0; c0 < C; c0 += 4) {
+    const int nc = C - c0 < 4 ? C - c0 : 4;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int n = n0; n < n1; ++n) {
+      const float* dx = disp + (long)n * 3 * V;
+      const float* dy = dx + V;
+      const float* dz = dy + V;
+      const float* gn = cot + ((long)n * C + c0) * V;
+#pragma unroll 1
+      for (int kx = 0; kx < 3; ++kx) {
+        int ux, ox;
+        transposed_tap(x, X, kx, ux, ox);
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          int uy, oy;
+          transposed_tap(y, Y, ky, uy, oy);
+          const int row = (ux * Y + uy) * Z;
+#pragma unroll
+          for (int kz = 0; kz < 3; ++kz) {
+            int uz, oz;
+            transposed_tap(z, Z, kz, uz, oz);
+            const int u = row + uz;
+            const float wx = weight_at(axis_weights(__fmul_rn(s, __ldg(dx + u))), ox);
+            const float wy = weight_at(axis_weights(__fmul_rn(s, __ldg(dy + u))), oy);
+            const float wz = weight_at(axis_weights(__fmul_rn(s, __ldg(dz + u))), oz);
+            const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (c < nc) acc[c] = __fadd_rn(acc[c], __fmul_rn(w, __ldg(gn + (long)c * V + u)));
+          }
+        }
+      }
+    }
+    float* o = out + ((long)nI * C + c0) * V + v;
+    for (int c = 0; c < nc; ++c) o[(long)c * V] = acc[c];
+  }
+}
+
+// the weight-gradient pass (see stencil.cuh launch_warp_dd); one thread per
+// (n, p)
+__global__ void old_dd_kernel(const float* __restrict__ I,
+                               const float* __restrict__ disp, float s,
+                               const float* __restrict__ cot,
+                               float* __restrict__ out, int N, int NI, int C,
+                               int X, int Y, int Z, bool compose) {
+  const long V = (long)X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)N * V) return;
+  const int n = (int)(idx / V);
+  const long p = idx - (long)n * V;
+  const int z = (int)(p % Z);
+  const int y = (int)((p / Z) % Y);
+  const int x = (int)(p / ((long)Y * Z));
+
+  const float* d = disp + (long)n * 3 * V + p;
+  const float dv[3] = {__fmul_rn(s, d[0]), __fmul_rn(s, d[V]), __fmul_rn(s, d[2 * V])};
+  AxisWeights W[3], dW[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    W[a] = axis_weights(dv[a]);
+    dW[a] = axis_dweights(dv[a]);
+  }
+  const AxisIdx ix = axis_idx(x, X), iy = axis_idx(y, Y), iz = axis_idx(z, Z);
+  const float* Ib = I + (NI == 1 ? 0L : (long)n * C * V);
+  const float* g = cot + (long)n * C * V + p;
+
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int ox = 0; ox < 3; ++ox) {
+    const float wx = weight_at(W[0], ox - 1), dwx = weight_at(dW[0], ox - 1);
+#pragma unroll
+    for (int oy = 0; oy < 3; ++oy) {
+      const float wy = weight_at(W[1], oy - 1), dwy = weight_at(dW[1], oy - 1);
+      const float a_xy = __fmul_rn(dwx, wy);
+      const float b_xy = __fmul_rn(wx, dwy);
+      const float c_xy = __fmul_rn(wx, wy);
+#pragma unroll
+      for (int oz = 0; oz < 3; ++oz) {
+        const float wz = weight_at(W[2], oz - 1), dwz = weight_at(dW[2], oz - 1);
+        const long off = ((long)ix.i[ox] * Y + iy.i[oy]) * Z + iz.i[oz];
+        float gI = __fmul_rn(__ldg(g), __ldg(Ib + off));
+        for (int c = 1; c < C; ++c)
+          gI = __fadd_rn(gI, __fmul_rn(__ldg(g + (long)c * V), __ldg(Ib + (long)c * V + off)));
+        acc[0] = __fadd_rn(acc[0], __fmul_rn(__fmul_rn(a_xy, wz), gI));
+        acc[1] = __fadd_rn(acc[1], __fmul_rn(__fmul_rn(b_xy, wz), gI));
+        acc[2] = __fadd_rn(acc[2], __fmul_rn(__fmul_rn(c_xy, dwz), gI));
+      }
+    }
+  }
+  float* o = out + (long)n * 3 * V + p;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    o[(long)a * V] = compose ? __fadd_rn(__fmul_rn(s, __ldg(g + (long)a * V)), __fmul_rn(s, acc[a]))
+                             : acc[a];
+}
+
+
+// the 9 per-axis weights (a-major, o = -1, 0, +1) of every voxel of s * disp
+__global__ void weights_kernel(const float* __restrict__ disp, float s, float* __restrict__ w9,
+                               int N, int V) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)N * V) return;
+  const int n = (int)(idx / V);
+  const int u = (int)(idx - (long)n * V);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const AxisWeights w = axis_weights(__fmul_rn(s, __ldg(disp + ((long)n * 3 + a) * V + u)));
+    float* o = w9 + ((long)n * 9 + 3 * a) * V + u;
+    o[0] = w.m;
+    o[V] = w.z;
+    o[2 * (long)V] = w.p;
+  }
+}
+
+// the old gather-form transpose reading precomputed weights
+__global__ void preweighted_transpose_kernel(const float* __restrict__ w9,
+                                             const float* __restrict__ cot,
+                                             float* __restrict__ out, int N, int NI, int C,
+                                             int X, int Y, int Z) {
+  const int V = X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)NI * V) return;
+  const int nI = (int)(idx / V);
+  const int v = (int)(idx - (long)nI * V);
+  const int z = v % Z, y = (v / Z) % Y, x = v / (Y * Z);
+  const int n0 = NI == 1 ? 0 : nI, n1 = NI == 1 ? N : nI + 1;
+  for (int c0 = 0; c0 < C; c0 += 4) {
+    const int nc = C - c0 < 4 ? C - c0 : 4;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int n = n0; n < n1; ++n) {
+      const float* wn = w9 + (long)n * 9 * V;
+      const float* gn = cot + ((long)n * C + c0) * V;
+#pragma unroll 1
+      for (int kx = 0; kx < 3; ++kx) {
+        int ux, ox;
+        transposed_tap(x, X, kx, ux, ox);
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          int uy, oy;
+          transposed_tap(y, Y, ky, uy, oy);
+          const int row = (ux * Y + uy) * Z;
+#pragma unroll
+          for (int kz = 0; kz < 3; ++kz) {
+            int uz, oz;
+            transposed_tap(z, Z, kz, uz, oz);
+            const int u = row + uz;
+            const float wx = __ldg(wn + (long)(ox + 1) * V + u);
+            const float wy = __ldg(wn + (long)(4 + oy) * V + u);
+            const float wz = __ldg(wn + (long)(7 + oz) * V + u);
+            const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (c < nc) acc[c] = __fadd_rn(acc[c], __fmul_rn(w, __ldg(gn + (long)c * V + u)));
+          }
+        }
+      }
+    }
+    float* o = out + ((long)nI * C + c0) * V + v;
+    for (int c = 0; c < nc; ++c) o[(long)c * V] = acc[c];
+  }
+}
+
+// the old weight-gradient pass on the 8 live taps, I read through L1
+__global__ void live_dd_kernel(const float* __restrict__ I, const float* __restrict__ disp,
+                               float s, const float* __restrict__ cot, float* __restrict__ out,
+                               int N, int NI, int C, int X, int Y, int Z, bool compose) {
+  const long V = (long)X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)N * V) return;
+  const int n = (int)(idx / V);
+  const long p = idx - (long)n * V;
+  const int pos[3] = {(int)(p / ((long)Y * Z)), (int)((p / Z) % Y), (int)(p % Z)};
+  const int len[3] = {X, Y, Z};
+  const float* d = disp + (long)n * 3 * V + p;
+  int ix[3][2];
+  float w[3][2], dw[3][2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float da = __fmul_rn(s, d[a * V]);
+    const LivePair lp = live_pair(da);
+    const AxisWeights sl = axis_dweights(da);
+    w[a][0] = lp.wl;
+    w[a][1] = lp.wh;
+    dw[a][0] = lp.lo < 0 ? sl.m : sl.z;
+    dw[a][1] = lp.lo < 0 ? sl.z : sl.p;
+    const int i0 = pos[a] + lp.lo, i1 = i0 + 1;
+    ix[a][0] = i0 < 0 ? 0 : (i0 >= len[a] ? len[a] - 1 : i0);
+    ix[a][1] = i1 < 0 ? 0 : (i1 >= len[a] ? len[a] - 1 : i1);
+  }
+  const float* Ib = I + (NI == 1 ? 0L : (long)n * C * V);
+  const float* g = cot + (long)n * C * V + p;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const long off = ((long)ix[0][i] * Y + ix[1][j]) * Z + ix[2][k];
+        float gI = __fmul_rn(__ldg(g), __ldg(Ib + off));
+        for (int c = 1; c < C; ++c) gI = fmaf(__ldg(g + (long)c * V), __ldg(Ib + (long)c * V + off), gI);
+        acc[0] = fmaf(__fmul_rn(__fmul_rn(dw[0][i], w[1][j]), w[2][k]), gI, acc[0]);
+        acc[1] = fmaf(__fmul_rn(__fmul_rn(w[0][i], dw[1][j]), w[2][k]), gI, acc[1]);
+        acc[2] = fmaf(__fmul_rn(__fmul_rn(w[0][i], w[1][j]), dw[2][k]), gI, acc[2]);
+      }
+  float* o = out + (long)n * 3 * V + p;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    o[(long)a * V] = compose ? __fadd_rn(__fmul_rn(s, __ldg(g + (long)a * V)), __fmul_rn(s, acc[a]))
+                             : acc[a];
+}
+
+template <int CC, int MODE>
+__global__ void __launch_bounds__(T_THREADS, T_THREADS >= 512 ? 1 : 2)
+    transpose_variant_kernel(const float* __restrict__ disp, float s,
+                             const float* __restrict__ cot, float* __restrict__ out, int N,
+                             int NI, int X, int Y, int Z, int columns, int march) {
+  extern __shared__ __align__(16) float smem[];
+  const int V = X * Y * Z;
+  const int nI = blockIdx.x / columns;
+  int xb, y0, z0;
+  brick_origin(blockIdx.x % columns, Y, Z, xb, y0, z0);
+  xb = xb / BX * march;
+  int tx, ty, tz;
+  transpose_thread(tx, ty, tz);
+  const int n0 = NI == 1 ? 0 : nI, n1 = NI == 1 ? N : nI + 1;
+  float acc[TL][CC];
+#pragma unroll
+  for (int i = 0; i < TL; ++i)
+#pragma unroll
+    for (int c = 0; c < CC; ++c) acc[i][c] = 0.0f;
+  for (int n = n0; n < n1; ++n) {
+    for (int m = 0; m < march && (xb + m) * BX < X; ++m) {
+      const int x0 = (xb + m) * BX, ring = (m * BX) % HX;
+      if (MODE == 1 || (n == n0 && m == 0)) {  // staging alone, or one staging
+        if (n > n0 || m > 0) __syncthreads();
+        stage_transpose<CC>(smem, disp + (size_t)n * 3 * V, s, cot + (size_t)n * CC * V, V, X,
+                            Y, Z, x0, y0, z0, m > 0 ? HX - BX : 0, ring);
+        __syncthreads();
+      }
+      if (MODE == 2) transpose_accumulate<CC>(smem, tx, ty, tz, acc, ring);
+      if (MODE == 1) acc[0][0] = smem[threadIdx.x];
+      if (n == n1 - 1) store_transpose<CC>(acc, out, nI, CC, 0, X, Y, Z, x0, y0, z0, tx, ty, tz);
+    }
+  }
+}
+
+template <int CC, int MODE>
+static int variant(const float* disp, float s, const float* cot, float* out, int N, int NI,
+                   int X, int Y, int Z, cudaStream_t st) {
+  const int smem = (9 + CC) * T_PLANE * (int)sizeof(float);
+  cudaFuncSetAttribute(transpose_variant_kernel<CC, MODE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int march = NI == 1 && N > 1 ? 1 : T_MARCH;
+  const int columns = bricks_of(X, Y, Z, march);
+  transpose_variant_kernel<CC, MODE><<<(unsigned)columns * NI, T_THREADS, smem, st>>>(
+      disp, s, cot, out, N, NI, X, Y, Z, columns, march);
+  return (int)cudaGetLastError();
+}
+
+static inline unsigned blocks_for(long total) { return (unsigned)((total + 255) / 256); }
+
+}  // namespace lagomorph_profile
+
+using namespace lagomorph_profile;
+
+extern "C" int prof_old_fwd(const float* I, const float* disp, float* out, int N, int NI, int C,
+                            int X, int Y, int Z, void* st) {
+  old_fwd_kernel<<<blocks_for((long)N * X * Y * Z), 256, 0, (cudaStream_t)st>>>(
+      I, disp, out, N, NI, C, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int prof_old_transpose(const float* disp, float s, const float* cot, float* out,
+                                  int N, int NI, int C, int X, int Y, int Z, void* st) {
+  old_transpose_kernel<<<blocks_for((long)NI * X * Y * Z), 256, 0, (cudaStream_t)st>>>(
+      disp, s, cot, out, N, NI, C, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int prof_weights(const float* disp, float s, float* w9, int N, int V, void* st) {
+  weights_kernel<<<blocks_for((long)N * V), 256, 0, (cudaStream_t)st>>>(disp, s, w9, N, V);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int prof_preweighted_transpose(const float* w9, const float* cot, float* out, int N,
+                                          int NI, int C, int X, int Y, int Z, void* st) {
+  preweighted_transpose_kernel<<<blocks_for((long)NI * X * Y * Z), 256, 0, (cudaStream_t)st>>>(
+      w9, cot, out, N, NI, C, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int prof_old_dd(const float* I, const float* disp, float s, const float* cot,
+                           float* out, int N, int NI, int C, int X, int Y, int Z, int compose,
+                           void* st) {
+  old_dd_kernel<<<blocks_for((long)N * X * Y * Z), 256, 0, (cudaStream_t)st>>>(
+      I, disp, s, cot, out, N, NI, C, X, Y, Z, compose != 0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int prof_live_dd(const float* I, const float* disp, float s, const float* cot,
+                            float* out, int N, int NI, int C, int X, int Y, int Z, int compose,
+                            void* st) {
+  live_dd_kernel<<<blocks_for((long)N * X * Y * Z), 256, 0, (cudaStream_t)st>>>(
+      I, disp, s, cot, out, N, NI, C, X, Y, Z, compose != 0);
+  return (int)cudaGetLastError();
+}
+
+// mode 1: staging alone; 2: accumulation alone (C = 1 or 3)
+extern "C" int prof_transpose_variant(int mode, const float* disp, float s, const float* cot,
+                                      float* out, int N, int NI, int C, int X, int Y, int Z,
+                                      void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (C == 1)
+    return mode == 1 ? variant<1, 1>(disp, s, cot, out, N, NI, X, Y, Z, st)
+                     : variant<1, 2>(disp, s, cot, out, N, NI, X, Y, Z, st);
+  return mode == 1 ? variant<3, 1>(disp, s, cot, out, N, NI, X, Y, Z, st)
+                   : variant<3, 2>(disp, s, cot, out, N, NI, X, Y, Z, st);
+}

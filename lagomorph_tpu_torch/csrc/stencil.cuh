@@ -40,6 +40,26 @@ __device__ __forceinline__ float weight_at(const AxisWeights& w, int o) {
   return o < 0 ? w.m : (o == 0 ? w.z : w.p);
 }
 
+// The two live taps of one axis: offsets lo and lo + 1 with lo = -1 when
+// floor(d) == -1 and 0 otherwise, and their weights from axis_weights (so
+// (1 - t, t) in the unit regime; (0, 0) for a finite d outside it, where
+// all three weights vanish; NaN for a NaN d, as the 27-tap sum gives).  The
+// third offset's weight is structurally zero (or NaN with the other two).
+struct LivePair {
+  int lo;
+  float wl, wh;
+};
+
+__device__ __forceinline__ LivePair live_pair(float d) {
+  const AxisWeights w = axis_weights(d);
+  LivePair p;
+  const bool m1 = floorf(d) == -1.0f;
+  p.lo = m1 ? -1 : 0;
+  p.wl = m1 ? w.m : w.z;
+  p.wh = m1 ? w.z : w.p;
+  return p;
+}
+
 // clamped neighbour indices along one axis: idx[0..2] = clamp(i-1), i, clamp(i+1)
 struct AxisIdx {
   int i[3];
@@ -118,24 +138,6 @@ __device__ __forceinline__ AxisWeights axis_dweights(float d) {
   w.z = __fsub_rn(is_m1, is_0);
   w.p = is_0;
   return w;
-}
-
-// The transposed taps of the warp along one axis: the three pairs (u, o)
-// with clamp(u + o) == v, which the gather form of the transpose reads at
-// output index v.  Slot k (0..2) has offset o = k - 1 and source u = v - o
-// when u lies in [0, n); otherwise u + o would be clamped, and the slot
-// holds the clamp fold instead: u = v, o = -(k - 1) (at v == 0 the tap
-// (0, -1), at v == n - 1 the tap (n - 1, +1); warp_unit.py:477-502
-// `where(edge, ...)`).  So every axis has exactly three pairs, edges
-// included.  Computed from k, not stored, so a loop over k need not be
-// unrolled to stay in registers.
-__device__ __forceinline__ void transposed_tap(int v, int n, int k, int& u, int& o) {
-  o = k - 1;
-  u = v - o;
-  if (u < 0 || u >= n) {
-    u = v;
-    o = -o;
-  }
 }
 
 // D^T, the exact transpose of the clamped central difference along one

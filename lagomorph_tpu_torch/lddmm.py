@@ -35,9 +35,11 @@ def EPDiff_step(metric, m0, dt, phiinv, mommask=None, transport_mode=None,
 
 
 def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
-           transport_mode=None, compose_mode=None, v0=None):
+           checkpoints=False, transport_mode=None, compose_mode=None, v0=None):
     """Geodesic shooting: the inverse deformation ``phi^{-1}`` (as a
-    displacement) at time ``T`` from the initial momentum ``m0``.
+    displacement) at time ``T`` from the initial momentum ``m0``.  The JAX
+    package's signature; ``checkpoints=True`` (rematerialised shooting) is
+    not ported and raises ``NotImplementedError``.
 
     ``v0``: optional precomputed ``metric.sharp(m0 * mommask)``, shared with
     a caller that also needs the initial velocity.  Starting from the
@@ -46,6 +48,11 @@ def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
     takes the hoisted fast path (:func:`_expmap_hoisted`) on the flagged
     integrator that :func:`_fast_integrator` picks; otherwise the per-step
     loop."""
+    if checkpoints:
+        raise NotImplementedError(
+            "checkpoints=True (gradient checkpointing of the shooting, "
+            "rematerialised in the backward) is not ported"
+        )
     dt = T / num_steps
     length = num_steps
     if phiinv is None:

@@ -37,8 +37,11 @@ device (:func:`fluid_route`):
   ``tensordot`` calls): the JAX package's XLA paths, plain PyTorch on every
   device, taken only when a selector asks for them.
 
-On the kernel routes a wrapper launches its kernel for a CUDA tensor (or
-raises: float32 only) and runs its plain version for a CPU tensor.
+On the kernel routes a wrapper launches its kernel for a float32 CUDA
+tensor and runs its plain version for a CPU tensor or a tensor of another
+dtype (``kernels.use_kernel``): a float64 field on the card takes the
+kernel route's plain version there (K3's and K16's is the ``"packed"``
+solve), as the JAX package leaves float64 to XLA.
 """
 from __future__ import annotations
 

@@ -4,11 +4,15 @@ Each kernel module (``warp_unit``, ``epdiff_unit``, ``fft_unit``,
 ``fft_radix``, ``fft_whole``, ``shoot2d``, ``epdiff2d``) holds, for every
 kernel, a wrapper that launches the CUDA kernel for tensors on a CUDA
 device and the plain PyTorch function of the same signature that it is held
-against.  Dispatch is by device only:
+against.  Dispatch is by device and dtype (:func:`use_kernel`):
 
 * a CPU tensor goes to the plain version;
-* a CUDA tensor launches the kernel, or the wrapper raises (wrong dtype,
-  shape, layout).  Nothing falls back to the plain version or to the CPU.
+* a tensor of another dtype than float32 goes to the plain version on its
+  own device (the JAX package gates its kernels to float32 the same way and
+  leaves float64 to XLA);
+* a float32 CUDA tensor launches the kernel, or the wrapper raises (mixed
+  dtypes, shape, layout).  Nothing falls back to the plain version or to
+  the CPU.
 
 The one exception is explicit: inside ``with plain_versions():`` every
 wrapper runs its plain version on any device.  That is how a caller puts the
@@ -91,14 +95,17 @@ def plain_versions():
 
 
 def use_kernel(t: torch.Tensor) -> bool:
-    """True when a wrapper given ``t`` must launch its kernel: ``t`` lies on
-    a CUDA device and :func:`plain_versions` is not active.  A CPU tensor
-    takes the plain version; any other device raises."""
+    """True when a wrapper given ``t`` must launch its kernel: ``t`` is a
+    float32 tensor on a CUDA device and :func:`plain_versions` is not
+    active.  A CPU tensor, or one of another dtype, takes the plain
+    version; any other device raises.  The one place the port decides by
+    dtype: the kernels take float32 only, as the JAX package's kernel gates
+    do (``lagomorph_tpu/ops/pallas/warp_unit.py:68-73``)."""
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for device {t.device}")
-    return not _PLAIN.get()
+    return t.dtype == torch.float32 and not _PLAIN.get()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -12,8 +12,10 @@ displacement component lies in ``[-1, 1)``.
   weight-gradient path).  It replaces ``warp_unit.py``
   ``_warp_unit_bwd_pallas`` and ``_warp_unit_bwd_yb`` (``_sdu_bwd``).
 
-On the H100 both are bound by memory traffic and per-voxel arithmetic from
-L1/L2; see the source for the design.
+On the H100 K4 sums the 8 taps whose weights can be non-zero (bit-equal to
+the plain version on finite inputs); K5's two passes, which K6 and K7
+share, stage bricks of the volume with a halo in shared memory.  See the
+source for the design.
 """
 from __future__ import annotations
 

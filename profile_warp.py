@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""Profile of the unit-regime warp's passes on one CUDA card, by variants.
+
+    python3 profile_warp.py
+
+Nsight Compute does not run on the card's machine, so each cost of the
+warp kernels before their redesign is isolated by a variant kernel
+(``lagomorph_tpu_torch/csrc/profile/warp_variants.cu``, built here with
+nvcc) and timed with CUDA events beside the previous kernel and the
+current one (``csrc/warp_unit.cu``), at the operand shapes of the 3D atlas
+step at 128^3 b4:
+
+* the transpose at K5's shape (C = 1, batch-1 atlas, summed over N = 4)
+  and at K7's (C = 3, NI = N, s = -0.2): the previous kernel, the previous
+  kernel reading precomputed weights (no recomputation; nothing staged),
+  and the current one (weights computed once per source and staged with
+  the cotangent in a brick with its halo);
+* the weight-gradient pass at K5's shape (C = 1) and K7's (C = 3 with the
+  compose epilogue): the previous kernel (27 taps), the previous kernel on
+  the 8 live taps (nothing staged), and the current one (8 live taps, the
+  brick of I staged);
+* the forward K4 (C = 1, the atlas): 27 taps and 8;
+* the current passes built with other brick shapes (``BRICKS``).
+
+Each line gives ms per call (two samples of 20 calls, in turns), the byte
+bound of the pass (``chip_smoke.pass_work``) and the largest difference of
+each variant's output from the previous kernel's.  Needs a CUDA card;
+imports no jax.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SHAPE = (4, 3, 128, 128, 128)
+REPS = 20
+
+
+def ptxas(log, what):
+    """Print the registers and spills ptxas reports for each warp kernel."""
+    name = None
+    for line in log.splitlines():
+        if "entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and ("registers" in line or "spill" in line) and (
+                "warp" in name or "transpose" in name or "dd" in name or "fwd" in name):
+            print(f"ptxas ({what}) {name[:60]}: {line.split(':', 1)[-1].strip()}", flush=True)
+
+
+# other brick shapes (x, y) of the backward passes, beside the built-in 4 x 8 x 32
+BRICKS = ((8, 8), (4, 16))
+
+
+def build_variants():
+    """The variant kernels as shared libraries (nvcc, the kernels' flags,
+    in parallel): one with the library's brick, and one per shape of
+    ``BRICKS``, whose current passes are timed beside it.  Returns (the
+    first library, {brick: library})."""
+    from lagomorph_tpu_torch.ops.kernels import _build
+
+    src = os.path.join(_build.CSRC, "profile", "warp_variants.cu")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    defines = [[]] + [[f"-DLAGOMORPH_WARP_BRICK_X={bx}", f"-DLAGOMORPH_WARP_BRICK_Y={by}"]
+                      for bx, by in BRICKS]
+    sos = [os.path.join(_build.BUILD_DIR, f"libwarp_variants_{os.getpid()}_{k}.so")
+           for k in range(len(defines))]
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *d, "-I", _build.CSRC,
+                               "-shared", "-o", so, src], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for d, so in zip(defines, sos)]
+    for d, p in zip(defines, procs):
+        out = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the variants {d}:\n{out}")
+        if not d:
+            ptxas(out, "variants")
+    libs = [ctypes.CDLL(so) for so in sos]
+    lib = libs[0]
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for other in libs[1:]:
+        other.lagomorph_warp_transpose.argtypes = _build.SIGNATURES["lagomorph_warp_transpose"]
+        other.lagomorph_warp_dd.argtypes = _build.SIGNATURES["lagomorph_warp_dd"]
+    sig = {
+        "prof_old_fwd": [P, P, P] + [I] * 6 + [P],
+        "prof_old_transpose": [P, F, P, P] + [I] * 6 + [P],
+        "prof_weights": [P, F, P, I, I, P],
+        "prof_preweighted_transpose": [P, P, P] + [I] * 6 + [P],
+        "prof_old_dd": [P, P, F, P, P] + [I] * 7 + [P],
+        "prof_live_dd": [P, P, F, P, P] + [I] * 7 + [P],
+        "prof_transpose_variant": [I, P, F, P, P] + [I] * 6 + [P],
+    }
+    for name, argtypes in sig.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib, dict(zip(BRICKS, libs[1:]))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_warp: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from lagomorph_tpu_torch.ops.kernels import _build, stream_of
+
+    device = torch.device("cuda", 0)
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    _build.library()
+    ptxas(_build.build_log, "library")
+    var, bricks = build_variants()
+    N, _, X, Y, Z = SHAPE
+    V = X * Y * Z
+    rng = np.random.default_rng(21)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    phiinv = t(rng.uniform(-0.99, 0.99, SHAPE))
+    v = t(rng.uniform(-4.9, 4.9, SHAPE))
+    I1 = t(rng.standard_normal((1, 1, X, Y, Z)))
+    g1 = t(rng.standard_normal((N, 1, X, Y, Z)))
+    g3 = t(rng.standard_normal(SHAPE))
+    st = stream_of(phiinv)
+    lib = _build.library()
+
+    def run(fn, name, *args):
+        err = getattr(fn, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+    def transpose_case(label, disp, s, cot, NI, C):
+        out = torch.empty((NI, C, X, Y, Z), dtype=torch.float32, device=device)
+        w9 = torch.empty((N, 9, X, Y, Z), dtype=torch.float32, device=device)
+        dims = (N, NI, C, X, Y, Z)
+
+        def weights():
+            run(var, "prof_weights", disp.data_ptr(), s, w9.data_ptr(), N, V, st)
+
+        weights()
+        return (label, out, {
+            "previous": lambda: run(var, "prof_old_transpose", disp.data_ptr(), s,
+                                    cot.data_ptr(), out.data_ptr(), *dims, st),
+            "previous, weights precomputed": lambda: run(
+                var, "prof_preweighted_transpose", w9.data_ptr(), cot.data_ptr(),
+                out.data_ptr(), *dims, st),
+            "current": lambda: run(lib, "lagomorph_warp_transpose", disp.data_ptr(), s,
+                                   cot.data_ptr(), out.data_ptr(), *dims, st),
+            "current, staging alone": lambda: run(
+                var, "prof_transpose_variant", 1, disp.data_ptr(), s, cot.data_ptr(),
+                out.data_ptr(), *dims, st),
+            "current, accumulation alone": lambda: run(
+                var, "prof_transpose_variant", 2, disp.data_ptr(), s, cot.data_ptr(),
+                out.data_ptr(), *dims, st),
+            **{f"current, brick {bx}x{by}x32": (lambda b=b: run(
+                b, "lagomorph_warp_transpose", disp.data_ptr(), s, cot.data_ptr(),
+                out.data_ptr(), *dims, st)) for (bx, by), b in bricks.items()},
+        }, chip_smoke.pass_work("transpose", N, NI, C, V), weights)
+
+    def dd_case(label, I, disp, s, cot, NI, C, compose):
+        out = torch.empty(SHAPE, dtype=torch.float32, device=device)
+        args = (I.data_ptr(), disp.data_ptr(), s, cot.data_ptr(), out.data_ptr(),
+                N, NI, C, X, Y, Z, compose, st)
+        return (label, out, {
+            "previous (27 taps)": lambda: run(var, "prof_old_dd", *args),
+            "previous, 8 live taps": lambda: run(var, "prof_live_dd", *args),
+            "current": lambda: run(lib, "lagomorph_warp_dd", *args),
+            **{f"current, brick {bx}x{by}x32": (lambda b=b: run(b, "lagomorph_warp_dd", *args))
+               for (bx, by), b in bricks.items()},
+        }, chip_smoke.pass_work("dd", N, NI, C, V, compose=bool(compose)), None)
+
+    out = torch.empty((N, 1, X, Y, Z), dtype=torch.float32, device=device)
+    fargs = (I1.data_ptr(), phiinv.data_ptr(), out.data_ptr(), N, 1, 1, X, Y, Z, st)
+    cases = [
+        transpose_case("transpose K5 (C=1, NI=1)", phiinv, 1.0, g1, 1, 1),
+        transpose_case("transpose K7 (C=3, NI=N)", v, -0.2, g3, N, 3),
+        dd_case("weight gradient K5 (C=1)", I1, phiinv, 1.0, g1, 1, 1, 0),
+        dd_case("weight gradient K7 (C=3, compose)", phiinv, v, -0.2, g3, N, 3, 1),
+        ("forward K4 (C=1, atlas)", out, {
+            "previous (27 taps)": lambda: run(var, "prof_old_fwd", *fargs),
+            "current (8 taps)": lambda: run(lib, "lagomorph_warp_unit_fwd", *fargs),
+        }, chip_smoke.work("warp_unit_fwd", N, V), None),
+    ]
+
+    for label, out, variants, work, extra in cases:
+        b_ms, b_by = chip_smoke.bound(*work)
+        names = list(variants)
+        ref = None
+        results = {}
+        for name in names:  # agreement with the current kernel
+            variants[name]()
+            torch.cuda.synchronize(device)
+            if ref is None:
+                ref = out.clone()
+            results[name] = [chip_smoke.max_err(out, ref)]
+        for name in names + names[::-1]:  # two samples each, in turns
+            results[name].append(chip_smoke.time_ms(variants[name], device, REPS))
+        print(f"{label} at 128^3 b4: bound {b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
+        for name in names:
+            diff, a, b = results[name]
+            print(f"  {name:32s} {a:.4f} / {b:.4f} ms  ({(a + b) / 2 / b_ms:.1f}x bound; "
+                  f"max diff from the first {diff:.3e})", flush=True)
+        if extra is not None:
+            ms = chip_smoke.time_ms(extra, device, REPS)
+            print(f"  {'(the precomputation itself)':32s} {ms:.4f} ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

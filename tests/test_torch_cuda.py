@@ -36,6 +36,18 @@ def _compare(got, ref, rel, offset=1.0):
     assert err <= rel * (offset + float(ref.double().abs().max()))
 
 
+def _plain_on_card(fn, *args):
+    """Float64 operands on the card take the plain version there (the
+    kernels take float32 only): no launch, the plain version's values."""
+    before = kernels.launch_counts()
+    got = fn(*args)
+    assert kernels.launch_counts() == before
+    with kernels.plain_versions():
+        ref = fn(*args)
+    for g, r in zip(*((x,) if torch.is_tensor(x) else x for x in (got, ref))):
+        assert g.device.type == "cuda" and torch.equal(g, r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 3, 32, 24, 40), (3, 3, 17, 9, 12)])
 @pytest.mark.parametrize("m_batch", ["one", "N"])
@@ -45,8 +57,9 @@ def test_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     of its line transforms; K1 takes batch-1 momenta read with stride 0, and
     batch-N momenta as expmap passes them), with the launch counters moving
     only for the kernel calls, the flags true in the unit regime, autograd
-    through K4 giving the plain version's gradients, and float64
-    refused."""
+    through K4 giving the plain version's gradients, float64 taking the
+    plain version on the card (no launch) and a float32 displacement with a
+    float64 image refused."""
     rng = np.random.default_rng(3)
 
     def c(a):
@@ -84,8 +97,9 @@ def test_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     for got, ref in zip(*grads):
         _compare(got, ref, 1e-5)
     assert kernels.launch_counts()["warp_unit_bwd"] == 1
-    with pytest.raises(TypeError):
-        warp_unit.sample_displacement_unit(I.double(), p.double())
+    _plain_on_card(warp_unit.sample_displacement_unit, I.double(), p.double())
+    with pytest.raises(TypeError):  # a float64 image with a float32 displacement
+        warp_unit.sample_displacement_unit(I.double(), p)
 
 
 @pytest.mark.cuda
@@ -250,8 +264,9 @@ def test_epdiff2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     bad_v = v.clone()
     bad_v.view(-1)[bad_v.numel() // 2] = -5.1  # s*v = 1.02
     assert not bool(epdiff2d.compose2d(p, bad_v, -0.2)[1])
-    with pytest.raises(TypeError):
-        epdiff2d.ad_star2d(p.double(), m0.double())
+    _plain_on_card(epdiff2d.ad_star2d, p.double(), m0.double())
+    with pytest.raises(TypeError):  # a float32 field with a float64 one
+        epdiff2d.ad_star2d(p, m0.double())
 
 
 @pytest.mark.cuda
@@ -261,8 +276,9 @@ def test_radix_kernels_match_plain_on_cuda(cuda, shape):
     their plain versions on the card, at a (Y, Z) plane that one block
     holds and at one that takes two line passes (256 x 128); the pipeline
     under autograd (3 launches forward, 3 backward, a transposed cotangent)
-    against autograd of the plain version; ``sharp`` on the radix route;
-    float64 and axes that are no power of two refused."""
+    against autograd of the plain version; ``sharp`` on the radix route
+    (float64 there: the plain version on the card, no launch); axes that
+    are no power of two refused."""
     rng = np.random.default_rng(8)
     N, _, X, Y, Z = shape
     F = (N * 3 + 1) // 2
@@ -294,8 +310,7 @@ def test_radix_kernels_match_plain_on_cuda(cuda, shape):
         got = metric.sharp(m)
         with kernels.plain_versions():
             ref = metric.sharp(m)
-        with pytest.raises(TypeError):
-            metric.sharp(m.double())
+        _plain_on_card(metric.sharp, m.double())
     finally:
         lt.set_fluid_fft_kernel(prev)
     _compare(got, ref, 1e-4, 0.0)
@@ -310,7 +325,8 @@ def test_fluid_whole_matches_plain_on_cuda(cuda, shape):
     """K16 against its plain version (the torch.fft packed solve) on the
     card, at a mixed-radix and a power-of-two shape, directly, under
     autograd (one launch each way) and through ``sharp`` under
-    ``set_fluid_mxu_whole(True)``; float64 refused."""
+    ``set_fluid_mxu_whole(True)``; float64 takes the plain version on the
+    card, a float32 field with a float64 multiplier is refused."""
     rng = np.random.default_rng(9)
     N, _, X, Y, Z = shape
     F = (N * 3 + 1) // 2
@@ -339,5 +355,90 @@ def test_fluid_whole_matches_plain_on_cuda(cuda, shape):
     _compare(got, ref, 1e-4, 0.0)
     counts = kernels.launch_counts()
     assert counts["fluid_whole"] == 4 and counts["fluid_flat"] == 0
-    with pytest.raises(TypeError):
-        fft_whole.fluid_whole(x.double(), Mn.double())
+    _plain_on_card(fft_whole.fluid_whole, x.double(), Mn.double())
+    with pytest.raises(TypeError):  # a float32 field with a float64 multiplier
+        fft_whole.fluid_whole(x, Mn.double())
+
+
+# shapes against the warp backward passes' brick of 4 x 8 x 32 voxels:
+# smaller than one brick, straddling bricks on every axis, axes of length 1
+# and 2, 17 voxels along x (more bricks than one transpose block walks);
+# as tests/test_torch_host_barrier_kernels.py holds them on the CPU
+EDGE_SHAPES = [(2, 3, 3, 5, 7), (3, 3, 5, 9, 37), (2, 3, 1, 2, 6), (2, 3, 6, 2, 1),
+               (2, 3, 17, 3, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_warp_passes_edge_cases_on_cuda(cuda, shape):
+    """K4 bit-equal to its plain version, and K5, K6 and K7 within 1e-5 *
+    (1 + max|ref|) of theirs, on displacements with voxels outside the unit
+    regime (zero weights) and at its edges, at shapes smaller than a brick,
+    straddling bricks and with thin axes: one-, three- and five-channel
+    images of batch 1 and N, batch-1 and batch-N momenta (no thin axis:
+    Ad*'s Jacobian refuses one), s = -0.2 and 0.7; a second launch of each
+    backward bit-identical to the first."""
+    rng = np.random.default_rng(12)
+    N, _, X, Y, Z = shape
+
+    def c(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    def edge_disp(scale=1.0):
+        d = rng.uniform(-0.99, 0.99, shape)
+        pick = rng.uniform(size=shape) < 0.125
+        d[pick] = rng.choice([-2.5, -1.5, 1.0, 1.5, 3.7, -1.0, 0.0], size=int(pick.sum()))
+        return c(d * scale)
+
+    def hold(fn, plain, *args):
+        got = fn(*args)
+        for a, r in zip(got, plain(*args)):
+            _compare(a, r, 1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(got, fn(*args)))
+
+    p = edge_disp()
+    for nb, C in ((1, 1), (N, 1), (1, 3), (N, 3), (1, 5)):
+        I = c(rng.standard_normal((nb, C, X, Y, Z)))
+        got = warp_unit.sample_displacement_unit(I, p)
+        assert torch.equal(got, warp_unit.sample_displacement_unit_plain(I, p))
+        hold(warp_unit._launch_bwd, warp_unit.sample_displacement_unit_bwd_plain, I, p,
+             c(rng.standard_normal((N, C, X, Y, Z))))
+    for nb in (1, N) if min(X, Y, Z) > 1 else ():
+        m0 = c(rng.standard_normal((nb, 3, X, Y, Z)))
+        _, _, mw = epdiff_unit._launch_ad_star(p, m0, want_mw=True)
+        hold(epdiff_unit._launch_ad_star_bwd, epdiff_unit.ad_star_bwd_plain, p, m0,
+             c(rng.standard_normal(shape)), mw)
+    for s in (-0.2, 0.7):
+        hold(lambda a, b, g: epdiff_unit._launch_compose_bwd(a, b, s, g),
+             lambda a, b, g: epdiff_unit.compose_bwd_plain(a, b, s, g), p, edge_disp(1.0 / s),
+             c(rng.standard_normal(shape)))
+
+
+@pytest.mark.cuda
+def test_float64_takes_plain_versions_on_cuda(cuda):
+    """A float64 field on the card takes the plain versions there (the
+    kernels take float32 only, as the JAX package's gates): ``sharp`` and
+    one atlas step launch no kernel and match the same calls on the CPU in
+    float64 (1e-9 of max|ref|: two FFT libraries), while the float32 step
+    launches the kernels of the main path."""
+    rng = np.random.default_rng(13)
+    shape = (2, 3, 16, 12, 20)
+    metric = lt.FluidMetric((0.1, 0.0, 0.01))
+    m = rng.standard_normal(shape)
+    m = m * (0.5 / float(metric.sharp(torch.as_tensor(m)).abs().max()))
+    I = rng.standard_normal((1, 1) + shape[2:])
+    img = rng.standard_normal((shape[0], 1) + shape[2:])
+    step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-4)
+    ref_v = metric.sharp(torch.as_tensor(m))
+    ref_step = step(*(torch.as_tensor(a) for a in (I, m, img)))
+    kernels.reset_launches()
+    got_v = metric.sharp(torch.as_tensor(m, device=cuda))
+    got_step = step(*(torch.as_tensor(a, device=cuda) for a in (I, m, img)))
+    assert all(n == 0 for n in kernels.launch_counts().values())
+    for got, ref in zip((got_v, *got_step), (ref_v, *ref_step)):
+        assert got.dtype == torch.float64 and got.device.type == "cuda"
+        _compare(got.cpu(), ref, 1e-9, 0.0)
+    step(*(torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in (I, m, img)))
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd",
+                                       "compose_fwd", "ad_star_bwd", "compose_bwd", "fluid_flat"))

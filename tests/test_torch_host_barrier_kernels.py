@@ -2,24 +2,31 @@
 run on the CPU against their plain versions.
 
 K3 (``csrc/fft_unit.cu``), K14 and K15 (``fft_radix.cu``), K16
-(``fft_whole.cu``) and K8/K9 (``shoot2d.cu``) share memory within a block
-and wait at barriers, and K8, K9 and K16 are cooperative launches whose
-phases meet at grid-wide barriers.  ``tests/cuda_host/threaded/
-cuda_runtime.h`` runs each CUDA thread as an OS thread (a block's barrier,
-a warp's vote, a block's shared-memory buffer; every block of a
-cooperative launch at once, with a barrier of the grid), and this test
-rewrites each launch, each dynamic shared-memory declaration and each
+(``fft_whole.cu``), K8/K9 (``shoot2d.cu``) and the 3D stencils K1, K2 and
+K4-K7 (``warp_unit.cu``, ``epdiff_unit.cu``: the warp's backward passes,
+which K5, K6 and K7 share, stage a brick and its halo in shared memory
+between barriers) share memory within a block and wait at barriers, and
+K8, K9 and K16 are cooperative launches whose phases meet at grid-wide
+barriers.  ``tests/cuda_host/threaded/cuda_runtime.h`` runs each CUDA
+thread as an OS thread (a block's barrier, a warp's vote, a block's
+shared-memory buffer; every block of a cooperative launch at once, with a
+barrier of the grid), and this test rewrites each launch (template
+kernels included), each dynamic shared-memory declaration and each
 cooperative launch for it, so g++ builds the sources into a host library
 with the kernels' C entry points.  The wrappers then call it in place of
-the card's library.  So the kernels' indexing, tiles, stage loops,
-bit-reversed bookkeeping, phase order and both of K14's paths (a whole
-(Y, Z) plane per block, or two line passes when the plane exceeds a block's
-227 KB) are checked here; the card itself is checked by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+the card's library.  So the kernels' indexing, tiles, bricks and halos,
+clamp folds, batch-1 sums, flags, stage loops, bit-reversed bookkeeping,
+phase order and both of K14's paths (a whole (Y, Z) plane per block, or
+two line passes when the plane exceeds a block's 227 KB) are checked
+here; the card itself is checked by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
 
-Tolerance, float32 against the plain versions on the same inputs: 1e-5 *
-max|ref| (the transforms round in another order than the plain versions;
-the solves amplify low frequencies by 1/gamma^2 = 1e4).
+Tolerances, float32 against the plain versions on the same inputs: the
+transforms 1e-5 * max|ref| (they round in another order than the plain
+versions; the solves amplify low frequencies by 1/gamma^2 = 1e4); the
+stencil forwards bit-equal (they round each operation like the plain
+versions), their backwards 1e-5 * (1 + max|ref|) (another summation order
+than autograd).
 """
 import ctypes
 import os
@@ -27,23 +34,31 @@ import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import fluid, kernels
-from lagomorph_tpu_torch.ops.kernels import _build, fft_radix, fft_unit, fft_whole, shoot2d
+from lagomorph_tpu_torch.ops.kernels import (_build, epdiff_unit, fft_radix, fft_unit, fft_whole,
+                                             shoot2d, warp_unit)
 
 torch.set_num_threads(2)
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host", "threaded")
-HEADERS = ("fft_lines.cuh", "cooperative.cuh", "stencil2d.cuh")
-SOURCES = ("fft_unit.cu", "fft_radix.cu", "fft_whole.cu", "shoot2d.cu")
+HEADERS = ("fft_lines.cuh", "cooperative.cuh", "stencil.cuh", "stencil2d.cuh")
+SOURCES = ("fft_unit.cu", "fft_radix.cu", "fft_whole.cu", "shoot2d.cu", "warp_unit.cu",
+           "epdiff_unit.cu")
+# the 3D stencils, per-thread (K1, K2, K4) or staging bricks (K5-K7's passes)
+STENCIL_KERNELS = ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd", "compose_fwd",
+                   "ad_star_bwd", "compose_bwd")
 ENTRY_POINTS = ("lagomorph_fluid_flat", "lagomorph_fluid_radix_zy", "lagomorph_fluid_radix_x",
-                "lagomorph_fluid_whole", "lagomorph_shoot2d_fwd", "lagomorph_shoot2d_bwd")
+                "lagomorph_fluid_whole", "lagomorph_shoot2d_fwd", "lagomorph_shoot2d_bwd",
+                *(f"lagomorph_{k}" for k in STENCIL_KERNELS))
 RTOL = 1e-5
+BWD_RTOL = 1e-5  # of 1 + max|ref|: the stencils' backwards
 PARAMS = (0.1, 0.0, 0.01)
-LAUNCH = re.compile(r"([\w:]+)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
+LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
 
 
 def _top_level_args(text):
@@ -66,7 +81,8 @@ def _host_source(text):
         grid, block, smem = (_top_level_args(m.group(2)) + ["0"])[:3]
         return f"emu_launch({grid}, {block}, {smem}, [&] {{ {m.group(1)}({m.group(3)}); }});"
     text = LAUNCH.sub(launch, text)
-    text = re.sub(r"extern __shared__ float2 (\w+)\[\];", r"float2* \1 = emu_smem_ptr;", text)
+    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(float2?) (\w+)\[\];",
+                  r"\1* \2 = (\1*)emu_smem_ptr;", text)
     text = re.sub(r"launch_cooperative\(\(const void\*\)(\w+),", r"emu_launch_cooperative(\1,",
                   text)
     return text.replace("#include <cooperative_groups.h>", '#include "cooperative_groups.h"')
@@ -83,12 +99,9 @@ def host_library(tmp_path_factory):
     for name in HEADERS + SOURCES:
         with open(os.path.join(_build.CSRC, name)) as f:
             (out / name).write_text(_host_source(f.read()))
-    (out / "error_string.cpp").write_text(
-        'extern "C" const char* lagomorph_error_string(int) { return "host emulation"; }\n')
-    so = out / "libhost_barrier_kernels.so"
+    so = out / "libhost_barrier_kernels.so"  # warp_unit.cu defines lagomorph_error_string
     cmd = [gxx, "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
-           "-I", SHIM, "-I", str(out), "-o", str(so),
-           *(str(out / s) for s in SOURCES + ("error_string.cpp",))]
+           "-I", SHIM, "-I", str(out), "-o", str(so), *(str(out / s) for s in SOURCES)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0 and "barrier" in r.stderr and "No such file" in r.stderr:
         pytest.skip("needs a g++ with C++20's <barrier>")
@@ -104,7 +117,7 @@ def host_library(tmp_path_factory):
 
 @pytest.fixture
 def host_kernels(monkeypatch, host_library):
-    """The wrappers of K3, K8, K9 and K14-K16 launch the host library on CPU
+    """The wrappers of K1-K9 and K14-K16 launch the host library on CPU
     tensors, as on the card: float32 and contiguous, or they raise."""
     def check_cpu_f32(name, *tensors):
         for t in tensors:
@@ -114,7 +127,7 @@ def host_kernels(monkeypatch, host_library):
                 raise ValueError(f"{name}: kernel takes contiguous tensors")
 
     monkeypatch.setattr(_build, "library", lambda: host_library)
-    for mod in (fft_unit, fft_radix, fft_whole, shoot2d):
+    for mod in (fft_unit, fft_radix, fft_whole, shoot2d, warp_unit, epdiff_unit):
         monkeypatch.setattr(mod, "use_kernel", lambda _t: not kernels._PLAIN.get())
         monkeypatch.setattr(mod, "check_cuda_f32", check_cpu_f32)
         monkeypatch.setattr(mod, "stream_of", lambda _t: None)
@@ -127,6 +140,13 @@ def f32(a):
 def close(name, got, ref, rtol=RTOL):
     err = float((got.double() - ref.double()).abs().max())
     bound = rtol * float(ref.double().abs().max())
+    assert err <= bound, f"{name}: {err:.3e} > {bound:.3e}"
+
+
+def close_stencil(name, got, ref, rtol):
+    """The stencils' bound: ``rtol * (1 + max|ref|)`` (0: bit-equal)."""
+    err = float((got.double() - ref.double()).abs().max())
+    bound = rtol * (1.0 + float(ref.double().abs().max()))
     assert err <= bound, f"{name}: {err:.3e} > {bound:.3e}"
 
 
@@ -204,3 +224,141 @@ def test_host_shoot2d_kernels_match_plain(rng, host_kernels):
                               shoot2d._launch_bwd(m0, g, *ref[2:], Mn, -0.2),
                               shoot2d.shoot2d_bwd_plain(m0, g, *ref[2:], Mn, -0.2)):
             close(f"K9 {what}", a, b)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 6, 5, 7), (3, 3, 2, 9, 4)])
+def test_host_kernels_match_plain(rng, host_kernels, shape):
+    """Every stencil kernel, forward and backward, against its plain
+    version: K4/K5 with a batch-1 one-channel and a batch-N three-channel
+    image, K1/K6 with batch-1 and batch-N momenta (with the warped-momentum
+    residual and the flag), K2/K7 at s = -0.2; displacements inside the
+    unit regime and pushed to its edges (taps clamped, folds taken)."""
+    N, _, X, Y, Z = shape
+    kernels.reset_launches()
+    for p in (f32(rng.uniform(-0.99, 0.99, shape)),
+              f32(np.where(rng.uniform(size=shape) < 0.5, -0.999, 0.999))):
+        for nb, C in ((1, 1), (N, 3)):
+            I = f32(rng.standard_normal((nb, C, X, Y, Z)))
+            g = f32(rng.standard_normal((N, C, X, Y, Z)))
+            close_stencil("K4", warp_unit.sample_displacement_unit(I, p),
+                  warp_unit.sample_displacement_unit_plain(I, p), 0.0)
+            for name, got, ref in zip(("K5 dI", "K5 d_disp"), warp_unit._launch_bwd(I, p, g),
+                                      warp_unit.sample_displacement_unit_bwd_plain(I, p, g)):
+                close_stencil(name, got, ref, BWD_RTOL)
+        for nb in (1, N):
+            m0 = f32(rng.standard_normal((nb, 3, X, Y, Z)))
+            out, flag, mw = epdiff_unit._launch_ad_star(p, m0, want_mw=True)
+            r_out, r_flag, r_mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)
+            close_stencil("K1", out, r_out, 0.0)
+            close_stencil("K1 mw", mw, r_mw, 0.0)
+            assert bool(flag) is bool(r_flag) is True
+            g = f32(rng.standard_normal(shape))
+            for name, got, ref in zip(("K6 d_phiinv", "K6 d_m0"),
+                                      epdiff_unit._launch_ad_star_bwd(p, m0, g, mw),
+                                      epdiff_unit.ad_star_bwd_plain(p, m0, g, r_mw)):
+                close_stencil(name, got, ref, BWD_RTOL)
+        v = f32(rng.uniform(-4.9, 4.9, shape))
+        out, flag = epdiff_unit.compose(p, v, -0.2)
+        r_out, r_flag = epdiff_unit.compose_plain(p, v, -0.2)
+        close_stencil("K2", out, r_out, 0.0)
+        assert bool(flag) is bool(r_flag) is True
+        g = f32(rng.standard_normal(shape))
+        for name, got, ref in zip(("K7 d_phiinv", "K7 d_v"),
+                                  epdiff_unit._launch_compose_bwd(p, v, -0.2, g),
+                                  epdiff_unit.compose_bwd_plain(p, v, -0.2, g)):
+            close_stencil(name, got, ref, BWD_RTOL)
+    bad = f32(rng.uniform(-0.9, 0.9, shape))
+    bad.view(-1)[bad.numel() // 2 + 5] = 1.0  # the unit regime's upper bound is open
+    assert not bool(epdiff_unit.ad_star(bad, bad)[1])
+    assert not bool(epdiff_unit.compose(bad, bad, 1.0)[1])
+    assert all(kernels.launch_counts()[k] > 0 for k in STENCIL_KERNELS)
+
+
+def test_host_atlas_step_matches_plain(rng, host_kernels, monkeypatch):
+    """One atlas step through the host-built kernels (K3 plain on both
+    sides) against the plain versions, at momenta like the bench's
+    (x 2e-6), with the launches of one step on the hoisted path."""
+    monkeypatch.setattr(fft_unit, "use_kernel", lambda _t: False)
+    shape = (2, 3, 8, 6, 10)
+    metric = lt.FluidMetric((0.1, 0.0, 0.01))
+    m = f32(rng.standard_normal(shape) * 2e-6)
+    I = f32(rng.standard_normal((1, 1) + shape[2:]))
+    img = f32(rng.standard_normal((2, 1) + shape[2:]))
+    step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-6)
+    kernels.reset_launches()
+    got = step(I, m, img)
+    assert kernels.launch_counts() == {
+        "fluid_flat": 0, "warp_unit_fwd": 1, "warp_unit_bwd": 1, "ad_star_fwd": 4,
+        "compose_fwd": 4, "ad_star_bwd": 4, "compose_bwd": 4, "shoot2d_fwd": 0,
+        "shoot2d_bwd": 0, "ad_star2d_fwd": 0, "compose2d_fwd": 0, "ad_star2d_bwd": 0,
+        "compose2d_bwd": 0, "fluid_radix_zy": 0, "fluid_radix_x": 0, "fluid_whole": 0}
+    assert not fft_unit.use_kernel(m)  # K3 took its plain version
+    with kernels.plain_versions():
+        ref = step(I, m, img)
+    update, r_update = got[0] - m, ref[0] - m
+    assert float((update - r_update).abs().max()) <= 1e-5 * float(r_update.abs().max())
+    assert float((got[1] - ref[1]).abs().max()) <= 1e-5 * float(ref[1].abs().max())
+    assert abs(float(got[2]) - float(ref[2])) <= 1e-6 * abs(float(ref[2]))
+
+
+# shapes against the backward passes' brick of 4 x 8 x 32 output voxels:
+# smaller than one brick on every axis, straddling bricks on every axis,
+# with axes of length 1 and 2, and 17 voxels along x (a transpose block
+# walks 4 bricks along x, through its ring of staged x-planes, then the
+# next block takes the fifth)
+EDGE_SHAPES = [(2, 3, 3, 5, 7), (3, 3, 5, 9, 37), (2, 3, 1, 2, 6), (2, 3, 6, 2, 1),
+               (2, 3, 17, 3, 5)]
+
+
+def _edge_disp(rng, shape, scale=1.0):
+    """Displacements in (-0.99, 0.99), with about one voxel in eight set
+    outside [-1, 1) (floor(d) not in {-1, 0}: zero weights) or to -1 or 0
+    exactly, times ``scale``."""
+    d = rng.uniform(-0.99, 0.99, shape)
+    pick = rng.uniform(size=shape) < 0.125
+    d[pick] = rng.choice([-2.5, -1.5, 1.0, 1.5, 3.7, -1.0, 0.0], size=int(pick.sum()))
+    return f32(d * scale)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_host_warp_passes_edge_cases(rng, host_kernels, shape):
+    """The warp forward K4 and the two backward passes that K5, K6 and K7
+    share, at shapes smaller than one brick, straddling bricks on every
+    axis and with axes of length 1 or 2, on displacements with voxels
+    outside the unit regime and at its edges: K4 (and K1, K2) bit-equal to
+    the plain versions; K5 with one-, three- and five-channel images (five:
+    two staged chunks) of batch 1 and N, K6 with batch-1 and batch-N
+    momenta (where no axis has length 1), and K7's compose epilogue at s = -0.2 and s = 0.7, within
+    1e-5 * (1 + max|ref|); a second launch of each backward bit-identical
+    to the first."""
+    N, _, X, Y, Z = shape
+    p = _edge_disp(rng, shape)
+
+    def hold(name, fn, plain, *args, rtol=BWD_RTOL):
+        got = fn(*args)
+        for what, a, r in zip(("d_0", "d_1"), got, plain(*args)):
+            close_stencil(f"{name} {what}", a, r, rtol)
+        assert all(torch.equal(a, b) for a, b in zip(got, fn(*args))), f"{name}: rerun differs"
+
+    for nb, C in ((1, 1), (N, 1), (1, 3), (N, 3), (1, 5)):
+        I = f32(rng.standard_normal((nb, C, X, Y, Z)))
+        close_stencil(f"K4 I({nb},{C})", warp_unit.sample_displacement_unit(I, p),
+                      warp_unit.sample_displacement_unit_plain(I, p), 0.0)
+        hold(f"K5 I({nb},{C})", warp_unit._launch_bwd, warp_unit.sample_displacement_unit_bwd_plain,
+             I, p, f32(rng.standard_normal((N, C, X, Y, Z))))
+    # Ad*'s Jacobian refuses an axis of length 1 (as the JAX package does)
+    for nb in (1, N) if min(X, Y, Z) > 1 else ():
+        m0 = f32(rng.standard_normal((nb, 3, X, Y, Z)))
+        out, _, mw = epdiff_unit._launch_ad_star(p, m0, want_mw=True)
+        r_out, _, r_mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)
+        close_stencil(f"K1 m0({nb},3)", out, r_out, 0.0)
+        close_stencil(f"K1 mw({nb},3)", mw, r_mw, 0.0)
+        hold(f"K6 m0({nb},3)", epdiff_unit._launch_ad_star_bwd, epdiff_unit.ad_star_bwd_plain,
+             p, m0, f32(rng.standard_normal(shape)), mw)
+    for s in (-0.2, 0.7):
+        v = _edge_disp(rng, shape, 1.0 / s)
+        close_stencil(f"K2 s={s}", epdiff_unit.compose(p, v, s)[0],
+                      epdiff_unit.compose_plain(p, v, s)[0], 0.0)
+        g = f32(rng.standard_normal(shape))
+        hold(f"K7 s={s}", lambda a, b, c: epdiff_unit._launch_compose_bwd(a, b, s, c),
+             lambda a, b, c: epdiff_unit.compose_bwd_plain(a, b, s, c), p, v, g)

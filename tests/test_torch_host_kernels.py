@@ -1,20 +1,20 @@
-"""The stencil kernels' CUDA sources, compiled for the host and run on the
-CPU against their plain versions.
+"""The per-pixel 2D stencil kernels' CUDA source, compiled for the host and
+run on the CPU against their plain versions.
 
-K1, K2, K4 and the backwards K5, K6, K7 (``lagomorph_tpu_torch/csrc/
-warp_unit.cu``, ``epdiff_unit.cu``) and the 2D K10-K13 (``epdiff2d.cu``) are
-per-thread code: no shared memory, no barriers, one ballot.  With every
+K10-K13 (``lagomorph_tpu_torch/csrc/epdiff2d.cu``) are per-thread code: no
+shared memory, no barriers, one ballot.  With every
 ``k<<<grid, block, ...>>>(args)`` launch rewritten as a loop over the
 grid's threads and ``tests/cuda_host/cuda_runtime.h`` standing in for the
-CUDA runtime, g++
-compiles them into a host library with the same C entry points, which the
-kernel wrappers then call in place of the card's library.  So the kernels'
-arithmetic, indexing, clamp folds, batch-1 sums and flags are checked here,
-in float32, before the card sees them; the card itself is checked by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  K3 and K14-K16
-(shared-memory transforms) are not emulated here: their wrappers run their
-plain versions (``tests/test_torch_host_barrier_kernels.py`` runs them, and
-K8/K9, on a threaded emulation).
+CUDA runtime, g++ compiles them into a host library with the same C entry
+points, which the kernel wrappers then call in place of the card's
+library.  So the kernels' arithmetic, indexing, clamp folds, batch-1 sums
+and flags are checked here, in float32, before the card sees them; the
+card itself is checked by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.  The 3D stencils K1, K2 and K4-K7 (``warp_unit.cu``,
+``epdiff_unit.cu``: the warp's backward passes stage bricks in shared
+memory between barriers), the transforms K3 and K14-K16 and K8/K9 run on
+the threaded emulation of ``tests/test_torch_host_barrier_kernels.py``;
+here their wrappers run their plain versions.
 
 K10-K13 run the per-pixel functions of ``csrc/stencil2d.cuh``, which K8
 and K9 share; K8 and K9 themselves (cooperative launches, grid barriers,
@@ -36,17 +36,13 @@ import torch
 
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
-from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d, epdiff_unit, fft_unit, warp_unit
+from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d
 
 torch.set_num_threads(2)
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host")
-SOURCES = ("warp_unit.cu", "epdiff_unit.cu", "epdiff2d.cu")
+SOURCES = ("epdiff2d.cu",)
 KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
-# entry points of the kernels with shared memory or grid barriers
-NOT_EMULATED_KERNELS = ("fluid_flat", "shoot2d_fwd", "shoot2d_bwd", "fluid_radix_zy",
-                        "fluid_radix_x", "fluid_whole")
-NOT_EMULATED = tuple(f"lagomorph_{k}" for k in NOT_EMULATED_KERNELS)
 BWD_RTOL = 1e-5
 LAUNCH = re.compile(r"([\w:]+)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
 
@@ -75,24 +71,27 @@ def _host_source(text):
 
 @pytest.fixture(scope="module")
 def host_library(tmp_path_factory):
-    """The stencil sources built as a host library (skips without g++)."""
+    """The 2D stencil source built as a host library (skips without g++)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' sources for the host")
     out = tmp_path_factory.mktemp("host_kernels")
-    for name in ("stencil.cuh", "stencil2d.cuh") + SOURCES:
+    for name in ("stencil2d.cuh",) + SOURCES:
         with open(os.path.join(_build.CSRC, name)) as f:
             (out / name).write_text(_host_source(f.read()))
+    (out / "error_string.cpp").write_text(
+        'extern "C" const char* lagomorph_error_string(int) { return "host emulation"; }\n')
     so = out / "libhost_kernels.so"
     cmd = [gxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC", "-w", "-I", SHIM,
-           "-I", str(out), "-o", str(so), *(str(out / s) for s in SOURCES)]
+           "-I", str(out), "-o", str(so),
+           *(str(out / s) for s in SOURCES + ("error_string.cpp",))]
     r = subprocess.run(cmd, capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _build.SIGNATURES.items():
-        if name not in NOT_EMULATED:
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
+    for name in ("lagomorph_ad_star2d_fwd", "lagomorph_compose2d_fwd",
+                 "lagomorph_ad_star2d_bwd", "lagomorph_compose2d_bwd"):
+        getattr(lib, name).argtypes = _build.SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
     lib.lagomorph_error_string.argtypes = [ctypes.c_int]
     lib.lagomorph_error_string.restype = ctypes.c_char_p
     return lib
@@ -100,7 +99,7 @@ def host_library(tmp_path_factory):
 
 @pytest.fixture
 def host_kernels(monkeypatch, host_library):
-    """The stencil wrappers launch the host library on CPU tensors, as on
+    """The 2D stencil wrappers launch the host library on CPU tensors, as on
     the card: float32 and contiguous, or they raise."""
     def check_cpu_f32(name, *tensors):
         for t in tensors:
@@ -108,7 +107,7 @@ def host_kernels(monkeypatch, host_library):
                 raise ValueError(f"{name}: kernel takes contiguous float32 tensors")
 
     monkeypatch.setattr(_build, "library", lambda: host_library)
-    for mod in (warp_unit, epdiff_unit, epdiff2d):
+    for mod in (epdiff2d,):
         monkeypatch.setattr(mod, "use_kernel", lambda _t: not kernels._PLAIN.get())
         monkeypatch.setattr(mod, "check_cuda_f32", check_cpu_f32)
         monkeypatch.setattr(mod, "stream_of", lambda _t: None)
@@ -121,81 +120,6 @@ def f32(a):
 def close(name, got, ref, rtol):
     err = float((got.double() - ref.double()).abs().max())
     assert err <= rtol * (1.0 + float(ref.double().abs().max())), f"{name}: {err:.3e}"
-
-
-@pytest.mark.parametrize("shape", [(2, 3, 6, 5, 7), (3, 3, 2, 9, 4)])
-def test_host_kernels_match_plain(rng, host_kernels, shape):
-    """Every stencil kernel, forward and backward, against its plain
-    version: K4/K5 with a batch-1 one-channel and a batch-N three-channel
-    image, K1/K6 with batch-1 and batch-N momenta (with the warped-momentum
-    residual and the flag), K2/K7 at s = -0.2; displacements inside the
-    unit regime and pushed to its edges (taps clamped, folds taken)."""
-    N, _, X, Y, Z = shape
-    kernels.reset_launches()
-    for p in (f32(rng.uniform(-0.99, 0.99, shape)),
-              f32(np.where(rng.uniform(size=shape) < 0.5, -0.999, 0.999))):
-        for nb, C in ((1, 1), (N, 3)):
-            I = f32(rng.standard_normal((nb, C, X, Y, Z)))
-            g = f32(rng.standard_normal((N, C, X, Y, Z)))
-            close("K4", warp_unit.sample_displacement_unit(I, p),
-                  warp_unit.sample_displacement_unit_plain(I, p), 0.0)
-            for name, got, ref in zip(("K5 dI", "K5 d_disp"), warp_unit._launch_bwd(I, p, g),
-                                      warp_unit.sample_displacement_unit_bwd_plain(I, p, g)):
-                close(name, got, ref, BWD_RTOL)
-        for nb in (1, N):
-            m0 = f32(rng.standard_normal((nb, 3, X, Y, Z)))
-            out, flag, mw = epdiff_unit._launch_ad_star(p, m0, want_mw=True)
-            r_out, r_flag, r_mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)
-            close("K1", out, r_out, 0.0)
-            close("K1 mw", mw, r_mw, 0.0)
-            assert bool(flag) is bool(r_flag) is True
-            g = f32(rng.standard_normal(shape))
-            for name, got, ref in zip(("K6 d_phiinv", "K6 d_m0"),
-                                      epdiff_unit._launch_ad_star_bwd(p, m0, g, mw),
-                                      epdiff_unit.ad_star_bwd_plain(p, m0, g, r_mw)):
-                close(name, got, ref, BWD_RTOL)
-        v = f32(rng.uniform(-4.9, 4.9, shape))
-        out, flag = epdiff_unit.compose(p, v, -0.2)
-        r_out, r_flag = epdiff_unit.compose_plain(p, v, -0.2)
-        close("K2", out, r_out, 0.0)
-        assert bool(flag) is bool(r_flag) is True
-        g = f32(rng.standard_normal(shape))
-        for name, got, ref in zip(("K7 d_phiinv", "K7 d_v"),
-                                  epdiff_unit._launch_compose_bwd(p, v, -0.2, g),
-                                  epdiff_unit.compose_bwd_plain(p, v, -0.2, g)):
-            close(name, got, ref, BWD_RTOL)
-    bad = f32(rng.uniform(-0.9, 0.9, shape))
-    bad.view(-1)[bad.numel() // 2 + 5] = 1.0  # the unit regime's upper bound is open
-    assert not bool(epdiff_unit.ad_star(bad, bad)[1])
-    assert not bool(epdiff_unit.compose(bad, bad, 1.0)[1])
-    assert all(n > 0 for k, n in kernels.launch_counts().items()
-               if k not in NOT_EMULATED_KERNELS + KERNELS_2D_PER_OP)
-
-
-def test_host_atlas_step_matches_plain(rng, host_kernels):
-    """One atlas step through the host-built kernels (K3 plain on both
-    sides) against the plain versions, at momenta like the bench's
-    (x 2e-6), with the launches of one step on the hoisted path."""
-    shape = (2, 3, 8, 6, 10)
-    metric = lt.FluidMetric((0.1, 0.0, 0.01))
-    m = f32(rng.standard_normal(shape) * 2e-6)
-    I = f32(rng.standard_normal((1, 1) + shape[2:]))
-    img = f32(rng.standard_normal((2, 1) + shape[2:]))
-    step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-6)
-    kernels.reset_launches()
-    got = step(I, m, img)
-    assert kernels.launch_counts() == {
-        "fluid_flat": 0, "warp_unit_fwd": 1, "warp_unit_bwd": 1, "ad_star_fwd": 4,
-        "compose_fwd": 4, "ad_star_bwd": 4, "compose_bwd": 4, "shoot2d_fwd": 0,
-        "shoot2d_bwd": 0, "ad_star2d_fwd": 0, "compose2d_fwd": 0, "ad_star2d_bwd": 0,
-        "compose2d_bwd": 0, "fluid_radix_zy": 0, "fluid_radix_x": 0, "fluid_whole": 0}
-    assert not fft_unit.use_kernel(m)  # K3 took its plain version
-    with kernels.plain_versions():
-        ref = step(I, m, img)
-    update, r_update = got[0] - m, ref[0] - m
-    assert float((update - r_update).abs().max()) <= 1e-5 * float(r_update.abs().max())
-    assert float((got[1] - ref[1]).abs().max()) <= 1e-5 * float(ref[1].abs().max())
-    assert abs(float(got[2]) - float(ref[2])) <= 1e-6 * abs(float(ref[2]))
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 9, 12), (3, 2, 2, 7)])

@@ -355,3 +355,63 @@ def test_atlas_step_through_functions_matches_plain(rng, kernel_glue):
         ref = step(I, m, img)
     for r, g in zip(ref, got):
         close_bwd(r.numpy(), g)
+
+
+class _OnCard:
+    """What a wrapper's gate sees of ``t`` if ``t`` lay on the card: its
+    dtype, on a CUDA device."""
+
+    def __init__(self, t):
+        self.dtype, self.device = t.dtype, torch.device("cuda", 0)
+
+
+@pytest.fixture
+def card_gate(monkeypatch, kernel_glue):
+    """``kernel_glue`` with the port's own gate: each wrapper asks
+    ``kernels.use_kernel`` about its tensor as if it lay on the card, so
+    the dtype decides whether the (plain-replaced, counted) launch runs."""
+    for mod in (warp_unit, epdiff_unit, fft_unit):
+        monkeypatch.setattr(mod, "use_kernel", lambda t_: kernels.use_kernel(_OnCard(t_)))
+    return kernel_glue
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dtype_gate_on_card(rng, card_gate, dtype):
+    """Only float32 takes the kernels (``kernels.use_kernel``): on the card
+    a float32 atlas step launches every kernel of the main path, and a
+    float64 one launches none (each wrapper,
+    the fluid solve's included, runs its plain version), giving what the
+    plain versions give.  The dtype decides, not the device: a CPU tensor
+    of either dtype takes the plain versions, and the route of the fluid
+    solve is the same for both dtypes."""
+    from lagomorph_tpu_torch.ops import fluid as tfl
+
+    assert kernels.use_kernel(_OnCard(torch.empty(1, dtype=dtype))) is (dtype == torch.float32)
+    with kernels.plain_versions():
+        assert not kernels.use_kernel(_OnCard(torch.empty(1)))
+    assert not kernels.use_kernel(torch.empty(1, dtype=dtype))
+    shape = SHAPES[0]
+    params = (0.1, 0.0, 0.01)
+    assert tfl.fluid_route(shape, params) == "fluid_flat"
+    metric = lt.FluidMetric(params)
+    m = rng.standard_normal(shape)
+    m = t(m * (0.5 / float(metric.sharp(t(m)).abs().max()))).to(dtype)
+    I = t(rng.standard_normal((1, 1) + shape[2:])).to(dtype)
+    img = t(rng.standard_normal((shape[0], 1) + shape[2:])).to(dtype)
+    step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-4)
+    card_gate.clear()
+    got = step(I, m, img)
+    kernel_route = dtype == torch.float32
+    want = {"ad_star_plain": 4, "compose_plain": 4, "fluid_flat_plain": 10,
+            "sample_displacement_unit": 1, "sample_displacement_unit_bwd_plain": 1,
+            "ad_star_bwd_plain": 4, "compose_bwd_plain": 4}
+    assert dict(card_gate) == (want if kernel_route else {})
+    with kernels.plain_versions():
+        ref = step(I, m, img)
+    for r, g in zip(ref, got):
+        assert g.dtype == dtype
+        if kernel_route:  # autograd through the Functions sums in another order
+            r = r.double().numpy()
+            close(r, g.double(), atol=1e-5 * (1.0 + float(np.abs(r).max())))
+        else:
+            assert torch.equal(r, g)

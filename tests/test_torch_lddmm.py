@@ -81,6 +81,32 @@ def test_expmap_matches_jax(rng, max_v0, hoisted):
     assert bool(tlddmm.shooting_regime_ok(metric, t(m), num_steps=STEPS)) is bool(jok) is hoisted
 
 
+def test_expmap_jax_positional_signature(rng):
+    """``expmap`` takes the JAX package's positional parameters, with
+    ``checkpoints`` seventh: ``expmap(metric, m0, 1.0, 5, None, None,
+    False)`` equals the JAX call in float64, and the tier overrides follow
+    it in eighth and ninth place."""
+    m = momenta(rng, 0.5)
+    metric = lt.FluidMetric(PARAMS)
+    ref = jax.jit(lambda m_: lm.expmap(lm.FluidMetric(PARAMS), m_, 1.0, STEPS, None, None,
+                                       False))(jnp.asarray(m))
+    close_rel(ref, lt.expmap(metric, t(m), 1.0, STEPS, None, None, False))
+    ref = jax.jit(lambda m_: lm.expmap(lm.FluidMetric(PARAMS), m_, 1.0, 3, None, None, False,
+                                       "unit", "unit"))(jnp.asarray(m))
+    close_rel(ref, lt.expmap(metric, t(m), 1.0, 3, None, None, False, "unit", "unit"))
+
+
+def test_expmap_checkpoints_not_ported(rng):
+    """``checkpoints=True`` (rematerialised shooting) raises until it is
+    ported, by keyword and in its JAX position."""
+    m = t(momenta(rng, 0.5, (1, 3, 6, 5, 4)))
+    metric = lt.FluidMetric(PARAMS)
+    with pytest.raises(NotImplementedError, match="checkpoints"):
+        lt.expmap(metric, m, num_steps=3, checkpoints=True)
+    with pytest.raises(NotImplementedError, match="checkpoints"):
+        lt.expmap(metric, m, 1.0, 3, None, None, True)
+
+
 def test_expmap_forced_modes_and_mask(rng):
     """A momentum mask, through the hoisted path (no tier forced) and
     through the per-step loop with forced warp tiers."""
