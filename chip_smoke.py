@@ -785,17 +785,21 @@ def epdiff2d_checks(device, shape, seed):
 
 
 def solve_checks(lt, device, shape, seed, radix=True, whole=True):
-    """Phase 3, the fluid solves of the selectors, at one shape: K14
-    forward (a bit-reversed spectrum) and inverse, K15 on that spectrum and
-    the pipeline K14, K15, K14 against their plain versions (power-of-two
-    axes), and K16 against its plain version (the ``torch.fft`` packed
-    solve), on the packed pairs ``fluid_operator`` builds (an odd slab count
-    carries one zero slab), within 1e-4 * max|ref| (as K3); then the
-    pipeline and K16 under ``torch.autograd.grad`` (3 launches, or 1, each
-    way; a transposed cotangent) against autograd of the plain versions.
-    Returns {kernel: err}."""
+    """Phase 3, the fluid solves at one shape: K3 against its plain version
+    (the ``torch.fft`` packed solve; 128^3 and 64^3 take its plane path,
+    (3, 3, 32, 64, 128) and (1, 3, 4, 256, 256) its line path, (3, 3, 96,
+    80, 112) its tile path), K14 forward (a
+    bit-reversed spectrum) and inverse, K15 on that spectrum and the
+    pipeline K14, K15, K14 against their plain versions (power-of-two axes),
+    and K16 against its plain version (the ``torch.fft`` packed solve), on
+    the packed pairs ``fluid_operator`` builds (an odd slab count carries
+    one zero slab), within 1e-4 * max|ref|; then K3, the pipeline and K16
+    under ``torch.autograd.grad`` (1 launch, 3, or 1, each way; a
+    transposed cotangent) against autograd of the plain versions.  Returns
+    {kernel: err}."""
     from lagomorph_tpu_torch.ops import fluid
-    from lagomorph_tpu_torch.ops.kernels import fft_radix, fft_whole, launch_counts, plain_versions
+    from lagomorph_tpu_torch.ops.kernels import (fft_radix, fft_unit, fft_whole, launch_counts,
+                                                 plain_versions)
 
     N, _, X, Y, Z = shape
     rng = np.random.default_rng(seed)
@@ -834,7 +838,10 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
             hold(k, f"{label} autograd", got, ref)
 
     errs = {}
-    log(f"fluid solves of the selectors at {'x'.join(map(str, shape))}:")
+    log(f"fluid solves at {'x'.join(map(str, shape))}:")
+    Mn = multiplier("fluid_flat")
+    hold("fluid_flat", "forward", *both(fft_unit.fluid_flat, x, Mn))
+    under_autograd(("fluid_flat",), (1,), lambda a: fft_unit.fluid_flat(a, Mn), "fluid_flat")
     if radix:
         Mbr = multiplier("fluid_radix")
         spec, ref = both(fft_radix.radix_zy, x, False)
@@ -1355,9 +1362,10 @@ def step_times(lt, device, card, shape, label, setter=None, value=None, reps=3):
 def timings_solves(device, card, lt):
     """Per-call ms of K14 (forward; the inverse logged), K15 and the
     pipeline K14, K15, K14 at 128^3 b4, and of K16 at 64^3 b4 (and, logged,
-    at 128^3 b4 beside K3), each beside its plain version (order: plain,
-    kernel, kernel, plain), the library call (``ifftn(Mn * fftn(.))`` on the
-    packed pairs, for the pipeline and K16; none computes K14 or K15 alone)
+    at 128^3 b4), with K3 logged at both shapes, each beside its plain
+    version (order: plain, kernel, kernel, plain), the library call
+    (``ifftn(Mn * fftn(.))`` on the packed pairs, for K3, the pipeline and
+    K16; none computes K14 or K15 alone)
     and the bound of its work; then the radix step at 128^3 b4 and the
     whole-volume and default steps at 64^3 b4, both ways, with peak memory.
     Returns {kernel: {ms, plain_ms, library_ms, bound_ms, bound_by}}."""
@@ -1401,6 +1409,7 @@ def timings_solves(device, card, lt):
                                                    dim=(1, 2, 3))
 
     x, Mn, Mbr, library = operands(FULL)
+    timed("fluid_flat", FULL, lambda: fft_unit.fluid_flat(x, Mn), library, record=False)
     spec = fft_radix.radix_zy(x, False)
     timed("fluid_radix_zy", FULL, lambda: fft_radix.radix_zy(x, False), None)
     timed("fluid_radix_zy inverse", FULL, lambda: fft_radix.radix_zy(spec, True), None,

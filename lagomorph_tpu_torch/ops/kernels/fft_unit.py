@@ -7,13 +7,29 @@ and imaginary parts are the operator applied to ``x1`` and ``x2``).  The
 pairs are the two halves of one ``(2F, X, Y, Z)`` tensor.
 
 Replaces ``lagomorph_tpu/ops/pallas/fft_unit.py`` ``_zy_dft_kernel`` and
-``_x_mul_dft_kernel`` (``fluid_flat_mxu``).  The kernel is five line-
-transform passes in shared memory (radix-2 FFT for power-of-two axes,
-direct DFT sums otherwise, twiddles from a table); it calls no cuFFT or
-cuBLAS.  On the H100 each radix-2 pass is bound by its device-memory
-traffic: the complex scratch (100.7 MB at 128^3 b4) read and written once
-per pass, ~1 GB per solve; direct-sum passes are bound by arithmetic.  Its
-plain version, :func:`fluid_flat_plain`, is the ``torch.fft`` packed
+``_x_mul_dft_kernel`` (``fluid_flat_mxu``); it calls no cuFFT or cuBLAS.
+Three paths, chosen by shape in the kernel:
+
+* ``Y == Z`` in 64, 128 and ``X`` a power of two up to 256 (128^3 and 64^3,
+  the 3D step's shapes): three passes.  A block holds a whole (y, z)
+  plane in registers and transforms it along z, then y (a line transform in
+  registers with one exchange through shared memory each,
+  ``csrc/fft_reg.cuh``); then one pass along x with the product by ``Mn``
+  and the inverse; then the planes back;
+* other power-of-two axes up to 256 (a 256^2 plane, ``Y != Z``, smaller
+  planes): five register line passes (z, y, x with the product and the x
+  inverse, y, z);
+* any other shape (``chip_smoke.ODD`` = 96 x 80 x 112): five passes of a
+  shared-memory tile per block of lines (radix-2 FFT for a power-of-two
+  axis, direct DFT sums otherwise, ``csrc/fft_lines.cuh``), through an
+  ``(F, X, Y, Z)`` complex scratch (:func:`needs_scratch`).
+
+The first pass writes the output's two halves and the others run in place
+on them, so the first two paths need no scratch.  On the H100 each radix-2
+pass is bound by its device-memory traffic (the field, 100.7 MB at 128^3
+b4 as a float pair, read and written once per pass: ~0.6 GB a solve in
+three passes, ~1 GB in five); direct-sum passes are bound by arithmetic.
+Its plain version, :func:`fluid_flat_plain`, is the ``torch.fft`` packed
 operator.  See the source for the design.
 
 The operator is self-adjoint (``Mn`` real and even in k makes
@@ -44,15 +60,24 @@ def fluid_flat_plain(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
     return torch.cat([y.real, y.imag])
 
 
+def needs_scratch(X: int, Y: int, Z: int) -> bool:
+    """Whether K3 takes its tile path at this shape, which needs an
+    ``(F, X, Y, Z)`` complex scratch: some axis is not a power of two up to
+    256 (the register paths' lengths, ``reg_axis`` in ``csrc/fft_unit.cu``)."""
+    return not all(1 <= n <= 256 and n & (n - 1) == 0 for n in (X, Y, Z))
+
+
 def _launch(x, Mn):
     F2, X, Y, Z = x.shape
     F = F2 // 2
     y = torch.empty_like(x)
-    scratch = torch.empty((F, X, Y, Z, 2), dtype=x.dtype, device=x.device)
+    scratch = (torch.empty((F, X, Y, Z, 2), dtype=x.dtype, device=x.device)
+               if needs_scratch(X, Y, Z) else None)
     _build.call(
         "lagomorph_fluid_flat",
         x[:F].data_ptr(), x[F:].data_ptr(), Mn.data_ptr(), y[:F].data_ptr(),
-        y[F:].data_ptr(), scratch.data_ptr(), F, X, Y, Z, stream_of(x),
+        y[F:].data_ptr(), None if scratch is None else scratch.data_ptr(), F, X, Y, Z,
+        stream_of(x),
     )
     KERNEL.launches += 1
     return y

@@ -442,3 +442,27 @@ def test_float64_takes_plain_versions_on_cuda(cuda):
     counts = kernels.launch_counts()
     assert all(counts[k] > 0 for k in ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd",
                                        "compose_fwd", "ad_star_bwd", "compose_bwd", "fluid_flat"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spatial", [(64, 64, 64), (8, 128, 128), (4, 32, 32), (4, 256, 128),
+                                     (1, 2, 32), (16, 64, 4), (6, 10, 14), (2, 3, 512)])
+def test_fluid_flat_paths_on_cuda(cuda, spatial):
+    """K3 on each of its paths (the plane path at 64^2 and 128^2 planes,
+    the line path at other power-of-two axes up to 256, the tile path
+    otherwise) against its plain version, forward and under autograd (one
+    launch each way), within 1e-4 * max|ref|."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((6,) + spatial), dtype=torch.float32, device=cuda)
+    Mn = fluid.form_multiplier(fluid.multiplier_form("fluid_flat"), spatial, (0.1, 0.0, 0.01),
+                               True, torch.float32, cuda)
+    cot = torch.as_tensor(rng.standard_normal((6,) + spatial), dtype=torch.float32, device=cuda)
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        ref = fft_unit.fluid_flat(x, Mn)
+        ref_g = fft_unit.fluid_flat(cot, Mn)
+    _compare(fft_unit.fluid_flat(x, Mn), ref, 1e-4, 0.0)
+    leaf = x.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(fft_unit.fluid_flat(leaf, Mn), leaf, cot)
+    _compare(got, ref_g, 1e-4, 0.0)
+    assert kernels.launch_counts()["fluid_flat"] == 3

@@ -16,10 +16,12 @@ cooperative launch for it, so g++ builds the sources into a host library
 with the kernels' C entry points.  The wrappers then call it in place of
 the card's library.  So the kernels' indexing, tiles, bricks and halos,
 clamp folds, batch-1 sums, flags, stage loops, bit-reversed bookkeeping,
-phase order and both of K14's paths (a whole (Y, Z) plane per block, or
-two line passes when the plane exceeds a block's 227 KB) are checked
-here; the card itself is checked by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+phase order, K3's three paths (whole planes in registers, register line
+passes, tile passes through the scratch; its in-place passes and the
+exchanges of ``csrc/fft_reg.cuh``) and both of K14's paths (a whole (Y,
+Z) plane per block, or two line passes when the plane exceeds a block's
+227 KB) are checked here; the card itself is checked by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 
 Tolerances, float32 against the plain versions on the same inputs: the
 transforms 1e-5 * max|ref| (they round in another order than the plain
@@ -46,7 +48,7 @@ from lagomorph_tpu_torch.ops.kernels import (_build, epdiff_unit, fft_radix, fft
 torch.set_num_threads(2)
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host", "threaded")
-HEADERS = ("fft_lines.cuh", "cooperative.cuh", "stencil.cuh", "stencil2d.cuh")
+HEADERS = ("fft_lines.cuh", "fft_reg.cuh", "cooperative.cuh", "stencil.cuh", "stencil2d.cuh")
 SOURCES = ("fft_unit.cu", "fft_radix.cu", "fft_whole.cu", "shoot2d.cu", "warp_unit.cu",
            "epdiff_unit.cu")
 # the 3D stencils, per-thread (K1, K2, K4) or staging bricks (K5-K7's passes)
@@ -183,24 +185,39 @@ def test_host_radix_kernels_match_plain(rng, host_kernels, spatial):
     close("fluid_radix backward", got, ref)
 
 
-@pytest.mark.parametrize("spatial", [(4, 8, 16), (5, 6, 7)])
+# K3's paths: the line path at power-of-two axes up to 256 that are not
+# square planes of 64 or 128 (one thread per line up to 16 points, then 4 x
+# 8, 8 x 8, 8 x 16 and 16 x 16 threads x elements; lengths 1 and 2; a 256 x
+# 128 plane, beyond a block's shared memory), the plane path at 64^2 and
+# 128^2 planes (512 and 1024 threads a plane), and the tile path, through
+# the scratch, at an odd shape (direct sums) and at a power-of-two axis
+# longer than 256 (radix-2 in a tile)
+SOLVE_SHAPES = {"line": [(4, 8, 16), (2, 256, 128), (1, 2, 32), (16, 64, 4), (4, 32, 32)],
+                "plane": [(2, 64, 64), (1, 128, 128)],
+                "tile": [(5, 6, 7), (2, 3, 512)]}
+
+
+@pytest.mark.parametrize("spatial", [s for shapes in SOLVE_SHAPES.values() for s in shapes])
 def test_host_fluid_solves_match_plain(rng, host_kernels, spatial):
-    """K16 (one cooperative launch, five phases) and K3 (five passes)
-    against their plain version, the ``torch.fft`` packed solve, at a
-    power-of-two shape (radix-2 line transforms) and an odd one (direct
-    sums); K16 under autograd (one launch each way)."""
+    """K3 (five passes) and K16 (one cooperative launch, five phases)
+    against their plain version, the ``torch.fft`` packed solve, at shapes
+    that take each of K3's paths, with the scratch only where K3's tile
+    path needs it; both under autograd (K3 and K16 their own backwards: one
+    launch each way)."""
     x = f32(rng.standard_normal((6,) + spatial))
     Mn = _multiplier("fluid_whole", spatial)
     ref = fft_unit.fluid_flat_plain(x, Mn)
     kernels.reset_launches()
     close("fluid_whole", fft_whole.fluid_whole(x, Mn), ref)
     close("fluid_flat", fft_unit.fluid_flat(x, Mn), ref)
-    leaf = x.clone().requires_grad_(True)
+    assert fft_unit.needs_scratch(*spatial) == (spatial in SOLVE_SHAPES["tile"])
     cot = f32(rng.standard_normal(tuple(x.shape)))
-    (got,) = torch.autograd.grad(fft_whole.fluid_whole(leaf, Mn), leaf, cot)
-    close("fluid_whole backward", got, fft_unit.fluid_flat_plain(cot, Mn))
+    for fn in (fft_whole.fluid_whole, fft_unit.fluid_flat):
+        leaf = x.clone().requires_grad_(True)
+        (got,) = torch.autograd.grad(fn(leaf, Mn), leaf, cot)
+        close(f"{fn.__name__} backward", got, fft_unit.fluid_flat_plain(cot, Mn))
     assert kernels.launch_counts()["fluid_whole"] == 3
-    assert kernels.launch_counts()["fluid_flat"] == 1
+    assert kernels.launch_counts()["fluid_flat"] == 3
 
 
 def test_host_shoot2d_kernels_match_plain(rng, host_kernels):
