@@ -33,7 +33,9 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    the pipeline K14, K15, K14 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128) and
    (1, 3, 4, 256, 256) (planes too large for one block: two line passes),
    and K16 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128) and (3, 3, 96, 80,
-   112), directly and under autograd;
+   112), directly and under autograd, K16 bit-equal to K3 on its plane
+   (128^3, 64^3) and line (3, 3, 32, 64, 128) paths, with its cooperative
+   grid logged;
 4. slice: ``_lddmm_loss`` forward through the kernels and through the
    plain versions, at the bench's momenta and at momenta scaled to a
    deformation of about half a voxel; the launch counters show the forward
@@ -78,9 +80,11 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    the peak device memory of each step; K8 and K9, and K10-K13 at one
    substep's shapes, at 256^2 b8, and the 2D atlas step both ways, with
    ``beta = 0`` and ``beta = 0.05``, at 256^2 b8 and 512^2 b8, with peak
-   memory; K14, K15 and the pipeline at 128^3 b4 and K16 at 64^3 b4 (the
-   library call of the pipeline and of K16: ``ifftn(Mn * fftn(.))`` on the
-   packed pairs), and the radix step at 128^3 b4 and the whole and default
+   memory; K14, K15 and the pipeline at 128^3 b4 and K16 at 64^3 b4 and
+   128^3 b4 (the library call of the pipeline and of K16: ``ifftn(Mn *
+   fftn(.))`` on the packed pairs), with K16's cooperative grid and the
+   ``torch.profiler`` device time per call of K16, K3 and the library call
+   at both shapes, and the radix step at 128^3 b4 and the whole and default
    steps at 64^3 b4, both ways, with peak memory;
 8. trace (only with ``--trace PATH``): ``torch.profiler`` traces of 5
    slices (``PATH``), of 5 atlas steps (``PATH`` with ``_steps`` before its
@@ -794,9 +798,11 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
     and K16 against its plain version (the ``torch.fft`` packed solve), on
     the packed pairs ``fluid_operator`` builds (an odd slab count carries
     one zero slab), within 1e-4 * max|ref|; then K3, the pipeline and K16
-    under ``torch.autograd.grad`` (1 launch, 3, or 1, each way; a
-    transposed cotangent) against autograd of the plain versions.  Returns
-    {kernel: err}."""
+    under ``torch.autograd.grad`` (1 launch, 3, or 1, each way; one
+    transposed cotangent) against autograd of the plain versions.  Where
+    K16 takes a register path (128^3 and 64^3 its plane path, (3, 3, 32,
+    64, 128) its line path) it runs K3's passes as its phases and must be
+    bit-equal to K3, forward and backward.  Returns {kernel: err}."""
     from lagomorph_tpu_torch.ops import fluid
     from lagomorph_tpu_torch.ops.kernels import (fft_radix, fft_unit, fft_whole, launch_counts,
                                                  plain_versions)
@@ -807,6 +813,8 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
     x = torch.as_tensor(rng.standard_normal((2 * F, X, Y, Z)), dtype=torch.float32, device=device)
     if (N * 3) % 2:
         x[-1] = 0
+    cot = torch.as_tensor(rng.standard_normal((2 * F, Z, Y, X)), dtype=torch.float32,
+                          device=device).transpose(1, 3)
 
     def multiplier(route):
         return fluid.form_multiplier(fluid.multiplier_form(route), (X, Y, Z), PARAMS, True,
@@ -823,8 +831,6 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
 
     def under_autograd(names, per_call, fn, label):
         leaf, ref_leaf = (x.clone().requires_grad_(True) for _ in range(2))
-        cot = torch.as_tensor(rng.standard_normal((2 * F, Z, Y, X)), dtype=torch.float32,
-                              device=device).transpose(1, 3)
         before = launch_counts()
         out = fn(leaf)
         (got,) = torch.autograd.grad(out, leaf, cot)
@@ -836,12 +842,15 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
             (ref,) = torch.autograd.grad(fn(ref_leaf), ref_leaf, cot)
         for k in names:
             hold(k, f"{label} autograd", got, ref)
+        return got
 
     errs = {}
     log(f"fluid solves at {'x'.join(map(str, shape))}:")
     Mn = multiplier("fluid_flat")
-    hold("fluid_flat", "forward", *both(fft_unit.fluid_flat, x, Mn))
-    under_autograd(("fluid_flat",), (1,), lambda a: fft_unit.fluid_flat(a, Mn), "fluid_flat")
+    flat, ref = both(fft_unit.fluid_flat, x, Mn)
+    hold("fluid_flat", "forward", flat, ref)
+    flat_grad = under_autograd(("fluid_flat",), (1,), lambda a: fft_unit.fluid_flat(a, Mn),
+                               "fluid_flat")
     if radix:
         Mbr = multiplier("fluid_radix")
         spec, ref = both(fft_radix.radix_zy, x, False)
@@ -855,9 +864,18 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
                        lambda a: fft_radix.fluid_radix(a, Mbr), "pipeline")
     if whole:
         Mn = multiplier("fluid_whole")
-        hold("fluid_whole", "forward", *both(fft_whole.fluid_whole, x, Mn))
-        under_autograd(("fluid_whole",), (1,), lambda a: fft_whole.fluid_whole(a, Mn),
-                       "fluid_whole")
+        cfg = fft_whole.launch_config(X, Y, Z)
+        log(f"  fluid_whole launch: {cfg['path']} path, cooperative grid of {cfg['blocks']} "
+            f"blocks x {cfg['threads']} threads, {cfg['smem']} B shared memory a block")
+        got, ref = both(fft_whole.fluid_whole, x, Mn)
+        hold("fluid_whole", "forward", got, ref)
+        got_grad = under_autograd(("fluid_whole",), (1,),
+                                  lambda a: fft_whole.fluid_whole(a, Mn), "fluid_whole")
+        if not fft_unit.needs_scratch(X, Y, Z):
+            check(torch.equal(got, flat) and torch.equal(got_grad, flat_grad),
+                  f"fluid_whole at {shape}: not bit-equal to K3 on its {cfg['path']} path "
+                  f"(max diff {max_err(got, flat):.3e}, backward {max_err(got_grad, flat_grad):.3e})")
+            log(f"  fluid_whole {cfg['path']} path: bit-equal to K3, forward and backward")
     return errs
 
 
@@ -1366,8 +1384,12 @@ def timings_solves(device, card, lt):
     version (order: plain, kernel, kernel, plain), the library call
     (``ifftn(Mn * fftn(.))`` on the packed pairs, for K3, the pipeline and
     K16; none computes K14 or K15 alone)
-    and the bound of its work; then the radix step at 128^3 b4 and the
-    whole-volume and default steps at 64^3 b4, both ways, with peak memory.
+    and the bound of its work, and K16 and K3 logged at (3, 3, 32, 64, 128),
+    their line paths; then the radix step at 128^3 b4 and the
+    whole-volume and default steps at 64^3 b4, both ways, with peak memory;
+    last, at 128^3 and 64^3, K16's cooperative grid and the device time per
+    call of K16, K3 and the library call from ``torch.profiler`` (the host
+    sets the event times of such short calls).
     Returns {kernel: {ms, plain_ms, library_ms, bound_ms, bound_by}}."""
     from lagomorph_tpu_torch.ops import fluid
     from lagomorph_tpu_torch.ops.kernels import fft_radix, fft_unit, fft_whole, plain_versions
@@ -1408,6 +1430,21 @@ def timings_solves(device, card, lt):
         return x, Mn, Mbr, lambda: torch.fft.ifftn(torch.fft.fftn(cx, dim=(1, 2, 3)) * Mn,
                                                    dim=(1, 2, 3))
 
+    def device_times(shape, x, Mn, library):
+        """K16's launch, and the device time per call of K16, K3 and the
+        library call from a profiler run of 10 calls each."""
+        N, _, X, Y, Z = shape
+        cfg = fft_whole.launch_config(X, Y, Z)
+        log(f"fluid_whole launch at {X}x{Y}x{Z} b{N}: {cfg['path']} path, cooperative grid of "
+            f"{cfg['blocks']} blocks x {cfg['threads']} threads, {cfg['smem']} B shared memory "
+            "a block")
+        for name, fn in (("fluid_whole", lambda: fft_whole.fluid_whole(x, Mn)),
+                         ("fluid_flat", lambda: fft_unit.fluid_flat(x, Mn)),
+                         ("library", library)):
+            us, k = device_us(device, fn)
+            log(f"device time {name}: {us:.2f} us per call ({k:.1f} device operations) at "
+                f"{X}x{Y}x{Z} b{N}, torch.profiler over 10 calls [{card}]")
+
     x, Mn, Mbr, library = operands(FULL)
     timed("fluid_flat", FULL, lambda: fft_unit.fluid_flat(x, Mn), library, record=False)
     spec = fft_radix.radix_zy(x, False)
@@ -1422,12 +1459,52 @@ def timings_solves(device, card, lt):
     x, Mn, Mbr, library = operands(FULL64)
     timed("fluid_whole", FULL64, lambda: fft_whole.fluid_whole(x, Mn), library)
     timed("fluid_flat", FULL64, lambda: fft_unit.fluid_flat(x, Mn), library, record=False)
+    x, Mn, Mbr, library = operands(RADIX_ODD)  # K16's and K3's line paths
+    timed("fluid_whole", RADIX_ODD, lambda: fft_whole.fluid_whole(x, Mn), library, record=False)
+    timed("fluid_flat", RADIX_ODD, lambda: fft_unit.fluid_flat(x, Mn), library, record=False)
     del x, Mn, Mbr, library
 
     step_times(lt, device, card, FULL, "radix: K14, K15", lt.set_fluid_fft_kernel, "radix")
     step_times(lt, device, card, FULL64, "whole: K16", lt.set_fluid_mxu_whole, True, reps=5)
     step_times(lt, device, card, FULL64, "default: K3", reps=5)
+    # last: after a profiler run every launch costs the host more, which the
+    # event times of short calls and of host-bound steps would show
+    for shape in (FULL, FULL64):
+        x, Mn, _, library = operands(shape)
+        device_times(shape, x, Mn, library)
     return out
+
+
+def device_events(path):
+    """The device's kernels, copies and sets in the Chrome trace at
+    ``path``, by start time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted((e for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                  key=lambda e: e["ts"])
+
+
+def device_us(device, fn, n=10):
+    """Device microseconds per call of ``fn`` (the summed durations of the
+    device operations it ran) and device operations per call, from a
+    ``torch.profiler`` run of ``n`` calls after one call outside it."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        dev = device_events(path)
+    check(dev, "device_us: no device activity in the trace")
+    return sum(e["dur"] for e in dev) / n, len(dev) / n
 
 
 def trace_run(device, card, fn, label, path, n=5):
@@ -1448,11 +1525,7 @@ def trace_run(device, card, fn, label, path, n=5):
         wall = (time.perf_counter() - t0) * 1e3 / n
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = sorted((e for e in events if e.get("ph") == "X"
-                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
-                 key=lambda e: e["ts"])
+    dev = device_events(path)
     check(dev, f"trace ({label}): no device activity in the trace")
     per = {}
     busy, gaps, end = 0.0, [], dev[0]["ts"]

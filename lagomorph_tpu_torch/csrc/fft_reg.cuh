@@ -1,5 +1,5 @@
 // Register-resident line FFTs for a power-of-two length N (1 .. 256), used
-// by K3 (fft_unit.cu).
+// by the register passes of K3 and K16 (fft_plane.cuh).
 //
 // A group of G threads holds one line, R = N / G elements each (G <= R),
 // and the transform is one four-step split of N = R * G:
@@ -48,24 +48,36 @@ __device__ __forceinline__ int bitrev(int i) {
 
 // The split of one line of length N over G threads of R elements each:
 // one thread up to 16 points, then 4 x 8 (N = 32), 8 x 8, 8 x 16, 16 x 16.
+__host__ __device__ constexpr int reg_group(int N) {
+  return N <= 16 ? 1 : N == 32 ? 4 : N <= 128 ? 8 : 16;
+}
 template <int N>
 struct RegPlan {
   static_assert(N >= 1 && N <= 256 && (N & (N - 1)) == 0, "N: a power of two up to 256");
-  static constexpr int G = N <= 16 ? 1 : N == 32 ? 4 : N <= 128 ? 8 : 16;
+  static constexpr int G = reg_group(N);
   static constexpr int R = N / G;
 };
 
+// Every rounding of the transforms is spelled out (__fadd_rn, __fmul_rn,
+// __fmaf_rn), so that the compiler fuses no product into a sum on its own:
+// which product of a sum it would fuse depends on the code around it, and
+// the kernels that share these transforms (K3, K16) then round alike.
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
 }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
+  return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
 }
-// a * w (INV) or a * conj(w) (forward)
+// a * v, one rounding
+__device__ __forceinline__ float2 cscale(float2 a, float v) {
+  return make_float2(__fmul_rn(a.x, v), __fmul_rn(a.y, v));
+}
+// a * w (INV) or a * conj(w) (forward): one product rounded, the other fused
 template <bool INV>
 __device__ __forceinline__ float2 cmul_tw(float2 a, float2 w) {
   const float s = INV ? w.y : -w.y;
-  return make_float2(a.x * w.x - a.y * s, a.x * s + a.y * w.x);
+  return make_float2(__fmaf_rn(a.x, w.x, -__fmul_rn(a.y, s)),
+                     __fmaf_rn(a.x, s, __fmul_rn(a.y, w.x)));
 }
 
 // cos(2 pi m / 16) for 0 <= m <= 4

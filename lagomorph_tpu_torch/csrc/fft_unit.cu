@@ -27,6 +27,8 @@
 //   16-point DFTs in registers, twiddles, exchange, two 8-point DFTs), so a
 //   plane costs six barriers, against log2(Y) + log2(Z) stages between
 //   barriers when the plane sits in shared memory (K14, fft_radix.cu).
+//   The passes' bodies (plane_pass, reg_pass) are in fft_plane.cuh, shared
+//   with K16 (fft_whole.cu), which runs them as the phases of one launch.
 //   A reads (x1, x2) and writes the split pair (y1, y2); B and C run in
 //   place on it (a block reads all of its plane or lines into registers
 //   before its first barrier), so there is no complex scratch, and the
@@ -64,7 +66,7 @@
 #include <math.h>
 
 #include "fft_lines.cuh"
-#include "fft_reg.cuh"
+#include "fft_plane.cuh"
 
 namespace lagomorph {
 
@@ -109,107 +111,17 @@ static int launch_pass(const float* in_re, const float* in_im, float2* cbuf,
 
 // ---- the register path (every axis a power of two up to 256) ----
 
-constexpr int kRegThreads = 256;
-enum RegMode { REG_FWD = 0, REG_INV = 1, REG_MUL = 2 };
-
-// Exchange slots of a strided pass: lane j of a warp is line j, slot p of
-// every line of the block at one row p * L + j, so a warp's accesses are
-// neighbouring float2s.
-struct LineSlots {
-  float2* S;
-  int L, j;
-  __device__ __forceinline__ float2& at(int p) const { return S[p * L + j]; }
-};
-
-// Exchange slots of a contiguous (z) pass: the G threads of a line are
-// neighbouring lanes; line j's slots in a row of pitch row_pitch(N), slot p
-// at p + p / 16.  With G = 8 the 8 lanes of a line touch 8 distinct bank
-// pairs in both directions of the exchange (p = k1 G + g over g, and over
-// h at stride G), and a pitch of 4 mod 16 float2s spreads a warp's 4 lines
-// over the other pairs.
-struct RowSlots {
-  float2* S;
-  int PL, j;
-  __device__ __forceinline__ float2& at(int p) const { return S[j * PL + p + (p >> 4)]; }
-};
-
-__host__ __device__ constexpr int row_pitch(int N) {
-  return N + N / 16 + (20 - (N + N / 16) % 16) % 16;
-}
-
-// One pass of the register path over `nlines` lines of length N at stride
-// `inner` (a field viewed as (outer, N, inner)), L = kRegThreads / G lines
-// per block.  REG_FWD: forward transform (distribution 1 in, 2 out);
-// REG_INV: inverse (2 in, 1 out); REG_MUL: forward, times `mult` (one (N,
-// inner) slab), inverse.  Reads the pair (in_re, in_im), writes (out_re,
-// out_im) times `scale`; the two may be the same arrays (each block reads
-// all of its lines before the first barrier of its transform).  ROWS: the
-// lines are contiguous (inner == 1), and the G threads of a line are
-// neighbouring lanes; otherwise each lane of a warp takes one line.
-template <int N, bool ROWS, class Slots>
-__device__ __forceinline__ void reg_pass(const float* in_re, const float* in_im, float* out_re,
-                                         float* out_im, const float* __restrict__ mult,
-                                         long nlines, long inner, int mode, float scale,
-                                         const Slots& sl, const float2* tw, int g, long l) {
-  constexpr int R = RegPlan<N>::R;
-  const bool live = l < nlines;
-  const long stride = ROWS ? 1 : inner;  // a constant for rows: offsets in the instruction
-  const long o = ROWS ? l : l / inner;
-  const long i = ROWS ? 0 : l - o * inner;
-  const long base = o * N * stride + i;  // element n of line l at base + n * stride
-  float2 v[R];
-#pragma unroll
-  for (int e = 0; e < R; ++e) {
-    const int n = mode == REG_INV ? dist2_index<N>(g, e) : dist1_index<N>(g, e);
-    const long a = base + n * stride;
-    v[e] = live ? make_float2(in_re[a], in_im[a]) : make_float2(0.0f, 0.0f);
-  }
-  bool natural = true;  // v in distribution 1
-  if (mode == REG_INV) {
-    fft_inv_reg<N>(v, g, sl, tw);
-  } else {
-    fft_fwd_reg<N>(v, g, sl, tw);
-    natural = false;
-    if (mode == REG_MUL) {
-#pragma unroll
-      for (int e = 0; e < R; ++e) {
-        const float m = live ? mult[dist2_index<N>(g, e) * stride + i] : 0.0f;
-        v[e] = make_float2(v[e].x * m, v[e].y * m);
-      }
-      fft_inv_reg<N>(v, g, sl, tw);
-      natural = true;
-    }
-  }
-  if (!live) return;
-#pragma unroll
-  for (int e = 0; e < R; ++e) {
-    const int k = natural ? dist1_index<N>(g, e) : dist2_index<N>(g, e);
-    const long a = base + k * stride;
-    out_re[a] = v[e].x * scale;
-    out_im[a] = v[e].y * scale;
-  }
-}
-
 template <int N, bool ROWS>
 __global__ void __launch_bounds__(kRegThreads)
     reg_pass_kernel(const float* in_re, const float* in_im, float* out_re, float* out_im,
                     const float* __restrict__ mult, long nlines, long inner, int mode,
                     float scale, int row_pl) {
-  constexpr int G = RegPlan<N>::G, L = kRegThreads / G;
   extern __shared__ float2 smem[];
   float2* tw = smem;      // N (G > 1 only)
   float2* S = smem + N;   // the exchange: L lines of N slots
-  if (G > 1) fill_twiddles(tw, N);  // published by the transform's first barrier
-  const int t = threadIdx.x;
-  const int g = ROWS ? t % G : t / L;
-  const int j = ROWS ? t / G : t % L;
-  const long l = (long)blockIdx.x * L + j;
-  if (ROWS)
-    reg_pass<N, ROWS>(in_re, in_im, out_re, out_im, mult, nlines, inner, mode, scale,
-                      RowSlots{S, row_pl, j}, tw, g, l);
-  else
-    reg_pass<N, ROWS>(in_re, in_im, out_re, out_im, mult, nlines, inner, mode, scale,
-                      LineSlots{S, L, j}, tw, g, l);
+  if (RegPlan<N>::G > 1) fill_twiddles(tw, N);  // published by the transform's first barrier
+  reg_lines<N, ROWS, kRegThreads>(in_re, in_im, out_re, out_im, mult, nlines, inner, mode, scale,
+                                  S, tw, row_pl, blockIdx.x);
 }
 
 template <int N>
@@ -227,84 +139,25 @@ static int launch_reg(const float* in_re, const float* in_im, float* out_re, flo
   return (int)cudaGetLastError();
 }
 
-static bool reg_axis(int n) { return n >= 1 && n <= 256 && (n & (n - 1)) == 0; }
-
 // ---- the plane passes (Y == Z == P, P in 64, 128) ----
 
-// Pass A (INV false): z forward then y forward of one (f, x) plane of P x P
-// per block, read from (in_re, in_im) and written to (out_re, out_im).
-// Pass C (INV): y inverse then z inverse, times `scale`, in place allowed
-// (the block holds its whole plane in registers before its first barrier).
-// P * G threads hold the plane, R = P / G elements each: first as rows
-// (G neighbouring lanes a z-row, RowSlots), then, after a transpose through
-// shared memory (pitch P + 8: a warp's 4 row segments fall on distinct bank
-// pairs), as columns (one lane a y-column, LineSlots).  The exchanges and
-// the transpose take turns in one buffer.
+// Pass A (INV false) or C (INV) over the planes, one (f, x) plane per block
+// (plane_pass, fft_plane.cuh)
 template <int P, bool INV>
 __global__ void __launch_bounds__(P * RegPlan<P>::G)
     plane_pass_kernel(const float* in_re, const float* in_im, float* out_re, float* out_im,
                       float scale) {
-  constexpr int G = RegPlan<P>::G, R = RegPlan<P>::R, PT = P + 8;
   extern __shared__ float2 smem[];
-  float2* tw = smem;      // P
-  float2* S = smem + P;   // max(P * row_pitch(P), P * PT) float2
-  fill_twiddles(tw, P);   // published by the first exchange's first barrier
-  const int t = threadIdx.x;
-  const int ry = t / G, rg = t % G;  // rows: z-row ry, thread rg of its G
-  const int cz = t % P, cg = t / P;  // columns: y-column cz, thread cg of its G
-  const long plane = (long)blockIdx.x * P * P;
-  const RowSlots rows{S, row_pitch(P), ry};
-  const LineSlots cols{S, P, cz};
-  float2 v[R];
-  if (!INV) {
-#pragma unroll
-    for (int e = 0; e < R; ++e) {
-      const long a = plane + ry * P + dist1_index<P>(rg, e);
-      v[e] = make_float2(in_re[a], in_im[a]);
-    }
-    fft_fwd_reg<P>(v, rg, rows, tw);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < R; ++e) S[ry * PT + dist2_index<P>(rg, e)] = v[e];
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < R; ++e) v[e] = S[dist1_index<P>(cg, e) * PT + cz];
-    fft_fwd_reg<P>(v, cg, cols, tw);
-#pragma unroll
-    for (int e = 0; e < R; ++e) {
-      const long a = plane + dist2_index<P>(cg, e) * P + cz;
-      out_re[a] = v[e].x;
-      out_im[a] = v[e].y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < R; ++e) {
-      const long a = plane + dist2_index<P>(cg, e) * P + cz;
-      v[e] = make_float2(in_re[a], in_im[a]);
-    }
-    fft_inv_reg<P>(v, cg, cols, tw);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < R; ++e) S[dist1_index<P>(cg, e) * PT + cz] = v[e];
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < R; ++e) v[e] = S[ry * PT + dist2_index<P>(rg, e)];
-    fft_inv_reg<P>(v, rg, rows, tw);
-#pragma unroll
-    for (int e = 0; e < R; ++e) {
-      const long a = plane + ry * P + dist1_index<P>(rg, e);
-      out_re[a] = v[e].x * scale;
-      out_im[a] = v[e].y * scale;
-    }
-  }
+  fill_twiddles(smem, P);  // published by the first exchange's first barrier
+  plane_pass<P, INV>(in_re, in_im, out_re, out_im, scale, (long)blockIdx.x * P * P, smem + P,
+                     smem);
 }
 
 template <int P>
 static int launch_plane(const float* in_re, const float* in_im, float* out_re, float* out_im,
                         long planes, bool inverse, float scale, cudaStream_t stream) {
   constexpr int threads = P * RegPlan<P>::G;
-  constexpr int slots = P * row_pitch(P) > P * (P + 8) ? P * row_pitch(P) : P * (P + 8);
-  const size_t smem = (size_t)(P + slots) * sizeof(float2);
+  const size_t smem = (size_t)(P + plane_slots(P)) * sizeof(float2);
   auto kernel = inverse ? plane_pass_kernel<P, true> : plane_pass_kernel<P, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -312,8 +165,6 @@ static int launch_plane(const float* in_re, const float* in_im, float* out_re, f
   kernel<<<(unsigned)planes, threads, smem, stream>>>(in_re, in_im, out_re, out_im, scale);
   return (int)cudaGetLastError();
 }
-
-static bool plane_axes(int Y, int Z) { return Y == Z && (Y == 64 || Y == 128); }
 
 static int plane_pass_launch(int P, const float* in_re, const float* in_im, float* out_re,
                              float* out_im, long planes, bool inverse, float scale,

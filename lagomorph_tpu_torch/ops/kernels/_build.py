@@ -59,6 +59,8 @@ SIGNATURES = {
     "lagomorph_fluid_radix_x": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x1, x2, Mn, y1, y2, scratch, F, X, Y, Z, stream
     "lagomorph_fluid_whole": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # X, Y, Z, out (4 ints: path, blocks, threads, shared bytes)
+    "lagomorph_fluid_whole_grid": [_I, _I, _I, _P],
     # phiinv, m0, out, mw (or NULL), flag, N, Nm, H, W, stream
     "lagomorph_ad_star2d_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # phiinv, m0, g, mw, d_mw (scratch), d_phiinv, d_m0, N, Nm, H, W, stream

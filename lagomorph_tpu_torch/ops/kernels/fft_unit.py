@@ -61,9 +61,9 @@ def fluid_flat_plain(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
 
 
 def needs_scratch(X: int, Y: int, Z: int) -> bool:
-    """Whether K3 takes its tile path at this shape, which needs an
+    """Whether K3 and K16 take their tile path at this shape, which needs an
     ``(F, X, Y, Z)`` complex scratch: some axis is not a power of two up to
-    256 (the register paths' lengths, ``reg_axis`` in ``csrc/fft_unit.cu``)."""
+    256 (the register paths' lengths, ``reg_axis`` in ``csrc/fft_plane.cuh``)."""
     return not all(1 <= n <= 256 and n & (n - 1) == 0 for n in (X, Y, Z))
 
 

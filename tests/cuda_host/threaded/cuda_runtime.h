@@ -75,6 +75,7 @@ inline int __clz(int x) { return __builtin_clz((unsigned)x); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline unsigned __ballot_sync(unsigned, bool pred) {

@@ -320,20 +320,21 @@ def test_radix_kernels_match_plain_on_cuda(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 3, 32, 24, 40), (4, 3, 16, 16, 16)])
+@pytest.mark.parametrize("shape", [(2, 3, 32, 24, 40), (4, 3, 16, 16, 16), (2, 3, 64, 64, 64)])
 def test_fluid_whole_matches_plain_on_cuda(cuda, shape):
     """K16 against its plain version (the torch.fft packed solve) on the
-    card, at a mixed-radix and a power-of-two shape, directly, under
-    autograd (one launch each way) and through ``sharp`` under
-    ``set_fluid_mxu_whole(True)``; float64 takes the plain version on the
-    card, a float32 field with a float64 multiplier is refused."""
+    card, at a mixed-radix shape (its tile path) and at power-of-two shapes
+    (its line and plane paths), directly, under autograd (one launch each
+    way) and through ``sharp`` under ``set_fluid_mxu_whole(True)``; on the
+    register paths K16 is bit-equal to K3; float64 takes the plain version
+    on the card, a float32 field with a float64 multiplier is refused."""
     rng = np.random.default_rng(9)
     N, _, X, Y, Z = shape
     F = (N * 3 + 1) // 2
     x = torch.as_tensor(rng.standard_normal((2 * F, X, Y, Z)), dtype=torch.float32, device=cuda)
     Mn = lt.FluidMetric((0.1, 0.0, 0.01)).multiplier(shape, torch.float32, cuda, True)
     kernels.reset_launches()
-    got = fft_whole.fluid_whole(x, Mn)
+    got = whole = fft_whole.fluid_whole(x, Mn)
     _compare(got, fft_unit.fluid_flat_plain(x, Mn), 1e-4, 0.0)
     cot = torch.as_tensor(rng.standard_normal(tuple(x.shape)), dtype=torch.float32, device=cuda)
     grads = []
@@ -355,6 +356,8 @@ def test_fluid_whole_matches_plain_on_cuda(cuda, shape):
     _compare(got, ref, 1e-4, 0.0)
     counts = kernels.launch_counts()
     assert counts["fluid_whole"] == 4 and counts["fluid_flat"] == 0
+    if not fft_unit.needs_scratch(X, Y, Z):  # K3's passes as K16's phases
+        assert torch.equal(whole, fft_unit.fluid_flat(x, Mn))
     _plain_on_card(fft_whole.fluid_whole, x.double(), Mn.double())
     with pytest.raises(TypeError):  # a float32 field with a float64 multiplier
         fft_whole.fluid_whole(x, Mn.double())

@@ -48,14 +48,16 @@ from lagomorph_tpu_torch.ops.kernels import (_build, epdiff_unit, fft_radix, fft
 torch.set_num_threads(2)
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host", "threaded")
-HEADERS = ("fft_lines.cuh", "fft_reg.cuh", "cooperative.cuh", "stencil.cuh", "stencil2d.cuh")
+HEADERS = ("fft_lines.cuh", "fft_reg.cuh", "fft_plane.cuh", "cooperative.cuh", "stencil.cuh",
+           "stencil2d.cuh")
 SOURCES = ("fft_unit.cu", "fft_radix.cu", "fft_whole.cu", "shoot2d.cu", "warp_unit.cu",
            "epdiff_unit.cu")
 # the 3D stencils, per-thread (K1, K2, K4) or staging bricks (K5-K7's passes)
 STENCIL_KERNELS = ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd", "compose_fwd",
                    "ad_star_bwd", "compose_bwd")
 ENTRY_POINTS = ("lagomorph_fluid_flat", "lagomorph_fluid_radix_zy", "lagomorph_fluid_radix_x",
-                "lagomorph_fluid_whole", "lagomorph_shoot2d_fwd", "lagomorph_shoot2d_bwd",
+                "lagomorph_fluid_whole", "lagomorph_fluid_whole_grid", "lagomorph_shoot2d_fwd",
+                "lagomorph_shoot2d_bwd",
                 *(f"lagomorph_{k}" for k in STENCIL_KERNELS))
 RTOL = 1e-5
 BWD_RTOL = 1e-5  # of 1 + max|ref|: the stencils' backwards
@@ -185,37 +187,58 @@ def test_host_radix_kernels_match_plain(rng, host_kernels, spatial):
     close("fluid_radix backward", got, ref)
 
 
-# K3's paths: the line path at power-of-two axes up to 256 that are not
-# square planes of 64 or 128 (one thread per line up to 16 points, then 4 x
-# 8, 8 x 8, 8 x 16 and 16 x 16 threads x elements; lengths 1 and 2; a 256 x
-# 128 plane, beyond a block's shared memory), the plane path at 64^2 and
-# 128^2 planes (512 and 1024 threads a plane), and the tile path, through
+# K3's and K16's paths: the line path at power-of-two axes up to 256 that
+# are not square planes of 64 or 128 (one thread per line up to 16 points,
+# then 4 x 8, 8 x 8, 8 x 16 and 16 x 16 threads x elements; lengths 1 and 2;
+# a 256 x 128 plane, beyond a block's shared memory), the plane path at 64^2
+# and 128^2 planes (512 and 1024 threads a plane; x = 32 gives K16's x phase
+# an exchange through shared memory), and the tile path, through
 # the scratch, at an odd shape (direct sums) and at a power-of-two axis
 # longer than 256 (radix-2 in a tile)
 SOLVE_SHAPES = {"line": [(4, 8, 16), (2, 256, 128), (1, 2, 32), (16, 64, 4), (4, 32, 32)],
-                "plane": [(2, 64, 64), (1, 128, 128)],
+                "plane": [(32, 64, 64), (1, 128, 128)],
                 "tile": [(5, 6, 7), (2, 3, 512)]}
 
 
 @pytest.mark.parametrize("spatial", [s for shapes in SOLVE_SHAPES.values() for s in shapes])
-def test_host_fluid_solves_match_plain(rng, host_kernels, spatial):
-    """K3 (five passes) and K16 (one cooperative launch, five phases)
-    against their plain version, the ``torch.fft`` packed solve, at shapes
-    that take each of K3's paths, with the scratch only where K3's tile
-    path needs it; both under autograd (K3 and K16 their own backwards: one
-    launch each way)."""
+def test_host_fluid_solves_match_plain(rng, host_kernels, host_library, spatial):
+    """K3 (three or five passes) and K16 (one cooperative launch of 4
+    blocks, so its grid-stride loops iterate) against their plain version,
+    the ``torch.fft`` packed solve, at shapes that take each of their three
+    paths, with the scratch only where the tile path needs it (which fails
+    without it); both under autograd (K3 and K16 their own backwards: one
+    launch each way).  On the plane and line paths K16 runs K3's passes as
+    its phases, so it is bit-equal to K3, forward and backward."""
     x = f32(rng.standard_normal((6,) + spatial))
     Mn = _multiplier("fluid_whole", spatial)
     ref = fft_unit.fluid_flat_plain(x, Mn)
+    path = next(p for p, shapes in SOLVE_SHAPES.items() if spatial in shapes)
+    cfg = fft_whole.launch_config(*spatial)
+    assert (cfg["path"], cfg["blocks"]) == (path, 4)
+    assert cfg["threads"] == ({64: 512, 128: 1024}[spatial[1]] if path == "plane" else 256)
     kernels.reset_launches()
-    close("fluid_whole", fft_whole.fluid_whole(x, Mn), ref)
-    close("fluid_flat", fft_unit.fluid_flat(x, Mn), ref)
-    assert fft_unit.needs_scratch(*spatial) == (spatial in SOLVE_SHAPES["tile"])
+    whole, flat = fft_whole.fluid_whole(x, Mn), fft_unit.fluid_flat(x, Mn)
+    close("fluid_whole", whole, ref)
+    close("fluid_flat", flat, ref)
+    assert fft_unit.needs_scratch(*spatial) == (path == "tile")
+    if path != "tile":
+        assert torch.equal(whole, flat), "K16 differs from K3 on a register path"
+    else:
+        F = x.shape[0] // 2
+        y = torch.empty_like(x)
+        err = host_library.lagomorph_fluid_whole(
+            x[:F].data_ptr(), x[F:].data_ptr(), Mn.data_ptr(), y[:F].data_ptr(),
+            y[F:].data_ptr(), None, F, *spatial, None)
+        assert err != 0, "the tile path ran without its scratch"
     cot = f32(rng.standard_normal(tuple(x.shape)))
+    grads = []
     for fn in (fft_whole.fluid_whole, fft_unit.fluid_flat):
         leaf = x.clone().requires_grad_(True)
         (got,) = torch.autograd.grad(fn(leaf, Mn), leaf, cot)
         close(f"{fn.__name__} backward", got, fft_unit.fluid_flat_plain(cot, Mn))
+        grads.append(got)
+    if path != "tile":
+        assert torch.equal(*grads), "K16's backward differs from K3's on a register path"
     assert kernels.launch_counts()["fluid_whole"] == 3
     assert kernels.launch_counts()["fluid_flat"] == 3
 
