@@ -30,11 +30,13 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    per-substep kernels K10-K13 (Ad*, compose and their backwards) against
    their plain versions at the same three shapes, the same way; then the
    fluid solves that the selectors reach: K14 (both directions), K15 and
-   the pipeline K14, K15, K14 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128) and
-   (1, 3, 4, 256, 256) (planes too large for one block: two line passes),
-   and K16 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128) and (3, 3, 96, 80,
-   112), directly and under autograd, K16 bit-equal to K3 on its plane
-   (128^3, 64^3) and line (3, 3, 32, 64, 128) paths, with its cooperative
+   the pipeline K14, K15, K14 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128),
+   (1, 3, 4, 256, 256) (256^2 planes: K14's two register line passes) and
+   (1, 3, 512, 8, 512) (K14's z pass and K15 in radix-2 tiles), and K16 at
+   128^3 b4, 64^3 b4, (3, 3, 32, 64, 128) and (3, 3, 96, 80, 112),
+   directly and under autograd, the pipeline K14, K15, K14 and K16
+   bit-equal to K3 on its plane (128^3, 64^3) and line (3, 3, 32, 64, 128)
+   paths (and the pipeline at (1, 3, 4, 256, 256)), with K16's cooperative
    grid logged;
 4. slice: ``_lddmm_loss`` forward through the kernels and through the
    plain versions, at the bench's momenta and at momenta scaled to a
@@ -154,7 +156,8 @@ STEP2D_BETA_LAUNCHES = {k: STEPS - 1 for k in KERNELS_2D_PER_OP}
 KERNELS_SOLVE = ("fluid_radix_zy", "fluid_radix_x", "fluid_whole")
 FULL64 = (4, 3, 64, 64, 64)  # bench.py:340, 64cubed_b4
 RADIX_ODD = (3, 3, 32, 64, 128)  # non-cubic, power-of-two axes
-RADIX_WIDE = (1, 3, 4, 256, 256)  # (Y, Z) planes beyond one block: two line passes
+RADIX_WIDE = (1, 3, 4, 256, 256)  # 256^2 (Y, Z) planes: K14's two line passes, not its plane
+RADIX_LONG = (1, 3, 512, 8, 512)  # axes beyond 256: K14's z pass and K15 in radix-2 tiles
 RADIX_STEP_LAUNCHES = {**STEP_LAUNCHES, "fluid_flat": 0, "fluid_radix_zy": 20, "fluid_radix_x": 10}
 WHOLE_STEP_LAUNCHES = {**STEP_LAUNCHES, "fluid_flat": 0, "fluid_whole": 10}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -792,7 +795,7 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
     """Phase 3, the fluid solves at one shape: K3 against its plain version
     (the ``torch.fft`` packed solve; 128^3 and 64^3 take its plane path,
     (3, 3, 32, 64, 128) and (1, 3, 4, 256, 256) its line path, (3, 3, 96,
-    80, 112) its tile path), K14 forward (a
+    80, 112) and (1, 3, 512, 8, 512) its tile path), K14 forward (a
     bit-reversed spectrum) and inverse, K15 on that spectrum and the
     pipeline K14, K15, K14 against their plain versions (power-of-two axes),
     and K16 against its plain version (the ``torch.fft`` packed solve), on
@@ -800,9 +803,11 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
     one zero slab), within 1e-4 * max|ref|; then K3, the pipeline and K16
     under ``torch.autograd.grad`` (1 launch, 3, or 1, each way; one
     transposed cotangent) against autograd of the plain versions.  Where
-    K16 takes a register path (128^3 and 64^3 its plane path, (3, 3, 32,
-    64, 128) its line path) it runs K3's passes as its phases and must be
-    bit-equal to K3, forward and backward.  Returns {kernel: err}."""
+    K3 takes a register path (128^3 and 64^3 its plane path, (3, 3, 32, 64,
+    128) and (1, 3, 4, 256, 256) its line path) the pipeline runs K3's
+    passes with the spectrum in bit-reversed order, and K16 runs them as
+    its phases: both must be bit-equal to K3, forward and backward.
+    Returns {kernel: err}."""
     from lagomorph_tpu_torch.ops import fluid
     from lagomorph_tpu_torch.ops.kernels import (fft_radix, fft_unit, fft_whole, launch_counts,
                                                  plain_versions)
@@ -860,8 +865,13 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
         got, ref = both(fft_radix.fluid_radix, x, Mbr)
         for k in ("fluid_radix_zy", "fluid_radix_x"):
             hold(k, "pipeline", got, ref)
-        under_autograd(("fluid_radix_zy", "fluid_radix_x"), (2, 1),
-                       lambda a: fft_radix.fluid_radix(a, Mbr), "pipeline")
+        got_grad = under_autograd(("fluid_radix_zy", "fluid_radix_x"), (2, 1),
+                                  lambda a: fft_radix.fluid_radix(a, Mbr), "pipeline")
+        if not fft_unit.needs_scratch(X, Y, Z):
+            check(torch.equal(got, flat) and torch.equal(got_grad, flat_grad),
+                  f"K14, K15, K14 at {shape}: not bit-equal to K3 (max diff "
+                  f"{max_err(got, flat):.3e}, backward {max_err(got_grad, flat_grad):.3e})")
+            log("  pipeline K14, K15, K14: bit-equal to K3, forward and backward")
     if whole:
         Mn = multiplier("fluid_whole")
         cfg = fft_whole.launch_config(X, Y, Z)
@@ -1377,20 +1387,38 @@ def step_times(lt, device, card, shape, label, setter=None, value=None, reps=3):
         f"{peak[False]:.3f} GiB, plain {peak[True]:.3f} GiB [{card}]")
 
 
+def step_ab(lt, device, card, shape, label, setter, value, reps=3):
+    """The atlas step at ``shape`` on bench.py's inputs through the kernels,
+    on the default selectors and with ``setter`` at ``value``, in turns
+    (default, selected, selected, default), in ms per step."""
+    step = make_step(lt, lt.FluidMetric(PARAMS))
+    I, m, img = bench_inputs(device, shape)
+    samples = {False: [], True: []}
+    for sel in (False, True, True, False):
+        with selected(setter, value) if sel else contextlib.nullcontext():
+            samples[sel].append(time_ms(lambda: float(step(I, m, img)[2]), device, reps,
+                                        warmup=1))
+    d, r = samples[False], samples[True]
+    log(f"time atlas step in turns at {shape[2]}^3 b{shape[0]}: default (K3) {d[0]:.3f}/"
+        f"{d[1]:.3f} ms, {label} {r[0]:.3f}/{r[1]:.3f} ms per step [{card}]")
+
+
 def timings_solves(device, card, lt):
     """Per-call ms of K14 (forward; the inverse logged), K15 and the
-    pipeline K14, K15, K14 at 128^3 b4, and of K16 at 64^3 b4 (and, logged,
-    at 128^3 b4), with K3 logged at both shapes, each beside its plain
-    version (order: plain, kernel, kernel, plain), the library call
-    (``ifftn(Mn * fftn(.))`` on the packed pairs, for K3, the pipeline and
-    K16; none computes K14 or K15 alone)
-    and the bound of its work, and K16 and K3 logged at (3, 3, 32, 64, 128),
-    their line paths; then the radix step at 128^3 b4 and the
-    whole-volume and default steps at 64^3 b4, both ways, with peak memory;
-    last, at 128^3 and 64^3, K16's cooperative grid and the device time per
-    call of K16, K3 and the library call from ``torch.profiler`` (the host
-    sets the event times of such short calls).
-    Returns {kernel: {ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    pipeline K14, K15, K14 at 128^3 b4 (the pipeline also at 64^3 b4), and
+    of K16 at 64^3 b4 (and, logged, at 128^3 b4), with K3 logged at both
+    shapes, each beside its plain version (order: plain, kernel, kernel,
+    plain), the library call (``ifftn(Mn * fftn(.))`` on the packed pairs,
+    for K3, the pipeline and K16; none computes K14 or K15 alone) and the
+    bound of its work, and K16, K3 and the pipeline logged at (3, 3, 32, 64,
+    128), their line paths; then the radix step at 128^3 b4 (both ways,
+    and in turns with the default step) and the whole-volume and default
+    steps at 64^3 b4, both ways, with peak memory; last, at 128^3 and
+    64^3, K16's cooperative grid and the device time per call of K16, K3,
+    the pipeline and the library call from ``torch.profiler`` (the host
+    sets the event times of such short calls), by kernel for K3's and the
+    pipeline's three launches.  Returns {kernel: {ms, plain_ms,
+    library_ms, bound_ms, bound_by}}."""
     from lagomorph_tpu_torch.ops import fluid
     from lagomorph_tpu_torch.ops.kernels import fft_radix, fft_unit, fft_whole, plain_versions
 
@@ -1430,9 +1458,11 @@ def timings_solves(device, card, lt):
         return x, Mn, Mbr, lambda: torch.fft.ifftn(torch.fft.fftn(cx, dim=(1, 2, 3)) * Mn,
                                                    dim=(1, 2, 3))
 
-    def device_times(shape, x, Mn, library):
-        """K16's launch, and the device time per call of K16, K3 and the
-        library call from a profiler run of 10 calls each."""
+    def device_times(shape, x, Mn, Mbr, library):
+        """K16's launch, and the device time per call of K16, K3, the
+        pipeline and the library call, by kernel for K3's and the
+        pipeline's three launches (K14 forward, K15, K14 inverse), from a
+        profiler run of 10 calls each."""
         N, _, X, Y, Z = shape
         cfg = fft_whole.launch_config(X, Y, Z)
         log(f"fluid_whole launch at {X}x{Y}x{Z} b{N}: {cfg['path']} path, cooperative grid of "
@@ -1440,10 +1470,14 @@ def timings_solves(device, card, lt):
             "a block")
         for name, fn in (("fluid_whole", lambda: fft_whole.fluid_whole(x, Mn)),
                          ("fluid_flat", lambda: fft_unit.fluid_flat(x, Mn)),
+                         ("pipeline K14, K15, K14", lambda: fft_radix.fluid_radix(x, Mbr)),
                          ("library", library)):
-            us, k = device_us(device, fn)
+            us, k, by_name = device_us(device, fn)
             log(f"device time {name}: {us:.2f} us per call ({k:.1f} device operations) at "
                 f"{X}x{Y}x{Z} b{N}, torch.profiler over 10 calls [{card}]")
+            if name in ("fluid_flat", "pipeline K14, K15, K14"):
+                for kname, kus in by_name.items():
+                    log(f"device time {name} by kernel: {kus:.2f} us per call  {kname[:90]}")
 
     x, Mn, Mbr, library = operands(FULL)
     timed("fluid_flat", FULL, lambda: fft_unit.fluid_flat(x, Mn), library, record=False)
@@ -1459,19 +1493,23 @@ def timings_solves(device, card, lt):
     x, Mn, Mbr, library = operands(FULL64)
     timed("fluid_whole", FULL64, lambda: fft_whole.fluid_whole(x, Mn), library)
     timed("fluid_flat", FULL64, lambda: fft_unit.fluid_flat(x, Mn), library, record=False)
-    x, Mn, Mbr, library = operands(RADIX_ODD)  # K16's and K3's line paths
+    timed("pipeline K14, K15, K14", FULL64, lambda: fft_radix.fluid_radix(x, Mbr), library,
+          work_name="fluid_flat", record=False)
+    x, Mn, Mbr, library = operands(RADIX_ODD)  # K16's, K3's and the pipeline's line paths
     timed("fluid_whole", RADIX_ODD, lambda: fft_whole.fluid_whole(x, Mn), library, record=False)
     timed("fluid_flat", RADIX_ODD, lambda: fft_unit.fluid_flat(x, Mn), library, record=False)
+    timed("pipeline K14, K15, K14", RADIX_ODD, lambda: fft_radix.fluid_radix(x, Mbr), library,
+          work_name="fluid_flat", record=False)
     del x, Mn, Mbr, library
 
     step_times(lt, device, card, FULL, "radix: K14, K15", lt.set_fluid_fft_kernel, "radix")
+    step_ab(lt, device, card, FULL, "radix (K14, K15)", lt.set_fluid_fft_kernel, "radix")
     step_times(lt, device, card, FULL64, "whole: K16", lt.set_fluid_mxu_whole, True, reps=5)
     step_times(lt, device, card, FULL64, "default: K3", reps=5)
     # last: after a profiler run every launch costs the host more, which the
     # event times of short calls and of host-bound steps would show
     for shape in (FULL, FULL64):
-        x, Mn, _, library = operands(shape)
-        device_times(shape, x, Mn, library)
+        device_times(shape, *operands(shape))
     return out
 
 
@@ -1485,26 +1523,44 @@ def device_events(path):
                   key=lambda e: e["ts"])
 
 
-def device_us(device, fn, n=10):
-    """Device microseconds per call of ``fn`` (the summed durations of the
-    device operations it ran) and device operations per call, from a
-    ``torch.profiler`` run of ``n`` calls after one call outside it."""
-    import tempfile
-
+def profiled(device, fn, n, path, tries=3):
+    """The device events of ``n`` calls of ``fn`` (after one call outside
+    the profiler) under ``torch.profiler``, written to ``path`` as a Chrome
+    trace, and the wall ms per call under the profiler.  A trace in which
+    the profiler caught no device activity is taken again, up to ``tries``
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize(device)
+            wall = (time.perf_counter() - t0) * 1e3 / n
         prof.export_chrome_trace(path)
         dev = device_events(path)
-    check(dev, "device_us: no device activity in the trace")
-    return sum(e["dur"] for e in dev) / n, len(dev) / n
+        if dev:
+            return dev, wall
+        log(f"profiler: no device activity caught over {n} calls (try {attempt + 1} of {tries})")
+    check(False, f"no device activity in the trace after {tries} tries")
+
+
+def device_us(device, fn, n=10):
+    """Device microseconds per call of ``fn`` (the summed durations of the
+    device operations it ran), device operations per call, and the
+    microseconds per call of each operation by name, from a
+    ``torch.profiler`` run of ``n`` calls (``profiled``)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dev, _ = profiled(device, fn, n, os.path.join(tmp, "trace.json"))
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / n
+    return sum(e["dur"] for e in dev) / n, len(dev) / n, by_name
 
 
 def trace_run(device, card, fn, label, path, n=5):
@@ -1513,20 +1569,8 @@ def trace_run(device, card, fn, label, path, n=5):
     a Chrome trace.  Prints the device time per call of the 16 largest
     kernels and of every kernel of the port, the device's busy share over
     the traced span, and its idle gaps."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize(device)
-        wall = (time.perf_counter() - t0) * 1e3 / n
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    prof.export_chrome_trace(path)
-    dev = device_events(path)
-    check(dev, f"trace ({label}): no device activity in the trace")
+    dev, wall = profiled(device, fn, n, path)
     per = {}
     busy, gaps, end = 0.0, [], dev[0]["ts"]
     for e in dev:
@@ -1585,7 +1629,7 @@ def run(device, card, trace_path=None):
             errs[name] = max(errs[name], err)
     for shape, seed, radix, whole in ((FULL, 13, True, True), (FULL64, 14, True, True),
                                       (RADIX_ODD, 15, True, True), (RADIX_WIDE, 16, True, False),
-                                      (ODD, 17, False, True)):
+                                      (RADIX_LONG, 18, True, False), (ODD, 17, False, True)):
         for name, err in solve_checks(lt, device, shape, seed, radix, whole).items():
             errs[name] = max(errs.get(name, 0.0), err)
 

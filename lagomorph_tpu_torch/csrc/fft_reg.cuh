@@ -1,5 +1,5 @@
 // Register-resident line FFTs for a power-of-two length N (1 .. 256), used
-// by the register passes of K3 and K16 (fft_plane.cuh).
+// by the register passes of K3, K14, K15 and K16 (fft_plane.cuh).
 //
 // A group of G threads holds one line, R = N / G elements each (G <= R),
 // and the transform is one four-step split of N = R * G:
@@ -61,7 +61,7 @@ struct RegPlan {
 // Every rounding of the transforms is spelled out (__fadd_rn, __fmul_rn,
 // __fmaf_rn), so that the compiler fuses no product into a sum on its own:
 // which product of a sum it would fuse depends on the code around it, and
-// the kernels that share these transforms (K3, K16) then round alike.
+// the kernels that share these transforms (K3, K14-K16) then round alike.
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
 }
@@ -138,6 +138,28 @@ template <int N>
 __device__ __forceinline__ int dist2_index(int g, int e) {
   constexpr int G = RegPlan<N>::G, R = RegPlan<N>::R;
   return g + G * (e / G) + R * (e % G);
+}
+
+// Position of that element in a spectrum kept in bit-reversed order (the
+// radix-2 solve K14/K15, fft_radix.cu): the frequency k = g + G s + R k2
+// (e = s G + k2) sits at bitrev(k) = R bitrev(g) + G bitrev(s) + bitrev(k2),
+// each field reversed over its own bits.  So thread g owns the R
+// neighbouring positions from R bitrev(g), and register e the one at a
+// constant offset in them.
+template <int N>
+__device__ __forceinline__ int dist2_bitrev(int g, int e) {
+  constexpr int G = RegPlan<N>::G, R = RegPlan<N>::R;
+  return R * bitrev<ilog2(G)>(g) + G * bitrev<ilog2(R / G)>(e / G) + bitrev<ilog2(G)>(e % G);
+}
+
+// dist2_bitrev (BR) or dist2_index: where distribution 2's register e sits
+template <int N, bool BR>
+__device__ __forceinline__ int dist2_at(int g, int e) {
+  if constexpr (BR) {
+    return dist2_bitrev<N>(g, e);
+  } else {
+    return dist2_index<N>(g, e);
+  }
 }
 
 // Forward transform of one line: v in distribution 1 -> distribution 2.

@@ -17,8 +17,12 @@ at ``j`` and its partner ``b`` at ``j + s``::
     DIT (s = 1 .. n/2):  a, b <- a + W * b, a - W * b
 
 These are the plain versions of the radix-2 kernels K14 and K15
-(:mod:`.kernels.fft_radix`), which run the same stages in shared memory.
-Power-of-two lengths only; float32 or float64 (computed as complex).
+(:mod:`.kernels.fft_radix`), which keep the same bit-reversed spectra
+between their launches but compute each axis's DFT as K3 does (a
+four-step split held in registers; radix-2 stages in shared memory only
+for an axis longer than 256), so they agree with these stages to
+rounding.  Power-of-two lengths only; float32 or float64 (computed as
+complex).
 """
 from __future__ import annotations
 

@@ -5,20 +5,24 @@ of real fields (``csrc/fft_radix.cu``), spectra in bit-reversed order.
 over the three spatial axes, as K3 (:mod:`.fft_unit`) does, in three
 launches on the same ``(2F, X, Y, Z)`` layout (the pairs are its halves):
 
-* K14 ``fluid_radix_zy`` forward: radix-2 DIF stages along z, then along
-  y, of every (pair, x) plane, frequencies out in bit-reversed z and y
-  order;
-* K15 ``fluid_radix_x``: DIF along x, times ``Mbr`` (the multiplier with
-  every axis in bit-reversed order), DIT back along x with 1/X;
-* K14 inverse: DIT stages along y (1/Y), then along z (1/Z).
+* K14 ``fluid_radix_zy`` forward: the DFT along z, then along y, of every
+  (pair, x) plane, frequencies out in bit-reversed z and y order;
+* K15 ``fluid_radix_x``: the DFT along x, times ``Mbr`` (the multiplier
+  with every axis in bit-reversed order), the inverse along x with 1/X;
+* K14 inverse: the inverse DFT along y, then along z, with 1/(Y Z), back
+  to natural order.
 
-Replace ``lagomorph_tpu/ops/pallas/fft_unit.py`` ``_zy_call``
-(``_zy_fwd_kernel``, ``_zy_inv_kernel``) and ``_x_mul_call``
+The kernels are K3's register passes with the spectrum side of each pass
+in bit-reversed order (a whole (Y, Z) plane per block when ``Y == Z`` is
+64 or 128, else two line passes; a shared-memory tile of radix-2 stages
+for an axis longer than 256), so on K3's register paths the pipeline is
+bit-equal to K3.  They replace ``lagomorph_tpu/ops/pallas/fft_unit.py``
+``_zy_call`` (``_zy_fwd_kernel``, ``_zy_inv_kernel``) and ``_x_mul_call``
 (``_x_mul_kernel``), the kernels of ``fluid_flat_pallas``.  Their plain
-versions, :func:`radix_zy_plain` and :func:`radix_x_plain`, run the same
-stages through :mod:`..fft_radix`.  The operator is self-adjoint, so the
-pipeline's backward is the pipeline on the cotangent, as K3's.  Power-of-two
-axes only, none longer than ``MAX_N``.
+versions, :func:`radix_zy_plain` and :func:`radix_x_plain`, run the TPU
+kernels' radix-2 DIF and DIT stages through :mod:`..fft_radix`.  The
+operator is self-adjoint, so the pipeline's backward is the pipeline on the
+cotangent, as K3's.  Power-of-two axes only, none longer than ``MAX_N``.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ KERNEL_ZY = register("fluid_radix_zy", source=SOURCE,
 KERNEL_X = register("fluid_radix_x", source=SOURCE,
                     replaces="lagomorph_tpu/ops/pallas/fft_unit.py:256")
 
-# the longest axis whose lines one block holds in shared memory
+# the longest axis whose lines one block of the tile path holds in shared
+# memory
 MAX_N = 8192
 
 

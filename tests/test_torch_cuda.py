@@ -270,11 +270,13 @@ def test_epdiff2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 3, 16, 32, 64), (1, 3, 4, 256, 128)])
+@pytest.mark.parametrize("shape", [(2, 3, 16, 32, 64), (1, 3, 4, 256, 128), (1, 3, 512, 4, 512)])
 def test_radix_kernels_match_plain_on_cuda(cuda, shape):
     """K14 (both directions), K15 and the pipeline K14, K15, K14 against
-    their plain versions on the card, at a (Y, Z) plane that one block
-    holds and at one that takes two line passes (256 x 128); the pipeline
+    their plain versions on the card, at (Y, Z) planes that take K14's two
+    register line passes (32 x 64, and 256 x 128), the pipeline bit-equal
+    to K3 at the first, and at axes of 512 (K14's z pass and K15 in
+    radix-2 tiles); the pipeline
     under autograd (3 launches forward, 3 backward, a transposed cotangent)
     against autograd of the plain version; ``sharp`` on the radix route
     (float64 there: the plain version on the card, no launch); axes that
@@ -294,6 +296,10 @@ def test_radix_kernels_match_plain_on_cuda(cuda, shape):
         _compare(got, ref, 1e-4, 0.0)
     assert kernels.launch_counts()["fluid_radix_zy"] == 4
     assert kernels.launch_counts()["fluid_radix_x"] == 2
+    if shape == (2, 3, 16, 32, 64):  # K3's register line path: the same passes, bit-reversed
+        Mn = fluid.form_multiplier(fluid.multiplier_form("fluid_flat"), (X, Y, Z),
+                                   (0.1, 0.0, 0.01), True, torch.float32, cuda)
+        assert torch.equal(got, fft_unit.fluid_flat(x, Mn)), "K14, K15, K14 differ from K3"
     cot = torch.as_tensor(rng.standard_normal((2 * F, Z, Y, X)), dtype=torch.float32,
                           device=cuda).transpose(1, 3)
     grads = []

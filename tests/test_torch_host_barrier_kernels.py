@@ -18,9 +18,10 @@ the card's library.  So the kernels' indexing, tiles, bricks and halos,
 clamp folds, batch-1 sums, flags, stage loops, bit-reversed bookkeeping,
 phase order, K3's three paths (whole planes in registers, register line
 passes, tile passes through the scratch; its in-place passes and the
-exchanges of ``csrc/fft_reg.cuh``) and both of K14's paths (a whole (Y,
-Z) plane per block, or two line passes when the plane exceeds a block's
-227 KB) are checked here; the card itself is checked by
+exchanges of ``csrc/fft_reg.cuh``) and K14's register paths (a whole (Y,
+Z) plane per block, or two line passes; both K3's passes with the
+spectrum in bit-reversed order, so the pipeline K14, K15, K14 is bit-equal
+to K3 there) are checked here; the card itself is checked by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 
 Tolerances, float32 against the plain versions on the same inputs: the
@@ -159,32 +160,46 @@ def _multiplier(route, spatial):
                                  torch.float32, "cpu")
 
 
-@pytest.mark.parametrize("spatial", [(4, 8, 16), (2, 256, 128)])
+@pytest.mark.parametrize("spatial", [(4, 8, 16), (2, 256, 128), (32, 64, 64), (4, 2, 512),
+                                     (512, 2, 4)])
 def test_host_radix_kernels_match_plain(rng, host_kernels, spatial):
     """K14 forward and inverse, K15 on K14's spectrum and the pipeline
     K14, K15, K14 (directly and under autograd: 3 launches each way)
-    against their plain versions, at a (Y, Z) plane that one block holds
-    and at one that exceeds a block's shared memory (256 x 128: two line
-    passes)."""
+    against their plain versions, at (Y, Z) planes that take K14's two
+    register line passes (8 x 16; 256 x 128, beyond a block's shared
+    memory) and its plane path (64 x 64, a plane per block of 512
+    threads), and at axes of 512 (K14's z pass and K15 in a tile of
+    radix-2 stages).  On the register paths the pipeline runs K3's passes
+    with the spectrum in bit-reversed order, so it is bit-equal to K3
+    (``Mn`` in natural order), forward and backward."""
     x = f32(rng.standard_normal((2 if spatial[1] > 8 else 6,) + spatial))
     Mbr = _multiplier("fluid_radix", spatial)
+    Mn = _multiplier("fluid_flat", spatial)
     kernels.reset_launches()
     spec = fft_radix.radix_zy(x, False)
+    inv = fft_radix.radix_zy(spec, True)
+    pipeline = fft_radix.fluid_radix(x, Mbr)
     for got, fn, args in ((spec, fft_radix.radix_zy, (x, False)),
-                          (fft_radix.radix_zy(spec, True), fft_radix.radix_zy, (spec, True)),
+                          (inv, fft_radix.radix_zy, (spec, True)),
                           (fft_radix.radix_x(spec, Mbr), fft_radix.radix_x, (spec, Mbr)),
-                          (fft_radix.fluid_radix(x, Mbr), fft_radix.fluid_radix, (x, Mbr))):
+                          (pipeline, fft_radix.fluid_radix, (x, Mbr))):
         with kernels.plain_versions():
             close(fn.__name__, got, fn(*args))
     counts = kernels.launch_counts()
     assert counts["fluid_radix_zy"] == 4 and counts["fluid_radix_x"] == 2
-    leaves = [x.clone().requires_grad_(True) for _ in range(2)]
+    on_k3_path = not fft_unit.needs_scratch(*spatial)  # K3's register passes
+    if on_k3_path:
+        assert torch.equal(pipeline, fft_unit.fluid_flat(x, Mn)), "K14, K15, K14 differ from K3"
+    leaves = [x.clone().requires_grad_(True) for _ in range(3)]
     cot = f32(rng.standard_normal(tuple(x.shape)))
     (got,) = torch.autograd.grad(fft_radix.fluid_radix(leaves[0], Mbr), leaves[0], cot)
     assert kernels.launch_counts()["fluid_radix_zy"] == 8
     with kernels.plain_versions():
         (ref,) = torch.autograd.grad(fft_radix.fluid_radix(leaves[1], Mbr), leaves[1], cot)
     close("fluid_radix backward", got, ref)
+    if on_k3_path:
+        (flat,) = torch.autograd.grad(fft_unit.fluid_flat(leaves[2], Mn), leaves[2], cot)
+        assert torch.equal(got, flat), "the pipeline's backward differs from K3's"
 
 
 # K3's and K16's paths: the line path at power-of-two axes up to 256 that
