@@ -21,8 +21,11 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    card, at 128^3 b4 and at a non-cubic, non-power-of-two shape, plus
    inputs that leave the unit regime so the flags must come out false (K4
    bit-equal); then each backward kernel (K5, K6, K7, and K3 through
-   autograd) against the plain versions' gradients at both shapes, and two
-   launches each of K5 and K7 bit-identical; then the 2D whole-shoot
+   autograd) against the plain versions' gradients at both shapes, two
+   launches each of K5, K6 and K7 bit-identical, and K6's first pass alone
+   (batch-1 and batch-N momenta: ``d_mw`` bit-equal to the plain Jacobian
+   transpose, ``d_phiinv`` within 1e-5 * (1 + max|ref|), a second launch
+   bit-identical); then the 2D whole-shoot
    kernels K8 (phiinv_T, flag and stashed trajectory) and K9 (both
    gradients) against their plain versions at 256^2 b8, 512^2 b8 and
    (3, 2, 96, 80), with batch-1 and batch-N momenta and a tripped flag,
@@ -77,8 +80,9 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
    over the subjects); each pass of the warp's backward launchers, which
-   K5, K6 and K7 share, at the four operand shapes of the step, beside its
-   bound; the slice and the atlas step both ways, with
+   K5, K6 and K7 share, at the four operand shapes of the step, and K6's
+   first pass alone, each beside its bound; the slice and the atlas step
+   both ways, with
    the peak device memory of each step; K8 and K9, and K10-K13 at one
    substep's shapes, at 256^2 b8, and the 2D atlas step both ways, with
    ``beta = 0`` and ``beta = 0.05``, at 256^2 b8 and 512^2 b8, with peak
@@ -337,18 +341,49 @@ def backward_checks(lt, device, shape, seed):
         for i, (g, r) in enumerate(zip(got, torch.autograd.grad(ref_out, refs, cot))):
             err = compare(f"{name} {label} d_arg{i}", g, r, tol, offset)
             errs[name] = max(errs.get(name, 0.0), err)
-    # the gather passes sum each output in one fixed order: two launches of
-    # K5 (atlas and batch-N image) and of K7 agree bit for bit
+    # the passes sum each output in one fixed order: two launches of K5
+    # (atlas and batch-N image), of K6 (batch-1 and batch-N m0) and of K7
+    # agree bit for bit
+    mws = {label: epdiff_unit._launch_ad_star(*args, want_mw=True)[2]
+           for _, label, _, args, _, _ in cases[2:4]}
     for label, launch in (
             ("warp_unit_bwd I(1,1)", lambda: warp_unit._launch_bwd(cases[0][3][0], phiinv, g1)),
             ("warp_unit_bwd I(N,3)", lambda: warp_unit._launch_bwd(cases[1][3][0], phiinv, g3)),
+            ("ad_star_bwd m0(1,3)", lambda: epdiff_unit._launch_ad_star_bwd(
+                *cases[2][3], g3, mws["m0(1,3)"])),
+            ("ad_star_bwd m0(N,3)", lambda: epdiff_unit._launch_ad_star_bwd(
+                *cases[3][3], g3, mws["m0(N,3)"])),
             ("compose_bwd", lambda: epdiff_unit._launch_compose_bwd(phiinv, cases[4][3][1], -0.2,
                                                                     g3))):
         first, second = launch(), launch()
         check(all(torch.equal(a, b) for a, b in zip(first, second)),
               f"{label}: two launches differ")
-    log("  K5, K7: two launches bit-identical")
+    log("  K5, K6, K7: two launches bit-identical")
+    # K6's first pass alone: d_mw rounds as the plain Jacobian transpose
+    for _, label, _, args, _, _ in cases[2:4]:
+        got = ad_star_bwd_first(*args, g3, mws[label])
+        ref = epdiff_unit.ad_star_bwd_first_plain(*args, g3, mws[label])
+        compare(f"ad_star_bwd first pass {label} d_mw", got[0], ref[0], 0.0)
+        err = compare(f"ad_star_bwd first pass {label} d_phiinv", got[1], ref[1], 1e-5)
+        errs["ad_star_bwd"] = max(errs["ad_star_bwd"], err)
+        check(all(torch.equal(a, b) for a, b in zip(got, ad_star_bwd_first(*args, g3,
+                                                                             mws[label]))),
+              f"ad_star_bwd first pass {label}: two launches differ")
+    log("  K6's first pass: d_mw bit-equal to the plain version, two launches bit-identical")
     return errs
+
+
+def ad_star_bwd_first(phiinv, m0, g, mw):
+    """K6's first pass alone, through its C entry point (not counted: the
+    main path launches it inside K6): ``(d_mw, d_phiinv)``."""
+    from lagomorph_tpu_torch.ops.kernels import _build, stream_of
+
+    N, _, X, Y, Z = phiinv.shape
+    d_mw, d_p = torch.empty_like(phiinv), torch.empty_like(phiinv)
+    _build.call("lagomorph_ad_star_bwd_first", phiinv.data_ptr(), m0.data_ptr(), g.data_ptr(),
+                mw.data_ptr(), d_mw.data_ptr(), d_p.data_ptr(), N, m0.shape[0], X, Y, Z, 0,
+                stream_of(phiinv))
+    return d_mw, d_p
 
 
 def bench_inputs(device, shape=None):
@@ -1118,9 +1153,13 @@ def pass_work(kind, N, NI, C, V, compose=False):
     cotangent, write the ``NI``-batch image gradient) or the weight
     gradient (``kind == "dd"``: read the image, the displacement and the
     cotangent, write the displacement gradient; with the compose epilogue,
-    s g + s dd)."""
+    s g + s dd); or K6's first pass (``kind == "adstar_first"``, ``C == 3``:
+    read phiinv, the ``NI``-batch momenta, the cotangent and the warped
+    momenta, write ``d_mw`` and ``d_phiinv``)."""
     if kind == "transpose":
         return 4 * V * (3 * N + N * C + NI * C), N * V * transpose_ops(C)
+    if kind == "adstar_first":
+        return 4 * V * (5 * 3 * N + 3 * NI), N * V * (JAC_OPS + weight_grad_ops(3) + DIV_OPS + 3)
     return 4 * V * (NI * C + 3 * N + N * C + 3 * N), N * V * (weight_grad_ops(C)
                                                             + (3 if compose else 0))
 
@@ -1240,6 +1279,13 @@ def timings(device, card, lt, metric, I, m, img):
         b_ms, b_by = bound(*pass_work(kind, N, NI, C, V, compose))
         log(f"time pass {label}: {k1:.4f}/{k2:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"{(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b4 [{card}]")
+    # K6's first pass alone, at batch-N momenta as the step runs it
+    k1 = time_ms(lambda: ad_star_bwd_first(phiinv, m, g3, mw), device, 10)
+    k2 = time_ms(lambda: ad_star_bwd_first(phiinv, m, g3, mw), device, 10)
+    b_ms, b_by = bound(*pass_work("adstar_first", N, m.shape[0], 3, V))
+    log(f"time pass K6 first pass (d_mw, d_phiinv; m0 batch {m.shape[0]}): {k1:.4f}/{k2:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), {(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at "
+        f"128^3 b4 [{card}]")
 
     def loss():
         return float(lddmm._lddmm_loss(I, m, img, metric, REG_WEIGHT, STEPS)[0])

@@ -55,6 +55,12 @@
 // at every neighbour instead would save the scratch round trip (2 x 100.7 MB
 // at 128^3 b4) at 27x the Jacobian work; the two-pass form is the simple
 // one.  A batch-1 m0 gets d_m0 summed over N in the gather, no atomics.
+// The first pass marches along x through staged planes (see
+// ad_star_bwd_first_kernel): each input is read from device memory about
+// once, the weight-gradient path sums the 8 live taps (stencil.cuh
+// live_pair) of m0 from shared memory, and the next plane's loads are in
+// flight while the current one is computed.  The 19 taps it skips add
+// exact zeros for a finite m0 (as K4's, warp_unit.cu).
 //
 // K7, compose backward (cotangent g of out = s v + phi(x + s v); math at
 // epdiff_unit.py:711-725, padres.py:518-551):
@@ -70,8 +76,14 @@
 // its two passes move 11 (the scratch d_mw and a second read of phi).  K7
 // must move 5 (read phi, v, g; write d_phi, d_v), ~150 us; its passes move
 // 7.  The transpose and weight-gradient passes are K5's (warp_unit.cu:
-// bricks staged in shared memory with a halo, the 8 live taps); K6's first
-// pass stays one thread per voxel.
+// bricks staged in shared memory with a halo, the 8 live taps).  K6's first
+// pass must move 6 fields (read phi, m0, g, mw; write d_mw, d_phi), ~180 us;
+// its staging adds the y/z halo, (AB_TY + 2)(AB_TZ + 2) / (AB_TY AB_TZ) - 1
+// = 33% more loads of its inputs, mostly from L2, and 2 planes a march.  It
+// is held at 2 blocks of 256 threads an SM (128 registers): built for 3
+// (80 registers) it spills, and ran slower on an H100 (PERF.md).
+#include <atomic>
+
 #include "stencil.cuh"
 
 namespace lagomorph {
@@ -166,34 +178,167 @@ __global__ void compose_fwd_kernel(const float* __restrict__ phiinv,
   clear_flag_if(bad, flag);
 }
 
-// K6, first pass: d_mw (to scratch) and d_phi; one thread per (n, p)
-__global__ void ad_star_bwd_kernel(const float* __restrict__ phiinv,
-                                   const float* __restrict__ m0,
-                                   const float* __restrict__ g,
-                                   const float* __restrict__ mw,
-                                   float* __restrict__ d_mw,
-                                   float* __restrict__ d_phi, int N, int Nm,
-                                   int X, int Y, int Z) {
-  const long V = (long)X * Y * Z;
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)N * V) return;
-  const int n = (int)(idx / V);
-  const long p = idx - (long)n * V;
-  const int z = (int)(p % Z);
-  const int y = (int)((p / Z) % Y);
-  const int x = (int)(p / ((long)Y * Z));
-  const AxisIdx ix = axis_idx(x, X), iy = axis_idx(y, Y), iz = axis_idx(z, Z);
-  const AxisIdx* ax[3] = {&ix, &iy, &iz};
-  const int pos[3] = {x, y, z};
-  const int len[3] = {X, Y, Z};
-  const int stride[3] = {Y * Z, Z, 1};
+// K6, first pass: d_mw (to the scratch) and d_phi.  A block owns one
+// subject and a (y, z) tile of AB_TY x AB_TZ voxels, one thread per (y, z),
+// and marches along x over `march` planes (adstar_march).  Each step of the
+// march stages one new x-plane of the tile and its one-voxel y/z halo in
+// shared memory, in rings: m0 in 4 slots (the taps read planes x - 1 ..
+// x + 1 while plane x + 2 is written), and phi, g, mw_1 and mw_2 in 3 (the
+// Jacobian's and the divergence's y and z face neighbours come from plane
+// x; plane x + 1 waits, plane x + 2 is written), so one barrier a step
+// suffices.  A thread's own phi, g and mw_0 at x - 1, x and x + 1 (the x
+// neighbours) are a 3-slot register ring.  The loads of plane x + 2 are
+// issued before plane x's arithmetic.  Staging loads nothing outside the
+// volume: every read of a staged plane is at a clamped index, inside it.
+constexpr int AB_TY = 8, AB_TZ = 32;
+constexpr int AB_THREADS = AB_TY * AB_TZ;
+constexpr int AB_HY = AB_TY + 2, AB_HZ = AB_TZ + 2;
+constexpr int AB_PLANE = AB_HY * AB_HZ;           // floats of one staged channel
+constexpr int AB_BORDER = AB_PLANE - AB_THREADS;  // its halo positions
+// staged channels: m0 0-2, then the face channels phi 0-2, g 3-5, mw_1 6,
+// mw_2 7; shared memory holds 3 slots of the face channels, then 4 of m0
+constexpr int AB_FACE = 8;
+constexpr int AB_STAGED = 3 + AB_FACE;
+constexpr int AB_SMEM = (3 * AB_FACE + 4 * 3) * AB_PLANE;
+// the halo's (channel, position) loads, spread over the block's threads
+constexpr int AB_HALO = (AB_STAGED * AB_BORDER + AB_THREADS - 1) / AB_THREADS;
+static_assert(AB_SMEM * sizeof(float) <= 48 * 1024, "more needs the opt-in attribute");
 
-  const float* ph = phiinv + (long)n * 3 * V;
-  const float* gn = g + (long)n * 3 * V;
-  const float* mwn = mw + (long)n * 3 * V;
-  float gc[3];
+// halo position h (0 .. AB_BORDER - 1) -> its index ly * AB_HZ + lz in a
+// staged plane: the rows ly = 0 and AB_HY - 1, then the columns lz = 0 and
+// AB_HZ - 1 between them
+__device__ __forceinline__ int border_index(int h) {
+  if (h < 2 * AB_HZ) return h < AB_HZ ? h : (AB_HY - 1) * AB_HZ + h - AB_HZ;
+  h -= 2 * AB_HZ;
+  return h < AB_TY ? (1 + h) * AB_HZ : (1 + h - AB_TY) * AB_HZ + AB_HZ - 1;
+}
+
+// channel c of the staged list (m0 0-2, phi 3-5, g 6-8, mw_1 9, mw_2 10)
+__device__ __forceinline__ const float* staged_field(int c, const float* ph, const float* gn,
+                                                     const float* mwn, const float* mb, int V) {
+  return c < 3 ? mb + (size_t)c * V
+       : c < 6 ? ph + (size_t)(c - 3) * V
+       : c < 9 ? gn + (size_t)(c - 6) * V
+               : mwn + (size_t)(c - 8) * V;
+}
+
+// A thread's share of the halo, found once for its march: items
+// threadIdx.x + j * AB_THREADS of the list channel-major over AB_STAGED
+// channels and AB_BORDER positions, each with its source in plane 0 (null
+// outside the volume: staged as 0) and its index in a staged slot of its
+// channel's ring (-1: no item).  Item i is of m0 when i < 3 * AB_BORDER.
+struct AdHalo {
+  const float* src[AB_HALO];
+  int dst[AB_HALO];
+};
+
+__device__ __forceinline__ void adstar_halo(AdHalo& h, const float* ph, const float* gn,
+                                            const float* mwn, const float* mb, int V, int Y,
+                                            int Z, int y0, int z0) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) gc[c] = __ldg(gn + (long)c * V + p);
+  for (int j = 0; j < AB_HALO; ++j) {
+    const int i = threadIdx.x + j * AB_THREADS;
+    h.src[j] = nullptr;
+    h.dst[j] = -1;
+    if (i < AB_STAGED * AB_BORDER) {
+      const int c = i / AB_BORDER, b = border_index(i % AB_BORDER);
+      const int gy = y0 - 1 + b / AB_HZ, gz = z0 - 1 + b % AB_HZ;
+      h.dst[j] = (c < 3 ? c : c - 3) * AB_PLANE + b;
+      if (gy >= 0 && gy < Y && gz >= 0 && gz < Z)
+        h.src[j] = staged_field(c, ph, gn, mwn, mb, V) + gy * Z + gz;
+    }
+  }
+}
+
+// One x-plane's loads of one thread: its own voxel's phi 0-2, g 3-5, mw
+// 6-8 and m0 9-11, and its halo items; zeros outside the volume.
+struct AdPlane {
+  float own[12];
+  float halo[AB_HALO];
+};
+
+__device__ __forceinline__ void adstar_load(AdPlane& r, const AdHalo& h,
+                                            const float* __restrict__ ph,
+                                            const float* __restrict__ gn,
+                                            const float* __restrict__ mwn,
+                                            const float* __restrict__ mb, int V, int xp, int Y,
+                                            int Z, int y0, int z0) {
+  const int y = y0 + (int)threadIdx.x / AB_TZ, z = z0 + (int)threadIdx.x % AB_TZ;
+  const bool in = y < Y && z < Z;
+  const int plane = xp * Y * Z, u = plane + y * Z + z;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r.own[c] = in ? __ldg(ph + (size_t)c * V + u) : 0.0f;
+    r.own[3 + c] = in ? __ldg(gn + (size_t)c * V + u) : 0.0f;
+    r.own[6 + c] = in ? __ldg(mwn + (size_t)c * V + u) : 0.0f;
+    r.own[9 + c] = in ? __ldg(mb + (size_t)c * V + u) : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < AB_HALO; ++j) r.halo[j] = h.src[j] ? __ldg(h.src[j] + plane) : 0.0f;
+}
+
+// the staged planes of ring index k: the offsets of its face slot and its
+// m0 slot in shared memory
+__device__ __forceinline__ int face_slot(int k) { return (k % 3) * AB_FACE * AB_PLANE; }
+__device__ __forceinline__ int m0_slot(int k) { return (3 * AB_FACE + (k & 3) * 3) * AB_PLANE; }
+
+__device__ __forceinline__ void adstar_store(const AdPlane& r, const AdHalo& h, float* sm,
+                                             int k) {
+  float* face = sm + face_slot(k);
+  float* m0s = sm + m0_slot(k);
+  const int own = ((int)threadIdx.x / AB_TZ + 1) * AB_HZ + (int)threadIdx.x % AB_TZ + 1;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) face[c * AB_PLANE + own] = r.own[c];  // phi, g
+  face[6 * AB_PLANE + own] = r.own[7];                              // mw_1
+  face[7 * AB_PLANE + own] = r.own[8];                              // mw_2
+#pragma unroll
+  for (int c = 0; c < 3; ++c) m0s[c * AB_PLANE + own] = r.own[9 + c];
+#pragma unroll
+  for (int j = 0; j < AB_HALO; ++j)
+    if (h.dst[j] >= 0)
+      (threadIdx.x + j * AB_THREADS < 3 * AB_BORDER ? m0s : face)[h.dst[j]] = r.halo[j];
+}
+
+// the register ring of a thread's own phi, g and mw_0: slot 0 at x - 1,
+// 1 at x, 2 at x + 1 (clamped to the volume)
+struct AdRing {
+  float phi[3][3], g[3][3], mw0[3];
+};
+
+__device__ __forceinline__ void ring_push(AdRing& q, const AdPlane& r) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      q.phi[s][c] = q.phi[s + 1][c];
+      q.g[s][c] = q.g[s + 1][c];
+    }
+    q.mw0[s] = q.mw0[s + 1];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q.phi[2][c] = r.own[c];
+    q.g[2][c] = r.own[3 + c];
+  }
+  q.mw0[2] = r.own[6];
+}
+
+// One voxel (x, y, z) of the march at ring index k: d_mw to the scratch and
+// d_phi.  d_mw rounds as the previous kernel and the plain version did
+// (diff_central, then __fadd_rn / __fmul_rn in c order), so it is
+// bit-equal to them; d_phi's weight-gradient sums use fmaf (within 1e-5 *
+// (1 + max|ref|) of the plain version) and its divergence path rounds each
+// product and sum on its own.
+__device__ __forceinline__ void adstar_voxel(const AdRing& q, const float* sm, int k, int x,
+                                             int y, int z, int X, int Y, int Z, int y0, int z0,
+                                             float* __restrict__ dmw_out,
+                                             float* __restrict__ dphi_out, int V) {
+  const int p = (x * Y + y) * Z + z;
+  const float* F = sm + face_slot(k);
+  const int own = (y - y0 + 1) * AB_HZ + z - z0 + 1;
+  // the clamped face neighbours' offsets in a staged plane, along y and z
+  const int lo[3] = {0, y > 0 ? -AB_HZ : 0, z > 0 ? -1 : 0};
+  const int hi[3] = {0, y < Y - 1 ? AB_HZ : 0, z < Z - 1 ? 1 : 0};
 
   // d_mw_a = sum_c (D_a phi_c + delta_ca) g_c, accumulated over c in order
   float dmw[3];
@@ -202,67 +347,176 @@ __global__ void ad_star_bwd_kernel(const float* __restrict__ phiinv,
     float acc = 0.0f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      float j = diff_central(ph + (long)c * V, p, *ax[a], stride[a]);
+      const float h = a == 0 ? q.phi[2][c] : F[c * AB_PLANE + own + hi[a]];
+      const float l = a == 0 ? q.phi[0][c] : F[c * AB_PLANE + own + lo[a]];
+      float j = __fmul_rn(0.5f, __fsub_rn(h, l));
       if (a == c) j = __fadd_rn(j, 1.0f);
-      const float term = __fmul_rn(j, gc[c]);
+      const float term = __fmul_rn(j, q.g[1][c]);
       acc = c == 0 ? term : __fadd_rn(acc, term);
     }
     dmw[a] = acc;
-    d_mw[(long)n * 3 * V + (long)a * V + p] = acc;
+    dmw_out[(size_t)a * V + p] = acc;
   }
 
-  // weight-gradient path: image m0, cotangent d_mw, displacement phi
-  AxisWeights W[3], dW[3];
+  // weight-gradient path on the 8 live taps (image m0, cotangent d_mw)
+  const int pos[3] = {x, y, z}, len[3] = {X, Y, Z};
+  float w[3][2], dw[3][2];
+  int off[3][2];  // per axis and live offset: the tap's m0 slot, row or column
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float d = __ldg(ph + (long)a * V + p);
-    W[a] = axis_weights(d);
-    dW[a] = axis_dweights(d);
-  }
-  const float* mb = m0 + (Nm == 1 ? 0L : (long)n * 3 * V);
-  float acc[3] = {0.0f, 0.0f, 0.0f};
+    const float d = q.phi[1][a];
+    const LivePair lp = live_pair(d);
+    const AxisWeights sl = axis_dweights(d);
+    w[a][0] = lp.wl;
+    w[a][1] = lp.wh;
+    dw[a][0] = lp.lo < 0 ? sl.m : sl.z;
+    dw[a][1] = lp.lo < 0 ? sl.z : sl.p;
 #pragma unroll
-  for (int ox = 0; ox < 3; ++ox) {
-    const float wx = weight_at(W[0], ox - 1), dwx = weight_at(dW[0], ox - 1);
-#pragma unroll
-    for (int oy = 0; oy < 3; ++oy) {
-      const float wy = weight_at(W[1], oy - 1), dwy = weight_at(dW[1], oy - 1);
-      const float a_xy = __fmul_rn(dwx, wy);
-      const float b_xy = __fmul_rn(wx, dwy);
-      const float c_xy = __fmul_rn(wx, wy);
-#pragma unroll
-      for (int oz = 0; oz < 3; ++oz) {
-        const float wz = weight_at(W[2], oz - 1), dwz = weight_at(dW[2], oz - 1);
-        const long off = ((long)ix.i[ox] * Y + iy.i[oy]) * Z + iz.i[oz];
-        float t = __fmul_rn(dmw[0], __ldg(mb + off));
-        t = __fadd_rn(t, __fmul_rn(dmw[1], __ldg(mb + V + off)));
-        t = __fadd_rn(t, __fmul_rn(dmw[2], __ldg(mb + 2 * V + off)));
-        acc[0] = __fadd_rn(acc[0], __fmul_rn(__fmul_rn(a_xy, wz), t));
-        acc[1] = __fadd_rn(acc[1], __fmul_rn(__fmul_rn(b_xy, wz), t));
-        acc[2] = __fadd_rn(acc[2], __fmul_rn(__fmul_rn(c_xy, dwz), t));
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int t = clampi(pos[a] + lp.lo + i, len[a]);
+      off[a][i] = a == 0 ? (t < x ? m0_slot(k - 1) : t == x ? m0_slot(k) : m0_slot(k + 1))
+                : a == 1 ? (t - y0 + 1) * AB_HZ
+                         : t - z0 + 1;
     }
   }
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        const float* m = sm + off[0][i] + off[1][j] + off[2][l];
+        float t = __fmul_rn(dmw[0], m[0]);
+        t = fmaf(dmw[1], m[AB_PLANE], t);
+        t = fmaf(dmw[2], m[2 * AB_PLANE], t);
+        acc[0] = fmaf(__fmul_rn(__fmul_rn(dw[0][i], w[1][j]), w[2][l]), t, acc[0]);
+        acc[1] = fmaf(__fmul_rn(__fmul_rn(w[0][i], dw[1][j]), w[2][l]), t, acc[1]);
+        acc[2] = fmaf(__fmul_rn(__fmul_rn(w[0][i], w[1][j]), dw[2][l]), t, acc[2]);
+      }
 
   // divergence path: d_phi_c += sum_a D_a^T (mw_a * g_c), over a in order
-  float* o = d_phi + (long)n * 3 * V + p;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float div = 0.0f;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const long lo = p + (long)(ax[a]->i[0] - pos[a]) * stride[a];
-      const long hi = p + (long)(ax[a]->i[2] - pos[a]) * stride[a];
-      const float* w = mwn + (long)a * V;
-      const float* q = gn + (long)c * V;
-      const float qm = __fmul_rn(__ldg(w + lo), __ldg(q + lo));
-      const float q0 = __fmul_rn(__ldg(w + p), gc[c]);
-      const float qp = __fmul_rn(__ldg(w + hi), __ldg(q + hi));
+      float qm, q0, qp;
+      if (a == 0) {
+        qm = __fmul_rn(q.mw0[0], q.g[0][c]);
+        q0 = __fmul_rn(q.mw0[1], q.g[1][c]);
+        qp = __fmul_rn(q.mw0[2], q.g[2][c]);
+      } else {
+        const float* m = F + (5 + a) * AB_PLANE + own;  // mw_1 or mw_2
+        const float* gc = F + (3 + c) * AB_PLANE + own;
+        qm = __fmul_rn(m[lo[a]], gc[lo[a]]);
+        q0 = __fmul_rn(m[0], q.g[1][c]);
+        qp = __fmul_rn(m[hi[a]], gc[hi[a]]);
+      }
       const float term = diff_central_adjoint(qm, q0, qp, pos[a], len[a]);
       div = a == 0 ? term : __fadd_rn(div, term);
     }
-    o[(long)c * V] = __fadd_rn(acc[c], div);
+    dphi_out[(size_t)c * V + p] = __fadd_rn(acc[c], div);
   }
+}
+
+// PREFETCH: issue the loads of plane x + 2 before the arithmetic of plane
+// x, so they are in flight while it runs (false only in profile_warp.py's
+// variant, which loads after it)
+template <bool PREFETCH>
+__global__ void __launch_bounds__(AB_THREADS, 2)
+    ad_star_bwd_first_kernel(const float* __restrict__ phiinv, const float* __restrict__ m0,
+                             const float* __restrict__ g, const float* __restrict__ mw,
+                             float* __restrict__ d_mw, float* __restrict__ d_phi, int N,
+                             int Nm, int X, int Y, int Z, int march) {
+  extern __shared__ __align__(16) float smem[];
+  const int V = X * Y * Z;
+  const int nty = (Y + AB_TY - 1) / AB_TY, ntz = (Z + AB_TZ - 1) / AB_TZ;
+  const int nxm = (X + march - 1) / march;
+  int b = blockIdx.x;
+  const int z0 = (b % ntz) * AB_TZ;
+  b /= ntz;
+  const int y0 = (b % nty) * AB_TY;
+  b /= nty;
+  const int x0 = (b % nxm) * march, n = b / nxm;
+  const int x1 = x0 + march < X ? x0 + march : X;
+  const int y = y0 + (int)threadIdx.x / AB_TZ, z = z0 + (int)threadIdx.x % AB_TZ;
+  const float* ph = phiinv + (size_t)n * 3 * V;
+  const float* gn = g + (size_t)n * 3 * V;
+  const float* mwn = mw + (size_t)n * 3 * V;
+  const float* mb = m0 + (Nm == 1 ? (size_t)0 : (size_t)n * 3 * V);
+  float* dmw_out = d_mw + (size_t)n * 3 * V;
+  float* dphi_out = d_phi + (size_t)n * 3 * V;
+
+  // ring index k holds plane clamp(x0 - 1 + k): first x0 - 1, x0, x0 + 1
+  AdHalo h;
+  adstar_halo(h, ph, gn, mwn, mb, V, Y, Z, y0, z0);
+  AdPlane r;
+  AdRing q;
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    adstar_load(r, h, ph, gn, mwn, mb, V, clampi(x0 - 1 + k, X), Y, Z, y0, z0);
+    adstar_store(r, h, smem, k);
+    ring_push(q, r);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int x = x0; x < x1; ++x) {
+    const int k = x - x0 + 1;
+    const bool more = x + 1 < x1;  // a next step, which needs plane x + 2
+    const int next = x + 2 < X ? x + 2 : X - 1;
+    if (PREFETCH && more) adstar_load(r, h, ph, gn, mwn, mb, V, next, Y, Z, y0, z0);
+    if (y < Y && z < Z) adstar_voxel(q, smem, k, x, y, z, X, Y, Z, y0, z0, dmw_out, dphi_out, V);
+    if (more) {
+      // plane x + 2 goes to slots that no thread reads in this step (m0's
+      // of plane x - 2, the face channels' of plane x - 1)
+      if (!PREFETCH) adstar_load(r, h, ph, gn, mwn, mb, V, next, Y, Z, y0, z0);
+      adstar_store(r, h, smem, k + 2);
+      ring_push(q, r);
+      __syncthreads();
+    }
+  }
+}
+
+// blocks of the first pass at march length `march`
+static inline long adstar_blocks(int N, int X, int Y, int Z, int march) {
+  return (long)N * ((X + march - 1) / march) * ((Y + AB_TY - 1) / AB_TY) *
+         ((Z + AB_TZ - 1) / AB_TZ);
+}
+
+// The march length: the longest of 128, 64, 32, 16 and 8 planes whose grid
+// still gives every SM a block, or 8.  A longer march stages fewer planes
+// twice (2 a march) and starts fewer prologues; a grid short of the SMs
+// leaves some idle (profile_warp.py, at 128^3 and 64^3 b4).  The SMs of
+// the current device are asked of the runtime once per device.
+static int adstar_march(int N, int X, int Y, int Z) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> sms_of[kDevices];  // 0: not asked yet
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kDevices) {
+    sms = sms_of[dev].load(std::memory_order_relaxed);
+    if (sms == 0) {
+      if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        sms = 132;
+      else
+        sms_of[dev].store(sms, std::memory_order_relaxed);
+    }
+  }
+  int march = 128;
+  while (march > 8 && adstar_blocks(N, X, Y, Z, march) < sms) march /= 2;
+  return march;
+}
+
+// march <= 0: adstar_march's choice
+template <bool PREFETCH>
+cudaError_t launch_ad_star_bwd_first(const float* phiinv, const float* m0, const float* g,
+                                     const float* mw, float* d_mw, float* d_phi, int N, int Nm,
+                                     int X, int Y, int Z, int march, cudaStream_t stream) {
+  if (march <= 0) march = adstar_march(N, X, Y, Z);
+  ad_star_bwd_first_kernel<PREFETCH><<<(unsigned)adstar_blocks(N, X, Y, Z, march), AB_THREADS,
+                                       AB_SMEM * sizeof(float), stream>>>(
+      phiinv, m0, g, mw, d_mw, d_phi, N, Nm, X, Y, Z, march);
+  return cudaGetLastError();
 }
 
 }  // namespace lagomorph
@@ -286,15 +540,23 @@ extern "C" int lagomorph_ad_star_bwd(const float* phiinv, const float* m0,
                                      float* d_mw, float* d_phiinv, float* d_m0,
                                      int N, int Nm, int X, int Y, int Z,
                                      void* stream) {
-  const int threads = 256;
   const cudaStream_t st = (cudaStream_t)stream;
-  lagomorph::ad_star_bwd_kernel<<<grid_for((long)N * X * Y * Z, threads),
-                                  threads, 0, st>>>(phiinv, m0, g, mw, d_mw,
-                                                    d_phiinv, N, Nm, X, Y, Z);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = lagomorph::launch_ad_star_bwd_first<true>(
+      phiinv, m0, g, mw, d_mw, d_phiinv, N, Nm, X, Y, Z, 0, st);
   if (err != cudaSuccess) return (int)err;
   return (int)lagomorph::launch_warp_transpose(phiinv, 1.0f, d_mw, d_m0, N, Nm,
                                                3, X, Y, Z, st);
+}
+
+// K6's first pass alone (d_mw and d_phiinv), for timing it and testing it,
+// marching over `march` planes (<= 0: the length K6 takes)
+extern "C" int lagomorph_ad_star_bwd_first(const float* phiinv, const float* m0,
+                                           const float* g, const float* mw, float* d_mw,
+                                           float* d_phiinv, int N, int Nm, int X, int Y,
+                                           int Z, int march, void* stream) {
+  return (int)lagomorph::launch_ad_star_bwd_first<true>(phiinv, m0, g, mw, d_mw, d_phiinv, N,
+                                                        Nm, X, Y, Z, march,
+                                                        (cudaStream_t)stream);
 }
 
 extern "C" int lagomorph_compose_bwd(const float* phiinv, const float* v,

@@ -13,8 +13,15 @@
 //     through L1 (the 19 dead taps gone, nothing staged);
 //   transpose_variant_kernel: the current transpose (csrc/warp_unit.cu,
 //     its march along x included) staging alone (MODE 1), or accumulating
-//     alone on its first staging (2).
+//     alone on its first staging (2);
+//   old_ad_star_bwd_kernel<false>: K6's first pass before its redesign
+//     (one thread per voxel, the 27 taps of m0 and every neighbour read
+//     through L1, nothing staged); old_ad_star_bwd_kernel<true>: the same
+//     on the 8 live taps; and the current first pass (csrc/epdiff_unit.cu) with its
+//     prefetch off (the next plane loaded after the current one's
+//     arithmetic, not before it).
 #include "../warp_unit.cu"
+#include "../epdiff_unit.cu"
 
 namespace lagomorph_profile {
 using namespace lagomorph;
@@ -344,6 +351,138 @@ static int variant(const float* disp, float s, const float* cot, float* out, int
   return (int)cudaGetLastError();
 }
 
+// K6's first pass before its redesign: d_mw (to scratch) and d_phi; one
+// thread per (n, p).  LIVE: the weight-gradient path on the 8 live taps of
+// m0 (read through L1, nothing staged) in place of all 27
+template <bool LIVE>
+__global__ void old_ad_star_bwd_kernel(const float* __restrict__ phiinv,
+                                       const float* __restrict__ m0, const float* __restrict__ g,
+                                       const float* __restrict__ mw, float* __restrict__ d_mw,
+                                       float* __restrict__ d_phi, int N, int Nm, int X, int Y,
+                                       int Z) {
+  const long V = (long)X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)N * V) return;
+  const int n = (int)(idx / V);
+  const long p = idx - (long)n * V;
+  const int z = (int)(p % Z);
+  const int y = (int)((p / Z) % Y);
+  const int x = (int)(p / ((long)Y * Z));
+  const AxisIdx ix = axis_idx(x, X), iy = axis_idx(y, Y), iz = axis_idx(z, Z);
+  const AxisIdx* ax[3] = {&ix, &iy, &iz};
+  const int pos[3] = {x, y, z};
+  const int len[3] = {X, Y, Z};
+  const int stride[3] = {Y * Z, Z, 1};
+
+  const float* ph = phiinv + (long)n * 3 * V;
+  const float* gn = g + (long)n * 3 * V;
+  const float* mwn = mw + (long)n * 3 * V;
+  float gc[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) gc[c] = __ldg(gn + (long)c * V + p);
+
+  // d_mw_a = sum_c (D_a phi_c + delta_ca) g_c, accumulated over c in order
+  float dmw[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float j = diff_central(ph + (long)c * V, p, *ax[a], stride[a]);
+      if (a == c) j = __fadd_rn(j, 1.0f);
+      const float term = __fmul_rn(j, gc[c]);
+      acc = c == 0 ? term : __fadd_rn(acc, term);
+    }
+    dmw[a] = acc;
+    d_mw[(long)n * 3 * V + (long)a * V + p] = acc;
+  }
+
+  const float* mb = m0 + (Nm == 1 ? 0L : (long)n * 3 * V);
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  if (LIVE) {
+    // weight-gradient path on the 8 live taps: image m0, cotangent d_mw
+    int li[3][2];
+    float w[3][2], dw[3][2];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float d = __ldg(ph + (long)a * V + p);
+      const LivePair lp = live_pair(d);
+      const AxisWeights sl = axis_dweights(d);
+      w[a][0] = lp.wl;
+      w[a][1] = lp.wh;
+      dw[a][0] = lp.lo < 0 ? sl.m : sl.z;
+      dw[a][1] = lp.lo < 0 ? sl.z : sl.p;
+      li[a][0] = clampi(pos[a] + lp.lo, len[a]);
+      li[a][1] = clampi(pos[a] + lp.lo + 1, len[a]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const long off = ((long)li[0][i] * Y + li[1][j]) * Z + li[2][k];
+          float t = __fmul_rn(dmw[0], __ldg(mb + off));
+          t = fmaf(dmw[1], __ldg(mb + V + off), t);
+          t = fmaf(dmw[2], __ldg(mb + 2 * V + off), t);
+          acc[0] = fmaf(__fmul_rn(__fmul_rn(dw[0][i], w[1][j]), w[2][k]), t, acc[0]);
+          acc[1] = fmaf(__fmul_rn(__fmul_rn(w[0][i], dw[1][j]), w[2][k]), t, acc[1]);
+          acc[2] = fmaf(__fmul_rn(__fmul_rn(w[0][i], w[1][j]), dw[2][k]), t, acc[2]);
+        }
+  } else {
+    // weight-gradient path: image m0, cotangent d_mw, displacement phi
+    AxisWeights W[3], dW[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float d = __ldg(ph + (long)a * V + p);
+      W[a] = axis_weights(d);
+      dW[a] = axis_dweights(d);
+    }
+#pragma unroll
+    for (int ox = 0; ox < 3; ++ox) {
+      const float wx = weight_at(W[0], ox - 1), dwx = weight_at(dW[0], ox - 1);
+#pragma unroll
+      for (int oy = 0; oy < 3; ++oy) {
+        const float wy = weight_at(W[1], oy - 1), dwy = weight_at(dW[1], oy - 1);
+        const float a_xy = __fmul_rn(dwx, wy);
+        const float b_xy = __fmul_rn(wx, dwy);
+        const float c_xy = __fmul_rn(wx, wy);
+#pragma unroll
+        for (int oz = 0; oz < 3; ++oz) {
+          const float wz = weight_at(W[2], oz - 1), dwz = weight_at(dW[2], oz - 1);
+          const long off = ((long)ix.i[ox] * Y + iy.i[oy]) * Z + iz.i[oz];
+          float t = __fmul_rn(dmw[0], __ldg(mb + off));
+          t = __fadd_rn(t, __fmul_rn(dmw[1], __ldg(mb + V + off)));
+          t = __fadd_rn(t, __fmul_rn(dmw[2], __ldg(mb + 2 * V + off)));
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(__fmul_rn(a_xy, wz), t));
+          acc[1] = __fadd_rn(acc[1], __fmul_rn(__fmul_rn(b_xy, wz), t));
+          acc[2] = __fadd_rn(acc[2], __fmul_rn(__fmul_rn(c_xy, dwz), t));
+        }
+      }
+    }
+  }
+
+  // divergence path: d_phi_c += sum_a D_a^T (mw_a * g_c), over a in order
+  float* o = d_phi + (long)n * 3 * V + p;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float div = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const long lo = p + (long)(ax[a]->i[0] - pos[a]) * stride[a];
+      const long hi = p + (long)(ax[a]->i[2] - pos[a]) * stride[a];
+      const float* w = mwn + (long)a * V;
+      const float* q = gn + (long)c * V;
+      const float qm = __fmul_rn(__ldg(w + lo), __ldg(q + lo));
+      const float q0 = __fmul_rn(__ldg(w + p), gc[c]);
+      const float qp = __fmul_rn(__ldg(w + hi), __ldg(q + hi));
+      const float term = diff_central_adjoint(qm, q0, qp, pos[a], len[a]);
+      div = a == 0 ? term : __fadd_rn(div, term);
+    }
+    o[(long)c * V] = __fadd_rn(acc[c], div);
+  }
+}
+
 static inline unsigned blocks_for(long total) { return (unsigned)((total + 255) / 256); }
 
 }  // namespace lagomorph_profile
@@ -402,4 +541,23 @@ extern "C" int prof_transpose_variant(int mode, const float* disp, float s, cons
                      : variant<1, 2>(disp, s, cot, out, N, NI, X, Y, Z, st);
   return mode == 1 ? variant<3, 1>(disp, s, cot, out, N, NI, X, Y, Z, st)
                    : variant<3, 2>(disp, s, cot, out, N, NI, X, Y, Z, st);
+}
+
+// K6's first pass: 0 before its redesign, 1 the same on the 8 live taps,
+// 2 the current one without its prefetch (at K6's march length)
+extern "C" int prof_adstar_first(int mode, const float* phiinv, const float* m0, const float* g,
+                                 const float* mw, float* d_mw, float* d_phi, int N, int Nm,
+                                 int X, int Y, int Z, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 2)
+    return (int)launch_ad_star_bwd_first<false>(phiinv, m0, g, mw, d_mw, d_phi, N, Nm, X, Y,
+                                                Z, 0, st);
+  const unsigned blocks = blocks_for((long)N * X * Y * Z);
+  if (mode == 0)
+    old_ad_star_bwd_kernel<false><<<blocks, 256, 0, st>>>(phiinv, m0, g, mw, d_mw, d_phi, N,
+                                                           Nm, X, Y, Z);
+  else
+    old_ad_star_bwd_kernel<true><<<blocks, 256, 0, st>>>(phiinv, m0, g, mw, d_mw, d_phi, N, Nm,
+                                                          X, Y, Z);
+  return (int)cudaGetLastError();
 }

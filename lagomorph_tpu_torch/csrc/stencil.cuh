@@ -60,6 +60,8 @@ __device__ __forceinline__ LivePair live_pair(float d) {
   return p;
 }
 
+__device__ __forceinline__ int clampi(int i, int n) { return i < 0 ? 0 : (i >= n ? n - 1 : i); }
+
 // clamped neighbour indices along one axis: idx[0..2] = clamp(i-1), i, clamp(i+1)
 struct AxisIdx {
   int i[3];

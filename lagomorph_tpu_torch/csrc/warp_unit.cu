@@ -108,8 +108,6 @@ constexpr int D_VOX = BX;
 
 static_assert(RZ % 4 == 0 && RZ >= HZ + 2, "float4 rows");
 
-__device__ __forceinline__ int clampi(int i, int n) { return i < 0 ? 0 : (i >= n ? n - 1 : i); }
-
 // brick `b` of the volume's bricks (z fastest) -> its first voxel
 __device__ __forceinline__ void brick_origin(int b, int Y, int Z, int& x0, int& y0, int& z0) {
   const int nbz = (Z + BZ - 1) / BZ, nby = (Y + BY - 1) / BY;

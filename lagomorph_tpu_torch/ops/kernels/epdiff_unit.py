@@ -69,6 +69,12 @@ def compose_plain(phiinv: torch.Tensor, v: torch.Tensor, s: float):
     return d + sample_displacement_unit(phiinv, d), in_unit(d)
 
 
+def _ad_star_bwd_parts(phiinv, m0, g, mw):
+    d_mw = jacobian_times_vectorfield(phiinv, g, displacement=True, transpose=True)
+    d_m0, d_p_w = sample_displacement_unit_bwd_plain(m0, phiinv, d_mw)
+    return d_mw, d_p_w + jacobian_times_vectorfield_adjoint(g, mw), d_m0
+
+
 def ad_star_bwd_plain(phiinv: torch.Tensor, m0: torch.Tensor, g: torch.Tensor,
                       mw: torch.Tensor):
     """Plain version of K6: ``(d_phiinv, d_m0)`` for the cotangent ``g`` of
@@ -76,9 +82,15 @@ def ad_star_bwd_plain(phiinv: torch.Tensor, m0: torch.Tensor, g: torch.Tensor,
     (epdiff_unit.py:489-497): ``d_mw = (J + I)^T g``; ``(d_m0, d_phiinv_w)``
     = the warp's backward with cotangent ``d_mw``; ``d_phiinv = d_phiinv_w
     + sum_a D_a^T (g * mw_a)``."""
-    d_mw = jacobian_times_vectorfield(phiinv, g, displacement=True, transpose=True)
-    d_m0, d_p_w = sample_displacement_unit_bwd_plain(m0, phiinv, d_mw)
-    return d_p_w + jacobian_times_vectorfield_adjoint(g, mw), d_m0
+    return _ad_star_bwd_parts(phiinv, m0, g, mw)[1:]
+
+
+def ad_star_bwd_first_plain(phiinv: torch.Tensor, m0: torch.Tensor, g: torch.Tensor,
+                            mw: torch.Tensor):
+    """Plain version of K6's first pass (the C entry point
+    ``lagomorph_ad_star_bwd_first``, which timings and tests call alone):
+    ``(d_mw, d_phiinv)``, as :func:`ad_star_bwd_plain` forms them."""
+    return _ad_star_bwd_parts(phiinv, m0, g, mw)[:2]
 
 
 def compose_bwd_plain(phiinv: torch.Tensor, v: torch.Tensor, s: float,

@@ -20,12 +20,19 @@ step at 128^3 b4:
   the 8 live taps (nothing staged), and the current one (8 live taps, the
   brick of I staged);
 * the forward K4 (C = 1, the atlas): 27 taps and 8;
-* the current passes built with other brick shapes (``BRICKS``).
+* the current passes built with other brick shapes (``BRICKS``);
+* K6's first pass (``lagomorph_ad_star_bwd_first``, batch-N momenta, as
+  the step runs it), at 128^3 b4 and at 64^3 b4 (the whole-volume step's
+  shape): the previous kernel (27 taps, one thread per voxel, nothing
+  staged), the previous kernel on the 8 live taps, and the current one
+  (planes staged along an x march, 8 live taps) without its prefetch and
+  with it, at the march length it takes and at others (``MARCHES``).
 
 Each line gives ms per call (two samples of 20 calls, in turns), the byte
 bound of the pass (``chip_smoke.pass_work``) and the largest difference of
-each variant's output from the previous kernel's.  Needs a CUDA card;
-imports no jax.
+each variant's output from the previous kernel's (of each output, for K6's
+first pass: ``d_mw`` must be bit-equal and ``d_phiinv`` within 1e-5 * (1 +
+max|ref|), or the script fails).  Needs a CUDA card; imports no jax.
 """
 from __future__ import annotations
 
@@ -42,24 +49,27 @@ SHAPE = (4, 3, 128, 128, 128)
 REPS = 20
 
 
-def ptxas(log, what):
-    """Print the registers and spills ptxas reports for each warp kernel."""
+def ptxas(log, what, kernels=("warp", "transpose", "dd", "fwd", "ad_star")):
+    """Print the registers and spills ptxas reports for each kernel whose
+    name holds one of ``kernels``."""
     name = None
     for line in log.splitlines():
         if "entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-        elif name and ("registers" in line or "spill" in line) and (
-                "warp" in name or "transpose" in name or "dd" in name or "fwd" in name):
+        elif name and ("registers" in line or "spill" in line) and any(
+                k in name for k in kernels):
             print(f"ptxas ({what}) {name[:60]}: {line.split(':', 1)[-1].strip()}", flush=True)
 
 
 # other brick shapes (x, y) of the backward passes, beside the built-in 4 x 8 x 32
 BRICKS = ((8, 8), (4, 16))
+# K6's first pass at other march lengths
+MARCHES = (8, 16, 32, 64, 128)
 
 
 def build_variants():
     """The variant kernels as shared libraries (nvcc, the kernels' flags,
-    in parallel): one with the library's brick, and one per shape of
+    in parallel): one with the library's brick and one per shape of
     ``BRICKS``, whose current passes are timed beside it.  Returns (the
     first library, {brick: library})."""
     from lagomorph_tpu_torch.ops.kernels import _build
@@ -84,8 +94,8 @@ def build_variants():
     lib = libs[0]
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for other in libs[1:]:
-        other.lagomorph_warp_transpose.argtypes = _build.SIGNATURES["lagomorph_warp_transpose"]
-        other.lagomorph_warp_dd.argtypes = _build.SIGNATURES["lagomorph_warp_dd"]
+        for name in ("lagomorph_warp_transpose", "lagomorph_warp_dd"):
+            getattr(other, name).argtypes = _build.SIGNATURES[name]
     sig = {
         "prof_old_fwd": [P, P, P] + [I] * 6 + [P],
         "prof_old_transpose": [P, F, P, P] + [I] * 6 + [P],
@@ -94,6 +104,7 @@ def build_variants():
         "prof_old_dd": [P, P, F, P, P] + [I] * 7 + [P],
         "prof_live_dd": [P, P, F, P, P] + [I] * 7 + [P],
         "prof_transpose_variant": [I, P, F, P, P] + [I] * 6 + [P],
+        "prof_adstar_first": [I] + [P] * 6 + [I] * 5 + [P],
     }
     for name, argtypes in sig.items():
         getattr(lib, name).argtypes = argtypes
@@ -127,6 +138,7 @@ def main():
     I1 = t(rng.standard_normal((1, 1, X, Y, Z)))
     g1 = t(rng.standard_normal((N, 1, X, Y, Z)))
     g3 = t(rng.standard_normal(SHAPE))
+    m3 = t(rng.standard_normal(SHAPE))
     st = stream_of(phiinv)
     lib = _build.library()
 
@@ -175,6 +187,30 @@ def main():
                for (bx, by), b in bricks.items()},
         }, chip_smoke.pass_work("dd", N, NI, C, V, compose=bool(compose)), None)
 
+    def adstar_first_case(shape):
+        from lagomorph_tpu_torch.ops.kernels import epdiff_unit
+
+        n, _, x, y, z = shape
+        phi_, m_, g_ = ((phiinv, m3, g3) if shape == SHAPE else
+                        (t(rng.uniform(-0.99, 0.99, shape)), t(rng.standard_normal(shape)),
+                         t(rng.standard_normal(shape))))
+        _, _, mw = epdiff_unit._launch_ad_star(phi_, m_, want_mw=True)
+        outs = (torch.empty(shape, dtype=torch.float32, device=device),
+                torch.empty(shape, dtype=torch.float32, device=device))
+        operands = (phi_, m_, g_, mw, *outs)  # the closures keep them alive
+
+        def call(fn, name, *pre, march=None):
+            tail = (n, n, x, y, z) + (() if march is None else (march,)) + (st,)
+            return lambda: run(fn, name, *pre, *(a.data_ptr() for a in operands), *tail)
+        return (f"K6 first pass (batch-N m0) at {x}^3 b{n}", outs, {
+            "previous (27 taps)": call(var, "prof_adstar_first", 0),
+            "previous, 8 live taps": call(var, "prof_adstar_first", 1),
+            "current, no prefetch": call(var, "prof_adstar_first", 2),
+            "current": call(lib, "lagomorph_ad_star_bwd_first", march=0),
+            **{f"current, march {m}": call(lib, "lagomorph_ad_star_bwd_first", march=m)
+               for m in MARCHES if m <= x},
+        }, chip_smoke.pass_work("adstar_first", n, n, 3, x * y * z), None, (0.0, 1e-5))
+
     out = torch.empty((N, 1, X, Y, Z), dtype=torch.float32, device=device)
     fargs = (I1.data_ptr(), phiinv.data_ptr(), out.data_ptr(), N, 1, 1, X, Y, Z, st)
     cases = [
@@ -186,30 +222,41 @@ def main():
             "previous (27 taps)": lambda: run(var, "prof_old_fwd", *fargs),
             "current (8 taps)": lambda: run(lib, "lagomorph_warp_unit_fwd", *fargs),
         }, chip_smoke.work("warp_unit_fwd", N, V), None),
+        adstar_first_case(SHAPE),
+        adstar_first_case((N, 3, 64, 64, 64)),
     ]
 
-    for label, out, variants, work, extra in cases:
+    ok = True
+    for label, out, variants, work, extra, *tols in cases:
+        outs = out if isinstance(out, tuple) else (out,)
+        tols = tols[0] if tols else ()  # per output, of 1 + max|ref|; none: not checked
         b_ms, b_by = chip_smoke.bound(*work)
         names = list(variants)
-        ref = None
+        refs = None
         results = {}
-        for name in names:  # agreement with the current kernel
+        for name in names:  # agreement with the first variant, output by output
             variants[name]()
             torch.cuda.synchronize(device)
-            if ref is None:
-                ref = out.clone()
-            results[name] = [chip_smoke.max_err(out, ref)]
+            if refs is None:
+                refs = [o.clone() for o in outs]
+            results[name] = [[chip_smoke.max_err(o, r) for o, r in zip(outs, refs)]]
         for name in names + names[::-1]:  # two samples each, in turns
             results[name].append(chip_smoke.time_ms(variants[name], device, REPS))
-        print(f"{label} at 128^3 b4: bound {b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
+        at = "" if " at " in label else " at 128^3 b4"
+        print(f"{label}{at}: bound {b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
         for name in names:
-            diff, a, b = results[name]
+            diffs, a, b = results[name]
             print(f"  {name:32s} {a:.4f} / {b:.4f} ms  ({(a + b) / 2 / b_ms:.1f}x bound; "
-                  f"max diff from the first {diff:.3e})", flush=True)
+                  f"max diff from the first {', '.join(f'{d:.3e}' for d in diffs)})", flush=True)
+            for tol, d, r in zip(tols, diffs, refs):
+                if d > tol * (1.0 + float(r.abs().max())):
+                    print(f"  {name}: differs from the first beyond {tol} * (1 + max|ref|)",
+                          flush=True)
+                    ok = False
         if extra is not None:
             ms = chip_smoke.time_ms(extra, device, REPS)
             print(f"  {'(the precomputation itself)':32s} {ms:.4f} ms", flush=True)
-    return 0
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -20,8 +20,8 @@ import torch
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
 from lagomorph_tpu_torch.ops import fluid
-from lagomorph_tpu_torch.ops.kernels import (epdiff2d, epdiff_unit, fft_radix, fft_unit, fft_whole,
-                                             shoot2d, warp_unit)
+from lagomorph_tpu_torch.ops.kernels import (_build, epdiff2d, epdiff_unit, fft_radix, fft_unit,
+                                             fft_whole, shoot2d, warp_unit)
 
 
 @pytest.fixture
@@ -372,9 +372,12 @@ def test_fluid_whole_matches_plain_on_cuda(cuda, shape):
 # shapes against the warp backward passes' brick of 4 x 8 x 32 voxels:
 # smaller than one brick, straddling bricks on every axis, axes of length 1
 # and 2, 17 voxels along x (more bricks than one transpose block walks);
-# as tests/test_torch_host_barrier_kernels.py holds them on the CPU
+# and against K6's first pass, whose blocks march over 16 x-planes of an
+# 8 x 32 (y, z) tile: one march plus a remainder, less than one, y and z
+# straddling the tile; as tests/test_torch_host_barrier_kernels.py holds
+# them on the CPU
 EDGE_SHAPES = [(2, 3, 3, 5, 7), (3, 3, 5, 9, 37), (2, 3, 1, 2, 6), (2, 3, 6, 2, 1),
-               (2, 3, 17, 3, 5)]
+               (2, 3, 17, 3, 5), (2, 3, 19, 11, 35), (2, 3, 5, 9, 33)]
 
 
 @pytest.mark.cuda
@@ -386,7 +389,8 @@ def test_warp_passes_edge_cases_on_cuda(cuda, shape):
     straddling bricks and with thin axes: one-, three- and five-channel
     images of batch 1 and N, batch-1 and batch-N momenta (no thin axis:
     Ad*'s Jacobian refuses one), s = -0.2 and 0.7; a second launch of each
-    backward bit-identical to the first."""
+    backward bit-identical to the first; and K6's first pass alone, its
+    ``d_mw`` bit-equal to the plain Jacobian transpose."""
     rng = np.random.default_rng(12)
     N, _, X, Y, Z = shape
 
@@ -415,8 +419,15 @@ def test_warp_passes_edge_cases_on_cuda(cuda, shape):
     for nb in (1, N) if min(X, Y, Z) > 1 else ():
         m0 = c(rng.standard_normal((nb, 3, X, Y, Z)))
         _, _, mw = epdiff_unit._launch_ad_star(p, m0, want_mw=True)
-        hold(epdiff_unit._launch_ad_star_bwd, epdiff_unit.ad_star_bwd_plain, p, m0,
-             c(rng.standard_normal(shape)), mw)
+        g = c(rng.standard_normal(shape))
+        hold(epdiff_unit._launch_ad_star_bwd, epdiff_unit.ad_star_bwd_plain, p, m0, g, mw)
+        d_mw, d_p = torch.empty_like(p), torch.empty_like(p)
+        _build.call("lagomorph_ad_star_bwd_first", p.data_ptr(), m0.data_ptr(), g.data_ptr(),
+                    mw.data_ptr(), d_mw.data_ptr(), d_p.data_ptr(), N, nb, X, Y, Z, 0,
+                    kernels.stream_of(p))
+        r_mw, r_p = epdiff_unit.ad_star_bwd_first_plain(p, m0, g, mw)
+        assert torch.equal(d_mw, r_mw)
+        _compare(d_p, r_p, 1e-5)
     for s in (-0.2, 0.7):
         hold(lambda a, b, g: epdiff_unit._launch_compose_bwd(a, b, s, g),
              lambda a, b, g: epdiff_unit.compose_bwd_plain(a, b, s, g), p, edge_disp(1.0 / s),

@@ -58,7 +58,7 @@ STENCIL_KERNELS = ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd", "compose_fwd
                    "ad_star_bwd", "compose_bwd")
 ENTRY_POINTS = ("lagomorph_fluid_flat", "lagomorph_fluid_radix_zy", "lagomorph_fluid_radix_x",
                 "lagomorph_fluid_whole", "lagomorph_fluid_whole_grid", "lagomorph_shoot2d_fwd",
-                "lagomorph_shoot2d_bwd",
+                "lagomorph_shoot2d_bwd", "lagomorph_ad_star_bwd_first",
                 *(f"lagomorph_{k}" for k in STENCIL_KERNELS))
 RTOL = 1e-5
 BWD_RTOL = 1e-5  # of 1 + max|ref|: the stencils' backwards
@@ -417,3 +417,41 @@ def test_host_warp_passes_edge_cases(rng, host_kernels, shape):
         g = f32(rng.standard_normal(shape))
         hold(f"K7 s={s}", lambda a, b, c: epdiff_unit._launch_compose_bwd(a, b, s, c),
              lambda a, b, c: epdiff_unit.compose_bwd_plain(a, b, s, c), p, v, g)
+
+
+# K6's first pass at (shape, march length; 0: the one K6 takes): its blocks
+# march along x over 8 x 32 (y, z) tiles; x one march plus a remainder (two
+# blocks along x) or less than one, y and z straddling the tile
+FIRST_PASS_CASES = [((2, 3, 19, 11, 35), 16), ((2, 3, 19, 11, 35), 0), ((2, 3, 5, 9, 33), 0)]
+
+
+def _ad_star_bwd_first(phiinv, m0, g, mw, march=0):
+    """K6's first pass alone, through its C entry point: (d_mw, d_phiinv)."""
+    N, _, X, Y, Z = phiinv.shape
+    d_mw, d_p = torch.empty_like(phiinv), torch.empty_like(phiinv)
+    _build.call("lagomorph_ad_star_bwd_first", phiinv.data_ptr(), m0.data_ptr(), g.data_ptr(),
+                mw.data_ptr(), d_mw.data_ptr(), d_p.data_ptr(), N, m0.shape[0], X, Y, Z, march,
+                None)
+    return d_mw, d_p
+
+
+@pytest.mark.parametrize("shape, march", FIRST_PASS_CASES)
+@pytest.mark.parametrize("m_batch", [1, "N"])
+def test_host_adstar_first_pass(rng, host_kernels, shape, march, m_batch):
+    """K6's first pass alone (``lagomorph_ad_star_bwd_first``) with batch-1
+    and batch-N momenta, on displacements with voxels outside the unit
+    regime and at its edges, at shapes that cross its march and its tile:
+    d_mw bit-equal to the plain Jacobian transpose (it rounds in the same
+    order), d_phiinv within 1e-5 * (1 + max|ref|), and a second launch
+    bit-identical to the first."""
+    N, _, X, Y, Z = shape
+    p = _edge_disp(rng, shape)
+    m0 = f32(rng.standard_normal((N if m_batch == "N" else 1, 3, X, Y, Z)))
+    g = f32(rng.standard_normal(shape))
+    mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)[2]
+    d_mw, d_p = _ad_star_bwd_first(p, m0, g, mw, march)
+    r_mw, r_p = epdiff_unit.ad_star_bwd_first_plain(p, m0, g, mw)
+    close_stencil("K6 first pass d_mw", d_mw, r_mw, 0.0)
+    close_stencil("K6 first pass d_phiinv", d_p, r_p, BWD_RTOL)
+    again = _ad_star_bwd_first(p, m0, g, mw, march)
+    assert all(torch.equal(a, b) for a, b in zip((d_mw, d_p), again))
