@@ -20,7 +20,9 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at 128^3 b4 and at a non-cubic, non-power-of-two shape, plus
    inputs that leave the unit regime so the flags must come out false (K4
-   bit-equal); then each backward kernel (K5, K6, K7, and K3 through
+   and K2 bit-equal; K2 also at 64^3 b4 and at forced march lengths, with
+   a voxel out of the regime on the last plane of a march); then each
+   backward kernel (K5, K6, K7, and K3 through
    autograd) against the plain versions' gradients at both shapes, two
    launches each of K5, K6 and K7 bit-identical, and K6's first pass alone
    (batch-1 and batch-N momenta: ``d_mw`` bit-equal to the plain Jacobian
@@ -54,7 +56,8 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    one; the launch counters, set to 0 just before the bench momenta's
    steps and read just after, show every kernel ran, with the launches of
    each step checked; then one step on fallback momenta at 128^3 b4, with
-   its peak device memory;
+   its peak device memory (the general substeps rematerialised) beside the
+   peak before they were;
 6b. 2D atlas steps, the 2D main path: three chained steps at 256^2 b8 and
    at 512^2 b8 (bench.py's inputs), and at 256^2 b8 at max|v0| = 0.5,
    both ways, with each step's momentum
@@ -79,7 +82,9 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
-   over the subjects); each pass of the warp's backward launchers, which
+   over the subjects), each kernel's multiple of its bound (K1 timed as the
+   step runs it, writing ``mw``), and K2's two-call yardstick
+   (``grid_sample`` + s v); each pass of the warp's backward launchers, which
    K5, K6 and K7 share, at the four operand shapes of the step, and K6's
    first pass alone, each beside its bound; the slice and the atlas step
    both ways, with
@@ -134,6 +139,12 @@ FALLBACK_P_TOL = 5e-3
 # the fallback step runs at the headline size (the bounded warp tier's
 # backward keeps only its inputs)
 FALLBACK = FULL
+# its peak through the kernels when `_expmap_general` kept every substep's
+# intermediates (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), logged beside
+# the peak of the rematerialised substeps
+FALLBACK_PEAK_UNREMAT_GIB = 16.20
+# K2 at forced march lengths (planes a block marches over along x)
+COMPOSE_MARCHES = (8, 16, 128)
 FULL2D = (8, 2, 256, 256)  # bench.py:342, 2d_256sq_b8
 FULL2D_512 = (8, 2, 512, 512)  # bench.py:345, 2d_512sq_b8
 ODD2D = (3, 2, 96, 80)  # non-square, non-power-of-two
@@ -263,9 +274,9 @@ def kernel_checks(lt, device, shape, seed):
         errs["ad_star_fwd"] = max(errs["ad_star_fwd"],
                                   compare(f"ad_star_fwd {label}", got, ref, 1e-5))
         check(bool(gf) and bool(rf), f"ad_star_fwd {label}: in-regime flag false")
-    # K2
+    # K2 sums its 8 live taps in the plain version's order and rounding: bit-equal
     (got, gf), (ref, rf) = both(epdiff_unit.compose, phiinv, v, s)
-    errs["compose_fwd"] = compare("compose_fwd", got, ref, 1e-5)
+    errs["compose_fwd"] = compare("compose_fwd", got, ref, 0.0)
     check(bool(gf) and bool(rf), "compose_fwd: in-regime flag false")
     # K3: the packed pairs as fluid_operator builds them (odd slab counts
     # carry one zero slab)
@@ -292,6 +303,67 @@ def kernel_checks(lt, device, shape, seed):
     check(bool(gf) == bool(rf), "compose_fwd: flags differ at the edge value")
     log("  flags: equal in and out of the unit regime")
     return errs
+
+
+def compose_fwd_march(phiinv, v, s, march):
+    """K2 through its C entry point, its blocks marching over ``march``
+    planes (0: the length K2 takes; not counted: the main path launches K2
+    through its wrapper): ``(out, flag)``."""
+    from lagomorph_tpu_torch.ops.kernels import _build, stream_of
+
+    N, _, X, Y, Z = phiinv.shape
+    out = torch.empty_like(phiinv)
+    flag = torch.ones((), dtype=torch.int32, device=phiinv.device)
+    _build.call("lagomorph_compose_fwd", phiinv.data_ptr(), v.data_ptr(), float(s),
+                out.data_ptr(), flag.data_ptr(), N, X, Y, Z, march, stream_of(phiinv))
+    return out, bool(flag)
+
+
+def compose_checks(device, shape, seed):
+    """Phase 3, K2 at one shape, at the march length it takes and at
+    ``COMPOSE_MARCHES``: out bit-equal to the plain version and the flags
+    equal, on displacements inside the unit regime and on displacements
+    with about one voxel in eight outside it or at its edges (-1, 0); a
+    second launch bit-identical; and one voxel out of the regime on the
+    last plane of a march (the last subject, the corner of a partial tile)
+    clears the flag.  Returns the largest error."""
+    from lagomorph_tpu_torch.ops.kernels import epdiff_unit
+
+    N, _, X, Y, Z = shape
+    rng = np.random.default_rng(seed)
+    s = -0.2
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    phiinv = t(rng.uniform(-0.99, 0.99, shape))
+    inside = rng.uniform(-4.9, 4.9, shape)
+    edges = inside.copy()
+    pick = rng.uniform(size=shape) < 0.125
+    edges[pick] = rng.choice([-2.5, -1.5, 1.0, 1.5, 3.7, -1.0, 0.0], size=int(pick.sum())) / s
+    err = 0.0
+    tag = "x".join(map(str, shape))
+    for label, v in (("in the unit regime", t(inside)), ("edges and outside", t(edges))):
+        ref, r_flag = epdiff_unit.compose_plain(phiinv, v, s)
+        for march in (0,) + COMPOSE_MARCHES:
+            got, flag = compose_fwd_march(phiinv, v, s, march)
+            err = max(err, compare(f"compose_fwd {tag} march {march or 'own'}, {label}", got,
+                                   ref, 0.0))
+            check(flag is bool(r_flag), f"compose_fwd march {march}, {label}: flags differ")
+            if march == 0:
+                again = compose_fwd_march(phiinv, v, s, 0)
+                check(torch.equal(got, again[0]) and again[1] is flag,
+                      f"compose_fwd {label}: two launches differ")
+    for march in COMPOSE_MARCHES:
+        if march <= X:
+            v = t(inside)
+            v[N - 1, 2, march - 1, Y - 1, Z - 1] = 1.5 / s
+            check(not compose_fwd_march(phiinv, v, s, march)[1],
+                  f"compose_fwd march {march}: a voxel out of the regime on the march's last "
+                  "plane left the flag true")
+    log(f"  K2 at {tag}: bit-equal at its own march length and at {COMPOSE_MARCHES} planes, "
+        "flags equal, a rerun bit-identical, the last plane of a march flagged")
+    return err
 
 
 def backward_checks(lt, device, shape, seed):
@@ -635,8 +707,13 @@ def fallback_step(lt, device, params, max_v0, m, I, img):
     for mode in ("kernels", "plain"):
         torch.cuda.reset_peak_memory_stats(device)
         runs[mode] = step_chain(step, I, m, img, mode, steps=1)[0]
-        log(f"  {label} ({mode}): peak device memory "
-            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        was = ""
+        if mode == "kernels" and shape == FULL:
+            was = (f" (the general substeps rematerialised; {FALLBACK_PEAK_UNREMAT_GIB:.2f} GiB "
+                   "with every substep's intermediates kept)")
+            check(peak < FALLBACK_PEAK_UNREMAT_GIB, f"{label}: peak {peak:.2f} GiB")
+        log(f"  {label} ({mode}): peak device memory {peak:.2f} GiB{was}")
     grads = {mode: momentum_grads(metric, I, [m], img, mode)
              for mode in ("kernels", "plain", "float64")}
     launched = {k: n for k, n in runs["kernels"][0][4].items() if n}
@@ -1114,8 +1191,8 @@ def work(name, N, V, F=None, axes=None):
         return f3 + atlas + f1, N * V * warp_ops(1)
     if name == "warp_unit_bwd":  # read d, g, I; write dI, d_disp
         return 2 * f3 + f1 + 2 * atlas, N * V * (transpose_ops(1) + weight_grad_ops(1))
-    if name == "ad_star_fwd":  # read phi, m0; write out
-        return 3 * f3, N * V * (warp_ops(3) + JAC_OPS + 6)
+    if name == "ad_star_fwd":  # read phi, m0; write out and mw (under autograd, as in the step)
+        return 4 * f3, N * V * (warp_ops(3) + JAC_OPS + 6)
     if name == "compose_fwd":  # read phi, v; write out
         return 3 * f3, N * V * (3 + warp_ops(3) + 3 + 6)
     if name == "ad_star_bwd":  # read phi, m0, g, mw; write d_phi, d_m0
@@ -1175,6 +1252,27 @@ def grid_of(disp):
     return (2.0 * coords / (size - 1) - 1.0).flip(1).permute(0, 2, 3, 4, 1).contiguous()
 
 
+def compose_yardstick(device, card, phiinv, v, s):
+    """Log K2's yardstick, two PyTorch calls (so not its library column):
+    ``grid_sample`` of phiinv at x + s v (the grid made beforehand) plus s
+    v, its ms per call and its largest difference from K2."""
+    import torch.nn.functional as Fn
+
+    from lagomorph_tpu_torch.ops.kernels import epdiff_unit
+
+    d = s * v
+    grid = grid_of(d)
+
+    def yardstick():
+        return Fn.grid_sample(phiinv, grid, mode="bilinear", padding_mode="border",
+                              align_corners=True) + d
+
+    y1, y2 = (time_ms(yardstick, device, 10) for _ in range(2))
+    err = max_err(yardstick(), epdiff_unit.compose(phiinv, v, s)[0])
+    log(f"time compose_fwd yardstick (grid_sample + s v, two calls): {y1:.4f}/{y2:.4f} ms per "
+        f"call at {'x'.join(map(str, phiinv.shape))}, max diff from K2 {err:.3e} [{card}]")
+
+
 def timings(device, card, lt, metric, I, m, img):
     """Per-call ms at 128^3 b4 of each kernel, its plain version and, where
     one PyTorch call computes the same function, that call (order: plain,
@@ -1222,8 +1320,9 @@ def timings(device, card, lt, metric, I, m, img):
         "warp_unit_bwd": (lambda: warp_unit._launch_bwd(I, phiinv, g1),
                           lambda: warp_unit.sample_displacement_unit_bwd_plain(I, phiinv, g1),
                           grid_sample_bwd),
-        "ad_star_fwd": (lambda: epdiff_unit.ad_star(phiinv, m),
-                        lambda: epdiff_unit.ad_star_plain(phiinv, m), None),
+        # K1 as the step runs it: under autograd, writing mw for K6
+        "ad_star_fwd": (lambda: epdiff_unit._launch_ad_star(phiinv, m, want_mw=True),
+                        lambda: epdiff_unit.ad_star_plain(phiinv, m, want_mw=True), None),
         "ad_star_bwd": (lambda: epdiff_unit._launch_ad_star_bwd(phiinv, m, g3, mw),
                         lambda: epdiff_unit.ad_star_bwd_plain(phiinv, m, g3, mw), None),
         "compose_fwd": (lambda: epdiff_unit.compose(phiinv, v, -0.2),
@@ -1247,7 +1346,8 @@ def timings(device, card, lt, metric, I, m, img):
                      "bound_ms": b_ms, "bound_by": b_by}
         log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
-            f"({b_by}) per call at 128^3 b4 [{card}]")
+            f"({b_by}), {(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b4 [{card}]")
+    compose_yardstick(device, card, phiinv, v, -0.2)
 
     # each pass of the warp's backward launchers at the operand shapes the
     # step runs: the transpose of K5 (C = 1, the atlas summed over the N
@@ -1662,6 +1762,8 @@ def run(device, card, trace_path=None):
     # 3. kernels against their plain versions, forward and backward
     errs = kernel_checks(lt, device, FULL, seed=1)
     kernel_checks(lt, device, ODD, seed=2)
+    for shape, seed in ((FULL, 19), (FULL64, 20), (ODD, 21)):
+        errs["compose_fwd"] = max(errs["compose_fwd"], compose_checks(device, shape, seed))
     for name, err in backward_checks(lt, device, FULL, seed=3).items():
         errs[name] = max(errs.get(name, 0.0), err)
     backward_checks(lt, device, ODD, seed=4)

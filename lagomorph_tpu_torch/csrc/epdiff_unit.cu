@@ -32,14 +32,19 @@
 //
 // Bound on the H100: memory.  K1 reads phiinv and m0 and writes out (three
 // 100.7 MB fields at 128^3 b4, m0 read with batch stride 0 when its batch is
-// 1); K2 reads phiinv and v and writes out (three fields).  The 27 taps and
-// the 6 difference neighbours come from L1/L2.  Design: one thread per voxel,
-// z fastest across the warp; weights and tap offsets computed once per voxel
-// and reused for all three channels; the flag costs one ballot per warp and
-// at most one atomic per warp.  When autograd needs it, K1 also writes the
-// warped momentum mw (the `_mw` variants' residual, epdiff_unit.py:214,
-// padres.py:249), which K6 reads instead of re-enumerating the warp; the
-// forward-only path passes no mw buffer and moves no extra bytes.
+// 1); K2 reads phiinv and v and writes out (three fields, 0.090 ms at
+// 3.35 TB/s).  K1's design: one thread per voxel, z fastest across the
+// warp, the 27 taps and the 6 difference neighbours from L1/L2; weights and
+// tap offsets computed once per voxel and reused for all three channels.
+// K2's: planes of phiinv staged on a march along x, the 8 live taps summed
+// from shared memory (see compose_fwd_kernel); its staging adds the y/z
+// halo, (AB_TY + 2)(AB_TZ + 2) / (AB_TY AB_TZ) - 1 = 33% more loads of
+// phiinv, mostly from L2, and 2 planes a march.  In both the flag costs
+// one ballot per warp and at most one atomic per warp.  When autograd
+// needs it, K1 also writes the warped momentum mw (the `_mw` variants'
+// residual, epdiff_unit.py:214, padres.py:249), which K6 reads instead of
+// re-enumerating the warp; the forward-only path passes no mw buffer and
+// moves no extra bytes.
 //
 // K6, Ad* backward (cotangent g of out; math at epdiff_unit.py:459-497):
 //   d_mw  = (J + I)^T g                               (pointwise)
@@ -146,41 +151,9 @@ __global__ void ad_star_fwd_kernel(const float* __restrict__ phiinv,
   clear_flag_if(bad, flag);
 }
 
-__global__ void compose_fwd_kernel(const float* __restrict__ phiinv,
-                                   const float* __restrict__ v, float s,
-                                   float* __restrict__ out, int* flag, int N,
-                                   int X, int Y, int Z) {
-  const long V = (long)X * Y * Z;
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  bool bad = false;
-  if (idx < (long)N * V) {
-    const int n = (int)(idx / V);
-    const long p = idx - (long)n * V;
-    const int z = (int)(p % Z);
-    const int y = (int)((p / Z) % Y);
-    const int x = (int)(p / ((long)Y * Z));
-
-    const float* vb = v + (long)n * 3 * V + p;
-    const float d0 = __fmul_rn(s, vb[0]);
-    const float d1 = __fmul_rn(s, vb[V]);
-    const float d2 = __fmul_rn(s, vb[2 * V]);
-    bad = !(in_unit(d0) && in_unit(d1) && in_unit(d2));
-
-    AxisWeights W[3] = {axis_weights(d0), axis_weights(d1), axis_weights(d2)};
-    Taps T;
-    make_taps(T, W, axis_idx(x, X), axis_idx(y, Y), axis_idx(z, Z), Y, Z);
-    const float* ph = phiinv + (long)n * 3 * V;
-    float* o = out + (long)n * 3 * V + p;
-    o[0] = __fadd_rn(d0, warp_sum(T, ph));
-    o[V] = __fadd_rn(d1, warp_sum(T, ph + V));
-    o[2 * V] = __fadd_rn(d2, warp_sum(T, ph + 2 * V));
-  }
-  clear_flag_if(bad, flag);
-}
-
 // K6, first pass: d_mw (to the scratch) and d_phi.  A block owns one
 // subject and a (y, z) tile of AB_TY x AB_TZ voxels, one thread per (y, z),
-// and marches along x over `march` planes (adstar_march).  Each step of the
+// and marches along x over `march` planes (march_length).  Each step of the
 // march stages one new x-plane of the tile and its one-voxel y/z halo in
 // shared memory, in rings: m0 in 4 slots (the taps read planes x - 1 ..
 // x + 1 while plane x + 2 is written), and phi, g, mw_1 and mw_2 in 3 (the
@@ -478,44 +451,265 @@ __global__ void __launch_bounds__(AB_THREADS, 2)
   }
 }
 
-// blocks of the first pass at march length `march`
-static inline long adstar_blocks(int N, int X, int Y, int Z, int march) {
+// blocks of a marching kernel (K6's first pass, K2) at march length
+// `march`: per subject, the march segments along x times the (y, z) tiles
+static inline long march_blocks(int N, int X, int Y, int Z, int march) {
   return (long)N * ((X + march - 1) / march) * ((Y + AB_TY - 1) / AB_TY) *
          ((Z + AB_TZ - 1) / AB_TZ);
 }
 
-// The march length: the longest of 128, 64, 32, 16 and 8 planes whose grid
-// still gives every SM a block, or 8.  A longer march stages fewer planes
-// twice (2 a march) and starts fewer prologues; a grid short of the SMs
-// leaves some idle (profile_warp.py, at 128^3 and 64^3 b4).  The SMs of
-// the current device are asked of the runtime once per device.
-static int adstar_march(int N, int X, int Y, int Z) {
-  constexpr int kDevices = 64;
-  static std::atomic<int> sms_of[kDevices];  // 0: not asked yet
-  int dev = 0, sms = 132;
+// The value `ask(device, &value)` gives for the current device, asked once
+// per device and kept in `cache` (0: not asked yet); `fallback` when there
+// is no device to ask or asking fails
+constexpr int kDevices = 64;
+
+template <class Ask>
+static int per_device(std::atomic<int>* cache, int fallback, Ask ask) {
+  int dev = 0, v = fallback;
   if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kDevices) {
-    sms = sms_of[dev].load(std::memory_order_relaxed);
-    if (sms == 0) {
-      if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-        sms = 132;
+    v = cache[dev].load(std::memory_order_relaxed);
+    if (v == 0) {
+      if (ask(dev, &v) != cudaSuccess || v <= 0)
+        v = fallback;
       else
-        sms_of[dev].store(sms, std::memory_order_relaxed);
+        cache[dev].store(v, std::memory_order_relaxed);
     }
   }
+  return v;
+}
+
+// the blocks of AB_THREADS threads and `smem` bytes of `kernel` that one SM
+// holds at once, on the current device
+template <class Kernel>
+static int resident_blocks(std::atomic<int>* cache, Kernel kernel, size_t smem) {
+  return per_device(cache, 1, [&](int, int* v) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(v, kernel, AB_THREADS, smem);
+  });
+}
+
+// The march length of a kernel of which an SM holds `resident` blocks at
+// once: the longest of 128, 64, 32, 16 and 8 planes whose grid still fills
+// half of those places on every SM (at least one block an SM), or 8.  A
+// longer march stages fewer planes twice (2 a march) and starts fewer
+// prologues; a smaller grid leaves SMs short of warps to hide the loads'
+// latency.  So chosen, K6's first pass (2 blocks an SM) and K2 (4) each
+// take their fastest length of those timed by profile_warp.py at 128^3 and
+// 64^3 b4.
+static int march_length(int N, int X, int Y, int Z, int resident) {
+  static std::atomic<int> sms_of[kDevices];
+  const int sms = per_device(sms_of, 132, [](int dev, int* v) {
+    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+  });
+  const long want = (long)sms * (resident > 1 ? resident / 2 : 1);
   int march = 128;
-  while (march > 8 && adstar_blocks(N, X, Y, Z, march) < sms) march /= 2;
+  while (march > 8 && march_blocks(N, X, Y, Z, march) < want) march /= 2;
   return march;
 }
 
-// march <= 0: adstar_march's choice
+// march <= 0: march_length's choice
 template <bool PREFETCH>
 cudaError_t launch_ad_star_bwd_first(const float* phiinv, const float* m0, const float* g,
                                      const float* mw, float* d_mw, float* d_phi, int N, int Nm,
                                      int X, int Y, int Z, int march, cudaStream_t stream) {
-  if (march <= 0) march = adstar_march(N, X, Y, Z);
-  ad_star_bwd_first_kernel<PREFETCH><<<(unsigned)adstar_blocks(N, X, Y, Z, march), AB_THREADS,
+  static std::atomic<int> resident[kDevices];
+  if (march <= 0)  // the main kernel's length, for the variant without prefetch too
+    march = march_length(N, X, Y, Z, resident_blocks(resident, ad_star_bwd_first_kernel<true>,
+                                                     AB_SMEM * sizeof(float)));
+  ad_star_bwd_first_kernel<PREFETCH><<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
                                        AB_SMEM * sizeof(float), stream>>>(
       phiinv, m0, g, mw, d_mw, d_phi, N, Nm, X, Y, Z, march);
+  return cudaGetLastError();
+}
+
+// K2: a block owns one subject and a (y, z) tile of AB_TY x AB_TZ voxels
+// (K6's first-pass tile), one thread per (y, z), and marches along x over
+// `march` planes (march_length).  Each step of the march stages one new
+// x-plane of phiinv's three channels and its one-voxel y/z halo in a ring
+// of 4 shared-memory slots: the taps of plane x read planes x - 1 .. x + 1
+// while plane x + 2 is written to the fourth slot, so one barrier a step
+// suffices.  A thread reads its own v from device memory once (coalesced
+// along z), one plane ahead, and forms s v with __fmul_rn.  It sums only
+// the 8 live taps (stencil.cuh live_pair) from shared memory, in the
+// 27-tap order, each weight rounded as (wx * wy) * wz and each product and
+// sum on its own, so the skipped taps add exact zeros and the result is
+// bit-equal to the 27-tap sum on finite inputs (as K4's is).  The flag is
+// ANDed over the thread's march and voted once per warp at its end.
+// Staging loads nothing outside the volume: every tap reads a clamped
+// index, inside it.
+constexpr int CP_SLOTS = 4;
+constexpr int CP_SMEM = CP_SLOTS * 3 * AB_PLANE;  // floats
+static_assert(3 * AB_BORDER <= AB_THREADS, "one halo item a thread");
+static_assert(CP_SMEM * sizeof(float) <= 48 * 1024, "more needs the opt-in attribute");
+
+// A thread's halo item, found once for its march: item threadIdx.x of the
+// list channel-major over 3 channels and AB_BORDER positions, with its
+// source in plane 0 (null outside the volume: staged as 0) and its index in
+// a staged slot (-1: no item)
+struct CpHalo {
+  const float* src;
+  int dst;
+};
+
+__device__ __forceinline__ CpHalo compose_halo(const float* ph, int V, int Y, int Z, int y0,
+                                               int z0) {
+  CpHalo h{nullptr, -1};
+  const int i = threadIdx.x;
+  if (i < 3 * AB_BORDER) {
+    const int c = i / AB_BORDER, b = border_index(i % AB_BORDER);
+    const int gy = y0 - 1 + b / AB_HZ, gz = z0 - 1 + b % AB_HZ;
+    h.dst = c * AB_PLANE + b;
+    if (gy >= 0 && gy < Y && gz >= 0 && gz < Z) h.src = ph + (size_t)c * V + gy * Z + gz;
+  }
+  return h;
+}
+
+// One x-plane's loads of one thread: its own voxel's phiinv 0-2 at plane
+// xp and v 0-2 at plane xv (none when xv < 0), and its halo item; zeros
+// outside the volume
+struct CpPlane {
+  float phi[3], v[3], halo;
+};
+
+__device__ __forceinline__ void compose_load(CpPlane& r, const CpHalo& h,
+                                             const float* __restrict__ ph,
+                                             const float* __restrict__ vn, int V, int xp, int xv,
+                                             int YZ, int yz, bool in) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r.phi[c] = in ? __ldg(ph + (size_t)c * V + xp * YZ + yz) : 0.0f;
+    r.v[c] = in && xv >= 0 ? __ldg(vn + (size_t)c * V + xv * YZ + yz) : 0.0f;
+  }
+  r.halo = h.src ? __ldg(h.src + xp * YZ) : 0.0f;
+}
+
+// the staged plane of ring index k: its slot in shared memory
+__device__ __forceinline__ int cp_slot(int k) { return (k & (CP_SLOTS - 1)) * 3 * AB_PLANE; }
+
+__device__ __forceinline__ void compose_store(const CpPlane& r, const CpHalo& h, float* sm,
+                                              int k) {
+  float* slot = sm + cp_slot(k);
+  const int own = ((int)threadIdx.x / AB_TZ + 1) * AB_HZ + (int)threadIdx.x % AB_TZ + 1;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) slot[c * AB_PLANE + own] = r.phi[c];
+  if (h.dst >= 0) slot[h.dst] = r.halo;
+}
+
+// One voxel (x, y, z) of the march at ring index k, from its v: out and
+// its unit-regime test
+__device__ __forceinline__ bool compose_voxel(const float* sm, int k, const float* vv, float s,
+                                              int x, int y, int z, int X, int Y, int Z, int y0,
+                                              int z0, float* __restrict__ o, int V) {
+  float d[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) d[a] = __fmul_rn(s, vv[a]);
+  const int pos[3] = {x, y, z}, len[3] = {X, Y, Z};
+  float w[3][2];
+  int off[3][2];  // per axis and live offset: the tap's slot, row or column
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const LivePair lp = live_pair(d[a]);
+    w[a][0] = lp.wl;
+    w[a][1] = lp.wh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = clampi(pos[a] + lp.lo + i, len[a]);
+      off[a][i] = a == 0 ? cp_slot(k + t - x)  // t - x in {-1, 0, 1}
+                : a == 1 ? (t - y0 + 1) * AB_HZ
+                         : t - z0 + 1;
+    }
+  }
+  float wt[8];
+  int at[8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        wt[(i * 2 + j) * 2 + l] = __fmul_rn(__fmul_rn(w[0][i], w[1][j]), w[2][l]);
+        at[(i * 2 + j) * 2 + l] = off[0][i] + off[1][j] + off[2][l];
+      }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* f = sm + c * AB_PLANE;
+    float acc = __fmul_rn(wt[0], f[at[0]]);
+#pragma unroll
+    for (int q = 1; q < 8; ++q) acc = __fadd_rn(acc, __fmul_rn(wt[q], f[at[q]]));
+    o[(size_t)c * V] = __fadd_rn(d[c], acc);
+  }
+  return in_unit(d[0]) && in_unit(d[1]) && in_unit(d[2]);
+}
+
+// PREFETCH: issue the loads of plane x + 2 (and of v at x + 1) before the
+// arithmetic of plane x (false only in profile_warp.py's variant, which
+// loads after it)
+template <bool PREFETCH>
+__global__ void __launch_bounds__(AB_THREADS)
+    compose_fwd_kernel(const float* __restrict__ phiinv, const float* __restrict__ v, float s,
+                       float* __restrict__ out, int* flag, int N, int X, int Y, int Z,
+                       int march) {
+  extern __shared__ __align__(16) float smem[];
+  const int V = X * Y * Z, YZ = Y * Z;
+  const int nty = (Y + AB_TY - 1) / AB_TY, ntz = (Z + AB_TZ - 1) / AB_TZ;
+  const int nxm = (X + march - 1) / march;
+  int b = blockIdx.x;
+  const int z0 = (b % ntz) * AB_TZ;
+  b /= ntz;
+  const int y0 = (b % nty) * AB_TY;
+  b /= nty;
+  const int x0 = (b % nxm) * march, n = b / nxm;
+  const int x1 = x0 + march < X ? x0 + march : X;
+  const int y = y0 + (int)threadIdx.x / AB_TZ, z = z0 + (int)threadIdx.x % AB_TZ;
+  const bool in = y < Y && z < Z;
+  const int yz = y * Z + z;
+  const float* ph = phiinv + (size_t)n * 3 * V;
+  const float* vn = v + (size_t)n * 3 * V;
+  float* on = out + (size_t)n * 3 * V;
+
+  // ring index k holds plane clamp(x0 - 1 + k): first x0 - 1, x0, x0 + 1;
+  // the thread's v at x0 comes with the last of them
+  const CpHalo h = compose_halo(ph, V, Y, Z, y0, z0);
+  CpPlane r;
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    compose_load(r, h, ph, vn, V, clampi(x0 - 1 + k, X), k == 2 ? x0 : -1, YZ, yz, in);
+    compose_store(r, h, smem, k);
+  }
+  float vv[3] = {r.v[0], r.v[1], r.v[2]};
+  __syncthreads();
+  bool ok = true;
+#pragma unroll 1
+  for (int x = x0; x < x1; ++x) {
+    const int k = x - x0 + 1;
+    const bool more = x + 1 < x1;  // a next step, which needs plane x + 2 and v at x + 1
+    const int next = x + 2 < X ? x + 2 : X - 1;
+    if (PREFETCH && more) compose_load(r, h, ph, vn, V, next, x + 1, YZ, yz, in);
+    if (in) ok &= compose_voxel(smem, k, vv, s, x, y, z, X, Y, Z, y0, z0, on + x * YZ + yz, V);
+    if (more) {
+      // plane x + 2 goes to the slot of plane x - 2, which no thread reads
+      // in this step
+      if (!PREFETCH) compose_load(r, h, ph, vn, V, next, x + 1, YZ, yz, in);
+      compose_store(r, h, smem, k + 2);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) vv[c] = r.v[c];
+      __syncthreads();
+    }
+  }
+  clear_flag_if(!ok, flag);
+}
+
+// march <= 0: march_length's choice
+template <bool PREFETCH>
+cudaError_t launch_compose_fwd(const float* phiinv, const float* v, float s, float* out,
+                               int* flag, int N, int X, int Y, int Z, int march,
+                               cudaStream_t stream) {
+  static std::atomic<int> resident[kDevices];
+  if (march <= 0)  // the main kernel's length, for the variant without prefetch too
+    march = march_length(N, X, Y, Z, resident_blocks(resident, compose_fwd_kernel<true>,
+                                                     CP_SMEM * sizeof(float)));
+  compose_fwd_kernel<PREFETCH><<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
+                                 CP_SMEM * sizeof(float), stream>>>(phiinv, v, s, out, flag,
+                                                                    N, X, Y, Z, march);
   return cudaGetLastError();
 }
 
@@ -571,12 +765,10 @@ extern "C" int lagomorph_compose_bwd(const float* phiinv, const float* v,
                                         true, st);
 }
 
-extern "C" int lagomorph_compose_fwd(const float* phiinv, const float* v,
-                                     float s, float* out, int* flag, int N,
-                                     int X, int Y, int Z, void* stream) {
-  const int threads = 256;
-  lagomorph::compose_fwd_kernel<<<grid_for((long)N * X * Y * Z, threads),
-                                  threads, 0, (cudaStream_t)stream>>>(
-      phiinv, v, s, out, flag, N, X, Y, Z);
-  return (int)cudaGetLastError();
+// K2, marching over `march` planes (<= 0: the length K2 takes)
+extern "C" int lagomorph_compose_fwd(const float* phiinv, const float* v, float s, float* out,
+                                     int* flag, int N, int X, int Y, int Z, int march,
+                                     void* stream) {
+  return (int)lagomorph::launch_compose_fwd<true>(phiinv, v, s, out, flag, N, X, Y, Z, march,
+                                                  (cudaStream_t)stream);
 }

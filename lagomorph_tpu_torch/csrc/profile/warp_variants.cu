@@ -19,7 +19,11 @@
 //     through L1, nothing staged); old_ad_star_bwd_kernel<true>: the same
 //     on the 8 live taps; and the current first pass (csrc/epdiff_unit.cu) with its
 //     prefetch off (the next plane loaded after the current one's
-//     arithmetic, not before it).
+//     arithmetic, not before it);
+//   old_compose_fwd_kernel<false>: K2 before its redesign (one thread per
+//     voxel, the 27 taps of phiinv read through L1, nothing staged);
+//     old_compose_fwd_kernel<true>: the same on the 8 live taps; and the
+//     current K2 (csrc/epdiff_unit.cu) with its prefetch off.
 #include "../warp_unit.cu"
 #include "../epdiff_unit.cu"
 
@@ -483,6 +487,66 @@ __global__ void old_ad_star_bwd_kernel(const float* __restrict__ phiinv,
   }
 }
 
+// K2 before its redesign: out and the flag; one thread per (n, p).  LIVE:
+// the 8 live taps of phiinv (read through L1, nothing staged, in the 27-tap
+// order and rounding) in place of all 27
+template <bool LIVE>
+__global__ void old_compose_fwd_kernel(const float* __restrict__ phiinv,
+                                       const float* __restrict__ v, float s,
+                                       float* __restrict__ out, int* flag, int N, int X, int Y,
+                                       int Z) {
+  const long V = (long)X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  bool bad = false;
+  if (idx < (long)N * V) {
+    const int n = (int)(idx / V);
+    const long p = idx - (long)n * V;
+    const int z = (int)(p % Z);
+    const int y = (int)((p / Z) % Y);
+    const int x = (int)(p / ((long)Y * Z));
+
+    const float* vb = v + (long)n * 3 * V + p;
+    const float d[3] = {__fmul_rn(s, vb[0]), __fmul_rn(s, vb[V]), __fmul_rn(s, vb[2 * V])};
+    bad = !(in_unit(d[0]) && in_unit(d[1]) && in_unit(d[2]));
+    const float* ph = phiinv + (long)n * 3 * V;
+    float* o = out + (long)n * 3 * V + p;
+    if (LIVE) {
+      const int pos[3] = {x, y, z}, len[3] = {X, Y, Z};
+      float w[3][2];
+      int li[3][2];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const LivePair lp = live_pair(d[a]);
+        w[a][0] = lp.wl;
+        w[a][1] = lp.wh;
+        li[a][0] = clampi(pos[a] + lp.lo, len[a]);
+        li[a][1] = clampi(pos[a] + lp.lo + 1, len[a]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float* f = ph + (long)c * V;
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int i = q >> 2, j = (q >> 1) & 1, k = q & 1;
+          const float wt = __fmul_rn(__fmul_rn(w[0][i], w[1][j]), w[2][k]);
+          const float t =
+              __fmul_rn(wt, __ldg(f + ((long)li[0][i] * Y + li[1][j]) * Z + li[2][k]));
+          acc = q == 0 ? t : __fadd_rn(acc, t);
+        }
+        o[(long)c * V] = __fadd_rn(d[c], acc);
+      }
+    } else {
+      AxisWeights W[3] = {axis_weights(d[0]), axis_weights(d[1]), axis_weights(d[2])};
+      Taps T;
+      make_taps(T, W, axis_idx(x, X), axis_idx(y, Y), axis_idx(z, Z), Y, Z);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) o[(long)c * V] = __fadd_rn(d[c], warp_sum(T, ph + (long)c * V));
+    }
+  }
+  clear_flag_if(bad, flag);
+}
+
 static inline unsigned blocks_for(long total) { return (unsigned)((total + 255) / 256); }
 
 }  // namespace lagomorph_profile
@@ -559,5 +623,21 @@ extern "C" int prof_adstar_first(int mode, const float* phiinv, const float* m0,
   else
     old_ad_star_bwd_kernel<true><<<blocks, 256, 0, st>>>(phiinv, m0, g, mw, d_mw, d_phi, N, Nm,
                                                           X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+// K2: 0 before its redesign, 1 the same on the 8 live taps, 2 the current
+// one without its prefetch (at K2's march length)
+extern "C" int prof_compose_fwd(int mode, const float* phiinv, const float* v, float s,
+                                float* out, int* flag, int N, int X, int Y, int Z,
+                                void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 2)
+    return (int)launch_compose_fwd<false>(phiinv, v, s, out, flag, N, X, Y, Z, 0, st);
+  const unsigned blocks = blocks_for((long)N * X * Y * Z);
+  if (mode == 0)
+    old_compose_fwd_kernel<false><<<blocks, 256, 0, st>>>(phiinv, v, s, out, flag, N, X, Y, Z);
+  else
+    old_compose_fwd_kernel<true><<<blocks, 256, 0, st>>>(phiinv, v, s, out, flag, N, X, Y, Z);
   return (int)cudaGetLastError();
 }

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import adjrep, deform
 from .metric import FluidMetric
 from .ops.interp import in_unit as _in_unit
+from .ops import kernels
 from .ops.kernels import epdiff2d, epdiff_unit, shoot2d
 
 __all__ = ["EPDiff_step", "expmap", "make_lddmm_atlas_step", "shooting_regime_ok"]
@@ -129,11 +131,15 @@ def _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask):
 def _expmap_general(metric, m0, dt, length, phiinv0, mommask, mode="auto"):
     """Exact integration in every regime: each substep picks its warp tiers
     from its own displacements (``mode="auto"``), or takes the forced tier
-    ``mode``."""
+    ``mode``.  Every substep is rematerialised, as the JAX package's
+    ``jax.checkpoint(step)`` (``lagomorph_tpu/lddmm.py:257-259``): autograd
+    keeps each substep's input, not its intermediates, and the backward
+    runs the substep again, on the same warp tiers (its inputs being the
+    same) and the same versions, kernels or plain."""
     phiinv = phiinv0
     for _ in range(length):
-        phiinv = EPDiff_step(metric, m0, dt, phiinv, mommask=mommask,
-                             transport_mode=mode, compose_mode=mode)
+        phiinv = checkpoint(EPDiff_step, metric, m0, dt, phiinv, mommask, mode, mode,
+                            use_reentrant=False, context_fn=kernels.same_versions)
     return phiinv
 
 

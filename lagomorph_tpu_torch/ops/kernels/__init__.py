@@ -47,6 +47,7 @@ __all__ = [
     "launch_counts",
     "plain_versions",
     "reset_launches",
+    "same_versions",
     "use_kernel",
 ]
 
@@ -92,6 +93,16 @@ def plain_versions():
         yield
     finally:
         _PLAIN.reset(token)
+
+
+def same_versions():
+    """The pair of context managers that ``torch.utils.checkpoint``'s
+    ``context_fn`` asks for, at the forward: none around the forward, and
+    around its recomputation the versions the forward ran
+    (:func:`plain_versions` when it was active).  Autograd runs a card's
+    backward, and so the recomputation, on a thread of its own, to which the
+    context variable does not pass."""
+    return contextlib.nullcontext(), plain_versions() if _PLAIN.get() else contextlib.nullcontext()
 
 
 def use_kernel(t: torch.Tensor) -> bool:

@@ -50,8 +50,8 @@ SIGNATURES = {
     # its first pass alone, for timing and tests (march <= 0: K6's length):
     # phiinv, m0, g, mw, d_mw, d_phiinv, N, Nm, X, Y, Z, march, stream
     "lagomorph_ad_star_bwd_first": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # phiinv, v, s, out, flag, N, X, Y, Z, stream
-    "lagomorph_compose_fwd": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    # phiinv, v, s, out, flag, N, X, Y, Z, march (<= 0: K2's length), stream
+    "lagomorph_compose_fwd": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
     # phiinv, v, s, g, d_phiinv, d_v, N, X, Y, Z, stream
     "lagomorph_compose_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     # x1, x2, Mn, y1, y2, scratch, F, X, Y, Z, stream

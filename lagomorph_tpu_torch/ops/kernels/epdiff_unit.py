@@ -134,7 +134,7 @@ def _launch_compose(phiinv, v, s):
     _build.call(
         "lagomorph_compose_fwd",
         phiinv.data_ptr(), v.data_ptr(), float(s), out.data_ptr(), flag.data_ptr(),
-        N, X, Y, Z, stream_of(phiinv),
+        N, X, Y, Z, 0, stream_of(phiinv),
     )
     COMPOSE.launches += 1
     return out, flag.bool()

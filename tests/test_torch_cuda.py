@@ -486,3 +486,49 @@ def test_fluid_flat_paths_on_cuda(cuda, spatial):
     (got,) = torch.autograd.grad(fft_unit.fluid_flat(leaf, Mn), leaf, cot)
     _compare(got, ref_g, 1e-4, 0.0)
     assert kernels.launch_counts()["fluid_flat"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 19, 11, 35), (2, 3, 5, 9, 33), (4, 3, 64, 64, 64)])
+@pytest.mark.parametrize("march", [0, 8, 16])
+def test_compose_march_on_cuda(cuda, shape, march):
+    """K2 (``lagomorph_compose_fwd``, its blocks marching along x over 8 x
+    32 (y, z) tiles) at forced march lengths and the one it takes, at
+    shapes that cross its march and its tile: out bit-equal to the plain
+    version and the flags equal, at s = -0.2 and 0.7, on displacements with
+    voxels outside the unit regime and at its edges, a second launch
+    bit-identical; inside the regime the flag is true, and false once one
+    voxel on the last plane of a march leaves it."""
+    rng = np.random.default_rng(14)
+    N, _, X, Y, Z = shape
+
+    def c(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    def launch(p, v, s):
+        out = torch.empty_like(p)
+        flag = torch.ones((), dtype=torch.int32, device=cuda)
+        _build.call("lagomorph_compose_fwd", p.data_ptr(), v.data_ptr(), s, out.data_ptr(),
+                    flag.data_ptr(), N, X, Y, Z, march, kernels.stream_of(p))
+        return out, bool(flag)
+
+    def edge_disp(scale=1.0):
+        d = rng.uniform(-0.99, 0.99, shape)
+        pick = rng.uniform(size=shape) < 0.125
+        d[pick] = rng.choice([-2.5, -1.5, 1.0, 1.5, 3.7, -1.0, 0.0], size=int(pick.sum()))
+        return c(d * scale)
+
+    p = edge_disp()
+    for s in (-0.2, 0.7):
+        v = edge_disp(1.0 / s)
+        out, flag = launch(p, v, s)
+        ref, r_flag = epdiff_unit.compose_plain(p, v, s)
+        assert torch.equal(out, ref) and flag is bool(r_flag)
+        again = launch(p, v, s)
+        assert torch.equal(again[0], out) and again[1] is flag
+        v = c(rng.uniform(-0.99, 0.99, shape) / s)
+        out, flag = launch(p, v, s)
+        assert torch.equal(out, epdiff_unit.compose_plain(p, v, s)[0]) and flag
+        if march:
+            v[N - 1, 1, min(march, X) - 1, Y - 1, Z - 1] = 1.5 / s
+            assert not launch(p, v, s)[1]

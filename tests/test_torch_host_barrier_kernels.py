@@ -455,3 +455,45 @@ def test_host_adstar_first_pass(rng, host_kernels, shape, march, m_batch):
     close_stencil("K6 first pass d_phiinv", d_p, r_p, BWD_RTOL)
     again = _ad_star_bwd_first(p, m0, g, mw, march)
     assert all(torch.equal(a, b) for a, b in zip((d_mw, d_p), again))
+
+
+def _compose_fwd(phiinv, v, s, march=0):
+    """K2 through its C entry point, marching over ``march`` planes (0: the
+    length K2 takes): (out, flag)."""
+    N, _, X, Y, Z = phiinv.shape
+    out = torch.empty_like(phiinv)
+    flag = torch.ones((), dtype=torch.int32)
+    _build.call("lagomorph_compose_fwd", phiinv.data_ptr(), v.data_ptr(), s, out.data_ptr(),
+                flag.data_ptr(), N, X, Y, Z, march, None)
+    return out, bool(flag)
+
+
+@pytest.mark.parametrize("shape, march", FIRST_PASS_CASES)
+@pytest.mark.parametrize("s", [-0.2, 0.7])
+def test_host_compose_march(rng, host_kernels, shape, march, s):
+    """K2 (``lagomorph_compose_fwd``: 8 x 32 (y, z) tiles marching along x,
+    the 8 live taps from staged planes) at K6's first-pass shapes, which
+    cross its march and its tile, on displacements with voxels outside the
+    unit regime and at its edges: out bit-equal to the plain version, the
+    flags equal, a second launch bit-identical; then on displacements
+    inside the regime, the flag true, and false once one voxel on the last
+    plane of a march (the corner of a partial tile, the last subject)
+    leaves it."""
+    N, _, X, Y, Z = shape
+    p = _edge_disp(rng, shape)
+    v = _edge_disp(rng, shape, 1.0 / s)
+    out, flag = _compose_fwd(p, v, s, march)
+    ref, r_flag = epdiff_unit.compose_plain(p, v, s)
+    close_stencil("K2", out, ref, 0.0)
+    assert flag is bool(r_flag)
+    again = _compose_fwd(p, v, s, march)
+    assert torch.equal(out, again[0]) and again[1] is flag
+    v = f32(rng.uniform(-0.99, 0.99, shape) / s)
+    out, flag = _compose_fwd(p, v, s, march)
+    close_stencil("K2 in the regime", out, epdiff_unit.compose_plain(p, v, s)[0], 0.0)
+    assert flag
+    # the emulated card has 2 SMs, so K2's own length is 128 planes here
+    last = min(march or 128, X) - 1
+    v[N - 1, 1, last, Y - 1, Z - 1] = 1.5 / s
+    assert not _compose_fwd(p, v, s, march)[1]
+    assert not bool(epdiff_unit.compose_plain(p, v, s)[1])

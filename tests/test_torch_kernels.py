@@ -24,6 +24,7 @@ another order than JAX's autodiff (1e-10 * (1 + max|ref|)).
 """
 import collections
 import functools
+import threading
 
 import numpy as np
 import jax
@@ -415,3 +416,40 @@ def test_dtype_gate_on_card(rng, card_gate, dtype):
             close(r, g.double(), atol=1e-5 * (1.0 + float(np.abs(r).max())))
         else:
             assert torch.equal(r, g)
+
+
+def test_general_recompute_keeps_the_versions(rng, kernel_glue):
+    """The fallback's rematerialised substeps recompute on the versions
+    their forward ran: under ``plain_versions()``, a backward run on
+    another thread (as autograd runs a card's backward, without the
+    caller's context variables) launches no kernel and gives the gradient
+    of a backward on the calling thread."""
+    shape = SHAPES[1]
+    metric = lt.FluidMetric((0.1, 0.0, 0.01))
+    m = t(rng.standard_normal(shape))
+    m = m * (0.5 / float(metric.sharp(m).abs().max()))  # unit-regime warps: the kernels' tier
+    kernel_glue.clear()
+
+    def grad(on_thread):
+        m_ = m.clone().requires_grad_(True)
+        h = lt.lddmm._expmap_general(metric, m_, 0.2, 3, -0.2 * metric.sharp(m_), None)
+        out = {}
+
+        def backward():
+            out["grad"] = torch.autograd.grad(h.sum(), m_)[0]
+        if on_thread:
+            worker = threading.Thread(target=backward)
+            worker.start()
+            worker.join(timeout=300)
+            assert not worker.is_alive()
+        else:
+            backward()
+        return out["grad"]
+
+    with kernels.plain_versions():
+        ref = grad(False)
+        got = grad(True)
+    assert not kernel_glue, f"launched {dict(kernel_glue)}"
+    assert torch.equal(got, ref)
+    grad(True)  # outside plain_versions(): forward and recomputation on the kernels
+    assert kernel_glue["ad_star_plain"] == kernel_glue["compose_plain"] == 6

@@ -81,6 +81,48 @@ def test_expmap_matches_jax(rng, max_v0, hoisted):
     assert bool(tlddmm.shooting_regime_ok(metric, t(m), num_steps=STEPS)) is bool(jok) is hoisted
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_general(length):
+    """The JAX ``_expmap_general`` from the peeled first step, ``length``
+    substeps at this file's config, with the value and momentum gradient of
+    ``sum(phiinv * w)``, jitted once."""
+    metric = lm.FluidMetric(PARAMS)
+    dt = 1.0 / STEPS
+
+    def f(m, w):
+        h = jlddmm._expmap_general(metric, m, dt, length, -dt * metric.sharp(m), None)
+        return jnp.sum(h * w), h
+    return jax.jit(jax.value_and_grad(f, has_aux=True))
+
+
+def test_expmap_general_rematerialised_matches_jax(rng):
+    """The fallback's exact integration rematerialises each substep, as
+    the JAX package's ``jax.checkpoint(step)``: on momenta whose flag trips,
+    its value and momentum gradient match the JAX ``_expmap_general``, and
+    the tensors autograd saves grow by each substep's two inputs (``phiinv``
+    and ``m0``), not by its intermediates."""
+    shape = (1, 3, 8, 6, 10)
+    m = momenta(rng, 6.0, shape)
+    w = rng.standard_normal(shape)
+    metric = lt.FluidMetric(PARAMS)
+    dt = 1.0 / STEPS
+    _, ok = tlddmm._expmap_fast_flagged(metric, t(m), dt, STEPS - 1,
+                                        -dt * metric.sharp(t(m)), None)
+    assert not bool(ok)
+    (_, ref), ref_grad = _jax_general(STEPS - 1)(jnp.asarray(m), jnp.asarray(w))
+    saved = {}
+    for length in (1, STEPS - 1):
+        m_ = t(m).requires_grad_(True)
+        saved[length] = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda x, into=saved[length]: into.append(x) or x, lambda x: x):
+            h = tlddmm._expmap_general(metric, m_, dt, length, -dt * metric.sharp(m_), None)
+    close_rel(ref, h)
+    (grad,) = torch.autograd.grad((h * t(w)).sum(), m_)
+    close_rel(ref_grad, grad)
+    assert len(saved[STEPS - 1]) - len(saved[1]) == 2 * (STEPS - 2)
+
+
 def test_expmap_jax_positional_signature(rng):
     """``expmap`` takes the JAX package's positional parameters, with
     ``checkpoints`` seventh: ``expmap(metric, m0, 1.0, 5, None, None,
