@@ -19,9 +19,10 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    (one nvcc per source, in parallel);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at 128^3 b4 and at a non-cubic, non-power-of-two shape, plus
-   inputs that leave the unit regime so the flags must come out false (K4
-   and K2 bit-equal; K2 also at 64^3 b4 and at forced march lengths, with
-   a voxel out of the regime on the last plane of a march); then each
+   inputs that leave the unit regime so the flags must come out false (K4,
+   K1 (out and ``mw``, batch-1 and batch-N momenta) and K2 bit-equal; K1
+   and K2 also at 64^3 b4 and at forced march lengths, with a voxel out of
+   the regime on the last plane of a march); then each
    backward kernel (K5, K6, K7, and K3 through
    autograd) against the plain versions' gradients at both shapes, two
    launches each of K5, K6 and K7 bit-identical, and K6's first pass alone
@@ -83,7 +84,7 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
    over the subjects), each kernel's multiple of its bound (K1 timed as the
-   step runs it, writing ``mw``), and K2's two-call yardstick
+   step runs it, writing ``mw``, and forward-only), and K2's two-call yardstick
    (``grid_sample`` + s v); each pass of the warp's backward launchers, which
    K5, K6 and K7 share, at the four operand shapes of the step, and K6's
    first pass alone, each beside its bound; the slice and the atlas step
@@ -143,8 +144,9 @@ FALLBACK = FULL
 # intermediates (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), logged beside
 # the peak of the rematerialised substeps
 FALLBACK_PEAK_UNREMAT_GIB = 16.20
-# K2 at forced march lengths (planes a block marches over along x)
+# K2 and K1 at forced march lengths (planes a block marches over along x)
 COMPOSE_MARCHES = (8, 16, 128)
+AD_STAR_MARCHES = (8, 16, 128)
 FULL2D = (8, 2, 256, 256)  # bench.py:342, 2d_256sq_b8
 FULL2D_512 = (8, 2, 512, 512)  # bench.py:345, 2d_512sq_b8
 ODD2D = (3, 2, 96, 80)  # non-square, non-power-of-two
@@ -267,13 +269,22 @@ def kernel_checks(lt, device, shape, seed):
     errs["warp_unit_fwd"] = max(errs["warp_unit_fwd"],
                                 compare("warp_unit_fwd I(N,3)", got, ref, 0.0))
     # K1 with batch-1 m0 (read with batch stride 0) and with batch-N m0 (the
-    # main path's operand)
+    # main path's operand), forward only and writing mw (as under autograd);
+    # it sums its 8 live taps in the plain version's order and rounding and
+    # rounds the Jacobian as it does: bit-equal
     errs["ad_star_fwd"] = 0.0
     for label, mm in (("m0(1,3)", m0), ("m0(N,3)", mN)):
         (got, gf), (ref, rf) = both(epdiff_unit.ad_star, phiinv, mm)
         errs["ad_star_fwd"] = max(errs["ad_star_fwd"],
-                                  compare(f"ad_star_fwd {label}", got, ref, 1e-5))
+                                  compare(f"ad_star_fwd {label}", got, ref, 0.0))
         check(bool(gf) and bool(rf), f"ad_star_fwd {label}: in-regime flag false")
+        got, gf, mw = epdiff_unit._launch_ad_star(phiinv, mm, want_mw=True)
+        for what, a, r in zip(("out", "mw"), (got, mw), (ref, epdiff_unit.ad_star_plain(
+                phiinv, mm, want_mw=True)[2])):
+            errs["ad_star_fwd"] = max(errs["ad_star_fwd"],
+                                      compare(f"ad_star_fwd {label} writing mw: {what}", a, r,
+                                              0.0))
+        check(bool(gf), f"ad_star_fwd {label} writing mw: in-regime flag false")
     # K2 sums its 8 live taps in the plain version's order and rounding: bit-equal
     (got, gf), (ref, rf) = both(epdiff_unit.compose, phiinv, v, s)
     errs["compose_fwd"] = compare("compose_fwd", got, ref, 0.0)
@@ -363,6 +374,80 @@ def compose_checks(device, shape, seed):
                   "plane left the flag true")
     log(f"  K2 at {tag}: bit-equal at its own march length and at {COMPOSE_MARCHES} planes, "
         "flags equal, a rerun bit-identical, the last plane of a march flagged")
+    return err
+
+
+def ad_star_fwd_march(phiinv, m0, march, want_mw):
+    """K1 through its C entry point, its blocks marching over ``march``
+    planes (0: the length K1 takes; not counted: the main path launches K1
+    through its wrapper): ``(out, flag, mw or None)``."""
+    from lagomorph_tpu_torch.ops.kernels import _build, stream_of
+
+    N, _, X, Y, Z = phiinv.shape
+    out = torch.empty_like(phiinv)
+    mw = torch.empty_like(phiinv) if want_mw else None
+    flag = torch.ones((), dtype=torch.int32, device=phiinv.device)
+    _build.call("lagomorph_ad_star_fwd", phiinv.data_ptr(), m0.data_ptr(), out.data_ptr(),
+                None if mw is None else mw.data_ptr(), flag.data_ptr(), N, m0.shape[0], X, Y, Z,
+                march, stream_of(phiinv))
+    return out, bool(flag), mw
+
+
+def ad_star_checks(device, shape, seed):
+    """Phase 3, K1 at one shape, at the march length it takes and at
+    ``AD_STAR_MARCHES``, with batch-1 and batch-N m0, writing mw and not:
+    out and mw bit-equal to the plain version and the flags equal, on
+    displacements inside the unit regime and on displacements with about
+    one voxel in eight outside it or at its edges (-1, 0); a second launch
+    bit-identical; and one voxel out of the regime on the last plane of a
+    march (the last subject, the corner of a partial tile) clears the flag.
+    Returns the largest error."""
+    from lagomorph_tpu_torch.ops.kernels import epdiff_unit
+
+    N, _, X, Y, Z = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    inside = rng.uniform(-0.99, 0.99, shape)
+    edges = inside.copy()
+    pick = rng.uniform(size=shape) < 0.125
+    edges[pick] = rng.choice([-2.5, -1.5, 1.0, 1.5, 3.7, -1.0, 0.0], size=int(pick.sum()))
+    moms = (("m0(1,3)", t(rng.standard_normal((1, 3, X, Y, Z)))),
+            ("m0(N,3)", t(rng.standard_normal(shape))))
+    err = 0.0
+    tag = "x".join(map(str, shape))
+    for label, phiinv in (("in the unit regime", t(inside)), ("edges and outside", t(edges))):
+        for mlabel, m0 in moms:
+            ref, r_flag, r_mw = epdiff_unit.ad_star_plain(phiinv, m0, want_mw=True)
+            worst = 0.0
+            for march in (0,) + AD_STAR_MARCHES:
+                for want_mw in (True, False):
+                    got, flag, mw = ad_star_fwd_march(phiinv, m0, march, want_mw)
+                    what = (f"ad_star_fwd {tag} {mlabel} march {march or 'own'}"
+                            f"{', writing mw' if want_mw else ''}, {label}")
+                    e = max([max_err(got, ref)] + ([max_err(mw, r_mw)] if want_mw else []))
+                    check(e == 0.0 and torch.isfinite(got).all().item(),
+                          f"{what}: max_abs_err {e:.3e} > 0 or non-finite")
+                    check(flag is bool(r_flag), f"{what}: flags differ")
+                    worst = max(worst, e)
+                    if march == 0:
+                        again = ad_star_fwd_march(phiinv, m0, 0, want_mw)
+                        check(torch.equal(got, again[0]) and again[1] is flag
+                              and (mw is None or torch.equal(mw, again[2])),
+                              f"{what}: two launches differ")
+            log(f"  ad_star_fwd {tag} {mlabel}, {label}: out and mw max_abs_err={worst:.3e} "
+                f"(bound 0) at its own march and {AD_STAR_MARCHES}, flags {bool(r_flag)} equal")
+            err = max(err, worst)
+    for march in AD_STAR_MARCHES:
+        if march <= X:
+            phiinv = t(inside)
+            phiinv[N - 1, 2, march - 1, Y - 1, Z - 1] = 1.0  # the upper bound is open
+            check(not ad_star_fwd_march(phiinv, moms[1][1], march, False)[1],
+                  f"ad_star_fwd march {march}: a voxel out of the regime on the march's last "
+                  "plane left the flag true")
+    log(f"  K1 at {tag}: a rerun bit-identical, the last plane of a march flagged")
     return err
 
 
@@ -1347,6 +1432,14 @@ def timings(device, card, lt, metric, I, m, img):
         log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
             f"({b_by}), {(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b4 [{card}]")
+    # K1 forward-only, as the slice and a step without gradients call it:
+    # no mw, so one field fewer to write
+    k1 = time_ms(lambda: epdiff_unit._launch_ad_star(phiinv, m), device, 10)
+    k2 = time_ms(lambda: epdiff_unit._launch_ad_star(phiinv, m), device, 10)
+    nbytes, flops = work("ad_star_fwd", N, V)
+    b_ms, b_by = bound(nbytes * 3 // 4, flops)
+    log(f"time ad_star_fwd forward-only (no mw): kernel {k1:.4f}/{k2:.4f} ms, bound {b_ms:.4f} "
+        f"ms ({b_by}), {(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b4 [{card}]")
     compose_yardstick(device, card, phiinv, v, -0.2)
 
     # each pass of the warp's backward launchers at the operand shapes the
@@ -1764,6 +1857,8 @@ def run(device, card, trace_path=None):
     kernel_checks(lt, device, ODD, seed=2)
     for shape, seed in ((FULL, 19), (FULL64, 20), (ODD, 21)):
         errs["compose_fwd"] = max(errs["compose_fwd"], compose_checks(device, shape, seed))
+    for shape, seed in ((FULL, 22), (FULL64, 23), (ODD, 24)):
+        errs["ad_star_fwd"] = max(errs["ad_star_fwd"], ad_star_checks(device, shape, seed))
     for name, err in backward_checks(lt, device, FULL, seed=3).items():
         errs[name] = max(errs.get(name, 0.0), err)
     backward_checks(lt, device, ODD, seed=4)

@@ -33,18 +33,17 @@
 // Bound on the H100: memory.  K1 reads phiinv and m0 and writes out (three
 // 100.7 MB fields at 128^3 b4, m0 read with batch stride 0 when its batch is
 // 1); K2 reads phiinv and v and writes out (three fields, 0.090 ms at
-// 3.35 TB/s).  K1's design: one thread per voxel, z fastest across the
-// warp, the 27 taps and the 6 difference neighbours from L1/L2; weights and
-// tap offsets computed once per voxel and reused for all three channels.
-// K2's: planes of phiinv staged on a march along x, the 8 live taps summed
-// from shared memory (see compose_fwd_kernel); its staging adds the y/z
-// halo, (AB_TY + 2)(AB_TZ + 2) / (AB_TY AB_TZ) - 1 = 33% more loads of
-// phiinv, mostly from L2, and 2 planes a march.  In both the flag costs
+// 3.35 TB/s).  Both march along x through planes staged in shared memory
+// and sum the 8 live taps there (see compose_fwd_kernel, ad_star_fwd_kernel):
+// K2 stages phiinv, K1 m0 and phiinv (the Jacobian's y and z neighbours;
+// its x neighbours are in registers).  The staging adds the y/z halo,
+// (AB_TY + 2)(AB_TZ + 2) / (AB_TY AB_TZ) - 1 = 33% more loads of the staged
+// fields, mostly from L2, and 2 planes a march.  In both the flag costs
 // one ballot per warp and at most one atomic per warp.  When autograd
 // needs it, K1 also writes the warped momentum mw (the `_mw` variants'
 // residual, epdiff_unit.py:214, padres.py:249), which K6 reads instead of
-// re-enumerating the warp; the forward-only path passes no mw buffer and
-// moves no extra bytes.
+// re-enumerating the warp (a fourth field, 0.120 ms); the forward-only
+// path passes no mw buffer and moves no extra bytes.
 //
 // K6, Ad* backward (cotangent g of out; math at epdiff_unit.py:459-497):
 //   d_mw  = (J + I)^T g                               (pointwise)
@@ -98,59 +97,6 @@ __device__ __forceinline__ void clear_flag_if(bool bad, int* flag) {
   if (any && (threadIdx.x & 31) == 0) atomicAnd(flag, 0);
 }
 
-__global__ void ad_star_fwd_kernel(const float* __restrict__ phiinv,
-                                   const float* __restrict__ m0,
-                                   float* __restrict__ out,
-                                   float* __restrict__ mw_out, int* flag, int N,
-                                   int Nm, int X, int Y, int Z) {
-  const long V = (long)X * Y * Z;
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  bool bad = false;
-  if (idx < (long)N * V) {
-    const int n = (int)(idx / V);
-    const long p = idx - (long)n * V;
-    const int z = (int)(p % Z);
-    const int y = (int)((p / Z) % Y);
-    const int x = (int)(p / ((long)Y * Z));
-    const AxisIdx ix = axis_idx(x, X), iy = axis_idx(y, Y), iz = axis_idx(z, Z);
-
-    const float* ph = phiinv + (long)n * 3 * V;
-    const float d0 = ph[p], d1 = ph[V + p], d2 = ph[2 * V + p];
-    bad = !(in_unit(d0) && in_unit(d1) && in_unit(d2));
-
-    AxisWeights W[3] = {axis_weights(d0), axis_weights(d1), axis_weights(d2)};
-    Taps T;
-    make_taps(T, W, ix, iy, iz, Y, Z);
-    const float* mb = m0 + (Nm == 1 ? 0L : (long)n * 3 * V);
-    float mw[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) mw[a] = warp_sum(T, mb + (long)a * V);
-    if (mw_out != nullptr) {
-      float* w = mw_out + (long)n * 3 * V + p;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) w[(long)a * V] = mw[a];
-    }
-
-    // out_c = sum_a (g_ca [+1 if a == c]) * mw_a, accumulated over a in order
-    const AxisIdx* ax[3] = {&ix, &iy, &iz};
-    const int stride[3] = {Y * Z, Z, 1};
-    float* o = out + (long)n * 3 * V + p;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float g = diff_central(ph + (long)c * V, p, *ax[a], stride[a]);
-        if (a == c) g = __fadd_rn(g, 1.0f);
-        const float term = __fmul_rn(g, mw[a]);
-        acc = a == 0 ? term : __fadd_rn(acc, term);
-      }
-      o[(long)c * V] = acc;
-    }
-  }
-  clear_flag_if(bad, flag);
-}
-
 // K6, first pass: d_mw (to the scratch) and d_phi.  A block owns one
 // subject and a (y, z) tile of AB_TY x AB_TZ voxels, one thread per (y, z),
 // and marches along x over `march` planes (march_length).  Each step of the
@@ -195,33 +141,37 @@ __device__ __forceinline__ const float* staged_field(int c, const float* ph, con
                : mwn + (size_t)(c - 8) * V;
 }
 
-// A thread's share of the halo, found once for its march: items
-// threadIdx.x + j * AB_THREADS of the list channel-major over AB_STAGED
-// channels and AB_BORDER positions, each with its source in plane 0 (null
-// outside the volume: staged as 0) and its index in a staged slot of its
-// channel's ring (-1: no item).  Item i is of m0 when i < 3 * AB_BORDER.
-struct AdHalo {
-  const float* src[AB_HALO];
-  int dst[AB_HALO];
+// A thread's share of the halo of a marching kernel (K6's first pass, K2,
+// K1) that stages `channels` channels, found once for its march: items
+// threadIdx.x + j * AB_THREADS of the list channel-major over the channels
+// and AB_BORDER positions, each with its source in plane 0 (null outside
+// the volume: staged as 0) and its index lane(c) * AB_PLANE + b in a staged
+// slot of its channel's ring (-1: no item); field(c) is channel c's field.
+template <int ITEMS>
+struct Halo {
+  const float* src[ITEMS];
+  int dst[ITEMS];
 };
 
-__device__ __forceinline__ void adstar_halo(AdHalo& h, const float* ph, const float* gn,
-                                            const float* mwn, const float* mb, int V, int Y,
-                                            int Z, int y0, int z0) {
+template <int ITEMS, class Field, class Lane>
+__device__ __forceinline__ void find_halo(Halo<ITEMS>& h, int channels, Field field, Lane lane,
+                                          int Y, int Z, int y0, int z0) {
 #pragma unroll
-  for (int j = 0; j < AB_HALO; ++j) {
+  for (int j = 0; j < ITEMS; ++j) {
     const int i = threadIdx.x + j * AB_THREADS;
     h.src[j] = nullptr;
     h.dst[j] = -1;
-    if (i < AB_STAGED * AB_BORDER) {
+    if (i < channels * AB_BORDER) {
       const int c = i / AB_BORDER, b = border_index(i % AB_BORDER);
       const int gy = y0 - 1 + b / AB_HZ, gz = z0 - 1 + b % AB_HZ;
-      h.dst[j] = (c < 3 ? c : c - 3) * AB_PLANE + b;
-      if (gy >= 0 && gy < Y && gz >= 0 && gz < Z)
-        h.src[j] = staged_field(c, ph, gn, mwn, mb, V) + gy * Z + gz;
+      h.dst[j] = lane(c) * AB_PLANE + b;
+      if (gy >= 0 && gy < Y && gz >= 0 && gz < Z) h.src[j] = field(c) + gy * Z + gz;
     }
   }
 }
+
+// K6's halo items (item i is of m0 when i < 3 * AB_BORDER)
+using AdHalo = Halo<AB_HALO>;
 
 // One x-plane's loads of one thread: its own voxel's phi 0-2, g 3-5, mw
 // 6-8 and m0 9-11, and its halo items; zeros outside the volume.
@@ -423,7 +373,8 @@ __global__ void __launch_bounds__(AB_THREADS, 2)
 
   // ring index k holds plane clamp(x0 - 1 + k): first x0 - 1, x0, x0 + 1
   AdHalo h;
-  adstar_halo(h, ph, gn, mwn, mb, V, Y, Z, y0, z0);
+  find_halo(h, AB_STAGED, [&](int c) { return staged_field(c, ph, gn, mwn, mb, V); },
+            [](int c) { return c < 3 ? c : c - 3; }, Y, Z, y0, z0);
   AdPlane r;
   AdRing q;
 #pragma unroll 1
@@ -541,27 +492,8 @@ constexpr int CP_SMEM = CP_SLOTS * 3 * AB_PLANE;  // floats
 static_assert(3 * AB_BORDER <= AB_THREADS, "one halo item a thread");
 static_assert(CP_SMEM * sizeof(float) <= 48 * 1024, "more needs the opt-in attribute");
 
-// A thread's halo item, found once for its march: item threadIdx.x of the
-// list channel-major over 3 channels and AB_BORDER positions, with its
-// source in plane 0 (null outside the volume: staged as 0) and its index in
-// a staged slot (-1: no item)
-struct CpHalo {
-  const float* src;
-  int dst;
-};
-
-__device__ __forceinline__ CpHalo compose_halo(const float* ph, int V, int Y, int Z, int y0,
-                                               int z0) {
-  CpHalo h{nullptr, -1};
-  const int i = threadIdx.x;
-  if (i < 3 * AB_BORDER) {
-    const int c = i / AB_BORDER, b = border_index(i % AB_BORDER);
-    const int gy = y0 - 1 + b / AB_HZ, gz = z0 - 1 + b % AB_HZ;
-    h.dst = c * AB_PLANE + b;
-    if (gy >= 0 && gy < Y && gz >= 0 && gz < Z) h.src = ph + (size_t)c * V + gy * Z + gz;
-  }
-  return h;
-}
+// K2's halo item: one a thread, of phiinv's 3 channels
+using CpHalo = Halo<1>;
 
 // One x-plane's loads of one thread: its own voxel's phiinv 0-2 at plane
 // xp and v 0-2 at plane xv (none when xv < 0), and its halo item; zeros
@@ -579,7 +511,7 @@ __device__ __forceinline__ void compose_load(CpPlane& r, const CpHalo& h,
     r.phi[c] = in ? __ldg(ph + (size_t)c * V + xp * YZ + yz) : 0.0f;
     r.v[c] = in && xv >= 0 ? __ldg(vn + (size_t)c * V + xv * YZ + yz) : 0.0f;
   }
-  r.halo = h.src ? __ldg(h.src + xp * YZ) : 0.0f;
+  r.halo = h.src[0] ? __ldg(h.src[0] + xp * YZ) : 0.0f;
 }
 
 // the staged plane of ring index k: its slot in shared memory
@@ -591,7 +523,7 @@ __device__ __forceinline__ void compose_store(const CpPlane& r, const CpHalo& h,
   const int own = ((int)threadIdx.x / AB_TZ + 1) * AB_HZ + (int)threadIdx.x % AB_TZ + 1;
 #pragma unroll
   for (int c = 0; c < 3; ++c) slot[c * AB_PLANE + own] = r.phi[c];
-  if (h.dst >= 0) slot[h.dst] = r.halo;
+  if (h.dst[0] >= 0) slot[h.dst[0]] = r.halo;
 }
 
 // One voxel (x, y, z) of the march at ring index k, from its v: out and
@@ -668,7 +600,9 @@ __global__ void __launch_bounds__(AB_THREADS)
 
   // ring index k holds plane clamp(x0 - 1 + k): first x0 - 1, x0, x0 + 1;
   // the thread's v at x0 comes with the last of them
-  const CpHalo h = compose_halo(ph, V, Y, Z, y0, z0);
+  CpHalo h;
+  find_halo(h, 3, [&](int c) { return ph + (size_t)c * V; }, [](int c) { return c; }, Y, Z, y0,
+            z0);
   CpPlane r;
 #pragma unroll 1
   for (int k = 0; k < 3; ++k) {
@@ -713,20 +647,234 @@ cudaError_t launch_compose_fwd(const float* phiinv, const float* v, float s, flo
   return cudaGetLastError();
 }
 
-}  // namespace lagomorph
+// K1: a block owns one subject and a (y, z) tile of AB_TY x AB_TZ voxels
+// (K6's first-pass tile), one thread per (y, z), and marches along x over
+// `march` planes (march_length).  Each step of the march stages one new
+// x-plane and its one-voxel y/z halo in shared memory, in rings: m0's three
+// channels in 4 slots (the taps of plane x read planes x - 1 .. x + 1 while
+// plane x + 2 is written), phiinv's three in 3 (the Jacobian's y and z face
+// neighbours come from plane x; plane x + 1 waits, plane x + 2 is
+// written), so one barrier a step suffices.  A thread's own phiinv at
+// x - 1, x and x + 1 is a register ring: it gives the weights, the
+// Jacobian's x neighbours and the flag.  The loads of plane x + 2 are
+// issued before plane x's arithmetic.  mw sums the 8 live taps (stencil.cuh
+// live_pair) from shared memory in the 27-tap order, each weight rounded as
+// (wx * wy) * wz and each product and sum on its own, so the skipped taps
+// add exact zeros and mw is bit-equal to the 27-tap sum on finite inputs;
+// the Jacobian rounds as the clamped central difference of the plain
+// version (0.5 * (hi - lo), + 1 on the diagonal, products and sums in a
+// order), so out is bit-equal too.  out (and mw, when its pointer is not
+// null) is stored coalesced along z.  The flag is ANDed over the thread's
+// march and voted once per warp at its end.  Staging loads nothing outside
+// the volume: every read of a staged plane is at a clamped index, inside it.
+// It is held at 4 blocks of 256 threads an SM (64 registers, no spill):
+// left to take 78 registers, an SM holds 3 of its blocks, and it ran slower
+// on an H100 (PERF.md).
+constexpr int AS_SMEM = (4 + 3) * 3 * AB_PLANE;  // floats: m0's 4 slots, then phiinv's 3
+// the halo's (channel, position) loads, spread over the block's threads
+constexpr int AS_HALO = (6 * AB_BORDER + AB_THREADS - 1) / AB_THREADS;
+static_assert(AS_SMEM * sizeof(float) <= 48 * 1024, "more needs the opt-in attribute");
 
-static inline unsigned grid_for(long total, int threads) {
-  return (unsigned)((total + threads - 1) / threads);
+// the staged planes of ring index k: the offsets of its m0 slot and its
+// phiinv slot in shared memory
+__device__ __forceinline__ int as_m0_slot(int k) { return (k & 3) * 3 * AB_PLANE; }
+__device__ __forceinline__ int as_phi_slot(int k) { return (12 + (k % 3) * 3) * AB_PLANE; }
+
+// K1's halo items, of m0 0-2 and phiinv 3-5 (item i is of m0 when
+// i < 3 * AB_BORDER)
+using AsHalo = Halo<AS_HALO>;
+
+// One x-plane's loads of one thread: its own voxel's phiinv and m0, and its
+// halo items; zeros outside the volume
+struct AsPlane {
+  float phi[3], m0[3], halo[AS_HALO];
+};
+
+__device__ __forceinline__ void ad_star_load(AsPlane& r, const AsHalo& h,
+                                             const float* __restrict__ ph,
+                                             const float* __restrict__ mb, int V, int xp, int YZ,
+                                             int yz, bool in) {
+  const int u = xp * YZ + yz;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r.phi[c] = in ? __ldg(ph + (size_t)c * V + u) : 0.0f;
+    r.m0[c] = in ? __ldg(mb + (size_t)c * V + u) : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < AS_HALO; ++j) r.halo[j] = h.src[j] ? __ldg(h.src[j] + xp * YZ) : 0.0f;
 }
 
-extern "C" int lagomorph_ad_star_fwd(const float* phiinv, const float* m0,
-                                     float* out, float* mw, int* flag, int N,
-                                     int Nm, int X, int Y, int Z, void* stream) {
-  const int threads = 256;
-  lagomorph::ad_star_fwd_kernel<<<grid_for((long)N * X * Y * Z, threads),
-                                  threads, 0, (cudaStream_t)stream>>>(
-      phiinv, m0, out, mw, flag, N, Nm, X, Y, Z);
-  return (int)cudaGetLastError();
+// plane r to the slots of ring index k, and its own phiinv into the
+// register ring q (slot 0 at x - 1, 1 at x, 2 at x + 1)
+__device__ __forceinline__ void ad_star_store(const AsPlane& r, const AsHalo& h, float* sm, int k,
+                                              float (&q)[3][3]) {
+  float* m0s = sm + as_m0_slot(k);
+  float* phs = sm + as_phi_slot(k);
+  const int own = ((int)threadIdx.x / AB_TZ + 1) * AB_HZ + (int)threadIdx.x % AB_TZ + 1;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    m0s[c * AB_PLANE + own] = r.m0[c];
+    phs[c * AB_PLANE + own] = r.phi[c];
+    q[0][c] = q[1][c];
+    q[1][c] = q[2][c];
+    q[2][c] = r.phi[c];
+  }
+#pragma unroll
+  for (int j = 0; j < AS_HALO; ++j)
+    if (h.dst[j] >= 0)
+      (threadIdx.x + j * AB_THREADS < 3 * AB_BORDER ? m0s : phs)[h.dst[j]] = r.halo[j];
+}
+
+// One voxel (x, y, z) of the march at ring index k: out (and mw when `w`
+// is not null) at `o` (`w`), and its unit-regime test
+__device__ __forceinline__ bool ad_star_voxel(const float (&q)[3][3], const float* sm, int k,
+                                              int x, int y, int z, int X, int Y, int Z, int y0,
+                                              int z0, float* __restrict__ o,
+                                              float* __restrict__ w, int V) {
+  const int pos[3] = {x, y, z}, len[3] = {X, Y, Z};
+  float wl[3][2];
+  int off[3][2];  // per axis and live offset: the tap's m0 slot, row or column
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const LivePair lp = live_pair(q[1][a]);
+    wl[a][0] = lp.wl;
+    wl[a][1] = lp.wh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = clampi(pos[a] + lp.lo + i, len[a]);
+      off[a][i] = a == 0 ? as_m0_slot(k + t - x)  // t - x in {-1, 0, 1}
+                : a == 1 ? (t - y0 + 1) * AB_HZ
+                         : t - z0 + 1;
+    }
+  }
+  float wt[8];
+  int at[8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        wt[(i * 2 + j) * 2 + l] = __fmul_rn(__fmul_rn(wl[0][i], wl[1][j]), wl[2][l]);
+        at[(i * 2 + j) * 2 + l] = off[0][i] + off[1][j] + off[2][l];
+      }
+  float mw[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* f = sm + c * AB_PLANE;
+    float acc = __fmul_rn(wt[0], f[at[0]]);
+#pragma unroll
+    for (int t = 1; t < 8; ++t) acc = __fadd_rn(acc, __fmul_rn(wt[t], f[at[t]]));
+    mw[c] = acc;
+    if (w != nullptr) w[(size_t)c * V] = acc;
+  }
+
+  // out_c = sum_a (D_a phiinv_c [+1 if a == c]) * mw_a, accumulated over a in
+  // order; the y and z neighbours (clamped) from the staged plane x
+  const float* F = sm + as_phi_slot(k);
+  const int own = (y - y0 + 1) * AB_HZ + z - z0 + 1;
+  const int lo[3] = {0, y > 0 ? -AB_HZ : 0, z > 0 ? -1 : 0};
+  const int hi[3] = {0, y < Y - 1 ? AB_HZ : 0, z < Z - 1 ? 1 : 0};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float h = a == 0 ? q[2][c] : F[c * AB_PLANE + own + hi[a]];
+      const float l = a == 0 ? q[0][c] : F[c * AB_PLANE + own + lo[a]];
+      float g = __fmul_rn(0.5f, __fsub_rn(h, l));
+      if (a == c) g = __fadd_rn(g, 1.0f);
+      const float term = __fmul_rn(g, mw[a]);
+      acc = a == 0 ? term : __fadd_rn(acc, term);
+    }
+    o[(size_t)c * V] = acc;
+  }
+  return in_unit(q[1][0]) && in_unit(q[1][1]) && in_unit(q[1][2]);
+}
+
+// PREFETCH: issue the loads of plane x + 2 before the arithmetic of plane
+// x (false only in profile_warp.py's variant, which loads after it)
+template <bool PREFETCH>
+__global__ void __launch_bounds__(AB_THREADS, 4)
+    ad_star_fwd_kernel(const float* __restrict__ phiinv, const float* __restrict__ m0,
+                       float* __restrict__ out, float* __restrict__ mw_out, int* flag, int N,
+                       int Nm, int X, int Y, int Z, int march) {
+  extern __shared__ __align__(16) float smem[];
+  const int V = X * Y * Z, YZ = Y * Z;
+  const int nty = (Y + AB_TY - 1) / AB_TY, ntz = (Z + AB_TZ - 1) / AB_TZ;
+  const int nxm = (X + march - 1) / march;
+  int b = blockIdx.x;
+  const int z0 = (b % ntz) * AB_TZ;
+  b /= ntz;
+  const int y0 = (b % nty) * AB_TY;
+  b /= nty;
+  const int x0 = (b % nxm) * march, n = b / nxm;
+  const int x1 = x0 + march < X ? x0 + march : X;
+  const int y = y0 + (int)threadIdx.x / AB_TZ, z = z0 + (int)threadIdx.x % AB_TZ;
+  const bool in = y < Y && z < Z;
+  const int yz = y * Z + z;
+  const float* ph = phiinv + (size_t)n * 3 * V;
+  const float* mb = m0 + (Nm == 1 ? (size_t)0 : (size_t)n * 3 * V);
+  float* on = out + (size_t)n * 3 * V;
+  float* wn = mw_out == nullptr ? nullptr : mw_out + (size_t)n * 3 * V;
+
+  // ring index k holds plane clamp(x0 - 1 + k): first x0 - 1, x0, x0 + 1
+  AsHalo h;
+  find_halo(h, 6, [&](int c) { return c < 3 ? mb + (size_t)c * V : ph + (size_t)(c - 3) * V; },
+            [](int c) { return c % 3; }, Y, Z, y0, z0);
+  AsPlane r;
+  float q[3][3] = {};
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    ad_star_load(r, h, ph, mb, V, clampi(x0 - 1 + k, X), YZ, yz, in);
+    ad_star_store(r, h, smem, k, q);
+  }
+  __syncthreads();
+  bool ok = true;
+#pragma unroll 1
+  for (int x = x0; x < x1; ++x) {
+    const int k = x - x0 + 1;
+    const bool more = x + 1 < x1;  // a next step, which needs plane x + 2
+    const int next = x + 2 < X ? x + 2 : X - 1;
+    if (PREFETCH && more) ad_star_load(r, h, ph, mb, V, next, YZ, yz, in);
+    if (in)
+      ok &= ad_star_voxel(q, smem, k, x, y, z, X, Y, Z, y0, z0, on + x * YZ + yz,
+                          wn == nullptr ? nullptr : wn + x * YZ + yz, V);
+    if (more) {
+      // plane x + 2 goes to slots that no thread reads in this step (m0's
+      // of plane x - 2, phiinv's of plane x - 1)
+      if (!PREFETCH) ad_star_load(r, h, ph, mb, V, next, YZ, yz, in);
+      ad_star_store(r, h, smem, k + 2, q);
+      __syncthreads();
+    }
+  }
+  clear_flag_if(!ok, flag);
+}
+
+// march <= 0: march_length's choice
+template <bool PREFETCH>
+cudaError_t launch_ad_star_fwd(const float* phiinv, const float* m0, float* out, float* mw,
+                               int* flag, int N, int Nm, int X, int Y, int Z, int march,
+                               cudaStream_t stream) {
+  static std::atomic<int> resident[kDevices];
+  if (march <= 0)  // the main kernel's length, for the variant without prefetch too
+    march = march_length(N, X, Y, Z, resident_blocks(resident, ad_star_fwd_kernel<true>,
+                                                     AS_SMEM * sizeof(float)));
+  ad_star_fwd_kernel<PREFETCH><<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
+                                 AS_SMEM * sizeof(float), stream>>>(phiinv, m0, out, mw, flag,
+                                                                    N, Nm, X, Y, Z, march);
+  return cudaGetLastError();
+}
+
+}  // namespace lagomorph
+
+// K1, marching over `march` planes (<= 0: the length K1 takes); mw may be
+// null (the forward-only call writes none)
+extern "C" int lagomorph_ad_star_fwd(const float* phiinv, const float* m0, float* out, float* mw,
+                                     int* flag, int N, int Nm, int X, int Y, int Z, int march,
+                                     void* stream) {
+  return (int)lagomorph::launch_ad_star_fwd<true>(phiinv, m0, out, mw, flag, N, Nm, X, Y, Z,
+                                                  march, (cudaStream_t)stream);
 }
 
 extern "C" int lagomorph_ad_star_bwd(const float* phiinv, const float* m0,

@@ -23,12 +23,81 @@
 //   old_compose_fwd_kernel<false>: K2 before its redesign (one thread per
 //     voxel, the 27 taps of phiinv read through L1, nothing staged);
 //     old_compose_fwd_kernel<true>: the same on the 8 live taps; and the
-//     current K2 (csrc/epdiff_unit.cu) with its prefetch off.
+//     current K2 (csrc/epdiff_unit.cu) with its prefetch off;
+//   old_ad_star_fwd_kernel<false>: K1 before its redesign (one thread per
+//     voxel, the 27 taps of m0 and the 6 difference neighbours of phiinv
+//     read through L1, nothing staged); old_ad_star_fwd_kernel<true>: the
+//     same on the 8 live taps; and the current K1 (csrc/epdiff_unit.cu)
+//     with its prefetch off.
 #include "../warp_unit.cu"
 #include "../epdiff_unit.cu"
 
 namespace lagomorph_profile {
 using namespace lagomorph;
+
+// The previous kernels' per-voxel helpers (27 taps, neighbours through
+// L1), which the library's kernels no longer use.
+__device__ __forceinline__ float weight_at(const AxisWeights& w, int o) {
+  return o < 0 ? w.m : (o == 0 ? w.z : w.p);
+}
+
+// clamped neighbour indices along one axis: idx[0..2] = clamp(i-1), i, clamp(i+1)
+struct AxisIdx {
+  int i[3];
+};
+
+__device__ __forceinline__ AxisIdx axis_idx(int i, int n) {
+  AxisIdx a;
+  a.i[0] = i > 0 ? i - 1 : 0;
+  a.i[1] = i;
+  a.i[2] = i < n - 1 ? i + 1 : n - 1;
+  return a;
+}
+
+// The precomputed 27 tap weights ((wx * wy) * wz) and linear offsets of one
+// output voxel, in the order ox, oy, oz = -1, 0, 1 (z fastest).
+struct Taps {
+  float w[27];
+  int off[27];
+};
+
+__device__ __forceinline__ void make_taps(Taps& T, const AxisWeights* W,
+                                          const AxisIdx& ix, const AxisIdx& iy,
+                                          const AxisIdx& iz, int Y, int Z) {
+  int q = 0;
+#pragma unroll
+  for (int ox = 0; ox < 3; ++ox) {
+    const float wx = weight_at(W[0], ox - 1);
+#pragma unroll
+    for (int oy = 0; oy < 3; ++oy) {
+      const float wxy = __fmul_rn(wx, weight_at(W[1], oy - 1));
+#pragma unroll
+      for (int oz = 0; oz < 3; ++oz) {
+        T.w[q] = __fmul_rn(wxy, weight_at(W[2], oz - 1));
+        T.off[q] = (ix.i[ox] * Y + iy.i[oy]) * Z + iz.i[oz];
+        ++q;
+      }
+    }
+  }
+}
+
+// sum over the 27 taps of w * f[off], accumulated in tap order
+__device__ __forceinline__ float warp_sum(const Taps& T, const float* __restrict__ f) {
+  float acc = __fmul_rn(T.w[0], __ldg(f + T.off[0]));
+#pragma unroll
+  for (int q = 1; q < 27; ++q) acc = __fadd_rn(acc, __fmul_rn(T.w[q], __ldg(f + T.off[q])));
+  return acc;
+}
+
+// clamped central difference of f along one axis at voxel `center`;
+// `stride` is the axis stride, ix its clamped neighbour indices relative
+// to index i
+__device__ __forceinline__ float diff_central(const float* __restrict__ f, long center,
+                                              const AxisIdx& a, int stride) {
+  const float hi = __ldg(f + center + (long)(a.i[2] - a.i[1]) * stride);
+  const float lo = __ldg(f + center + (long)(a.i[0] - a.i[1]) * stride);
+  return __fmul_rn(0.5f, __fsub_rn(hi, lo));
+}
 
 // The transposed taps of the warp along one axis: the three pairs (u, o)
 // with clamp(u + o) == v, which the gather form of the transpose reads at
@@ -547,6 +616,89 @@ __global__ void old_compose_fwd_kernel(const float* __restrict__ phiinv,
   clear_flag_if(bad, flag);
 }
 
+// K1 before its redesign: out, mw (when mw_out is not null) and the flag;
+// one thread per (n, p).  LIVE: the 8 live taps of m0 (read through L1,
+// nothing staged, in the 27-tap order and rounding) in place of all 27
+template <bool LIVE>
+__global__ void old_ad_star_fwd_kernel(const float* __restrict__ phiinv,
+                                       const float* __restrict__ m0, float* __restrict__ out,
+                                       float* __restrict__ mw_out, int* flag, int N, int Nm,
+                                       int X, int Y, int Z) {
+  const long V = (long)X * Y * Z;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  bool bad = false;
+  if (idx < (long)N * V) {
+    const int n = (int)(idx / V);
+    const long p = idx - (long)n * V;
+    const int z = (int)(p % Z);
+    const int y = (int)((p / Z) % Y);
+    const int x = (int)(p / ((long)Y * Z));
+    const AxisIdx ix = axis_idx(x, X), iy = axis_idx(y, Y), iz = axis_idx(z, Z);
+
+    const float* ph = phiinv + (long)n * 3 * V;
+    const float d[3] = {ph[p], ph[V + p], ph[2 * V + p]};
+    bad = !(in_unit(d[0]) && in_unit(d[1]) && in_unit(d[2]));
+    const float* mb = m0 + (Nm == 1 ? 0L : (long)n * 3 * V);
+    float mw[3];
+    if (LIVE) {
+      const int pos[3] = {x, y, z}, len[3] = {X, Y, Z};
+      float w[3][2];
+      int li[3][2];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const LivePair lp = live_pair(d[a]);
+        w[a][0] = lp.wl;
+        w[a][1] = lp.wh;
+        li[a][0] = clampi(pos[a] + lp.lo, len[a]);
+        li[a][1] = clampi(pos[a] + lp.lo + 1, len[a]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float* f = mb + (long)c * V;
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int i = q >> 2, j = (q >> 1) & 1, k = q & 1;
+          const float wt = __fmul_rn(__fmul_rn(w[0][i], w[1][j]), w[2][k]);
+          const float t =
+              __fmul_rn(wt, __ldg(f + ((long)li[0][i] * Y + li[1][j]) * Z + li[2][k]));
+          acc = q == 0 ? t : __fadd_rn(acc, t);
+        }
+        mw[c] = acc;
+      }
+    } else {
+      AxisWeights W[3] = {axis_weights(d[0]), axis_weights(d[1]), axis_weights(d[2])};
+      Taps T;
+      make_taps(T, W, ix, iy, iz, Y, Z);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) mw[a] = warp_sum(T, mb + (long)a * V);
+    }
+    if (mw_out != nullptr) {
+      float* w = mw_out + (long)n * 3 * V + p;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) w[(long)a * V] = mw[a];
+    }
+
+    // out_c = sum_a (g_ca [+1 if a == c]) * mw_a, accumulated over a in order
+    const AxisIdx* ax[3] = {&ix, &iy, &iz};
+    const int stride[3] = {Y * Z, Z, 1};
+    float* o = out + (long)n * 3 * V + p;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float g = diff_central(ph + (long)c * V, p, *ax[a], stride[a]);
+        if (a == c) g = __fadd_rn(g, 1.0f);
+        const float term = __fmul_rn(g, mw[a]);
+        acc = a == 0 ? term : __fadd_rn(acc, term);
+      }
+      o[(long)c * V] = acc;
+    }
+  }
+  clear_flag_if(bad, flag);
+}
+
 static inline unsigned blocks_for(long total) { return (unsigned)((total + 255) / 256); }
 
 }  // namespace lagomorph_profile
@@ -639,5 +791,23 @@ extern "C" int prof_compose_fwd(int mode, const float* phiinv, const float* v, f
     old_compose_fwd_kernel<false><<<blocks, 256, 0, st>>>(phiinv, v, s, out, flag, N, X, Y, Z);
   else
     old_compose_fwd_kernel<true><<<blocks, 256, 0, st>>>(phiinv, v, s, out, flag, N, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+// K1: 0 before its redesign, 1 the same on the 8 live taps, 2 the current
+// one without its prefetch (at K1's march length)
+extern "C" int prof_ad_star_fwd(int mode, const float* phiinv, const float* m0, float* out,
+                                float* mw, int* flag, int N, int Nm, int X, int Y, int Z,
+                                void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 2)
+    return (int)launch_ad_star_fwd<false>(phiinv, m0, out, mw, flag, N, Nm, X, Y, Z, 0, st);
+  const unsigned blocks = blocks_for((long)N * X * Y * Z);
+  if (mode == 0)
+    old_ad_star_fwd_kernel<false><<<blocks, 256, 0, st>>>(phiinv, m0, out, mw, flag, N, Nm, X,
+                                                           Y, Z);
+  else
+    old_ad_star_fwd_kernel<true><<<blocks, 256, 0, st>>>(phiinv, m0, out, mw, flag, N, Nm, X, Y,
+                                                          Z);
   return (int)cudaGetLastError();
 }

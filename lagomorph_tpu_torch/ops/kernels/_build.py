@@ -43,8 +43,8 @@ SIGNATURES = {
     "lagomorph_warp_transpose": [_P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # I, disp, s, cot, out, N, NI, C, X, Y, Z, compose, stream
     "lagomorph_warp_dd": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # phiinv, m0, out, mw (or NULL), flag, N, Nm, X, Y, Z, stream
-    "lagomorph_ad_star_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # phiinv, m0, out, mw (or NULL), flag, N, Nm, X, Y, Z, march (<= 0: K1's length), stream
+    "lagomorph_ad_star_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # phiinv, m0, g, mw, d_mw (scratch), d_phiinv, d_m0, N, Nm, X, Y, Z, stream
     "lagomorph_ad_star_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # its first pass alone, for timing and tests (march <= 0: K6's length):

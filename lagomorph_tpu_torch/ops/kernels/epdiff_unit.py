@@ -121,7 +121,7 @@ def _launch_ad_star(phiinv, m0, want_mw=False):
         "lagomorph_ad_star_fwd",
         phiinv.data_ptr(), m0.data_ptr(), out.data_ptr(),
         None if mw is None else mw.data_ptr(), flag.data_ptr(),
-        N, m0.shape[0], X, Y, Z, stream_of(phiinv),
+        N, m0.shape[0], X, Y, Z, 0, stream_of(phiinv),
     )
     AD_STAR.launches += 1
     return (out, flag.bool(), mw) if want_mw else (out, flag.bool())

@@ -31,13 +31,20 @@ step at 128^3 b4:
   at 64^3 b4: the previous kernel (27 taps, one thread per voxel, nothing
   staged), the previous kernel on the 8 live taps, and the current one
   (planes of phiinv staged along an x march, 8 live taps) without its
-  prefetch and with it, at the march length it takes and at ``MARCHES``.
+  prefetch and with it, at the march length it takes and at ``MARCHES``;
+* K1, Ad* (``lagomorph_ad_star_fwd``, batch-N momenta, writing ``mw`` as
+  the step calls it), at 128^3 b4 and at 64^3 b4: the previous kernel (27
+  taps, one thread per voxel, nothing staged), the previous kernel on the
+  8 live taps, and the current one (planes of m0 and phiinv staged along
+  an x march, 8 live taps) without its prefetch and with it, at the march
+  length it takes and at ``MARCHES``.
 
 Each line gives ms per call (two samples of 20 calls, in turns), the byte
 bound of the pass (``chip_smoke.pass_work``) and the largest difference of
 each variant's output from the previous kernel's (of each output, for K6's
 first pass: ``d_mw`` must be bit-equal and ``d_phiinv`` within 1e-5 * (1 +
-max|ref|), or the script fails; K2's output must be bit-equal).  Needs a
+max|ref|), or the script fails; K2's output, and K1's out and ``mw``, must
+be bit-equal).  Needs a
 CUDA card; imports no jax.
 """
 from __future__ import annotations
@@ -69,7 +76,7 @@ def ptxas(log, what, kernels=("warp", "transpose", "dd", "fwd", "ad_star")):
 
 # other brick shapes (x, y) of the backward passes, beside the built-in 4 x 8 x 32
 BRICKS = ((8, 8), (4, 16))
-# K6's first pass and K2 at other march lengths
+# K6's first pass, K2 and K1 at other march lengths
 MARCHES = (8, 16, 32, 64, 128)
 
 
@@ -112,6 +119,7 @@ def build_variants():
         "prof_transpose_variant": [I, P, F, P, P] + [I] * 6 + [P],
         "prof_adstar_first": [I] + [P] * 6 + [I] * 5 + [P],
         "prof_compose_fwd": [I, P, P, F, P, P] + [I] * 4 + [P],
+        "prof_ad_star_fwd": [I] + [P] * 5 + [I] * 5 + [P],
     }
     for name, argtypes in sig.items():
         getattr(lib, name).argtypes = argtypes
@@ -239,6 +247,27 @@ def main():
                for m in MARCHES if m <= x},
         }, chip_smoke.work("compose_fwd", n, x * y * z), None, (0.0,))
 
+    def ad_star_case(shape):
+        n, _, x, y, z = shape
+        phi_, m_ = ((phiinv, m3) if shape == SHAPE else
+                    (t(rng.uniform(-0.99, 0.99, shape)), t(rng.standard_normal(shape))))
+        outs = (torch.empty(shape, dtype=torch.float32, device=device),
+                torch.empty(shape, dtype=torch.float32, device=device))
+        flag = torch.ones((), dtype=torch.int32, device=device)
+        operands = (phi_, m_, *outs, flag)  # the closures keep them alive
+
+        def call(fn, name, *pre, march=None):
+            tail = (n, n, x, y, z) + (() if march is None else (march,)) + (st,)
+            return lambda: run(fn, name, *pre, *(a.data_ptr() for a in operands), *tail)
+        return (f"K1 Ad* (batch-N m0, writing mw) at {x}^3 b{n}", outs, {
+            "previous (27 taps)": call(var, "prof_ad_star_fwd", 0),
+            "previous, 8 live taps": call(var, "prof_ad_star_fwd", 1),
+            "current, no prefetch": call(var, "prof_ad_star_fwd", 2),
+            "current": call(lib, "lagomorph_ad_star_fwd", march=0),
+            **{f"current, march {m}": call(lib, "lagomorph_ad_star_fwd", march=m)
+               for m in MARCHES if m <= x},
+        }, chip_smoke.work("ad_star_fwd", n, x * y * z), None, (0.0, 0.0))
+
     out = torch.empty((N, 1, X, Y, Z), dtype=torch.float32, device=device)
     fargs = (I1.data_ptr(), phiinv.data_ptr(), out.data_ptr(), N, 1, 1, X, Y, Z, st)
     cases = [
@@ -254,6 +283,8 @@ def main():
         adstar_first_case((N, 3, 64, 64, 64)),
         compose_case(SHAPE),
         compose_case((N, 3, 64, 64, 64)),
+        ad_star_case(SHAPE),
+        ad_star_case((N, 3, 64, 64, 64)),
     ]
 
     ok = True

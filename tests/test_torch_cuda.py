@@ -532,3 +532,50 @@ def test_compose_march_on_cuda(cuda, shape, march):
         if march:
             v[N - 1, 1, min(march, X) - 1, Y - 1, Z - 1] = 1.5 / s
             assert not launch(p, v, s)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 19, 11, 35), (2, 3, 5, 9, 33), (4, 3, 64, 64, 64)])
+@pytest.mark.parametrize("march", [0, 8, 16])
+def test_ad_star_march_on_cuda(cuda, shape, march):
+    """K1 (``lagomorph_ad_star_fwd``, its blocks marching along x over 8 x
+    32 (y, z) tiles) at forced march lengths and the one it takes, at
+    shapes that cross its march and its tile, with batch-1 and batch-N
+    momenta, writing ``mw`` and not: out and mw bit-equal to the plain
+    version and the flags equal, on displacements with voxels outside the
+    unit regime and at its edges, a second launch bit-identical; inside the
+    regime the flag is true, and false once one voxel on the last plane of
+    a march leaves it."""
+    rng = np.random.default_rng(15)
+    N, _, X, Y, Z = shape
+
+    def c(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    def launch(p, m0, want_mw):
+        out = torch.empty_like(p)
+        mw = torch.empty_like(p) if want_mw else None
+        flag = torch.ones((), dtype=torch.int32, device=cuda)
+        _build.call("lagomorph_ad_star_fwd", p.data_ptr(), m0.data_ptr(), out.data_ptr(),
+                    None if mw is None else mw.data_ptr(), flag.data_ptr(), N, m0.shape[0],
+                    X, Y, Z, march, kernels.stream_of(p))
+        return out, bool(flag), mw
+
+    d = rng.uniform(-0.99, 0.99, shape)
+    pick = rng.uniform(size=shape) < 0.125
+    d[pick] = rng.choice([-2.5, -1.5, 1.0, 1.5, 3.7, -1.0, 0.0], size=int(pick.sum()))
+    for p in (c(d), c(rng.uniform(-0.99, 0.99, shape))):
+        for nb in (1, N):
+            m0 = c(rng.standard_normal((nb, 3, X, Y, Z)))
+            ref, r_flag, r_mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)
+            for want_mw in (True, False):
+                out, flag, mw = launch(p, m0, want_mw)
+                assert torch.equal(out, ref) and flag is bool(r_flag)
+                assert not want_mw or torch.equal(mw, r_mw)
+                again = launch(p, m0, want_mw)
+                assert torch.equal(again[0], out) and again[1] is flag
+                assert not want_mw or torch.equal(again[2], mw)
+    assert flag  # the last p lies inside the regime
+    if march:
+        p[N - 1, 1, min(march, X) - 1, Y - 1, Z - 1] = 1.0  # the upper bound is open
+        assert not launch(p, m0, True)[1] and not launch(p, m0, False)[1]

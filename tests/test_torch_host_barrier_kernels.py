@@ -5,7 +5,8 @@ K3 (``csrc/fft_unit.cu``), K14 and K15 (``fft_radix.cu``), K16
 (``fft_whole.cu``), K8/K9 (``shoot2d.cu``) and the 3D stencils K1, K2 and
 K4-K7 (``warp_unit.cu``, ``epdiff_unit.cu``: the warp's backward passes,
 which K5, K6 and K7 share, stage a brick and its halo in shared memory
-between barriers) share memory within a block and wait at barriers, and
+between barriers; K1, K2 and K6's first pass march along x through planes
+staged with their halo) share memory within a block and wait at barriers, and
 K8, K9 and K16 are cooperative launches whose phases meet at grid-wide
 barriers.  ``tests/cuda_host/threaded/cuda_runtime.h`` runs each CUDA
 thread as an OS thread (a block's barrier, a warp's vote, a block's
@@ -53,7 +54,8 @@ HEADERS = ("fft_lines.cuh", "fft_reg.cuh", "fft_plane.cuh", "cooperative.cuh", "
            "stencil2d.cuh")
 SOURCES = ("fft_unit.cu", "fft_radix.cu", "fft_whole.cu", "shoot2d.cu", "warp_unit.cu",
            "epdiff_unit.cu")
-# the 3D stencils, per-thread (K1, K2, K4) or staging bricks (K5-K7's passes)
+# the 3D stencils: per-thread (K4), staging bricks (K5-K7's passes) or
+# marching through staged planes (K1, K2, K6's first pass)
 STENCIL_KERNELS = ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd", "compose_fwd",
                    "ad_star_bwd", "compose_bwd")
 ENTRY_POINTS = ("lagomorph_fluid_flat", "lagomorph_fluid_radix_zy", "lagomorph_fluid_radix_x",
@@ -497,3 +499,56 @@ def test_host_compose_march(rng, host_kernels, shape, march, s):
     v[N - 1, 1, last, Y - 1, Z - 1] = 1.5 / s
     assert not _compose_fwd(p, v, s, march)[1]
     assert not bool(epdiff_unit.compose_plain(p, v, s)[1])
+
+
+def _ad_star_fwd(phiinv, m0, want_mw, march=0):
+    """K1 through its C entry point, marching over ``march`` planes (0: the
+    length K1 takes): (out, flag, mw or None)."""
+    N, _, X, Y, Z = phiinv.shape
+    out = torch.empty_like(phiinv)
+    mw = torch.empty_like(phiinv) if want_mw else None
+    flag = torch.ones((), dtype=torch.int32)
+    _build.call("lagomorph_ad_star_fwd", phiinv.data_ptr(), m0.data_ptr(), out.data_ptr(),
+                None if mw is None else mw.data_ptr(), flag.data_ptr(), N, m0.shape[0], X, Y, Z,
+                march, None)
+    return out, bool(flag), mw
+
+
+@pytest.mark.parametrize("shape, march", FIRST_PASS_CASES)
+@pytest.mark.parametrize("m_batch", [1, "N"])
+@pytest.mark.parametrize("want_mw", [True, False])
+def test_host_ad_star_march(rng, host_kernels, shape, march, m_batch, want_mw):
+    """K1 (``lagomorph_ad_star_fwd``: 8 x 32 (y, z) tiles marching along x,
+    m0's 8 live taps and phiinv's face neighbours from staged planes) at K6's
+    first-pass shapes, which cross its march and its tile, with batch-1 and
+    batch-N momenta, writing ``mw`` and not: on displacements with voxels
+    outside the unit regime and at its edges, out and mw bit-equal to the
+    plain version, the flags equal, a second launch bit-identical; then on
+    displacements inside the regime, the flag true, and false once one
+    voxel on the last plane of a march (the corner of a partial tile, the
+    last subject) leaves it."""
+    N, _, X, Y, Z = shape
+    p = _edge_disp(rng, shape)
+    m0 = f32(rng.standard_normal((N if m_batch == "N" else 1, 3, X, Y, Z)))
+    out, flag, mw = _ad_star_fwd(p, m0, want_mw, march)
+    ref, r_flag, r_mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)
+    close_stencil("K1", out, ref, 0.0)
+    if want_mw:
+        close_stencil("K1 mw", mw, r_mw, 0.0)
+    assert flag is bool(r_flag)
+    again = _ad_star_fwd(p, m0, want_mw, march)
+    assert torch.equal(out, again[0]) and again[1] is flag
+    assert not want_mw or torch.equal(mw, again[2])
+    p = f32(rng.uniform(-0.99, 0.99, shape))
+    out, flag, mw = _ad_star_fwd(p, m0, want_mw, march)
+    ref, _, r_mw = epdiff_unit.ad_star_plain(p, m0, want_mw=True)
+    close_stencil("K1 in the regime", out, ref, 0.0)
+    if want_mw:
+        close_stencil("K1 mw in the regime", mw, r_mw, 0.0)
+    assert flag
+    # the emulated card holds 2 blocks an SM on 2 SMs, so K1's own length is
+    # 128 planes here
+    last = min(march or 128, X) - 1
+    p[N - 1, 2, last, Y - 1, Z - 1] = 1.0  # the unit regime's upper bound is open
+    assert not _ad_star_fwd(p, m0, want_mw, march)[1]
+    assert not bool(epdiff_unit.ad_star_plain(p, m0)[1])
