@@ -32,7 +32,8 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    kernels K8 (phiinv_T, flag and stashed trajectory) and K9 (both
    gradients) against their plain versions at 256^2 b8, 512^2 b8 and
    (3, 2, 96, 80), with batch-1 and batch-N momenta and a tripped flag,
-   launched directly and through the wrapper under autograd; then the 2D
+   launched directly (K9 twice, bit-identical, its grid and tiles logged)
+   and through the wrapper under autograd; then the 2D
    per-substep kernels K10-K13 (Ad*, compose and their backwards) against
    their plain versions at the same three shapes, the same way; then the
    fluid solves that the selectors reach: K14 (both directions), K15 and
@@ -89,8 +90,9 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    K5, K6 and K7 share, at the four operand shapes of the step, and K6's
    first pass alone, each beside its bound; the slice and the atlas step
    both ways, with
-   the peak device memory of each step; K8 and K9, and K10-K13 at one
-   substep's shapes, at 256^2 b8, and the 2D atlas step both ways, with
+   the peak device memory of each step; K8 and K9 at 256^2 b8 and 512^2
+   b8, K10-K13 at one substep's shapes at 256^2 b8, and the 2D atlas step
+   both ways, with
    ``beta = 0`` and ``beta = 0.05``, at 256^2 b8 and 512^2 b8, with peak
    memory; K14, K15 and the pipeline at 128^3 b4 and K16 at 64^3 b4 and
    128^3 b4 (the library call of the pipeline and of K16: ``ifftn(Mn *
@@ -103,8 +105,8 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    extension), of 5 2D atlas steps at 256^2 b8 (``_steps2d``), of 5 such
    steps with ``beta = 0.05`` (``_steps2d_beta``), of 5 radix steps at
    128^3 b4 (``_steps_radix``) and of 5 whole-volume steps at 64^3 b4
-   (``_steps64_whole``), with the device time by kernel, the busy share and
-   the idle gaps.
+   (``_steps64_whole``), with the device time by kernel (every kernel of
+   the port listed), the busy share and the idle gaps.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON record of the kernels; the last line, printed only when every
@@ -312,7 +314,7 @@ def kernel_checks(lt, device, shape, seed):
     edge_v.view(-1)[7] = 5.0
     (_, gf), (_, rf) = both(epdiff_unit.compose, phiinv, edge_v, s)
     check(bool(gf) == bool(rf), "compose_fwd: flags differ at the edge value")
-    log("  flags: equal in and out of the unit regime")
+    log("  flags: equal in and out of the unit regime; two launches of K9 bit-identical")
     return errs
 
 
@@ -816,14 +818,22 @@ def fallback_step(lt, device, params, max_v0, m, I, img):
     step_compare(label, runs["kernels"], runs["plain"], grads, FALLBACK_P_TOL, grad_tol=1e-4)
 
 
+def k9_grid(shoot2d, N, H, W):
+    """K9's launch at ``N`` subjects of ``(H, W)``, in words."""
+    c = shoot2d.bwd_launch_config(N, H, W)
+    return (f"{c['path']} path, {c['tile']}-line tiles, {c['blocks']} blocks of {c['threads']}, "
+            f"{c['smem']} B of shared memory, tiles of phases 1-3: "
+            f"{', '.join(map(str, c['tiles']))}")
+
+
 def shoot2d_checks(lt, device, shape, seed):
     """Phase 3, 2D, at one shape: K8 (phiinv_T, the flag, the stashed
     trajectory) and K9 (d_phiinv0, d_m0 on the plain trajectory) against
     their plain versions on the same inputs, 4 substeps at s = -0.2 from
     momenta scaled to max|v0| = 0.5 (batch N and batch 1, whose d_m0 K9
     sums over the subjects), within 1e-4 * max|ref| (float32 transforms
-    against cuFFT, as K3), and a displacement of 1.5 in phiinv0 must trip
-    both flags; then the wrapper ``shoot2d.shoot2d`` under
+    against cuFFT, as K3), a second launch of K9 bit-identical, and a
+    displacement of 1.5 in phiinv0 must trip both flags; then the wrapper ``shoot2d.shoot2d`` under
     ``torch.autograd.grad`` (K8 forward, K9 backward, one launch each, with
     a non-contiguous cotangent) against autograd of the plain versions, on
     momenta whose displacements stay off the integers.  Returns {kernel:
@@ -837,6 +847,7 @@ def shoot2d_checks(lt, device, shape, seed):
     errs = {"shoot2d_fwd": 0.0, "shoot2d_bwd": 0.0}
     tag = "x".join(map(str, shape))
     log(f"2D whole-shoot kernels at {tag}:")
+    log(f"  K9's launch: {k9_grid(shoot2d, N, H, W)}")
 
     def hold(name, label, pairs):
         for what, g, r in pairs:
@@ -852,15 +863,18 @@ def shoot2d_checks(lt, device, shape, seed):
                                        got[:1] + got[2:], ref[:1] + ref[2:]))
         check(bool(got[1]) and bool(ref[1]), f"shoot2d_fwd {label}: in-regime flag false")
         cot = torch.as_tensor(rng.standard_normal((N, 2, H, W)), dtype=torch.float32, device=device)
-        hold("shoot2d_bwd", label, zip(("d_phiinv0", "d_m0"),
-                                       shoot2d._launch_bwd(m0, cot, *ref[2:], Mn, s),
+        d = shoot2d._launch_bwd(m0, cot, *ref[2:], Mn, s)
+        hold("shoot2d_bwd", label, zip(("d_phiinv0", "d_m0"), d,
                                        shoot2d.shoot2d_bwd_plain(m0, cot, *ref[2:], Mn, s)))
+        again = shoot2d._launch_bwd(m0, cot, *ref[2:], Mn, s)
+        check(all(torch.equal(a, b) for a, b in zip(d, again)),
+              f"shoot2d_bwd {label}: two launches differ")
         bad = phiinv0.clone()
         bad.view(-1)[bad.numel() // 3] = 1.5
         _, gf = shoot2d.shoot2d(bad, m0, Mn, s, T)
         _, rf = shoot2d.shoot2d_fwd_plain(bad, m0, Mn, s, T, stash=False)
         check(not bool(gf) and not bool(rf), f"shoot2d_fwd {label}: tripped flag not false")
-    log("  flags: equal in and out of the unit regime")
+    log("  flags: equal in and out of the unit regime; two launches of K9 bit-identical")
 
     # The wrapper and its autograd.Function, as the main path calls them,
     # against autograd of the plain versions.  The two float32 forwards
@@ -962,7 +976,7 @@ def epdiff2d_checks(device, shape, seed):
         _, rf = epdiff2d.compose2d_plain(p, edge_v, s)
         check(bool(gf) is bool(rf) is inside,
               f"compose2d_fwd: flags {bool(gf)}, {bool(rf)} at s*v = {s * value}")
-    log("  flags: equal in and out of the unit regime")
+    log("  flags: equal in and out of the unit regime; two launches of K9 bit-identical")
 
     # the wrappers and their autograd.Functions, as the main path calls them
     cases = (("ad_star2d", lambda a, b: epdiff2d.ad_star2d(a, b),
@@ -1517,55 +1531,74 @@ def timings(device, card, lt, metric, I, m, img):
 
 
 def timings2d(device, card, lt):
-    """Per-call ms at 256^2 b8 of K8 (with the stash, as under autograd) and
-    K9, and of K10 (writing ``mw``, as under autograd), K11, K12 and K13 at
-    one substep of the ``beta = 0.05`` shooting, each beside its plain
-    version (order: plain, kernel, kernel, plain) and the bound of its work
-    (no PyTorch call computes any of these functions); then the 2D atlas
-    step both ways with ``beta = 0`` and ``beta = 0.05`` at 256^2 b8 and
-    512^2 b8, with the peak device memory of each step.  Returns {kernel:
-    {ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    """Per-call ms of K8 (with the stash, as under autograd) and K9 at 256^2
+    b8 and 512^2 b8, and of K10 (writing ``mw``, as under autograd), K11,
+    K12 and K13 at one substep of the ``beta = 0.05`` shooting at 256^2 b8,
+    each beside its plain version (order: plain, kernel, kernel, plain) and
+    the bound of its work (no PyTorch call computes any of these
+    functions); then the 2D atlas step both ways with ``beta = 0`` and
+    ``beta = 0.05`` at 256^2 b8 and 512^2 b8, with the peak device memory
+    of each step.  Returns {kernel: {ms, plain_ms, library_ms, bound_ms,
+    bound_by}} at 256^2 b8."""
     from lagomorph_tpu_torch.ops.kernels import epdiff2d, plain_versions, shoot2d
 
-    N, _, H, W = FULL2D
     metric = lt.FluidMetric(PARAMS)
-    Mn = metric.packed_multiplier((H, W), torch.float32, device)
-    _, m, _ = bench_inputs(device, FULL2D)
     s, T = -1.0 / STEPS, STEPS - 1
-    phiinv0 = s * metric.sharp(m)
-    traj = shoot2d._launch_fwd(phiinv0, m, Mn, s, T, True)[2:]
-    g = torch.as_tensor(np.random.default_rng(8).standard_normal(FULL2D), dtype=torch.float32,
-                        device=device)
+
+    def momenta(shape):  # bench.py's momenta and a cotangent at shape
+        g = torch.as_tensor(np.random.default_rng(8).standard_normal(shape), dtype=torch.float32,
+                            device=device)
+        return bench_inputs(device, shape)[1], g
+
+    def shoot2d_calls(shape, m, g):  # K8 (with the stash) and K9
+        Mn = metric.packed_multiplier(shape[2:], torch.float32, device)
+        phiinv0 = s * metric.sharp(m)
+        traj = shoot2d._launch_fwd(phiinv0, m, Mn, s, T, True)[2:]
+        return {("shoot2d_fwd", shape): (lambda: shoot2d._launch_fwd(phiinv0, m, Mn, s, T, True),
+                                         lambda: shoot2d.shoot2d_fwd_plain(phiinv0, m, Mn, s, T),
+                                         T),
+                ("shoot2d_bwd", shape): (lambda: shoot2d._launch_bwd(m, g, *traj, Mn, s),
+                                         lambda: shoot2d.shoot2d_bwd_plain(m, g, *traj, Mn, s), T)}
+
+    out = {}
+
+    def timed(calls):
+        for (name, shape), (fn, plain, substeps) in calls.items():
+            N, _, H, W = shape
+            p1 = time_ms(plain, device, 10)
+            k1 = time_ms(fn, device, 10)
+            k2 = time_ms(fn, device, 10)
+            p2 = time_ms(plain, device, 10)
+            b_ms, b_by = bound(*work(name, N, H * W, F=substeps))
+            if shape == FULL2D:
+                out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
+                             "bound_ms": b_ms, "bound_by": b_by}
+            log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                f"library none, bound {b_ms:.4f} ms ({b_by}) per call at {H}^2 b{N}, "
+                f"{substeps} substep{'s' if substeps > 1 else ''} [{card}]")
+            if name == "shoot2d_bwd":
+                log(f"  K9's launch at {H}^2 b{N}: {k9_grid(shoot2d, N, H, W)}")
+
+    # the 256^2 operands stay alive through the steps below, the 512^2 ones
+    # do not (the steps' peaks count what is allocated)
+    m, g = momenta(FULL2D)
+    calls = shoot2d_calls(FULL2D, m, g)
     # the operands of the beta = 0.05 shooting's second substep
     v0 = lt.FluidMetric(PARAMS_BETA).sharp(m)
     phi1 = s * v0
     _, _, mw = epdiff2d._launch_ad_star(phi1, m, want_mw=True)
-    calls = {
-        "shoot2d_fwd": (lambda: shoot2d._launch_fwd(phiinv0, m, Mn, s, T, True),
-                        lambda: shoot2d.shoot2d_fwd_plain(phiinv0, m, Mn, s, T), T),
-        "shoot2d_bwd": (lambda: shoot2d._launch_bwd(m, g, *traj, Mn, s),
-                        lambda: shoot2d.shoot2d_bwd_plain(m, g, *traj, Mn, s), T),
-        "ad_star2d_fwd": (lambda: epdiff2d._launch_ad_star(phi1, m, want_mw=True),
-                          lambda: epdiff2d.ad_star2d_plain(phi1, m, want_mw=True), 1),
-        "compose2d_fwd": (lambda: epdiff2d._launch_compose(phi1, v0, s),
-                          lambda: epdiff2d.compose2d_plain(phi1, v0, s), 1),
-        "ad_star2d_bwd": (lambda: epdiff2d._launch_ad_star_bwd(phi1, m, g, mw),
-                          lambda: epdiff2d.ad_star2d_bwd_plain(phi1, m, g, mw), 1),
-        "compose2d_bwd": (lambda: epdiff2d._launch_compose_bwd(phi1, v0, s, g),
-                          lambda: epdiff2d.compose2d_bwd_plain(phi1, v0, s, g), 1),
-    }
-    out = {}
-    for name, (fn, plain, substeps) in calls.items():
-        p1 = time_ms(plain, device, 10)
-        k1 = time_ms(fn, device, 10)
-        k2 = time_ms(fn, device, 10)
-        p2 = time_ms(plain, device, 10)
-        b_ms, b_by = bound(*work(name, N, H * W, F=substeps))
-        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
-                     "bound_ms": b_ms, "bound_by": b_by}
-        log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-            f"library none, bound {b_ms:.4f} ms ({b_by}) per call at 256^2 b8, "
-            f"{substeps} substep{'s' if substeps > 1 else ''} [{card}]")
+    calls.update({
+        ("ad_star2d_fwd", FULL2D): (lambda: epdiff2d._launch_ad_star(phi1, m, want_mw=True),
+                                    lambda: epdiff2d.ad_star2d_plain(phi1, m, want_mw=True), 1),
+        ("compose2d_fwd", FULL2D): (lambda: epdiff2d._launch_compose(phi1, v0, s),
+                                    lambda: epdiff2d.compose2d_plain(phi1, v0, s), 1),
+        ("ad_star2d_bwd", FULL2D): (lambda: epdiff2d._launch_ad_star_bwd(phi1, m, g, mw),
+                                    lambda: epdiff2d.ad_star2d_bwd_plain(phi1, m, g, mw), 1),
+        ("compose2d_bwd", FULL2D): (lambda: epdiff2d._launch_compose_bwd(phi1, v0, s, g),
+                                    lambda: epdiff2d.compose2d_bwd_plain(phi1, v0, s, g), 1),
+    })
+    timed(calls)
+    timed(shoot2d_calls(FULL2D_512, *momenta(FULL2D_512)))
 
     for params in (PARAMS, PARAMS_BETA):
         step = make_step(lt, lt.FluidMetric(params))
@@ -1829,7 +1862,7 @@ def trace_run(device, card, fn, label, path, n=5):
         f"largest (us): {', '.join(f'{g:.0f}' for g in gaps[:8])}")
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
     for i, (name, (ms, k)) in enumerate(ranked):
-        if i < 16 or name.startswith("lagomorph::"):
+        if i < 16 or "lagomorph::" in name:
             log(f"trace: {ms / n:8.3f} ms/{label} {k / n:5.1f} calls/{label}  {name[:90]}")
     log(f"trace: written to {path}")
 

@@ -1,7 +1,8 @@
 // The cooperative launch of a persistent kernel, shared by K8/K9
 // (shoot2d.cu) and K16 (fft_whole.cu): as many blocks of `threads` as the
-// card holds at once (occupancy x SMs), so that every block is resident and
-// cooperative_groups::this_grid().sync() may separate the kernel's phases.
+// card holds at once (occupancy x SMs), or fewer, so that every block is
+// resident and cooperative_groups::this_grid().sync() may separate the
+// kernel's phases.
 // The shared-memory attribute and the occupancy are asked of the runtime
 // once per (kernel, threads, shared memory, device) and kept, so that a
 // launch costs one cudaGetDevice besides the launch itself.
@@ -58,11 +59,13 @@ static inline int cooperative_blocks(const void* kernel, int threads, size_t sme
   return (int)cudaSuccess;
 }
 
+// launch `kernel` on that grid, or on max_blocks if that is fewer (> 0)
 static inline int launch_cooperative(const void* kernel, int threads, size_t smem,
-                                     void** args, cudaStream_t stream) {
+                                     void** args, cudaStream_t stream, int max_blocks = 0) {
   int blocks;
   int err = cooperative_blocks(kernel, threads, smem, &blocks);
   if (err != (int)cudaSuccess) return err;
+  if (max_blocks > 0 && max_blocks < blocks) blocks = max_blocks;
   err = (int)cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(threads), args, smem, stream);
   if (err != (int)cudaSuccess) return err;
   return (int)cudaGetLastError();

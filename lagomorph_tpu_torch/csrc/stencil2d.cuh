@@ -216,14 +216,14 @@ __host__ __device__ __forceinline__ void warp_transpose(const float* disp, float
 }
 
 // The weight-gradient path at (i, j): dd_a = sum_o dw_a(o_a) w_b(o_b)
-// <cot(i, j), I(clamp((i, j) + o))>, b != a, for the displacement (d0, d1)
-// at (i, j) and the two-channel image I of one subject.
-__host__ __device__ __forceinline__ void weight_grad(const float* I, float d0, float d1, float c0,
-                                                     float c1, int H, int W, int i, int j,
-                                                     float dd[2]) {
+// <cot(i, j), I(clamp((i, j) + o))>, b != a, for the displacement at (i, j)
+// whose weights are (wx, wy) and slopes (sx, sy), and the two-channel image
+// I of one subject.
+__host__ __device__ __forceinline__ void weight_grad_w(const float* I, const W3& wx, const W3& wy,
+                                                       const W3& sx, const W3& sy, float c0,
+                                                       float c1, int H, int W, int i, int j,
+                                                       float dd[2]) {
   const long HW = (long)H * W;
-  const W3 wx = weights(d0), wy = weights(d1);
-  const W3 sx = slopes(d0), sy = slopes(d1);
   float acc0 = 0.0f, acc1 = 0.0f;
   for (int ox = -1; ox <= 1; ++ox) {
     const long row = (long)clampi(i + ox, H) * W;
@@ -236,6 +236,13 @@ __host__ __device__ __forceinline__ void weight_grad(const float* I, float d0, f
   }
   dd[0] = acc0;
   dd[1] = acc1;
+}
+
+// the same for the displacement (d0, d1)
+__host__ __device__ __forceinline__ void weight_grad(const float* I, float d0, float d1, float c0,
+                                                     float c1, int H, int W, int i, int j,
+                                                     float dd[2]) {
+  weight_grad_w(I, weights(d0), weights(d1), slopes(d0), slopes(d1), c0, c1, H, W, i, j, dd);
 }
 
 // compose backward at (i, j) (`_compose_bwd_body`), cotangent g of the

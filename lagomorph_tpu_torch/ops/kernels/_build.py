@@ -75,9 +75,12 @@ SIGNATURES = {
     # phi0, m0, Mn, out, flag, traj_p, traj_v, traj_mw (or 3 NULL), pp (or NULL),
     # cbuf, N, Nm, H, W, T, s, stream
     "lagomorph_shoot2d_fwd": [_P] * 10 + [_I] * 5 + [_F, _P],
-    # m0, g, Mn, traj_p, traj_v, traj_mw, d_m0, d_phi0, cbuf, dm, dmw, gbuf,
-    # N, Nm, H, W, T, s, stream
-    "lagomorph_shoot2d_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
+    # m0, g, Mn, traj_p, traj_v, traj_mw, d_m0, d_phi0, cbuf, dmw (or NULL), gbuf,
+    # N, Nm, H, W, T, s, tile (0: K9's choice), stream
+    "lagomorph_shoot2d_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
+    # N, H, W, tile, out (8 ints: path, tile height, blocks, threads, shared
+    # bytes, the tiles of phases 1-3)
+    "lagomorph_shoot2d_bwd_grid": [_I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -15,11 +15,16 @@
 
 Each is one cooperative launch whose phases are separated by grid-wide
 barriers; both are bound by the bytes of their fields and stash on the
-H100.  See the source for the design.  The plain versions
-(:func:`shoot2d_fwd_plain`, :func:`shoot2d_bwd_plain`) run the same
+H100.  K9 takes three barriers a reverse step: its last phase transforms
+a halo row on each side of its tile, so dm and d_mw stay in shared
+memory (a batch-1 ``m0`` adds a phase that sums ``d_m0`` over the
+subjects from a d_mw field).  See the source for the design.  The plain
+versions (:func:`shoot2d_fwd_plain`, :func:`shoot2d_bwd_plain`) run the same
 substeps on the plain 2D stencils and a ``torch.fft`` packed solve.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -108,23 +113,38 @@ def _launch_fwd(phiinv0, m0, Mn, s, T, stash):
     return (out, flag.bool(), *traj) if stash else (out, flag.bool())
 
 
-def _launch_bwd(m0, g, traj_p, traj_v, traj_mw, Mn, s):
+def _launch_bwd(m0, g, traj_p, traj_v, traj_mw, Mn, s, tile=0):
+    """K9: ``(d_phiinv0, d_m0)``.  ``tile``: the tile height (0: the
+    kernel's choice, :func:`bwd_launch_config`)."""
     T, N, _, H, W = traj_p.shape
+    Nm = m0.shape[0]
     d_m0 = torch.empty_like(m0)
     d_phi0 = torch.empty_like(g)
     cbuf = torch.empty((N, H, W, 2), dtype=g.dtype, device=g.device)
-    dm = torch.empty_like(g)
-    dmw = torch.empty_like(g)
+    # a batch-1 m0 of several subjects sums d_m0 over them from a d_mw field
+    dmw = torch.empty_like(g) if Nm != N else None
     gbuf = torch.empty((2,) + tuple(g.shape), dtype=g.dtype, device=g.device)
     _build.call(
         "lagomorph_shoot2d_bwd",
         m0.data_ptr(), g.data_ptr(), Mn.data_ptr(), traj_p.data_ptr(), traj_v.data_ptr(),
         traj_mw.data_ptr(), d_m0.data_ptr(), d_phi0.data_ptr(), cbuf.data_ptr(),
-        dm.data_ptr(), dmw.data_ptr(), gbuf.data_ptr(),
-        N, m0.shape[0], H, W, T, float(s), stream_of(g),
+        None if dmw is None else dmw.data_ptr(), gbuf.data_ptr(),
+        N, Nm, H, W, T, float(s), int(tile), stream_of(g),
     )
     BWD.launches += 1
     return d_phi0, d_m0
+
+
+def bwd_launch_config(N: int, H: int, W: int, tile: int = 0) -> dict:
+    """The launch K9 makes for ``N`` subjects of ``(H, W)`` on the current
+    card: its path (``"register"``: H and W powers of two from 32 to 256;
+    else ``"tile"``), the tile height, the cooperative grid's blocks, the
+    threads of a block, its dynamic shared memory in bytes and the tiles of
+    its three phases.  Builds the kernels on first use; launches nothing."""
+    out = (ctypes.c_int * 8)()
+    _build.call("lagomorph_shoot2d_bwd_grid", N, H, W, int(tile), ctypes.cast(out, ctypes.c_void_p))
+    return {"path": "register" if out[0] else "tile", "tile": out[1], "blocks": out[2],
+            "threads": out[3], "smem": out[4], "tiles": tuple(out[5:8])}
 
 
 class _Shoot2d(torch.autograd.Function):

@@ -36,6 +36,10 @@ struct float2 {
   float x, y;
 };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
+struct float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -176,11 +180,13 @@ inline void emu_call(void (*k)(A...), void** args, std::index_sequence<I...>) {
 }
 template <class... A>
 inline int emu_launch_cooperative(void (*k)(A...), int threads, size_t smem, void** args,
-                                  cudaStream_t) {
+                                  cudaStream_t, int max_blocks = 0) {
   int sms, per_sm;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, smem);
-  emu_run((long)per_sm * sms, threads, smem, true,
+  long blocks = (long)per_sm * sms;
+  if (max_blocks > 0 && max_blocks < blocks) blocks = max_blocks;
+  emu_run(blocks, threads, smem, true,
           [&] { emu_call(k, args, std::index_sequence_for<A...>{}); });
   return cudaGetLastError();
 }

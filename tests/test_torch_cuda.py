@@ -174,16 +174,19 @@ def shoot2d_inputs(rng, shape, m_batch, device, max_v0=0.5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 2, 32, 64), (3, 2, 17, 12)])
+@pytest.mark.parametrize("shape", [(2, 2, 32, 64), (3, 2, 17, 12), (8, 2, 256, 256)])
 @pytest.mark.parametrize("m_batch", ["one", "N"])
 def test_shoot2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     """K8 (phiinv_T, the flag and, under autograd, the stashed trajectories)
     and K9 (both gradients, d_m0 summed over the subjects for batch-1
-    momenta) against their plain versions on the card, at a power-of-two
-    and an odd shape (both line transforms), 4 substeps at s = -0.2, within
-    1e-4 * max|ref| (float32 transforms against cuFFT, as K3); a tripped
-    flag (a displacement of 1.5) comes out false both ways.  One launch of
-    each per call."""
+    momenta) against their plain versions on the card, at power-of-two
+    shapes (K9's register path, 256^2 b8 the 2D step's) and an odd one (its
+    tile path, also at 8-line tiles: 6 rows and the halo, so that a tile
+    holds the edge of two subjects and its halo row lies in the next), 4
+    substeps at s = -0.2, within 1e-4 * max|ref| (float32 transforms against
+    cuFFT, as K3); a second launch of K9 is bit-identical (no atomics); a
+    tripped flag (a displacement of 1.5) comes out false both ways.  One
+    launch of each per call."""
     rng = np.random.default_rng(6)
     phiinv0, m0, Mn = shoot2d_inputs(rng, shape, m_batch, cuda)
     kernels.reset_launches()
@@ -195,14 +198,25 @@ def test_shoot2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     out2, ok2 = shoot2d.shoot2d(phiinv0, m0, Mn, -0.2, 4)  # no stash: ping-pong planes
     assert torch.equal(out2, out) and bool(ok2)
     g = torch.as_tensor(rng.standard_normal(tuple(out.shape)), dtype=torch.float32, device=cuda)
+    N, _, H, W = shape
+    path = "tile" if shape == (3, 2, 17, 12) else "register"
+    assert shoot2d.bwd_launch_config(N, H, W)["path"] == path
     d_phi, d_m0 = shoot2d._launch_bwd(m0, g, tp, tv, tm, Mn, -0.2)
     r_phi, r_m0 = shoot2d.shoot2d_bwd_plain(m0, g, r_tp, r_tv, r_tm, Mn, -0.2)
     _compare(d_phi, r_phi, 1e-4, 0.0)
     _compare(d_m0, r_m0, 1e-4, 0.0)
-    assert kernels.launch_counts()["shoot2d_fwd"] == 2 and kernels.launch_counts()["shoot2d_bwd"] == 1
+    again = shoot2d._launch_bwd(m0, g, tp, tv, tm, Mn, -0.2)
+    assert torch.equal(again[0], d_phi) and torch.equal(again[1], d_m0)
+    if path == "tile":
+        for got, ref in zip(shoot2d._launch_bwd(m0, g, tp, tv, tm, Mn, -0.2, tile=8),
+                            (r_phi, r_m0)):
+            _compare(got, ref, 1e-4, 0.0)
+    launches = 3 if path == "tile" else 2
+    assert (kernels.launch_counts()["shoot2d_fwd"] == 2
+            and kernels.launch_counts()["shoot2d_bwd"] == launches)
     leaves = [phiinv0.clone().requires_grad_(True), m0.clone().requires_grad_(True)]
     got = torch.autograd.grad(shoot2d.shoot2d(*leaves, Mn, -0.2, 4)[0], leaves, g)
-    assert kernels.launch_counts()["shoot2d_bwd"] == 2
+    assert kernels.launch_counts()["shoot2d_bwd"] == launches + 1
     for a, b in zip(got, (d_phi, d_m0)):
         assert torch.equal(a, b)
     bad = phiinv0.clone()

@@ -60,8 +60,8 @@ STENCIL_KERNELS = ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd", "compose_fwd
                    "ad_star_bwd", "compose_bwd")
 ENTRY_POINTS = ("lagomorph_fluid_flat", "lagomorph_fluid_radix_zy", "lagomorph_fluid_radix_x",
                 "lagomorph_fluid_whole", "lagomorph_fluid_whole_grid", "lagomorph_shoot2d_fwd",
-                "lagomorph_shoot2d_bwd", "lagomorph_ad_star_bwd_first",
-                *(f"lagomorph_{k}" for k in STENCIL_KERNELS))
+                "lagomorph_shoot2d_bwd", "lagomorph_shoot2d_bwd_grid",
+                "lagomorph_ad_star_bwd_first", *(f"lagomorph_{k}" for k in STENCIL_KERNELS))
 RTOL = 1e-5
 BWD_RTOL = 1e-5  # of 1 + max|ref|: the stencils' backwards
 PARAMS = (0.1, 0.0, 0.01)
@@ -260,11 +260,29 @@ def test_host_fluid_solves_match_plain(rng, host_kernels, host_library, spatial)
     assert kernels.launch_counts()["fluid_flat"] == 3
 
 
-def test_host_shoot2d_kernels_match_plain(rng, host_kernels):
+# K9's paths: (2, 2, 8, 16) and (3, 2, 12, 10) its tile path (an axis not a
+# power of two from 32 to 256), (2, 2, 32, 64) its register path with G > 1
+# threads a line on both axes; each beside forced tile heights (K9's
+# `tile`) whose tiles straddle subjects, so that a halo row of phase 3
+# lies in the next or the previous subject: 5 rows on the register path,
+# 16 lines (14 rows and the halo) and 4 (2 rows) on the tile path
+SHOOT2D_SHAPES = {(2, 2, 8, 16): ("tile", (0,)), (2, 2, 32, 64): ("register", (0, 5)),
+                  (3, 2, 12, 10): ("tile", (0, 16, 4))}
+
+
+@pytest.mark.parametrize("shape", list(SHOOT2D_SHAPES))
+def test_host_shoot2d_kernels_match_plain(rng, host_kernels, shape):
     """K8 (phiinv_T, the flag, the stashed trajectory) and K9 (both
-    gradients) against their plain versions, 4 substeps at s = -0.2 from
-    momenta at max|v0| = 0.5, batch-N and batch-1 momenta."""
-    N, H, W = 2, 8, 16
+    gradients, at its own tile height and the forced ones) against their
+    plain versions, 4 substeps at s = -0.2 from momenta at max|v0| = 0.5,
+    batch-N and batch-1 momenta (whose d_m0 K9 sums over the subjects in a
+    phase of its own), K9 within 1e-5 * max|ref|; a rerun of K9 is
+    bit-identical.  Then a displacement of 1.5 in phiinv0 trips both flags,
+    and K9 on that trajectory still gives finite gradients equal to the
+    plain version's."""
+    N, _, H, W = shape
+    path, tiles = SHOOT2D_SHAPES[shape]
+    assert shoot2d.bwd_launch_config(N, H, W)["path"] == path
     Mn = lt.FluidMetric(PARAMS).packed_multiplier((H, W), torch.float32, "cpu")
     for nb in (N, 1):
         m0 = f32(rng.standard_normal((nb, 2, H, W)))
@@ -277,10 +295,23 @@ def test_host_shoot2d_kernels_match_plain(rng, host_kernels):
             close(f"K8 {what}", g, r)
         assert bool(got[1]) and bool(ref[1])
         g = f32(rng.standard_normal((N, 2, H, W)))
-        for what, a, b in zip(("d_phiinv0", "d_m0"),
-                              shoot2d._launch_bwd(m0, g, *ref[2:], Mn, -0.2),
-                              shoot2d.shoot2d_bwd_plain(m0, g, *ref[2:], Mn, -0.2)):
-            close(f"K9 {what}", a, b)
+        want = shoot2d.shoot2d_bwd_plain(m0, g, *ref[2:], Mn, -0.2)
+        for tile in tiles:
+            d = shoot2d._launch_bwd(m0, g, *ref[2:], Mn, -0.2, tile)
+            for what, a, b in zip(("d_phiinv0", "d_m0"), d, want):
+                close(f"K9 {what} (tile {tile}, m0 batch {nb})", a, b)
+        again = shoot2d._launch_bwd(m0, g, *ref[2:], Mn, -0.2, tiles[-1])
+        assert all(torch.equal(a, b) for a, b in zip(d, again)), "K9 is not deterministic"
+    bad = phi0.clone()
+    bad.view(-1)[bad.numel() // 3] = 1.5
+    got = shoot2d._launch_fwd(bad, m0, Mn, -0.2, 4, True)
+    ref = shoot2d.shoot2d_fwd_plain(bad, m0, Mn, -0.2, 4)
+    assert not bool(got[1]) and not bool(ref[1])
+    d = shoot2d._launch_bwd(m0, g, *ref[2:], Mn, -0.2)
+    for what, a, b in zip(("d_phiinv0", "d_m0"), d, shoot2d.shoot2d_bwd_plain(m0, g, *ref[2:], Mn,
+                                                                                -0.2)):
+        assert bool(torch.isfinite(a).all()), f"K9 {what} on a tripped trajectory"
+        close(f"K9 {what} on a tripped trajectory", a, b)
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 6, 5, 7), (3, 3, 2, 9, 4)])
