@@ -32,8 +32,9 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    kernels K8 (phiinv_T, flag and stashed trajectory) and K9 (both
    gradients) against their plain versions at 256^2 b8, 512^2 b8 and
    (3, 2, 96, 80), with batch-1 and batch-N momenta and a tripped flag,
-   launched directly (K9 twice, bit-identical, its grid and tiles logged)
-   and through the wrapper under autograd; then the 2D
+   launched directly (K8 and K9 twice each, bit-identical, their grids and
+   tiles logged; K8's traj_phiinv[0] and traj_mw[0] bit-equal) and through
+   the wrapper under autograd; then the 2D
    per-substep kernels K10-K13 (Ad*, compose and their backwards) against
    their plain versions at the same three shapes, the same way; then the
    fluid solves that the selectors reach: K14 (both directions), K15 and
@@ -818,11 +819,12 @@ def fallback_step(lt, device, params, max_v0, m, I, img):
     step_compare(label, runs["kernels"], runs["plain"], grads, FALLBACK_P_TOL, grad_tol=1e-4)
 
 
-def k9_grid(shoot2d, N, H, W):
-    """K9's launch at ``N`` subjects of ``(H, W)``, in words."""
-    c = shoot2d.bwd_launch_config(N, H, W)
+def shoot_grid(shoot2d, N, H, W, fwd=False):
+    """K8's (``fwd``) or K9's launch at ``N`` subjects of ``(H, W)``, in
+    words."""
+    c = (shoot2d.fwd_launch_config if fwd else shoot2d.bwd_launch_config)(N, H, W)
     return (f"{c['path']} path, {c['tile']}-line tiles, {c['blocks']} blocks of {c['threads']}, "
-            f"{c['smem']} B of shared memory, tiles of phases 1-3: "
+            f"{c['smem']} B of shared memory, tiles of phases {'A-C' if fwd else '1-3'}: "
             f"{', '.join(map(str, c['tiles']))}")
 
 
@@ -832,7 +834,8 @@ def shoot2d_checks(lt, device, shape, seed):
     their plain versions on the same inputs, 4 substeps at s = -0.2 from
     momenta scaled to max|v0| = 0.5 (batch N and batch 1, whose d_m0 K9
     sums over the subjects), within 1e-4 * max|ref| (float32 transforms
-    against cuFFT, as K3), a second launch of K9 bit-identical, and a
+    against cuFFT, as K3), K8's traj_phiinv[0] and traj_mw[0] (before any
+    transform) bit-equal, a second launch of K8 and of K9 bit-identical, and a
     displacement of 1.5 in phiinv0 must trip both flags; then the wrapper ``shoot2d.shoot2d`` under
     ``torch.autograd.grad`` (K8 forward, K9 backward, one launch each, with
     a non-contiguous cotangent) against autograd of the plain versions, on
@@ -847,7 +850,8 @@ def shoot2d_checks(lt, device, shape, seed):
     errs = {"shoot2d_fwd": 0.0, "shoot2d_bwd": 0.0}
     tag = "x".join(map(str, shape))
     log(f"2D whole-shoot kernels at {tag}:")
-    log(f"  K9's launch: {k9_grid(shoot2d, N, H, W)}")
+    log(f"  K8's launch: {shoot_grid(shoot2d, N, H, W, fwd=True)}")
+    log(f"  K9's launch: {shoot_grid(shoot2d, N, H, W)}")
 
     def hold(name, label, pairs):
         for what, g, r in pairs:
@@ -862,6 +866,11 @@ def shoot2d_checks(lt, device, shape, seed):
         hold("shoot2d_fwd", label, zip(("phiinv_T", "traj_phiinv", "traj_v", "traj_mw"),
                                        got[:1] + got[2:], ref[:1] + ref[2:]))
         check(bool(got[1]) and bool(ref[1]), f"shoot2d_fwd {label}: in-regime flag false")
+        check(torch.equal(got[2][0], ref[2][0]) and torch.equal(got[4][0], ref[4][0]),
+              f"shoot2d_fwd {label}: traj_phiinv[0] or traj_mw[0] not bit-equal")
+        again = shoot2d._launch_fwd(phiinv0, m0, Mn, s, T, True)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"shoot2d_fwd {label}: two launches differ")
         cot = torch.as_tensor(rng.standard_normal((N, 2, H, W)), dtype=torch.float32, device=device)
         d = shoot2d._launch_bwd(m0, cot, *ref[2:], Mn, s)
         hold("shoot2d_bwd", label, zip(("d_phiinv0", "d_m0"), d,
@@ -874,7 +883,8 @@ def shoot2d_checks(lt, device, shape, seed):
         _, gf = shoot2d.shoot2d(bad, m0, Mn, s, T)
         _, rf = shoot2d.shoot2d_fwd_plain(bad, m0, Mn, s, T, stash=False)
         check(not bool(gf) and not bool(rf), f"shoot2d_fwd {label}: tripped flag not false")
-    log("  flags: equal in and out of the unit regime; two launches of K9 bit-identical")
+    log("  flags: equal in and out of the unit regime; K8's traj_phiinv[0] and traj_mw[0] "
+        "bit-equal; two launches of K8 and of K9 bit-identical")
 
     # The wrapper and its autograd.Function, as the main path calls them,
     # against autograd of the plain versions.  The two float32 forwards
@@ -1576,8 +1586,9 @@ def timings2d(device, card, lt):
             log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
                 f"library none, bound {b_ms:.4f} ms ({b_by}) per call at {H}^2 b{N}, "
                 f"{substeps} substep{'s' if substeps > 1 else ''} [{card}]")
-            if name == "shoot2d_bwd":
-                log(f"  K9's launch at {H}^2 b{N}: {k9_grid(shoot2d, N, H, W)}")
+            if name.startswith("shoot2d"):
+                log(f"  {'K8' if name == 'shoot2d_fwd' else 'K9'}'s launch at {H}^2 b{N}: "
+                    f"{shoot_grid(shoot2d, N, H, W, fwd=name == 'shoot2d_fwd')}")
 
     # the 256^2 operands stay alive through the steps below, the 512^2 ones
     # do not (the steps' peaks count what is allocated)

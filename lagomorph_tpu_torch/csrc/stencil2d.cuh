@@ -108,6 +108,45 @@ __host__ __device__ __forceinline__ float warp(const float* f, const W3& wx, con
   return acc;
 }
 
+// the central difference from the values at the two neighbours
+__host__ __device__ __forceinline__ float central(float hi, float lo) {
+  return mul(0.5f, sub(hi, lo));
+}
+
+// `warp` on the live taps alone: where floor(d) is -1 or 0 only the offsets
+// lo and lo + 1 of an axis can weigh anything (lo = floor(d); elsewhere all
+// three weights are zero, and lo = 0 sums two of them), so the 4 taps
+// (lx, ly) .. (lx + 1, ly + 1) are summed in the 9-tap order, each term
+// rounded as there.  The skipped terms are exact zeros (a zero weight
+// times a finite value), which leave a sum unchanged: the result is the
+// 9-tap sum's, but for the sign of a zero result.
+__host__ __device__ __forceinline__ int live_lo(float d) { return floorf(d) == -1.0f ? -1 : 0; }
+
+__host__ __device__ __forceinline__ float warp_live(const float* f, const W3& wx, const W3& wy,
+                                                    int lx, int ly, int H, int W, int i, int j) {
+  float acc = 0.0f;
+  for (int a = 0; a < 2; ++a) {
+    const float* row = f + (long)clampi(i + lx + a, H) * W;
+    const float w0 = at(wx, lx + a);
+    for (int b = 0; b < 2; ++b) {
+      const float term = mul(mul(w0, at(wy, ly + b)), row[clampi(j + ly + b, W)]);
+      acc = (a == 0 && b == 0) ? term : add(acc, term);
+    }
+  }
+  return acc;
+}
+
+// `warp` (LIVE false) or `warp_live` at the displacement (d0, d1)
+template <bool LIVE>
+__host__ __device__ __forceinline__ float warp_at(const float* f, const W3& wx, const W3& wy,
+                                                  float d0, float d1, int H, int W, int i, int j) {
+  if constexpr (LIVE) {
+    return warp_live(f, wx, wy, live_lo(d0), live_lo(d1), H, W, i, j);
+  } else {
+    return warp(f, wx, wy, H, W, i, j);
+  }
+}
+
 // clamped central difference of plane f along axis a (0: H, 1: W) at (i, j)
 __host__ __device__ __forceinline__ float diff(const float* f, int a, int H, int W, int i, int j) {
   float hi, lo;
@@ -118,7 +157,7 @@ __host__ __device__ __forceinline__ float diff(const float* f, int a, int H, int
     hi = f[(long)i * W + clampi(j + 1, W)];
     lo = f[(long)i * W + clampi(j - 1, W)];
   }
-  return mul(0.5f, sub(hi, lo));
+  return central(hi, lo);
 }
 
 // D^T, the exact transpose of the clamped central difference along one
@@ -151,38 +190,54 @@ __host__ __device__ __forceinline__ void transposed_tap(int v, int n, int k, int
 // Ad* at (i, j) (`_adstar_body`): mw_a = warp of m0_a at phiinv(i, j);
 // out_c = sum_a (D_a phiinv_c + delta_ca) mw_a, summed over a in order.
 // `phi` and `m0` are one subject's fields.  Returns whether phiinv(i, j)
-// lies in the unit regime.
-__host__ __device__ __forceinline__ bool adstar(const float* phi, const float* m0, int H, int W,
-                                                int i, int j, float out[2], float mw[2]) {
+// lies in the unit regime.  LIVE: the warp on the live taps alone.
+// The same from phiinv's value (d0, d1) at (i, j) and its differences
+// jac[c][a] = D_a phiinv_c there, for a caller that holds phiinv elsewhere;
+// LIVE: the warp on the live taps alone (`warp_live`).
+template <bool LIVE = false>
+__host__ __device__ __forceinline__ void adstar_jac(const float* m0, float d0, float d1,
+                                                    const float jac[2][2], int H, int W, int i,
+                                                    int j, float out[2], float mw[2]) {
   const long HW = (long)H * W;
-  const long p = (long)i * W + j;
-  const float d0 = phi[p], d1 = phi[HW + p];
   const W3 wx = weights(d0), wy = weights(d1);
-  mw[0] = warp(m0, wx, wy, H, W, i, j);
-  mw[1] = warp(m0 + HW, wx, wy, H, W, i, j);
+  mw[0] = warp_at<LIVE>(m0, wx, wy, d0, d1, H, W, i, j);
+  mw[1] = warp_at<LIVE>(m0 + HW, wx, wy, d0, d1, H, W, i, j);
   for (int c = 0; c < 2; ++c) {
     float acc = 0.0f;
     for (int a = 0; a < 2; ++a) {
-      float g = diff(phi + c * HW, a, H, W, i, j);
+      float g = jac[c][a];
       if (a == c) g = add(g, 1.0f);
       const float term = mul(g, mw[a]);
       acc = a == 0 ? term : add(acc, term);
     }
     out[c] = acc;
   }
+}
+
+template <bool LIVE = false>
+__host__ __device__ __forceinline__ bool adstar(const float* phi, const float* m0, int H, int W,
+                                                int i, int j, float out[2], float mw[2]) {
+  const long HW = (long)H * W;
+  const long p = (long)i * W + j;
+  const float d0 = phi[p], d1 = phi[HW + p];
+  float jac[2][2];
+  for (int c = 0; c < 2; ++c)
+    for (int a = 0; a < 2; ++a) jac[c][a] = diff(phi + c * HW, a, H, W, i, j);
+  adstar_jac<LIVE>(m0, d0, d1, jac, H, W, i, j, out, mw);
   return in_unit(d0) && in_unit(d1);
 }
 
 // compose at (i, j) (`_compose_body`), from the velocity v(i, j) = (v0,
 // v1): d = s v; out_c = d_c + warp of phiinv_c at d.  Returns whether d
-// lies in the unit regime.
+// lies in the unit regime.  LIVE: the warp on the live taps alone.
+template <bool LIVE = false>
 __host__ __device__ __forceinline__ bool compose(const float* phi, float v0, float v1, float s,
                                                  int H, int W, int i, int j, float out[2]) {
   const long HW = (long)H * W;
   const float d0 = mul(s, v0), d1 = mul(s, v1);
   const W3 wx = weights(d0), wy = weights(d1);
-  out[0] = add(d0, warp(phi, wx, wy, H, W, i, j));
-  out[1] = add(d1, warp(phi + HW, wx, wy, H, W, i, j));
+  out[0] = add(d0, warp_at<LIVE>(phi, wx, wy, d0, d1, H, W, i, j));
+  out[1] = add(d1, warp_at<LIVE>(phi + HW, wx, wy, d0, d1, H, W, i, j));
   return in_unit(d0) && in_unit(d1);
 }
 

@@ -73,8 +73,11 @@ SIGNATURES = {
     # phiinv, v, s, g, d_phiinv, d_v, N, H, W, stream
     "lagomorph_compose2d_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     # phi0, m0, Mn, out, flag, traj_p, traj_v, traj_mw (or 3 NULL), pp (or NULL),
-    # cbuf, N, Nm, H, W, T, s, stream
-    "lagomorph_shoot2d_fwd": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # cbuf, N, Nm, H, W, T, s, tile (0: K8's choice), stream
+    "lagomorph_shoot2d_fwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+    # N, H, W, tile, out (8 ints: path, tile height, blocks, threads, shared
+    # bytes, the tiles of phases A-C)
+    "lagomorph_shoot2d_fwd_grid": [_I, _I, _I, _I, _P],
     # m0, g, Mn, traj_p, traj_v, traj_mw, d_m0, d_phi0, cbuf, dmw (or NULL), gbuf,
     # N, Nm, H, W, T, s, tile (0: K9's choice), stream
     "lagomorph_shoot2d_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _P],

@@ -15,12 +15,14 @@
 
 Each is one cooperative launch whose phases are separated by grid-wide
 barriers; both are bound by the bytes of their fields and stash on the
-H100.  K9 takes three barriers a reverse step: its last phase transforms
-a halo row on each side of its tile, so dm and d_mw stay in shared
-memory (a batch-1 ``m0`` adds a phase that sums ``d_m0`` over the
-subjects from a d_mw field).  See the source for the design.  The plain
-versions (:func:`shoot2d_fwd_plain`, :func:`shoot2d_bwd_plain`) run the same
-substeps on the plain 2D stencils and a ``torch.fft`` packed solve.
+H100.  K8 takes three barriers a substep (Ad* and the row transform, the
+columns, the inverse rows and compose).  K9 takes three barriers a reverse
+step: its last phase transforms a halo row on each side of its tile, so dm
+and d_mw stay in shared memory (a batch-1 ``m0`` adds a phase that sums
+``d_m0`` over the subjects from a d_mw field).  See the source for the
+design.  The plain versions (:func:`shoot2d_fwd_plain`,
+:func:`shoot2d_bwd_plain`) run the same substeps on the plain 2D stencils
+and a ``torch.fft`` packed solve.
 """
 from __future__ import annotations
 
@@ -90,7 +92,10 @@ def shoot2d_bwd_plain(m0: torch.Tensor, g: torch.Tensor, traj_p: torch.Tensor,
     return g, d_m0
 
 
-def _launch_fwd(phiinv0, m0, Mn, s, T, stash):
+def _launch_fwd(phiinv0, m0, Mn, s, T, stash, tile=0):
+    """K8: ``(phiinv_T, ok)``, and the trajectories after them when
+    ``stash``.  ``tile``: the tile height (0: the kernel's choice,
+    :func:`fwd_launch_config`)."""
     N, _, H, W = phiinv0.shape
     out = torch.empty_like(phiinv0)
     flag = torch.ones((), dtype=torch.int32, device=phiinv0.device)
@@ -107,7 +112,7 @@ def _launch_fwd(phiinv0, m0, Mn, s, T, stash):
         phiinv0.data_ptr(), m0.data_ptr(), Mn.data_ptr(), out.data_ptr(), flag.data_ptr(),
         *(None if x is None else x.data_ptr() for x in traj),
         None if pp is None else pp.data_ptr(), cbuf.data_ptr(),
-        N, m0.shape[0], H, W, int(T), float(s), stream_of(phiinv0),
+        N, m0.shape[0], H, W, int(T), float(s), int(tile), stream_of(phiinv0),
     )
     FWD.launches += 1
     return (out, flag.bool(), *traj) if stash else (out, flag.bool())
@@ -135,16 +140,28 @@ def _launch_bwd(m0, g, traj_p, traj_v, traj_mw, Mn, s, tile=0):
     return d_phi0, d_m0
 
 
+def _launch_config(entry, N, H, W, tile):
+    out = (ctypes.c_int * 8)()
+    _build.call(entry, N, H, W, int(tile), ctypes.cast(out, ctypes.c_void_p))
+    return {"path": "register" if out[0] else "tile", "tile": out[1], "blocks": out[2],
+            "threads": out[3], "smem": out[4], "tiles": tuple(out[5:8])}
+
+
+def fwd_launch_config(N: int, H: int, W: int, tile: int = 0) -> dict:
+    """The launch K8 makes for ``N`` subjects of ``(H, W)`` on the current
+    card, as :func:`bwd_launch_config` gives K9's; its phases' tiles are
+    those of A, B and C (row tiles of ``tile`` rows, column tiles of
+    ``tile`` columns).  The two kernels' launches come from one chooser."""
+    return _launch_config("lagomorph_shoot2d_fwd_grid", N, H, W, tile)
+
+
 def bwd_launch_config(N: int, H: int, W: int, tile: int = 0) -> dict:
     """The launch K9 makes for ``N`` subjects of ``(H, W)`` on the current
     card: its path (``"register"``: H and W powers of two from 32 to 256;
     else ``"tile"``), the tile height, the cooperative grid's blocks, the
     threads of a block, its dynamic shared memory in bytes and the tiles of
     its three phases.  Builds the kernels on first use; launches nothing."""
-    out = (ctypes.c_int * 8)()
-    _build.call("lagomorph_shoot2d_bwd_grid", N, H, W, int(tile), ctypes.cast(out, ctypes.c_void_p))
-    return {"path": "register" if out[0] else "tile", "tile": out[1], "blocks": out[2],
-            "threads": out[3], "smem": out[4], "tiles": tuple(out[5:8])}
+    return _launch_config("lagomorph_shoot2d_bwd_grid", N, H, W, tile)
 
 
 class _Shoot2d(torch.autograd.Function):

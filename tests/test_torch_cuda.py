@@ -180,26 +180,40 @@ def test_shoot2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     """K8 (phiinv_T, the flag and, under autograd, the stashed trajectories)
     and K9 (both gradients, d_m0 summed over the subjects for batch-1
     momenta) against their plain versions on the card, at power-of-two
-    shapes (K9's register path, 256^2 b8 the 2D step's) and an odd one (its
-    tile path, also at 8-line tiles: 6 rows and the halo, so that a tile
-    holds the edge of two subjects and its halo row lies in the next), 4
-    substeps at s = -0.2, within 1e-4 * max|ref| (float32 transforms against
-    cuFFT, as K3); a second launch of K9 is bit-identical (no atomics); a
-    tripped flag (a displacement of 1.5) comes out false both ways.  One
-    launch of each per call."""
+    shapes (their register path, 256^2 b8 the 2D step's) and an odd one
+    (their tile path, also at 8-line tiles: K8's 8 rows, K9's 6 rows and
+    the halo, so that a tile holds the edge of two subjects and K9's halo
+    row lies in the next),
+    4 substeps at s = -0.2, within 1e-4 * max|ref| (float32 transforms
+    against cuFFT, as K3); K8's traj_phiinv[0] and traj_mw[0] (before any
+    transform) bit-equal; a second launch of K8 and of K9 bit-identical (no
+    atomics); a tripped flag (a displacement of 1.5) comes out false both
+    ways.  One launch of each per call."""
     rng = np.random.default_rng(6)
     phiinv0, m0, Mn = shoot2d_inputs(rng, shape, m_batch, cuda)
+    N, _, H, W = shape
+    path = "tile" if shape == (3, 2, 17, 12) else "register"
+    assert shoot2d.fwd_launch_config(N, H, W)["path"] == path
     kernels.reset_launches()
-    out, ok, tp, tv, tm = shoot2d._launch_fwd(phiinv0, m0, Mn, -0.2, 4, True)
+    got_fwd = shoot2d._launch_fwd(phiinv0, m0, Mn, -0.2, 4, True)
+    out, ok, tp, tv, tm = got_fwd
     r_out, r_ok, r_tp, r_tv, r_tm = shoot2d.shoot2d_fwd_plain(phiinv0, m0, Mn, -0.2, 4)
     for got, ref in ((out, r_out), (tp, r_tp), (tv, r_tv), (tm, r_tm)):
         _compare(got, ref, 1e-4, 0.0)
+    assert torch.equal(tp[0], r_tp[0]) and torch.equal(tm[0], r_tm[0])
     assert bool(ok) and bool(r_ok)
+    again = shoot2d._launch_fwd(phiinv0, m0, Mn, -0.2, 4, True)
+    assert all(torch.equal(a, b) for a, b in zip(again, got_fwd))
     out2, ok2 = shoot2d.shoot2d(phiinv0, m0, Mn, -0.2, 4)  # no stash: ping-pong planes
     assert torch.equal(out2, out) and bool(ok2)
+    fwd_launches = 3
+    if path == "tile":
+        forced = shoot2d._launch_fwd(phiinv0, m0, Mn, -0.2, 4, True, tile=8)
+        for got, ref in zip(forced[:1] + forced[2:], (r_out, r_tp, r_tv, r_tm)):
+            _compare(got, ref, 1e-4, 0.0)
+        assert bool(forced[1]) and torch.equal(forced[4][0], r_tm[0])
+        fwd_launches += 1
     g = torch.as_tensor(rng.standard_normal(tuple(out.shape)), dtype=torch.float32, device=cuda)
-    N, _, H, W = shape
-    path = "tile" if shape == (3, 2, 17, 12) else "register"
     assert shoot2d.bwd_launch_config(N, H, W)["path"] == path
     d_phi, d_m0 = shoot2d._launch_bwd(m0, g, tp, tv, tm, Mn, -0.2)
     r_phi, r_m0 = shoot2d.shoot2d_bwd_plain(m0, g, r_tp, r_tv, r_tm, Mn, -0.2)
@@ -212,7 +226,7 @@ def test_shoot2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
                             (r_phi, r_m0)):
             _compare(got, ref, 1e-4, 0.0)
     launches = 3 if path == "tile" else 2
-    assert (kernels.launch_counts()["shoot2d_fwd"] == 2
+    assert (kernels.launch_counts()["shoot2d_fwd"] == fwd_launches
             and kernels.launch_counts()["shoot2d_bwd"] == launches)
     leaves = [phiinv0.clone().requires_grad_(True), m0.clone().requires_grad_(True)]
     got = torch.autograd.grad(shoot2d.shoot2d(*leaves, Mn, -0.2, 4)[0], leaves, g)

@@ -60,7 +60,7 @@ STENCIL_KERNELS = ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd", "compose_fwd
                    "ad_star_bwd", "compose_bwd")
 ENTRY_POINTS = ("lagomorph_fluid_flat", "lagomorph_fluid_radix_zy", "lagomorph_fluid_radix_x",
                 "lagomorph_fluid_whole", "lagomorph_fluid_whole_grid", "lagomorph_shoot2d_fwd",
-                "lagomorph_shoot2d_bwd", "lagomorph_shoot2d_bwd_grid",
+                "lagomorph_shoot2d_fwd_grid", "lagomorph_shoot2d_bwd", "lagomorph_shoot2d_bwd_grid",
                 "lagomorph_ad_star_bwd_first", *(f"lagomorph_{k}" for k in STENCIL_KERNELS))
 RTOL = 1e-5
 BWD_RTOL = 1e-5  # of 1 + max|ref|: the stencils' backwards
@@ -260,40 +260,67 @@ def test_host_fluid_solves_match_plain(rng, host_kernels, host_library, spatial)
     assert kernels.launch_counts()["fluid_flat"] == 3
 
 
-# K9's paths: (2, 2, 8, 16) and (3, 2, 12, 10) its tile path (an axis not a
-# power of two from 32 to 256), (2, 2, 32, 64) its register path with G > 1
-# threads a line on both axes; each beside forced tile heights (K9's
-# `tile`) whose tiles straddle subjects, so that a halo row of phase 3
-# lies in the next or the previous subject: 5 rows on the register path,
-# 16 lines (14 rows and the halo) and 4 (2 rows) on the tile path
+# The paths of K8 and K9 (one chooser picks both): (2, 2, 8, 16) and (3, 2,
+# 12, 10) their tile path (an axis not a power of two from 32 to 256), (2,
+# 2, 32, 64) their register path with G > 1 threads a line on both axes;
+# each beside forced tile heights (the entry points' `tile`) whose tiles
+# straddle subjects, so that a tile holds rows of two subjects and a halo
+# row of K9's phase 3 lies in the next or the previous one: 5 rows on the
+# register path; on the tile path 16 lines (K8: 16 rows; K9: 14 rows and
+# the halo) and 4 (K8: 4 rows; K9: 2)
 SHOOT2D_SHAPES = {(2, 2, 8, 16): ("tile", (0,)), (2, 2, 32, 64): ("register", (0, 5)),
                   (3, 2, 12, 10): ("tile", (0, 16, 4))}
+
+
+def _k8_matches_plain(phi0, m0, Mn, tiles, ok):
+    """K8 at each tile height, with the stash and without it, against
+    shoot2d_fwd_plain: within 1e-5 * max|ref|, traj_phiinv[0] and traj_mw[0]
+    (computed before any transform) bit-equal, the flag ``ok`` both ways, the
+    ping-pong planes' phiinv_T bit-equal to the stash's, a second launch
+    bit-identical.  Returns the plain trajectory."""
+    ref = shoot2d.shoot2d_fwd_plain(phi0, m0, Mn, -0.2, 4)
+    assert bool(ref[1]) == ok
+    for tile in tiles:
+        got = shoot2d._launch_fwd(phi0, m0, Mn, -0.2, 4, True, tile)
+        assert bool(got[1]) == ok, f"K8 (tile {tile}): flag {bool(got[1])}"
+        if ok:
+            for what, g, r in zip(("phiinv_T", "traj_phiinv", "traj_v", "traj_mw"),
+                                  got[:1] + got[2:], ref[:1] + ref[2:]):
+                close(f"K8 {what} (tile {tile})", g, r)
+        assert torch.equal(got[2][0], ref[2][0]), f"K8 traj_phiinv[0] (tile {tile})"
+        assert torch.equal(got[4][0], ref[4][0]), f"K8 traj_mw[0] (tile {tile})"
+        bare = shoot2d._launch_fwd(phi0, m0, Mn, -0.2, 4, False, tile)
+        assert bool(bare[1]) == ok and torch.equal(bare[0], got[0]), \
+            f"K8 without the stash (tile {tile})"
+        again = shoot2d._launch_fwd(phi0, m0, Mn, -0.2, 4, True, tile)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"K8 is not deterministic (tile {tile})"
+    return ref
 
 
 @pytest.mark.parametrize("shape", list(SHOOT2D_SHAPES))
 def test_host_shoot2d_kernels_match_plain(rng, host_kernels, shape):
     """K8 (phiinv_T, the flag, the stashed trajectory) and K9 (both
-    gradients, at its own tile height and the forced ones) against their
-    plain versions, 4 substeps at s = -0.2 from momenta at max|v0| = 0.5,
+    gradients) against their plain versions, at their own tile heights and
+    the forced ones, 4 substeps at s = -0.2 from momenta at max|v0| = 0.5,
     batch-N and batch-1 momenta (whose d_m0 K9 sums over the subjects in a
-    phase of its own), K9 within 1e-5 * max|ref|; a rerun of K9 is
-    bit-identical.  Then a displacement of 1.5 in phiinv0 trips both flags,
-    and K9 on that trajectory still gives finite gradients equal to the
-    plain version's."""
+    phase of its own), within 1e-5 * max|ref|: K8 with and without the stash
+    (``_k8_matches_plain``), a rerun of each bit-identical.  Then a
+    displacement of 1.5 in phiinv0 trips both flags, K8's at every tile
+    height with and without the stash, and K9 on that trajectory still
+    gives finite gradients equal to the plain version's."""
     N, _, H, W = shape
     path, tiles = SHOOT2D_SHAPES[shape]
     assert shoot2d.bwd_launch_config(N, H, W)["path"] == path
+    assert shoot2d.fwd_launch_config(N, H, W)["path"] == path
+    for tile in tiles[1:]:
+        assert shoot2d.fwd_launch_config(N, H, W, tile)["tile"] == tile
     Mn = lt.FluidMetric(PARAMS).packed_multiplier((H, W), torch.float32, "cpu")
     for nb in (N, 1):
         m0 = f32(rng.standard_normal((nb, 2, H, W)))
         m0 = m0 * (0.5 / float(shoot2d.fluid2d_plain(m0, Mn).abs().max()))
         phi0 = (-0.2 * shoot2d.fluid2d_plain(m0, Mn)).expand(N, -1, -1, -1).contiguous()
-        got = shoot2d._launch_fwd(phi0, m0, Mn, -0.2, 4, True)
-        ref = shoot2d.shoot2d_fwd_plain(phi0, m0, Mn, -0.2, 4)
-        for what, g, r in zip(("phiinv_T", "traj_phiinv", "traj_v", "traj_mw"),
-                              got[:1] + got[2:], ref[:1] + ref[2:]):
-            close(f"K8 {what}", g, r)
-        assert bool(got[1]) and bool(ref[1])
+        ref = _k8_matches_plain(phi0, m0, Mn, tiles, True)
         g = f32(rng.standard_normal((N, 2, H, W)))
         want = shoot2d.shoot2d_bwd_plain(m0, g, *ref[2:], Mn, -0.2)
         for tile in tiles:
@@ -304,9 +331,7 @@ def test_host_shoot2d_kernels_match_plain(rng, host_kernels, shape):
         assert all(torch.equal(a, b) for a, b in zip(d, again)), "K9 is not deterministic"
     bad = phi0.clone()
     bad.view(-1)[bad.numel() // 3] = 1.5
-    got = shoot2d._launch_fwd(bad, m0, Mn, -0.2, 4, True)
-    ref = shoot2d.shoot2d_fwd_plain(bad, m0, Mn, -0.2, 4)
-    assert not bool(got[1]) and not bool(ref[1])
+    ref = _k8_matches_plain(bad, m0, Mn, tiles, False)
     d = shoot2d._launch_bwd(m0, g, *ref[2:], Mn, -0.2)
     for what, a, b in zip(("d_phiinv0", "d_m0"), d, shoot2d.shoot2d_bwd_plain(m0, g, *ref[2:], Mn,
                                                                                 -0.2)):
