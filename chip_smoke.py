@@ -930,11 +930,13 @@ def epdiff2d_checks(device, shape, seed):
     flag) and K11 (out, flag; s = -0.2) against their plain versions, K12
     and K13 against the plain backwards on the same inputs, with batch-1
     (d_m0 summed over the subjects) and batch-N momenta, all within 1e-5 *
-    (1 + max|ref|); inputs that trip each flag (and an in-regime edge
-    value) give equal flags both ways; then the wrappers ``ad_star2d`` and
-    ``compose2d`` under ``torch.autograd.grad`` (forward and backward
-    kernel once each, a transposed cotangent) against autograd of the plain
-    versions.  Returns {kernel: err}."""
+    (1 + max|ref|); K12 on its row tiles (batch-N m0) ``torch.equal`` to its
+    per-thread route, and a second launch of K12 and of K13 bit-identical;
+    inputs that trip each flag (and an in-regime edge value) give equal
+    flags both ways; then the wrappers ``ad_star2d`` and ``compose2d`` under
+    ``torch.autograd.grad`` (forward and backward kernel once each, a
+    transposed cotangent) against autograd of the plain versions.  Returns
+    {kernel: err}."""
     from lagomorph_tpu_torch.ops.kernels import epdiff2d, launch_counts, plain_versions
 
     N, _, H, W = shape
@@ -948,10 +950,25 @@ def epdiff2d_checks(device, shape, seed):
     s = -0.2
     errs = {k: 0.0 for k in KERNELS_2D_PER_OP}
     log(f"2D per-substep kernels at {'x'.join(map(str, shape))}:")
+    check(epdiff2d.bwd_route(N, N, H, W) == "tile"
+          and epdiff2d.bwd_route(N, 1, H, W) == "thread", "K12's routes")
+    c = epdiff2d.bwd_launch_config(N, H, W)
+    log(f"  K12's launch (batch-N m0): {c['tile']}-row tiles, {c['blocks']} blocks of "
+        f"{c['threads']}, {c['smem']} B of shared memory")
 
     def hold(name, label, pairs):
         for what, g, r in pairs:
             errs[name] = max(errs[name], compare(f"{name} {label} {what}", g, r, 1e-5))
+
+    def same_bits(name, label, launch, thread=None):
+        """A launch's outputs against a second launch's and, if given, the
+        per-thread route's."""
+        got = launch()
+        check(all(torch.equal(a, b) for a, b in zip(got, launch())),
+              f"{name} {label}: two launches differ")
+        if thread is not None:
+            check(all(torch.equal(a, b) for a, b in zip(got, thread())),
+                  f"{name} {label}: the tiles differ from the per-thread route")
 
     for label, nb in (("m0(N,2)", N), ("m0(1,2)", 1)):
         m0 = t(rng.standard_normal((nb, 2, H, W)))
@@ -963,6 +980,9 @@ def epdiff2d_checks(device, shape, seed):
         hold("ad_star2d_bwd", label, zip(("d_phiinv", "d_m0"),
                                          epdiff2d._launch_ad_star_bwd(p, m0, g, r_mw),
                                          epdiff2d.ad_star2d_bwd_plain(p, m0, g, r_mw)))
+        same_bits("ad_star2d_bwd", label, lambda: epdiff2d._launch_ad_star_bwd(p, m0, g, r_mw),
+                  (lambda: epdiff2d._launch_ad_star_bwd(p, m0, g, r_mw, epdiff2d.THREAD))
+                  if nb == N else None)
         bad = p.clone()
         bad.view(-1)[:: 1 + bad.numel() // 7] = 1.0  # the upper bound is open
         bad.view(-1)[5] = -1.5
@@ -978,6 +998,7 @@ def epdiff2d_checks(device, shape, seed):
     hold("compose2d_bwd", "s=-0.2", zip(("d_phiinv", "d_v"),
                                         epdiff2d._launch_compose_bwd(p, v, s, g),
                                         epdiff2d.compose2d_bwd_plain(p, v, s, g)))
+    same_bits("compose2d_bwd", "s=-0.2", lambda: epdiff2d._launch_compose_bwd(p, v, s, g))
     # s*v = 1.02 lies outside; s*v == -1.0 inside (the lower bound is closed)
     for value, inside in ((-5.1, False), (5.0, True)):
         edge_v = v.clone()
@@ -986,7 +1007,8 @@ def epdiff2d_checks(device, shape, seed):
         _, rf = epdiff2d.compose2d_plain(p, edge_v, s)
         check(bool(gf) is bool(rf) is inside,
               f"compose2d_fwd: flags {bool(gf)}, {bool(rf)} at s*v = {s * value}")
-    log("  flags: equal in and out of the unit regime; two launches of K9 bit-identical")
+    log("  flags: equal in and out of the unit regime; K12 on its tiles bit-equal to its "
+        "per-thread route; two launches of K12 and of K13 bit-identical")
 
     # the wrappers and their autograd.Functions, as the main path calls them
     cases = (("ad_star2d", lambda a, b: epdiff2d.ad_star2d(a, b),
@@ -1548,7 +1570,8 @@ def timings2d(device, card, lt):
     the bound of its work (no PyTorch call computes any of these
     functions); then the 2D atlas step both ways with ``beta = 0`` and
     ``beta = 0.05`` at 256^2 b8 and 512^2 b8, with the peak device memory
-    of each step.  Returns {kernel: {ms, plain_ms, library_ms, bound_ms,
+    of each step; then K10-K13's device time per call (``torch.profiler``,
+    two samples of 10 calls) at 256^2 b8 and 512^2 b8.  Returns {kernel: {ms, plain_ms, library_ms, bound_ms,
     bound_by}} at 256^2 b8."""
     from lagomorph_tpu_torch.ops.kernels import epdiff2d, plain_versions, shoot2d
 
@@ -1590,24 +1613,34 @@ def timings2d(device, card, lt):
                 log(f"  {'K8' if name == 'shoot2d_fwd' else 'K9'}'s launch at {H}^2 b{N}: "
                     f"{shoot_grid(shoot2d, N, H, W, fwd=name == 'shoot2d_fwd')}")
 
+    def per_op_calls(shape, m, g):  # K10-K13 on the beta = 0.05 shooting's second substep
+        v0 = lt.FluidMetric(PARAMS_BETA).sharp(m)
+        phi1 = s * v0
+        _, _, mw = epdiff2d._launch_ad_star(phi1, m, want_mw=True)
+        return {
+            ("ad_star2d_fwd", shape): (lambda: epdiff2d._launch_ad_star(phi1, m, want_mw=True),
+                                       lambda: epdiff2d.ad_star2d_plain(phi1, m, want_mw=True), 1),
+            ("compose2d_fwd", shape): (lambda: epdiff2d._launch_compose(phi1, v0, s),
+                                       lambda: epdiff2d.compose2d_plain(phi1, v0, s), 1),
+            ("ad_star2d_bwd", shape): (lambda: epdiff2d._launch_ad_star_bwd(phi1, m, g, mw),
+                                       lambda: epdiff2d.ad_star2d_bwd_plain(phi1, m, g, mw), 1),
+            ("compose2d_bwd", shape): (lambda: epdiff2d._launch_compose_bwd(phi1, v0, s, g),
+                                       lambda: epdiff2d.compose2d_bwd_plain(phi1, v0, s, g), 1),
+        }
+
+    def device_times(calls):  # K10-K13 by torch.profiler device time, after the events
+        for (name, shape), (fn, _, _) in calls.items():
+            N, _, H, W = shape
+            us = [device_us(device, fn)[0] for _ in range(2)]
+            log(f"time {name}: device {us[0]:.2f}/{us[1]:.2f} us per call (torch.profiler) at "
+                f"{H}^2 b{N}, 1 substep [{card}]")
+
     # the 256^2 operands stay alive through the steps below, the 512^2 ones
     # do not (the steps' peaks count what is allocated)
     m, g = momenta(FULL2D)
     calls = shoot2d_calls(FULL2D, m, g)
-    # the operands of the beta = 0.05 shooting's second substep
-    v0 = lt.FluidMetric(PARAMS_BETA).sharp(m)
-    phi1 = s * v0
-    _, _, mw = epdiff2d._launch_ad_star(phi1, m, want_mw=True)
-    calls.update({
-        ("ad_star2d_fwd", FULL2D): (lambda: epdiff2d._launch_ad_star(phi1, m, want_mw=True),
-                                    lambda: epdiff2d.ad_star2d_plain(phi1, m, want_mw=True), 1),
-        ("compose2d_fwd", FULL2D): (lambda: epdiff2d._launch_compose(phi1, v0, s),
-                                    lambda: epdiff2d.compose2d_plain(phi1, v0, s), 1),
-        ("ad_star2d_bwd", FULL2D): (lambda: epdiff2d._launch_ad_star_bwd(phi1, m, g, mw),
-                                    lambda: epdiff2d.ad_star2d_bwd_plain(phi1, m, g, mw), 1),
-        ("compose2d_bwd", FULL2D): (lambda: epdiff2d._launch_compose_bwd(phi1, v0, s, g),
-                                    lambda: epdiff2d.compose2d_bwd_plain(phi1, v0, s, g), 1),
-    })
+    per_op = per_op_calls(FULL2D, m, g)
+    calls.update(per_op)
     timed(calls)
     timed(shoot2d_calls(FULL2D_512, *momenta(FULL2D_512)))
 
@@ -1635,6 +1668,10 @@ def timings2d(device, card, lt):
                 f"kernels {k[0]:.3f}/{k[1]:.3f} ms ({2000 / (k[0] + k[1]):.2f} steps/s), plain "
                 f"{p[0]:.3f}/{p[1]:.3f} ms per step; peak device memory per step: kernels "
                 f"{peak[False]:.3f} GiB, plain {peak[True]:.3f} GiB [{card}]")
+    # after the steps' wall times, which a profiler session before them
+    # would slow (its callbacks stay registered)
+    device_times(per_op)
+    device_times(per_op_calls(FULL2D_512, *momenta(FULL2D_512)))
     return out
 
 

@@ -66,8 +66,11 @@ SIGNATURES = {
     "lagomorph_fluid_whole_grid": [_I, _I, _I, _P],
     # phiinv, m0, out, mw (or NULL), flag, N, Nm, H, W, stream
     "lagomorph_ad_star2d_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # phiinv, m0, g, mw, d_mw (scratch), d_phiinv, d_m0, N, Nm, H, W, stream
-    "lagomorph_ad_star2d_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # phiinv, m0, g, mw, d_mw (scratch, or NULL on the tiles), d_phiinv, d_m0,
+    # N, Nm, H, W, tile (0: K12's choice, -1: the per-thread route), stream
+    "lagomorph_ad_star2d_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # N, H, W, tile, out (3 ints: K12's tile height, blocks, shared bytes)
+    "lagomorph_ad_star2d_bwd_grid": [_I, _I, _I, _I, _P],
     # phiinv, v, s, out, flag, N, H, W, stream
     "lagomorph_compose2d_fwd": [_P, _P, _F, _P, _P, _I, _I, _I, _P],
     # phiinv, v, s, g, d_phiinv, d_v, N, H, W, stream

@@ -22,8 +22,18 @@ Fields are ``(N, 2, H, W)``, any ``H, W >= 2``.  A flag is a 0-dim bool
 tensor on the fields' device, true iff every component of the displacement
 lies in ``[-1, 1)``.  The plain versions are the 3D ones' formulas, which
 hold in any dimension; see the source for the kernels' design.
+
+K12 takes one of two routes (:func:`bwd_route`): for batch-N momenta, row
+tiles staged in shared memory with a halo row on each side, one launch; for
+a batch-1 ``m0``, or where a tile of one row does not fit a block's shared
+memory or a field has ``2**31`` elements or more, one thread a pixel in two
+launches through a ``d_mw`` field (the second sums ``d_m0`` over the
+subjects for a batch-1 ``m0``).  For batch-N momenta the two give the same
+bits.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -117,16 +127,37 @@ def _launch_compose(phiinv, v, s):
     return out, flag.bool()
 
 
-def _launch_ad_star_bwd(phiinv, m0, g, mw):
+THREAD = -1  # the ``tile`` of K12's per-thread route
+_MAX_SMEM = 227 * 1024  # a block's shared memory on the H100
+_STAGE_PIXEL = 32  # K12's staged pixel: its packed weights, g and d_mw
+
+
+def bwd_route(N: int, Nm: int, H: int, W: int) -> str:
+    """The route K12 takes for ``N`` subjects of ``(H, W)`` and an ``m0`` of
+    batch ``Nm``: ``"tile"`` for batch-N momenta where the stage of one row
+    and its two halo rows fits a block's shared memory and the fields hold
+    fewer than ``2**31`` elements (the tile kernel's int indices), else
+    ``"thread"``."""
+    fits = 3 * W * _STAGE_PIXEL <= _MAX_SMEM and 2 * N * H * W < 2**31
+    return "tile" if fits and Nm == N else "thread"
+
+
+def _launch_ad_star_bwd(phiinv, m0, g, mw, tile=None):
+    """K12: ``(d_phiinv, d_m0)``.  ``tile``: the tile height (0: the
+    kernel's choice, :func:`bwd_launch_config`; batch-N ``m0`` only) or
+    :data:`THREAD` (the per-thread route); by default the route
+    :func:`bwd_route` names."""
     N, _, H, W = phiinv.shape
-    d_mw = torch.empty_like(phiinv)  # scratch of the first pass
+    if tile is None:
+        tile = 0 if bwd_route(N, m0.shape[0], H, W) == "tile" else THREAD
+    d_mw = torch.empty_like(phiinv) if tile < 0 else None  # the per-thread passes' scratch
     d_p = torch.empty_like(phiinv)
     d_m0 = torch.empty_like(m0)
     _build.call(
         "lagomorph_ad_star2d_bwd",
         phiinv.data_ptr(), m0.data_ptr(), g.data_ptr(), mw.data_ptr(),
-        d_mw.data_ptr(), d_p.data_ptr(), d_m0.data_ptr(),
-        N, m0.shape[0], H, W, stream_of(phiinv),
+        None if d_mw is None else d_mw.data_ptr(), d_p.data_ptr(), d_m0.data_ptr(),
+        N, m0.shape[0], H, W, int(tile), stream_of(phiinv),
     )
     AD_STAR_BWD.launches += 1
     return d_p, d_m0
@@ -143,6 +174,18 @@ def _launch_compose_bwd(phiinv, v, s, g):
     )
     COMPOSE_BWD.launches += 1
     return d_p, d_v
+
+
+def bwd_launch_config(N: int, H: int, W: int, tile: int = 0) -> dict:
+    """The launch K12 makes on its tiles for ``N`` subjects of ``(H, W)``
+    on the current card: the tile height (one block of 256 threads a tile,
+    a halo row staged on each side of its rows), the blocks and the dynamic
+    shared memory in bytes.  Builds the kernels on first use; launches
+    nothing."""
+    out = (ctypes.c_int * 3)()
+    _build.call("lagomorph_ad_star2d_bwd_grid", N, H, W, int(tile),
+                ctypes.cast(out, ctypes.c_void_p))
+    return {"tile": out[0], "blocks": out[1], "threads": 256, "smem": out[2]}
 
 
 class _AdStar2d(torch.autograd.Function):

@@ -247,8 +247,10 @@ def test_epdiff2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     plain versions on the card (bit-equal in practice, held within 1e-5 *
     (1 + max|ref|)), K12 (d_m0 summed over the subjects for batch-1
     momenta) and K13 against the plain backwards, directly and through the
-    wrappers under autograd (one launch of each backward per call); flags
-    false out of the unit regime, at a power-of-two and an odd shape."""
+    wrappers under autograd (one launch of each backward per call); K12 on
+    its row tiles (batch-N m0) ``torch.equal`` to its per-thread route;
+    flags false out of the unit regime, at a power-of-two and an odd
+    shape."""
     rng = np.random.default_rng(7)
 
     def c(a):
@@ -275,6 +277,10 @@ def test_epdiff2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     for got, ref in zip(epdiff2d._launch_compose_bwd(p, v, -0.2, g),
                         epdiff2d.compose2d_bwd_plain(p, v, -0.2, g)):
         _compare(got, ref, 1e-5)
+    if m_batch == "N":
+        for got, thread in zip(epdiff2d._launch_ad_star_bwd(p, m0, g, mw),
+                               epdiff2d._launch_ad_star_bwd(p, m0, g, mw, epdiff2d.THREAD)):
+            assert torch.equal(got, thread)
     cases = ((lambda a, b: epdiff2d.ad_star2d(a, b)[0], (p, m0), "ad_star2d_bwd"),
              (lambda a, b: epdiff2d.compose2d(a, b, -0.2)[0], (p, v), "compose2d_bwd"))
     for fn, args, name in cases:

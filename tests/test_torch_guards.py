@@ -34,7 +34,7 @@ def test_port_never_imports_jax():
     r = _run(["-c", "import sys, lagomorph_tpu_torch, lagomorph_tpu_torch.convert, "
                     "lagomorph_tpu_torch.ops.kernels._build, "
                     "lagomorph_tpu_torch.ops.kernels.epdiff2d, "
-                    "chip_smoke, profile_warp, profile_radix, profile_shoot2d; "
+                    "chip_smoke, profile_warp, profile_radix, profile_shoot2d, profile_epdiff2d; "
                     "assert 'jax' not in sys.modules, 'jax imported'; "
                     "assert 'lagomorph_tpu' not in sys.modules; print('clean')"])
     assert r.returncode == 0, r.stderr

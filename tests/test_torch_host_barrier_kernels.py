@@ -51,7 +51,7 @@ torch.set_num_threads(2)
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host", "threaded")
 HEADERS = ("fft_lines.cuh", "fft_reg.cuh", "fft_plane.cuh", "cooperative.cuh", "stencil.cuh",
-           "stencil2d.cuh")
+           "stencil2d.cuh", "tile2d.cuh")
 SOURCES = ("fft_unit.cu", "fft_radix.cu", "fft_whole.cu", "shoot2d.cu", "warp_unit.cu",
            "epdiff_unit.cu")
 # the 3D stencils: per-thread (K4), staging bricks (K5-K7's passes) or

@@ -1,32 +1,32 @@
-"""The per-pixel 2D stencil kernels' CUDA source, compiled for the host and
-run on the CPU against their plain versions.
+"""The 2D per-substep stencil kernels' CUDA source, compiled for the host
+and run on the CPU against their plain versions.
 
-K10-K13 (``lagomorph_tpu_torch/csrc/epdiff2d.cu``) are per-thread code: no
-shared memory, no barriers, one ballot.  With every
-``k<<<grid, block, ...>>>(args)`` launch rewritten as a loop over the
-grid's threads and ``tests/cuda_host/cuda_runtime.h`` standing in for the
-CUDA runtime, g++ compiles them into a host library with the same C entry
-points, which the kernel wrappers then call in place of the card's
-library.  So the kernels' arithmetic, indexing, clamp folds, batch-1 sums
-and flags are checked here, in float32, before the card sees them; the
-card itself is checked by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.  The 3D stencils K1, K2 and K4-K7 (``warp_unit.cu``,
-``epdiff_unit.cu``: the warp's backward passes stage bricks in shared
-memory between barriers), the transforms K3 and K14-K16 and K8/K9 run on
-the threaded emulation of ``tests/test_torch_host_barrier_kernels.py``;
-here their wrappers run their plain versions.
-
-K10-K13 run the per-pixel functions of ``csrc/stencil2d.cuh``, which K8
-and K9 share; K8 and K9 themselves (cooperative launches, grid barriers,
-shared-memory line transforms) do not fit this emulation.
+K10-K13 (``lagomorph_tpu_torch/csrc/epdiff2d.cu``): per-thread kernels with
+one ballot, and K12's row tiles, staged in shared memory between barriers
+(``csrc/tile2d.cuh``, which K9 shares).  The source is built with g++
+against the threaded emulation of the CUDA runtime
+(``tests/cuda_host/threaded/``: each CUDA thread an OS thread, a block's
+barrier a ``std::barrier``), each launch and shared-memory declaration
+rewritten as ``tests/test_torch_host_barrier_kernels.py`` rewrites its
+sources, into a host library with the same C entry points, which the kernel
+wrappers then call in place of the card's library.  It is built from
+``csrc/profile/epdiff2d_variants.cu``, which includes ``epdiff2d.cu``, so
+the forms the library does not take (K13 on K12's tiles, K12's tiles for a
+batch-1 m0), which ``profile_epdiff2d.py`` times on the card, are held
+here too.  So the kernels' arithmetic, indexing, tiles and halos, clamp
+folds, batch-1 sums and flags are checked here, in float32, before the card
+sees them; the card itself is checked by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.  The other kernels run on the threaded emulation of
+``tests/test_torch_host_barrier_kernels.py``; here their wrappers run their
+plain versions.
 
 Tolerances, float32 against the plain version on the same inputs: the
 forwards round each operation like the plain version (bit-equal); the
-backwards sum in another order than autograd (1e-5 * (1 + max|ref|)).
+backwards sum in another order than autograd (1e-5 * (1 + max|ref|)); the
+tile forms give the per-thread kernels' bits (``torch.equal``).
 """
 import ctypes
 import os
-import re
 import shutil
 import subprocess
 
@@ -37,60 +37,48 @@ import torch
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
 from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d
+from profile_epdiff2d import PARTS12, PARTS13, PIXEL12, parts12, parts13
+from test_torch_host_barrier_kernels import SHIM, _host_source
 
 torch.set_num_threads(2)
 
-SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host")
-SOURCES = ("epdiff2d.cu",)
+HEADERS = ("stencil2d.cuh", "tile2d.cuh", "epdiff2d.cu")
+SOURCE = os.path.join("profile", "epdiff2d_variants.cu")
 KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
+ENTRY_POINTS = ("lagomorph_ad_star2d_fwd", "lagomorph_compose2d_fwd", "lagomorph_ad_star2d_bwd",
+                "lagomorph_compose2d_bwd", "lagomorph_ad_star2d_bwd_grid")
 BWD_RTOL = 1e-5
-LAUNCH = re.compile(r"([\w:]+)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
-
-
-def _top_level_args(text):
-    """Split a launch configuration at its top-level commas."""
-    args, depth, cur = [], 0, ""
-    for ch in text:
-        depth += ch == "("
-        depth -= ch == ")"
-        if ch == "," and depth == 0:
-            args.append(cur.strip())
-            cur = ""
-        else:
-            cur += ch
-    return args + [cur.strip()]
-
-
-def _host_source(text):
-    """The CUDA source with each launch rewritten for the host."""
-    def launch(m):
-        grid, block = _top_level_args(m.group(2))[:2]
-        return f"emu_launch({grid}, {block}, [&] {{ {m.group(1)}({m.group(3)}); }});"
-    return LAUNCH.sub(launch, text)
 
 
 @pytest.fixture(scope="module")
 def host_library(tmp_path_factory):
-    """The 2D stencil source built as a host library (skips without g++)."""
+    """The 2D stencil source built as a threaded host library (skips
+    without a g++ that has C++20's <barrier>)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' sources for the host")
     out = tmp_path_factory.mktemp("host_kernels")
-    for name in ("stencil2d.cuh",) + SOURCES:
+    (out / "profile").mkdir()
+    for name in HEADERS + (SOURCE,):
         with open(os.path.join(_build.CSRC, name)) as f:
             (out / name).write_text(_host_source(f.read()))
     (out / "error_string.cpp").write_text(
         'extern "C" const char* lagomorph_error_string(int) { return "host emulation"; }\n')
     so = out / "libhost_kernels.so"
-    cmd = [gxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC", "-w", "-I", SHIM,
-           "-I", str(out), "-o", str(so),
-           *(str(out / s) for s in SOURCES + ("error_string.cpp",))]
+    cmd = [gxx, "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
+           "-I", SHIM, "-I", str(out), "-o", str(so), str(out / SOURCE),
+           str(out / "error_string.cpp")]
     r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0 and "barrier" in r.stderr and "No such file" in r.stderr:
+        pytest.skip("needs a g++ with C++20's <barrier>")
     assert r.returncode == 0, r.stderr
     lib = ctypes.CDLL(str(so))
-    for name in ("lagomorph_ad_star2d_fwd", "lagomorph_compose2d_fwd",
-                 "lagomorph_ad_star2d_bwd", "lagomorph_compose2d_bwd"):
+    for name in ENTRY_POINTS:
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    for name, types in (("prof_epdiff2d_parts12", PARTS12), ("prof_epdiff2d_parts13", PARTS13),
+                        ("prof_epdiff2d_pixel12", PIXEL12)):
+        getattr(lib, name).argtypes = types
         getattr(lib, name).restype = ctypes.c_int
     lib.lagomorph_error_string.argtypes = [ctypes.c_int]
     lib.lagomorph_error_string.restype = ctypes.c_char_p
@@ -197,3 +185,88 @@ def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
         assert float((update - r_update).abs().max()) <= 1e-4 * float(r_update.abs().max())
         assert float((g_I - r_I).abs().max()) <= 1e-5 * float(r_I.abs().max())
         assert abs(float(g_loss) - float(r_loss)) <= 1e-6 * abs(float(r_loss))
+
+
+# Forced tile heights at 3 subjects of 12 x 10: one row a tile (both halo
+# rows in other tiles), 4 (tiles within a subject), 5 and 16 (tiles that
+# straddle subjects, halo rows in the next or previous subject)
+TILE_SHAPE = (3, 2, 12, 10)
+
+
+@pytest.mark.parametrize("tile", [0, 1, 4, 5, 16])
+@pytest.mark.parametrize("m_batch", [1, "N"])
+def test_host_epdiff2d_bwd_tiles(rng, host_kernels, host_library, tile, m_batch):
+    """K12 on row tiles of the height it chooses (0) and of forced ones:
+    for batch-N momenta the library's tile kernel (the launch reporting the
+    height it took), for a batch-1 m0 (which the library sends to the
+    per-thread route, refusing its tiles) the profile's tile form that
+    writes d_mw for the sum over the subjects; and K13 on the same tiles
+    (the profile's form).  Each against the plain version within 1e-5 * (1
+    + max|ref|), ``torch.equal`` to the per-thread kernel, a rerun
+    bit-identical; a batch-1 m0's d_m0 is the float32 sum, in subject
+    order, of the subjects' own (batch-N) d_m0, bit for bit."""
+    N, _, H, W = TILE_SHAPE
+    cfg = epdiff2d.bwd_launch_config(N, H, W, tile)
+    assert cfg["tile"] == (tile or cfg["tile"]) and cfg["blocks"] == -(-N * H // cfg["tile"])
+    assert cfg["smem"] == 32 * (cfg["tile"] + 2) * W
+    p = f32(rng.uniform(-0.99, 0.99, TILE_SHAPE))
+    p.view(-1)[::7] = -0.999  # floor -1 and 0 on either side of the edges
+    nb = 1 if m_batch == 1 else N
+    m0 = f32(rng.standard_normal((nb, 2, H, W)))
+    g = f32(rng.standard_normal(TILE_SHAPE))
+    _, _, mw = epdiff2d.ad_star2d_plain(p, m0, want_mw=True)
+    v = f32(rng.uniform(-4.9, 4.9, TILE_SHAPE))
+    assert epdiff2d.bwd_route(N, nb, H, W) == ("tile" if nb == N else "thread")
+    if nb != N:
+        with pytest.raises(RuntimeError, match="lagomorph_ad_star2d_bwd"):
+            epdiff2d._launch_ad_star_bwd(p, m0, g, mw, tile)
+
+    def k12():
+        if nb == N:
+            return epdiff2d._launch_ad_star_bwd(p, m0, g, mw, tile)
+        return parts12(host_library, (3, 3, tile), p, m0, g, mw, None)
+
+    cases = (("K12", k12, lambda: epdiff2d._launch_ad_star_bwd(p, m0, g, mw, epdiff2d.THREAD),
+              epdiff2d.ad_star2d_bwd_plain(p, m0, g, mw)),
+             ("K13", lambda: parts13(host_library, (3, 3, tile), p, v, -0.2, g, None),
+              lambda: epdiff2d._launch_compose_bwd(p, v, -0.2, g),
+              epdiff2d.compose2d_bwd_plain(p, v, -0.2, g)))
+    for name, launch, thread, ref in cases:
+        got = launch()
+        for what, a, b in zip(("d_phiinv", "d_m0" if name == "K12" else "d_v"), got, ref):
+            close(f"{name} {what} (tile {tile}, m0 batch {m_batch})", a, b, BWD_RTOL)
+        assert all(torch.equal(a, b) for a, b in zip(got, thread())), \
+            f"{name} on tiles of {tile} differs from the per-thread kernel"
+        assert all(torch.equal(a, b) for a, b in zip(got, launch())), \
+            f"{name} is not deterministic (tile {tile})"
+        if name == "K12" and nb != N:  # d_m0 summed over the subjects in their order
+            m0_n = m0.expand(N, -1, -1, -1).contiguous()
+            each = epdiff2d._launch_ad_star_bwd(p, m0_n, g, mw, tile)[1]
+            total = torch.zeros_like(m0)
+            for n in range(N):
+                total = total + each[n:n + 1]
+            assert torch.equal(got[1], total), "K12's batch-1 d_m0 is not the ordered sum"
+
+
+def test_host_epdiff2d_bwd_routes(rng, host_kernels):
+    """K12's route by shape: its tiles for batch-N momenta where a stage of
+    one row and its halo fits a block's 227 KB (W up to 2421) and a field
+    has fewer than 2**31 elements, else one thread a pixel; at W = 2422 the
+    wrapper launches it on that route, within 1e-5 * (1 + max|ref|) of the
+    plain version, and a tile launch forced there is refused."""
+    route = epdiff2d.bwd_route
+    assert [route(1, 1, 2, w) for w in (2421, 2422)] == ["tile", "thread"]
+    assert route(2**20, 2**20, 2**5, 2**5) == "thread"  # 2**31 elements
+    assert route(2**20 - 1, 2**20 - 1, 2**5, 2**5) == "tile"
+    shape = (2, 2, 2, 2422)
+    p = f32(rng.uniform(-0.99, 0.99, shape))
+    m0 = f32(rng.standard_normal(shape))
+    g = f32(rng.standard_normal(shape))
+    _, _, mw = epdiff2d.ad_star2d_plain(p, m0, want_mw=True)
+    kernels.reset_launches()
+    for what, a, b in zip(("K12 d_phiinv", "K12 d_m0"), epdiff2d._launch_ad_star_bwd(p, m0, g, mw),
+                          epdiff2d.ad_star2d_bwd_plain(p, m0, g, mw)):
+        close(what, a, b, BWD_RTOL)
+    assert kernels.launch_counts()["ad_star2d_bwd"] == 1
+    with pytest.raises(RuntimeError, match="lagomorph_ad_star2d_bwd"):
+        epdiff2d._launch_ad_star_bwd(p, m0, g, mw, 0)
