@@ -36,7 +36,10 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    tiles logged; K8's traj_phiinv[0] and traj_mw[0] bit-equal) and through
    the wrapper under autograd; then the 2D
    per-substep kernels K10-K13 (Ad*, compose and their backwards) against
-   their plain versions at the same three shapes, the same way; then the
+   their plain versions at the same three shapes, the same way (K10 and
+   K11 on their column strips at the chooser's band height and at 3 and 8
+   rows, bit-equal to the plain versions and to their per-thread route,
+   their strips logged); then the
    fluid solves that the selectors reach: K14 (both directions), K15 and
    the pipeline K14, K15, K14 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128),
    (1, 3, 4, 256, 256) (256^2 planes: K14's two register line passes) and
@@ -92,7 +95,8 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    first pass alone, each beside its bound; the slice and the atlas step
    both ways, with
    the peak device memory of each step; K8 and K9 at 256^2 b8 and 512^2
-   b8, K10-K13 at one substep's shapes at 256^2 b8, and the 2D atlas step
+   b8, K10-K13 at one substep's shapes at 256^2 b8 (and by device time at
+   both widths, with K11's two-call yardstick), and the 2D atlas step
    both ways, with
    ``beta = 0`` and ``beta = 0.05``, at 256^2 b8 and 512^2 b8, with peak
    memory; K14, K15 and the pipeline at 128^3 b4 and K16 at 64^3 b4 and
@@ -158,6 +162,7 @@ STEP_LAUNCHES = {"ad_star_fwd": 4, "compose_fwd": 4, "fluid_flat": 10, "warp_uni
                  "warp_unit_bwd": 1, "ad_star_bwd": 4, "compose_bwd": 4}
 FORWARD = ("warp_unit_fwd", "ad_star_fwd", "compose_fwd", "fluid_flat")
 KERNELS_2D = ("shoot2d_fwd", "shoot2d_bwd")
+FORCED_BANDS = (3, 8)  # band heights forced on K10's and K11's strips in phase 3
 KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
 # launches in one 2D atlas step: the whole shooting is one K8, its backward
 # one K9; the 2D fluid solve and warps are plain PyTorch (as in the JAX
@@ -930,8 +935,12 @@ def epdiff2d_checks(device, shape, seed):
     flag) and K11 (out, flag; s = -0.2) against their plain versions, K12
     and K13 against the plain backwards on the same inputs, with batch-1
     (d_m0 summed over the subjects) and batch-N momenta, all within 1e-5 *
-    (1 + max|ref|); K12 on its row tiles (batch-N m0) ``torch.equal`` to its
-    per-thread route, and a second launch of K12 and of K13 bit-identical;
+    (1 + max|ref|); K10 (with ``mw`` and without) and K11 on their column
+    strips, at the chooser's band height and at ``FORCED_BANDS`` rows,
+    ``torch.equal`` to the plain versions and to their per-thread route
+    (``march`` -1), flags equal; K12 on its row tiles (batch-N m0)
+    ``torch.equal`` to its per-thread route, and a second launch of K12 and
+    of K13 bit-identical;
     inputs that trip each flag (and an in-regime edge value) give equal
     flags both ways; then the wrappers ``ad_star2d`` and ``compose2d`` under
     ``torch.autograd.grad`` (forward and backward kernel once each, a
@@ -956,9 +965,20 @@ def epdiff2d_checks(device, shape, seed):
     log(f"  K12's launch (batch-N m0): {c['tile']}-row tiles, {c['blocks']} blocks of "
         f"{c['threads']}, {c['smem']} B of shared memory")
 
+    for name in ("ad_star2d_fwd", "compose2d_fwd"):
+        c = epdiff2d.fwd_launch_config(name, N, H, W)
+        log(f"  {name}'s strips: {c['px']} columns a thread, bands of {c['rj']} rows, "
+            f"{c['blocks']} blocks of {c['threads']} ({c['per_sm']} an SM)")
+
     def hold(name, label, pairs):
         for what, g, r in pairs:
             errs[name] = max(errs[name], compare(f"{name} {label} {what}", g, r, 1e-5))
+
+    def bit_equal(name, label, got, refs):
+        """Outputs ``got`` against each output tuple of ``refs``, bit for bit."""
+        for ref in refs:
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"{name} {label}: not bit-equal")
 
     def same_bits(name, label, launch, thread=None):
         """A launch's outputs against a second launch's and, if given, the
@@ -976,6 +996,15 @@ def epdiff2d_checks(device, shape, seed):
         r_out, r_flag, r_mw = epdiff2d.ad_star2d_plain(p, m0, want_mw=True)
         hold("ad_star2d_fwd", label, [("out", out, r_out), ("mw", mw, r_mw)])
         check(bool(flag) and bool(r_flag), f"ad_star2d_fwd {label}: in-regime flag false")
+        thread = epdiff2d._launch_ad_star(p, m0, want_mw=True, march=epdiff2d.THREAD)
+        bit_equal("ad_star2d_fwd", f"{label} per-thread route", thread[::2], [(r_out, r_mw)])
+        for march in (0, *FORCED_BANDS):
+            got = epdiff2d._launch_ad_star(p, m0, want_mw=True, march=march)
+            bit_equal("ad_star2d_fwd", f"{label} march {march}", got[::2],
+                      [(r_out, r_mw), thread[::2]])
+            bit_equal("ad_star2d_fwd", f"{label} march {march} without mw",
+                      epdiff2d._launch_ad_star(p, m0, march=march)[:1], [(r_out,)])
+            check(bool(got[1]) and bool(thread[1]), f"ad_star2d_fwd {label}: flag false")
         g = t(rng.standard_normal(shape))
         hold("ad_star2d_bwd", label, zip(("d_phiinv", "d_m0"),
                                          epdiff2d._launch_ad_star_bwd(p, m0, g, r_mw),
@@ -989,11 +1018,19 @@ def epdiff2d_checks(device, shape, seed):
         _, gf = epdiff2d.ad_star2d(bad, m0)
         with plain_versions():
             _, rf = epdiff2d.ad_star2d(bad, m0)
-        check(not bool(gf) and not bool(rf), f"ad_star2d_fwd {label}: tripped flag not false")
+        tf = epdiff2d._launch_ad_star(bad, m0, march=epdiff2d.THREAD)[1]
+        check(not bool(gf) and not bool(rf) and not bool(tf),
+              f"ad_star2d_fwd {label}: tripped flag not false")
     out, flag = epdiff2d.compose2d(p, v, s)
     r_out, r_flag = epdiff2d.compose2d_plain(p, v, s)
     hold("compose2d_fwd", "s=-0.2", [("out", out, r_out)])
     check(bool(flag) and bool(r_flag), "compose2d_fwd: in-regime flag false")
+    thread = epdiff2d._launch_compose(p, v, s, march=epdiff2d.THREAD)
+    bit_equal("compose2d_fwd", "per-thread route", thread[:1], [(r_out,)])
+    for march in (0, *FORCED_BANDS):
+        got = epdiff2d._launch_compose(p, v, s, march=march)
+        bit_equal("compose2d_fwd", f"march {march}", got[:1], [(r_out,), thread[:1]])
+        check(bool(got[1]) and bool(thread[1]), f"compose2d_fwd march {march}: flag false")
     g = t(rng.standard_normal(shape))
     hold("compose2d_bwd", "s=-0.2", zip(("d_phiinv", "d_v"),
                                         epdiff2d._launch_compose_bwd(p, v, s, g),
@@ -1005,10 +1042,13 @@ def epdiff2d_checks(device, shape, seed):
         edge_v.view(-1)[edge_v.numel() // 2] = value
         _, gf = epdiff2d.compose2d(p, edge_v, s)
         _, rf = epdiff2d.compose2d_plain(p, edge_v, s)
-        check(bool(gf) is bool(rf) is inside,
+        _, tf = epdiff2d._launch_compose(p, edge_v, s, march=epdiff2d.THREAD)
+        check(bool(gf) is bool(rf) is bool(tf) is inside,
               f"compose2d_fwd: flags {bool(gf)}, {bool(rf)} at s*v = {s * value}")
-    log("  flags: equal in and out of the unit regime; K12 on its tiles bit-equal to its "
-        "per-thread route; two launches of K12 and of K13 bit-identical")
+    log(f"  flags: equal in and out of the unit regime; K10 (out, mw) and K11 on their strips "
+        f"(bands: the chooser's, {FORCED_BANDS}) bit-equal to the plain versions and to their "
+        "per-thread route; K12 on its tiles bit-equal to its per-thread route; two launches of "
+        "K12 and of K13 bit-identical")
 
     # the wrappers and their autograd.Functions, as the main path calls them
     cases = (("ad_star2d", lambda a, b: epdiff2d.ad_star2d(a, b),
@@ -1374,34 +1414,46 @@ def pass_work(kind, N, NI, C, V, compose=False):
 
 def grid_of(disp):
     """``F.grid_sample``'s grid (align_corners=True) for sampling at
-    ``x + disp(x)``: ``(N, X, Y, Z, 3)``, last axis (z, y, x) in [-1, 1]."""
+    ``x + disp(x)`` of a 3D ``(N, 3, X, Y, Z)`` or 2D ``(N, 2, H, W)``
+    displacement: ``(N, *spatial, D)``, last axis reversed ((z, y, x) or
+    (w, h)), in [-1, 1]."""
     from lagomorph_tpu_torch.ops.sampling import identity_grid
 
-    _, _, X, Y, Z = disp.shape
-    coords = identity_grid((X, Y, Z), dtype=disp.dtype, device=disp.device)[None] + disp
-    size = torch.tensor([X, Y, Z], dtype=disp.dtype, device=disp.device).view(1, 3, 1, 1, 1)
-    return (2.0 * coords / (size - 1) - 1.0).flip(1).permute(0, 2, 3, 4, 1).contiguous()
+    spatial = tuple(disp.shape[2:])
+    D = len(spatial)
+    coords = identity_grid(spatial, dtype=disp.dtype, device=disp.device)[None] + disp
+    size = torch.tensor(spatial, dtype=disp.dtype, device=disp.device).view(1, D, *[1] * D)
+    return (2.0 * coords / (size - 1) - 1.0).flip(1).permute(0, *range(2, D + 2), 1).contiguous()
 
 
 def compose_yardstick(device, card, phiinv, v, s):
-    """Log K2's yardstick, two PyTorch calls (so not its library column):
-    ``grid_sample`` of phiinv at x + s v (the grid made beforehand) plus s
-    v, its ms per call and its largest difference from K2."""
+    """Log the compose's yardstick, two PyTorch calls (so not its library
+    column): ``grid_sample`` of phiinv at x + s v (the grid made
+    beforehand) plus s v, its ms per call (CUDA events; in 2D, where the
+    host sets those, also ``torch.profiler``'s device time) and its largest
+    difference from the kernel (K2 in 3D, K11 in 2D)."""
     import torch.nn.functional as Fn
 
-    from lagomorph_tpu_torch.ops.kernels import epdiff_unit
+    from lagomorph_tpu_torch.ops.kernels import epdiff2d, epdiff_unit
 
     d = s * v
     grid = grid_of(d)
+    two_d = phiinv.dim() == 4
 
     def yardstick():
         return Fn.grid_sample(phiinv, grid, mode="bilinear", padding_mode="border",
                               align_corners=True) + d
 
     y1, y2 = (time_ms(yardstick, device, 10) for _ in range(2))
-    err = max_err(yardstick(), epdiff_unit.compose(phiinv, v, s)[0])
-    log(f"time compose_fwd yardstick (grid_sample + s v, two calls): {y1:.4f}/{y2:.4f} ms per "
-        f"call at {'x'.join(map(str, phiinv.shape))}, max diff from K2 {err:.3e} [{card}]")
+    kernel = (epdiff2d.compose2d if two_d else epdiff_unit.compose)(phiinv, v, s)[0]
+    err = max_err(yardstick(), kernel)
+    dev = ""
+    if two_d:
+        us = [device_us(device, yardstick)[0] for _ in range(2)]
+        dev = f", device {us[0]:.2f}/{us[1]:.2f} us per call (torch.profiler)"
+    log(f"time {'compose2d_fwd' if two_d else 'compose_fwd'} yardstick (grid_sample + s v, two "
+        f"calls): {y1:.4f}/{y2:.4f} ms per call{dev} at {'x'.join(map(str, phiinv.shape))}, max "
+        f"diff from {'K11' if two_d else 'K2'} {err:.3e} [{card}]")
 
 
 def timings(device, card, lt, metric, I, m, img):
@@ -1571,7 +1623,8 @@ def timings2d(device, card, lt):
     functions); then the 2D atlas step both ways with ``beta = 0`` and
     ``beta = 0.05`` at 256^2 b8 and 512^2 b8, with the peak device memory
     of each step; then K10-K13's device time per call (``torch.profiler``,
-    two samples of 10 calls) at 256^2 b8 and 512^2 b8.  Returns {kernel: {ms, plain_ms, library_ms, bound_ms,
+    two samples of 10 calls; each call's total and the kernel alone) at
+    256^2 b8 and 512^2 b8, and K11's two-call yardstick there.  Returns {kernel: {ms, plain_ms, library_ms, bound_ms,
     bound_by}} at 256^2 b8."""
     from lagomorph_tpu_torch.ops.kernels import epdiff2d, plain_versions, shoot2d
 
@@ -1631,9 +1684,11 @@ def timings2d(device, card, lt):
     def device_times(calls):  # K10-K13 by torch.profiler device time, after the events
         for (name, shape), (fn, _, _) in calls.items():
             N, _, H, W = shape
-            us = [device_us(device, fn)[0] for _ in range(2)]
-            log(f"time {name}: device {us[0]:.2f}/{us[1]:.2f} us per call (torch.profiler) at "
-                f"{H}^2 b{N}, 1 substep [{card}]")
+            runs = [device_us(device, fn) for _ in range(2)]
+            own = [sum(t for op, t in r[2].items() if name.rsplit("_", 1)[0] in op) for r in runs]
+            log(f"time {name}: device {runs[0][0]:.2f}/{runs[1][0]:.2f} us per call, the kernel "
+                f"alone {own[0]:.2f}/{own[1]:.2f} (torch.profiler) at {H}^2 b{N}, 1 substep "
+                f"[{card}]")
 
     # the 256^2 operands stay alive through the steps below, the 512^2 ones
     # do not (the steps' peaks count what is allocated)
@@ -1672,6 +1727,9 @@ def timings2d(device, card, lt):
     # would slow (its callbacks stay registered)
     device_times(per_op)
     device_times(per_op_calls(FULL2D_512, *momenta(FULL2D_512)))
+    for shape in (FULL2D, FULL2D_512):  # K11's yardstick on the same substep
+        v0 = lt.FluidMetric(PARAMS_BETA).sharp(momenta(shape)[0])
+        compose_yardstick(device, card, s * v0, v0, s)
     return out
 
 

@@ -1,4 +1,4 @@
-// Variants of K12 and K13 (the 2D per-substep backwards), for
+// Variants of K10-K13 (the 2D per-substep kernels), for
 // profile_epdiff2d.py only (not part of the kernel library; built by that
 // script, with epdiff2d.cu included).  The kernels before K12's redesign
 // need no variant here: they are the per-thread route of the library's
@@ -24,6 +24,13 @@
 //     the weight gradient on m0, 2 the divergence terms, 4 the gather
 //     transpose to d_m0 (7: K12); d_phi is the sum of the terms computed.
 //     It times each term by its absence.
+//   cheap_ad_star2d_kernel, cheap_compose2d_kernel: K10 and K11 as one
+//     thread a pixel, as the per-thread kernels, but with int indices and
+//     the warp on its 4 live taps (`s2d::adstar<true>`, `compose<true>`,
+//     as K8 runs them): the first form of the redesign, without strips,
+//     rings or bands.  prof_ad_star2d_fwd / prof_compose2d_fwd also run
+//     the library's march kernels at any strip width PX and band height
+//     RJ, with and without the prefetch.
 // Without the per-pixel part a thread reads one staged value back after
 // the barrier (and stores nothing unless it equals a value no stage
 // holds), so the stage is not dropped; without the stage the per-pixel
@@ -91,6 +98,45 @@ parts13_kernel(const float* __restrict__ phiinv, const float* __restrict__ v, fl
     }
     __syncthreads();
   }
+}
+
+__global__ void cheap_ad_star2d_kernel(const float* __restrict__ phiinv,
+                                       const float* __restrict__ m0, float* __restrict__ out,
+                                       float* __restrict__ mw_out, int* flag, int N, int Nm, int H,
+                                       int W) {
+  const int HW = H * W, F = 2 * HW;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  bool bad = false;
+  if (idx < N * HW) {
+    const int n = idx / HW, p = idx - n * HW;
+    const int i = p / W, j = p - i * W;
+    float o[2], mw[2];
+    bad = !s2d::adstar<true>(phiinv + n * F, m0 + (Nm == 1 ? 0 : n * F), H, W, i, j, o, mw);
+    out[n * F + p] = o[0];
+    out[n * F + p + HW] = o[1];
+    if (mw_out != nullptr) {
+      mw_out[n * F + p] = mw[0];
+      mw_out[n * F + p + HW] = mw[1];
+    }
+  }
+  clear_flag_if(bad, flag);
+}
+
+__global__ void cheap_compose2d_kernel(const float* __restrict__ phiinv,
+                                       const float* __restrict__ v, float s,
+                                       float* __restrict__ out, int* flag, int N, int H, int W) {
+  const int HW = H * W, F = 2 * HW;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  bool bad = false;
+  if (idx < N * HW) {
+    const int n = idx / HW, p = idx - n * HW;
+    const int i = p / W, j = p - i * W;
+    float o[2];
+    bad = !s2d::compose<true>(phiinv + n * F, v[n * F + p], v[n * F + p + HW], s, H, W, i, j, o);
+    out[n * F + p] = o[0];
+    out[n * F + p + HW] = o[1];
+  }
+  clear_flag_if(bad, flag);
 }
 
 template <int PIX>
@@ -259,5 +305,45 @@ extern "C" int prof_epdiff2d_pixel12(int pix, const float* phiinv, const float* 
     case 6: return launch_pixel12<6>(phiinv, m0, g, mw, d_phi, d_m0, N, H, W, c, st);
     case 7: return launch_pixel12<7>(phiinv, m0, g, mw, d_phi, d_m0, N, H, W, c, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10's forms: form 0 the cheap kernel (px, rj unused), 1 the march at
+// strips of px columns (1, 2, 4) and bands of rj rows, 2 the same without
+// its prefetch.  Arguments as lagomorph_ad_star2d_fwd's.
+extern "C" int prof_ad_star2d_fwd(int form, int px, int rj, const float* phiinv, const float* m0,
+                                  float* out, float* mw, int* flag, int N, int Nm, int H, int W,
+                                  void* stream) {
+  using namespace lagomorph;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (2L * N * H * W >= (1L << 31) || rj < 1) return (int)cudaErrorInvalidValue;
+  if (form == 0) {
+    cheap_ad_star2d_kernel<<<grid_for((long)N * H * W), kThreads, 0, st>>>(phiinv, m0, out, mw,
+                                                                           flag, N, Nm, H, W);
+    return (int)cudaGetLastError();
+  }
+  const Strips sp = strips_for(px, rj, H, W);
+  if (form == 1)
+    return launch_ad_star2d_march<true>(sp, phiinv, m0, out, mw, flag, N, Nm, H, W, st);
+  if (form == 2)
+    return launch_ad_star2d_march<false>(sp, phiinv, m0, out, mw, flag, N, Nm, H, W, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11's forms, as prof_ad_star2d_fwd's; arguments as lagomorph_compose2d_fwd's
+extern "C" int prof_compose2d_fwd(int form, int px, int rj, const float* phiinv, const float* v,
+                                  float s, float* out, int* flag, int N, int H, int W,
+                                  void* stream) {
+  using namespace lagomorph;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (2L * N * H * W >= (1L << 31) || rj < 1) return (int)cudaErrorInvalidValue;
+  if (form == 0) {
+    cheap_compose2d_kernel<<<grid_for((long)N * H * W), kThreads, 0, st>>>(phiinv, v, s, out,
+                                                                           flag, N, H, W);
+    return (int)cudaGetLastError();
+  }
+  const Strips sp = strips_for(px, rj, H, W);
+  if (form == 1) return launch_compose2d_march<true>(sp, phiinv, v, s, out, flag, N, H, W, st);
+  if (form == 2) return launch_compose2d_march<false>(sp, phiinv, v, s, out, flag, N, H, W, st);
   return (int)cudaErrorInvalidValue;
 }

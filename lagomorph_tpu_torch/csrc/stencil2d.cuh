@@ -122,18 +122,30 @@ __host__ __device__ __forceinline__ float central(float hi, float lo) {
 // 9-tap sum's, but for the sign of a zero result.
 __host__ __device__ __forceinline__ int live_lo(float d) { return floorf(d) == -1.0f ? -1 : 0; }
 
-__host__ __device__ __forceinline__ float warp_live(const float* f, const W3& wx, const W3& wy,
-                                                    int lx, int ly, int H, int W, int i, int j) {
+// The sum of the 4 live taps, tap(a, b) giving the value f[clamp(i + lx +
+// a), clamp(j + ly + b)] (a, b in {0, 1}): `warp_live`'s arithmetic, for
+// callers that hold the taps elsewhere too (K10 and K11 select them from
+// register rings)
+template <class Tap>
+__host__ __device__ __forceinline__ float live_sum(const W3& wx, const W3& wy, int lx, int ly,
+                                                   Tap tap) {
   float acc = 0.0f;
   for (int a = 0; a < 2; ++a) {
-    const float* row = f + (long)clampi(i + lx + a, H) * W;
     const float w0 = at(wx, lx + a);
     for (int b = 0; b < 2; ++b) {
-      const float term = mul(mul(w0, at(wy, ly + b)), row[clampi(j + ly + b, W)]);
+      const float term = mul(mul(w0, at(wy, ly + b)), tap(a, b));
       acc = (a == 0 && b == 0) ? term : add(acc, term);
     }
   }
   return acc;
+}
+
+__host__ __device__ __forceinline__ float warp_live(const float* f, const W3& wx, const W3& wy,
+                                                    int lx, int ly, int H, int W, int i, int j) {
+  return live_sum(wx, wy, lx, ly, [&](int a, int b) {
+    const float* row = f + (long)clampi(i + lx + a, H) * W;
+    return row[clampi(j + ly + b, W)];
+  });
 }
 
 // `warp` (LIVE false) or `warp_live` at the displacement (d0, d1)
@@ -187,6 +199,22 @@ __host__ __device__ __forceinline__ void transposed_tap(int v, int n, int k, int
 // Forward.
 // ---------------------------------------------------------------------------
 
+// out_c = sum_a (jac[c][a] + delta_ca) mw_a, summed over a in order: Ad*'s
+// Jacobian step from the differences jac[c][a] = D_a phiinv_c
+__host__ __device__ __forceinline__ void jac_apply(const float jac[2][2], const float mw[2],
+                                                   float out[2]) {
+  for (int c = 0; c < 2; ++c) {
+    float acc = 0.0f;
+    for (int a = 0; a < 2; ++a) {
+      float g = jac[c][a];
+      if (a == c) g = add(g, 1.0f);
+      const float term = mul(g, mw[a]);
+      acc = a == 0 ? term : add(acc, term);
+    }
+    out[c] = acc;
+  }
+}
+
 // Ad* at (i, j) (`_adstar_body`): mw_a = warp of m0_a at phiinv(i, j);
 // out_c = sum_a (D_a phiinv_c + delta_ca) mw_a, summed over a in order.
 // `phi` and `m0` are one subject's fields.  Returns whether phiinv(i, j)
@@ -202,16 +230,7 @@ __host__ __device__ __forceinline__ void adstar_jac(const float* m0, float d0, f
   const W3 wx = weights(d0), wy = weights(d1);
   mw[0] = warp_at<LIVE>(m0, wx, wy, d0, d1, H, W, i, j);
   mw[1] = warp_at<LIVE>(m0 + HW, wx, wy, d0, d1, H, W, i, j);
-  for (int c = 0; c < 2; ++c) {
-    float acc = 0.0f;
-    for (int a = 0; a < 2; ++a) {
-      float g = jac[c][a];
-      if (a == c) g = add(g, 1.0f);
-      const float term = mul(g, mw[a]);
-      acc = a == 0 ? term : add(acc, term);
-    }
-    out[c] = acc;
-  }
+  jac_apply(jac, mw, out);
 }
 
 template <bool LIVE = false>

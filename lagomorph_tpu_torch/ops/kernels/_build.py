@@ -64,15 +64,18 @@ SIGNATURES = {
     "lagomorph_fluid_whole": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # X, Y, Z, out (4 ints: path, blocks, threads, shared bytes)
     "lagomorph_fluid_whole_grid": [_I, _I, _I, _P],
-    # phiinv, m0, out, mw (or NULL), flag, N, Nm, H, W, stream
-    "lagomorph_ad_star2d_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # phiinv, m0, out, mw (or NULL), flag, N, Nm, H, W,
+    # march (0: the strips' chooser, > 0: rows a band, -1: the per-thread kernel), stream
+    "lagomorph_ad_star2d_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # which (0: K10, 1: K11), N, H, W, march, out (4 ints: PX, RJ, blocks, blocks an SM)
+    "lagomorph_epdiff2d_fwd_grid": [_I, _I, _I, _I, _I, _P],
     # phiinv, m0, g, mw, d_mw (scratch, or NULL on the tiles), d_phiinv, d_m0,
     # N, Nm, H, W, tile (0: K12's choice, -1: the per-thread route), stream
     "lagomorph_ad_star2d_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # N, H, W, tile, out (3 ints: K12's tile height, blocks, shared bytes)
     "lagomorph_ad_star2d_bwd_grid": [_I, _I, _I, _I, _P],
-    # phiinv, v, s, out, flag, N, H, W, stream
-    "lagomorph_compose2d_fwd": [_P, _P, _F, _P, _P, _I, _I, _I, _P],
+    # phiinv, v, s, out, flag, N, H, W, march (as K10's), stream
+    "lagomorph_compose2d_fwd": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
     # phiinv, v, s, g, d_phiinv, d_v, N, H, W, stream
     "lagomorph_compose2d_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     # phi0, m0, Mn, out, flag, traj_p, traj_v, traj_mw (or 3 NULL), pp (or NULL),

@@ -5,7 +5,7 @@ kernels K8/K9 do not take (a momentum mask, ``beta != 0``) and the
 unit-regime substeps of the exact general integration.
 
 * K10, :func:`ad_star2d`: ``out_c = sum_a (D_a phiinv_c + delta_ca) *
-  mw_a`` with ``mw = sample_displacement_unit(m0, phiinv)`` (9 taps), and
+  mw_a`` with ``mw = sample_displacement_unit(m0, phiinv)``, and
   the flag of ``phiinv``; under autograd it also writes ``mw`` for the
   backward.  Replaces ``lagomorph_tpu/ops/pallas/epdiff2d.py``
   ``_adstar2d_fwd_kernel`` (``_adstar2d_fwd_dispatch``).
@@ -22,6 +22,15 @@ Fields are ``(N, 2, H, W)``, any ``H, W >= 2``.  A flag is a 0-dim bool
 tensor on the fields' device, true iff every component of the displacement
 lies in ``[-1, 1)``.  The plain versions are the 3D ones' formulas, which
 hold in any dimension; see the source for the kernels' design.
+
+K10 and K11 run on column strips (:func:`fwd_route`): a warp's lanes own
+consecutive strips of 1, 2 or 4 columns of a row and march down a band of
+rows, holding three rows of their stencil's inputs in register rings (the
+halo columns shuffled between lanes) and summing the warp's 4 live taps;
+:func:`fwd_launch_config` reports the strip width and band height chosen
+for a shape.  Fields of ``2**31`` elements or more, and ``march``
+:data:`THREAD`, take one thread a pixel over the 9 taps, with the same
+bits.
 
 K12 takes one of two routes (:func:`bwd_route`): for batch-N momenta, row
 tiles staged in shared memory with a halo row on each side, one launch; for
@@ -99,8 +108,28 @@ def _check(name, phiinv, other):
         )
 
 
-def _launch_ad_star(phiinv, m0, want_mw=False):
+THREAD = -1  # the ``march`` of K10's and K11's, and the ``tile`` of K12's, per-thread route
+
+
+def fwd_route(N: int, H: int, W: int) -> str:
+    """The route K10 and K11 take for ``N`` subjects of ``(H, W)``:
+    ``"march"`` (column strips marching down bands of rows, int indices)
+    where the fields hold fewer than ``2**31`` elements, else ``"thread"``."""
+    return "march" if 2 * N * H * W < 2**31 else "thread"
+
+
+def _march(march, N, H, W):
+    return march if march is not None else (0 if fwd_route(N, H, W) == "march" else THREAD)
+
+
+def _launch_ad_star(phiinv, m0, want_mw=False, march=None):
+    """K10: ``(out, flag)``, and ``mw`` third when ``want_mw``.  ``march``:
+    0 the strips' chooser (:func:`fwd_launch_config`), > 0 bands of that many
+    rows, :data:`THREAD` the per-thread kernel; by default the route
+    :func:`fwd_route` names (the strips refuse fields of ``2**31`` elements
+    or more)."""
     N, _, H, W = phiinv.shape
+    march = _march(march, N, H, W)
     out = torch.empty_like(phiinv)
     mw = torch.empty_like(phiinv) if want_mw else None
     flag = torch.ones((), dtype=torch.int32, device=phiinv.device)
@@ -108,26 +137,39 @@ def _launch_ad_star(phiinv, m0, want_mw=False):
         "lagomorph_ad_star2d_fwd",
         phiinv.data_ptr(), m0.data_ptr(), out.data_ptr(),
         None if mw is None else mw.data_ptr(), flag.data_ptr(),
-        N, m0.shape[0], H, W, stream_of(phiinv),
+        N, m0.shape[0], H, W, int(march), stream_of(phiinv),
     )
     AD_STAR.launches += 1
     return (out, flag.bool(), mw) if want_mw else (out, flag.bool())
 
 
-def _launch_compose(phiinv, v, s):
+def _launch_compose(phiinv, v, s, march=None):
+    """K11: ``(out, flag)``; ``march`` as :func:`_launch_ad_star`'s."""
     N, _, H, W = phiinv.shape
+    march = _march(march, N, H, W)
     out = torch.empty_like(phiinv)
     flag = torch.ones((), dtype=torch.int32, device=phiinv.device)
     _build.call(
         "lagomorph_compose2d_fwd",
         phiinv.data_ptr(), v.data_ptr(), float(s), out.data_ptr(), flag.data_ptr(),
-        N, H, W, stream_of(phiinv),
+        N, H, W, int(march), stream_of(phiinv),
     )
     COMPOSE.launches += 1
     return out, flag.bool()
 
 
-THREAD = -1  # the ``tile`` of K12's per-thread route
+def fwd_launch_config(kernel: str, N: int, H: int, W: int, march: int = 0) -> dict:
+    """The launch K10 (``kernel`` ``"ad_star2d_fwd"``) or K11
+    (``"compose2d_fwd"``) makes on its strips for ``N`` subjects of ``(H,
+    W)`` on the current card: the strip's columns ``px``, the band's rows
+    ``rj`` (``march`` if > 0), the blocks of 256 threads (a warp a band of
+    one subject's row strips) and the blocks an SM holds of that kernel.
+    Builds the kernels on first use; launches nothing."""
+    out = (ctypes.c_int * 4)()
+    _build.call("lagomorph_epdiff2d_fwd_grid", 0 if kernel == "ad_star2d_fwd" else 1, N, H, W,
+                int(march), ctypes.cast(out, ctypes.c_void_p))
+    return {"px": out[0], "rj": out[1], "blocks": out[2], "threads": 256, "per_sm": out[3]}
+
 _MAX_SMEM = 227 * 1024  # a block's shared memory on the H100
 _STAGE_PIXEL = 32  # K12's staged pixel: its packed weights, g and d_mw
 

@@ -1,17 +1,28 @@
 #!/usr/bin/env python3
-"""K12 and K13, the 2D per-substep backwards, on one CUDA card, beside
-their previous kernels and variants.
+"""K10-K13, the 2D per-substep kernels, on one CUDA card, beside their
+previous kernels and variants.
 
     python3 profile_epdiff2d.py
 
 Times each kernel by its device time per call (``torch.profiler``,
 ``chip_smoke.device_us``: at these sizes CUDA event times are set by the
-host), at one substep of the ``beta = 0.05`` shooting at the 2D atlas
-step's shapes, 256^2 b8 and 512^2 b8 (bench.py's momenta; the operands of
-``chip_smoke.timings2d``), batch-N momenta, and K12 with a batch-1 ``m0``
-at 256^2 b8.  The variants of ``csrc/profile/epdiff2d_variants.cu`` are
-built here with nvcc (``csrc/epdiff2d.cu`` included).
+host; each call's total, its flag's fill and conversion included, and the
+kernel alone), at one substep of the ``beta = 0.05`` shooting at the 2D
+atlas step's shapes, 256^2 b8 and 512^2 b8 (bench.py's momenta; the
+operands of ``chip_smoke.timings2d``), batch-N momenta, and K12 with a
+batch-1 ``m0`` at 256^2 b8.  The variants of
+``csrc/profile/epdiff2d_variants.cu`` are built here with nvcc
+(``csrc/epdiff2d.cu`` included).
 
+* K10 (writing ``mw``, as under autograd) and K11: ``previous``, the
+  kernels before their redesign (one thread a pixel over the 9 taps, the
+  library's per-thread route, ``march`` -1); ``current``, the column strips
+  at the chooser's strip width and band height (their grid logged);
+  ``current without its prefetch``; ``one thread a pixel, 4 live taps``
+  (int indices, no strips: the redesign's first form); ``march PX p RJ r``,
+  the strips at every width p and band heights r (``BANDS``).  Then each
+  wrapper's host time per call, previous and current in turns (enqueue of
+  200 calls).
 * K12: ``previous``, the kernel before its redesign (the per-thread route
   of the library's entry point, ``tile`` -1: two launches through a
   ``d_mw`` field); ``current``, the tile kernel at the height it chooses;
@@ -33,10 +44,11 @@ built here with nvcc (``csrc/epdiff2d.cu`` included).
 The variants are timed in turns (two samples, the second in reverse
 order), each beside the bound of its work (``chip_smoke.work``).  Every
 variant that computes the kernel's function is held ``torch.equal`` to the
-previous kernel (K12) or the current one (K13), and those within 1e-5 * (1
-+ max|ref|) of the plain version, or the script exits 1.  ptxas's
-registers, shared memory and spills of the K12 and K13 kernels are logged.
-Needs a CUDA card; imports no jax.
+previous kernel (K10-K12) or the current one (K13), and those bit-equal to
+the plain version (K10, K11, with the flag) or within 1e-5 * (1 +
+max|ref|) of it (K12, K13), or the script exits 1.  ptxas's registers,
+stack and spills of every K10-K13 kernel are logged.  Needs a CUDA card;
+imports no jax.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -56,10 +69,20 @@ PARTS12 = [_I, _I] + [_P] * 7 + [_I] * 5 + [_P]
 PARTS13 = [_I, _I, _P, _P, _F] + [_P] * 3 + [_I] * 4 + [_P]
 # pix, phiinv, m0, g, mw, d_phi, d_m0, N, H, W, tile, stream
 PIXEL12 = [_I] + [_P] * 6 + [_I] * 4 + [_P]
+# form, px, rj, phiinv, m0, out, mw, flag, N, Nm, H, W, stream
+FWD10 = [_I] * 3 + [_P] * 5 + [_I] * 4 + [_P]
+# form, px, rj, phiinv, v, s, out, flag, N, H, W, stream
+FWD11 = [_I] * 3 + [_P, _P, _F, _P, _P] + [_I] * 3 + [_P]
 # K12's per-pixel terms (pixel12_kernel's bits: 1 the weight gradient, 2
 # the divergence, 4 the gather transpose)
 TERMS = {"terms: all three": 7, "without the weight gradient": 6,
          "without the divergence": 5, "without the gather": 3}
+# the kernels' names in a trace, by key
+KERNEL_NAME = {"ad_star2d_fwd": ("ad_star2d",), "compose2d_fwd": ("compose2d",),
+               "ad_star2d_bwd": ("ad_star2d", "parts12", "pixel12"),
+               "compose2d_bwd": ("compose2d", "parts13")}
+# band heights of K10's and K11's march timed at each strip width
+BANDS = (1, 2, 4, 8)
 # other tile heights of the tile kernels, by H
 TILES = {256: (2, 4, 6, 12, 16), 512: (1, 2, 8)}
 # the variants of csrc/profile/epdiff2d_variants.cu: (mask, blocks an SM
@@ -90,7 +113,7 @@ def build():
         elif kernel and "spill stores" in line:
             spills = line.split(":", 1)[-1].strip()
         elif kernel and "registers" in line and any(
-                k in kernel for k in ("2d_bwd", "parts1")):
+                k in kernel for k in ("2d_bwd", "parts1", "2d_fwd", "march", "cheap")):
             regs = line.split("Used", 1)[-1].strip()
             print(f"ptxas {kernel}: {regs}, {spills}", flush=True)
     return load(so)
@@ -99,7 +122,8 @@ def build():
 def load(so):
     lib = ctypes.CDLL(so)
     for name, types in (("prof_epdiff2d_parts12", PARTS12), ("prof_epdiff2d_parts13", PARTS13),
-                        ("prof_epdiff2d_pixel12", PIXEL12)):
+                        ("prof_epdiff2d_pixel12", PIXEL12), ("prof_ad_star2d_fwd", FWD10),
+                        ("prof_compose2d_fwd", FWD11)):
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -120,6 +144,33 @@ def operands(device, shape):
     phi1 = -1.0 / cs.STEPS * v0
     mw = epdiff2d.ad_star2d_plain(phi1, m, want_mw=True)[2]
     return phi1, m, v0, mw, g
+
+
+def fwd10(lib, args, phi, m0, want_mw, stream):
+    """K10's form ``args`` (form, px, rj: ``prof_ad_star2d_fwd``): ``(out,
+    flag)``, and ``mw`` third when ``want_mw``."""
+    N, _, H, W = phi.shape
+    out = torch.empty_like(phi)
+    mw = torch.empty_like(phi) if want_mw else None
+    flag = torch.ones((), dtype=torch.int32, device=phi.device)
+    err = lib.prof_ad_star2d_fwd(*args, phi.data_ptr(), m0.data_ptr(), out.data_ptr(),
+                                 None if mw is None else mw.data_ptr(), flag.data_ptr(), N,
+                                 m0.shape[0], H, W, stream)
+    if err:
+        raise RuntimeError(f"K10 form {args}: error {err}")
+    return (out, flag.bool(), mw) if want_mw else (out, flag.bool())
+
+
+def fwd11(lib, args, phi, v, s, stream):
+    """K11's form ``args`` (``prof_compose2d_fwd``): ``(out, flag)``."""
+    N, _, H, W = phi.shape
+    out = torch.empty_like(phi)
+    flag = torch.ones((), dtype=torch.int32, device=phi.device)
+    err = lib.prof_compose2d_fwd(*args, phi.data_ptr(), v.data_ptr(), s, out.data_ptr(),
+                                 flag.data_ptr(), N, H, W, stream)
+    if err:
+        raise RuntimeError(f"K11 form {args}: error {err}")
+    return out, flag.bool()
 
 
 def parts12(lib, args, phi, m0, g, mw, stream):
@@ -159,12 +210,27 @@ def parts13(lib, args, phi, v, s, g, stream):
     return d_phi, d_v
 
 
+def host_us(device, fn, n=200):
+    """Host microseconds per call of ``fn``: ``n`` calls enqueued back to
+    back after a warm-up (the device, faster per call, keeps up)."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return (t1 - t0) / n * 1e6
+
+
 def run(lib, device, card, shapes, reps=10):
     """Time K12's and K13's variants at each shape; returns {(shape, kernel,
     variant): [us, us]}."""
     sys.path.insert(0, HERE)
     import chip_smoke as cs
-    from lagomorph_tpu_torch.ops.kernels import epdiff2d
+    from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d
 
     stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else None
     s = -1.0 / cs.STEPS
@@ -172,36 +238,102 @@ def run(lib, device, card, shapes, reps=10):
 
     def timed(name, key, shape, tag, fns, ref, same):
         """Hold the variants in ``same`` bit-equal to ``same[0]`` and that
-        within 1e-5 * (1 + max|ref|) of ``ref``; time every variant."""
+        within 1e-5 * (1 + max|ref|) of ``ref`` (a forward: bit-equal to
+        it, flags equal); time every variant."""
         N, _, H, W = shape
         base = fns[same[0]]()
         for k in same[1:]:
             cs.check(all(torch.equal(a, b) for a, b in zip(fns[k](), base)),
                      f"{name} ({k}) at {tag}: not bit-equal to {same[0]}")
         errs = []
-        for what, a, b in zip(("d_phiinv", "d_m0" if key == "ad_star2d_bwd" else "d_v"), base,
-                              ref):
-            err = cs.max_err(a, b)
-            lim = 1e-5 * (1.0 + float(b.double().abs().max()))
-            cs.check(err <= lim, f"{name} {what} at {tag}: {err:.3e} > {lim:.3e}")
-            errs.append(f"{what} {err:.3e} (limit {lim:.3e})")
+        if key.endswith("_fwd"):
+            cs.check(all(torch.equal(a, b) for a, b in zip(base, ref)),
+                     f"{name} at {tag}: not bit-equal to the plain version")
+            errs.append("bit-equal, flag equal")
+        else:
+            for what, a, b in zip(("d_phiinv", "d_m0" if key == "ad_star2d_bwd" else "d_v"),
+                                  base, ref):
+                err = cs.max_err(a, b)
+                lim = 1e-5 * (1.0 + float(b.double().abs().max()))
+                cs.check(err <= lim, f"{name} {what} at {tag}: {err:.3e} > {lim:.3e}")
+                errs.append(f"{what} {err:.3e} (limit {lim:.3e})")
         print(f"{name} at {tag}: {len(same) - 1} variants bit-equal to {same[0]}; against the "
               f"plain version {', '.join(errs)}", flush=True)
         us = {k: [] for k in fns}
+        own = {k: [] for k in fns}
         for order in (list(fns), list(fns)[::-1]):
             for k in order:
-                us[k].append(cs.device_us(device, fns[k], reps)[0])
+                total, _, by_name = cs.device_us(device, fns[k], reps)
+                us[k].append(total)
+                own[k].append(sum(t for n, t in by_name.items()
+                                  if any(x in n for x in KERNEL_NAME[key])))
         b_ms, b_by = cs.bound(*cs.work(key, N, H * W))
         for k in fns:
             out[(shape, name, k)] = us[k]
-            print(f"{name} {k} at {tag}: device {us[k][0]:.2f}/{us[k][1]:.2f} us per call, "
-                  f"bound {b_ms * 1e3:.2f} us ({b_by}), {us[k][0] / (b_ms * 1e3):.2f}x [{card}]",
+            print(f"{name} {k} at {tag}: device {us[k][0]:.2f}/{us[k][1]:.2f} us per call "
+                  f"(the kernel alone {own[k][0]:.2f}/{own[k][1]:.2f}), bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}), {us[k][0] / (b_ms * 1e3):.2f}x [{card}]",
+                  flush=True)
+
+    def forwards(shape, tag, phi, m, v):
+        """K10 (writing ``mw``, as under autograd) and K11 (s = -1/STEPS)
+        in their forms, each bit-equal to the previous kernel and the plain
+        version."""
+        def entry(key, march):
+            """A call of K10's (writing ``mw``) or K11's C entry point on
+            outputs made once."""
+            N, _, H, W = phi.shape
+            out, mw = torch.empty_like(phi), torch.empty_like(phi)
+            flag = torch.ones((), dtype=torch.int32, device=device)
+            if key == "ad_star2d_fwd":
+                args = ("lagomorph_ad_star2d_fwd", phi.data_ptr(), m.data_ptr(), out.data_ptr(),
+                        mw.data_ptr(), flag.data_ptr(), N, N, H, W, march, stream)
+            else:
+                args = ("lagomorph_compose2d_fwd", phi.data_ptr(), v.data_ptr(), s, out.data_ptr(),
+                        flag.data_ptr(), N, H, W, march, stream)
+            return lambda keep=(out, mw, flag): _build.call(*args)
+
+        N, _, H, W = shape
+        cfg = {k: epdiff2d.fwd_launch_config(k, N, H, W) for k in KERNEL_NAME if k.endswith("fwd")}
+        for k, c in cfg.items():
+            print(f"grid at {tag}: {k} on strips of {c['px']} columns, bands of {c['rj']} rows, "
+                  f"{c['blocks']} blocks of {c['threads']} ({c['per_sm']} an SM) [{card}]",
+                  flush=True)
+        forms = {"previous": None, "current": None, "one thread a pixel, 4 live taps": (0, 1, 1),
+                 **{f"march PX {px} RJ {rj}": (1, px, rj) for px in (1, 2, 4)
+                    for rj in BANDS}}
+        for key, name, launch, prof, plain in (
+                ("ad_star2d_fwd", "K10",
+                 lambda march: epdiff2d._launch_ad_star(phi, m, want_mw=True, march=march),
+                 lambda a: fwd10(lib, a, phi, m, True, stream),
+                 lambda: epdiff2d.ad_star2d_plain(phi, m, want_mw=True)),
+                ("compose2d_fwd", "K11", lambda march: epdiff2d._launch_compose(phi, v, s, march),
+                 lambda a: fwd11(lib, a, phi, v, s, stream),
+                 lambda: epdiff2d.compose2d_plain(phi, v, s))):
+            c = cfg[key]
+            fns = {"previous": lambda launch=launch: launch(epdiff2d.THREAD),
+                   "current": lambda launch=launch: launch(0),
+                   "current without its prefetch":
+                       lambda prof=prof, c=c: prof((2, c["px"], c["rj"])),
+                   **{f: lambda prof=prof, a=a: prof(a) for f, a in forms.items() if a}}
+            timed(name, key, shape, tag, fns, plain(), list(fns))
+            calls = {"previous": fns["previous"], "current": fns["current"],
+                     "previous, entry point alone": entry(key, epdiff2d.THREAD),
+                     "current, entry point alone": entry(key, 0)}
+            host = {k: [] for k in calls}
+            for order in (list(calls), list(calls)[::-1]):
+                for k in order:
+                    host[k].append(host_us(device, calls[k]))
+            print(f"{name} at {tag}: host us per call (enqueue; the wrapper, or its C entry point "
+                  f"alone on tensors made once): "
+                  f"{', '.join(f'{k} {u[0]:.2f}/{u[1]:.2f}' for k, u in host.items())} [{card}]",
                   flush=True)
 
     for shape in shapes:
         N, _, H, W = shape
         phi, m, v, mw, g = operands(device, shape)
         tag = f"{H}^2 b{N}" if H == W else "x".join(map(str, shape))
+        forwards(shape, tag, phi, m, v)
         own = epdiff2d.bwd_launch_config(N, H, W)
         print(f"grid at {tag}: K12 on {own['tile']}-row tiles, {own['blocks']} blocks of "
               f"{own['threads']}, {own['smem']} B of shared memory (K13's tiles: half) [{card}]",

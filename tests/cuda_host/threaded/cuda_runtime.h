@@ -1,11 +1,14 @@
 // Threaded host stand-in for the CUDA runtime, so that the kernels of
-// lagomorph_tpu_torch/csrc that share memory and barriers (fft_unit.cu,
-// fft_radix.cu, fft_whole.cu, shoot2d.cu) compile with g++ (C++20) and run
+// lagomorph_tpu_torch/csrc that share memory, barriers or a warp's
+// registers (fft_unit.cu, fft_radix.cu, fft_whole.cu, shoot2d.cu,
+// epdiff2d.cu) compile with g++ (C++20) and run
 // on the CPU (tests/test_torch_host_barrier_kernels.py).
 //
 // Every CUDA thread of a block is an OS thread: __syncthreads is a barrier
 // of the block, __ballot_sync a vote of the warp between barriers of its 32
-// threads, and a block's dynamic shared memory one buffer.  The blocks of an
+// threads (a shuffle an exchange between them), __syncthreads_or a vote of
+// the block between its barriers, and a block's dynamic shared memory one
+// buffer.  The blocks of an
 // ordinary launch run in turn on one set of threads; a cooperative launch
 // (the test rewrites `launch_cooperative((const void*)k, ...)` as
 // `emu_launch_cooperative(k, ...)`) runs every block at once and makes
@@ -57,9 +60,11 @@ inline dim3 emu_mt_blockDim, emu_mt_gridDim;
 struct EmuWarp {
   std::barrier<> bar{32};
   std::atomic<unsigned> vote{0};
+  float lane[32];  // the values a shuffle exchanges
 };
 struct EmuBlock {
   std::barrier<> bar;
+  std::atomic<int> any{0};  // __syncthreads_or's vote
   std::vector<float2> smem;
   std::vector<std::unique_ptr<EmuWarp>> warps;
   EmuBlock(int n, size_t bytes) : bar(n), smem(bytes / sizeof(float2) + 1) {
@@ -92,6 +97,29 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   w.bar.arrive_and_wait();
   return v;
 }
+// a shuffle by delta lanes, up (src = lane - delta) or down (lane + delta);
+// a lane whose source lies outside the warp keeps its own value
+inline float emu_shfl(float v, int delta) {
+  EmuWarp& w = *emu_block->warps[threadIdx.x / 32];
+  const int lane = threadIdx.x % 32, src = lane + delta;
+  w.lane[lane] = v;
+  w.bar.arrive_and_wait();
+  const float got = src >= 0 && src < 32 ? w.lane[src] : v;
+  w.bar.arrive_and_wait();
+  return got;
+}
+inline float __shfl_up_sync(unsigned, float v, unsigned delta) { return emu_shfl(v, -(int)delta); }
+inline float __shfl_down_sync(unsigned, float v, unsigned delta) { return emu_shfl(v, (int)delta); }
+inline int __syncthreads_or(int pred) {
+  EmuBlock& b = *emu_block;
+  if (pred) b.any.store(1);
+  b.bar.arrive_and_wait();
+  const int v = b.any.load();
+  b.bar.arrive_and_wait();
+  if (threadIdx.x == 0) b.any.store(0);
+  b.bar.arrive_and_wait();
+  return v;
+}
 inline int atomicAnd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_and(v); }
 
 typedef int cudaError_t;
@@ -118,6 +146,15 @@ inline cudaError_t cudaGetDevice(int* d) {
 // a small card: 2 SMs holding 2 blocks each, so cooperative grids have 4 blocks
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
   *v = 2;
+  return cudaSuccess;
+}
+struct cudaFuncAttributes {
+  size_t localSizeBytes;
+  int numRegs;
+};
+template <class T>
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T) {
+  *a = cudaFuncAttributes{0, 32};  // no spill
   return cudaSuccess;
 }
 template <class T>

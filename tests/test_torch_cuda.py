@@ -248,9 +248,10 @@ def test_epdiff2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     (1 + max|ref|)), K12 (d_m0 summed over the subjects for batch-1
     momenta) and K13 against the plain backwards, directly and through the
     wrappers under autograd (one launch of each backward per call); K12 on
-    its row tiles (batch-N m0) ``torch.equal`` to its per-thread route;
-    flags false out of the unit regime, at a power-of-two and an odd
-    shape."""
+    its row tiles (batch-N m0) ``torch.equal`` to its per-thread route, K10
+    and K11 on their column strips (the chooser's band and 3 rows) to
+    theirs; flags false out of the unit regime, at a power-of-two and an
+    odd shape."""
     rng = np.random.default_rng(7)
 
     def c(a):
@@ -277,6 +278,13 @@ def test_epdiff2d_kernels_match_plain_on_cuda(cuda, shape, m_batch):
     for got, ref in zip(epdiff2d._launch_compose_bwd(p, v, -0.2, g),
                         epdiff2d.compose2d_bwd_plain(p, v, -0.2, g)):
         _compare(got, ref, 1e-5)
+    for march in (0, 3):
+        got = epdiff2d._launch_ad_star(p, m0, want_mw=True, march=march)
+        thread = epdiff2d._launch_ad_star(p, m0, want_mw=True, march=epdiff2d.THREAD)
+        assert all(torch.equal(a, b) for a, b in zip(got, thread))
+        assert all(torch.equal(a, b) for a, b in zip(epdiff2d._launch_compose(p, v, -0.2, march),
+                                                     epdiff2d._launch_compose(p, v, -0.2,
+                                                                              epdiff2d.THREAD)))
     if m_batch == "N":
         for got, thread in zip(epdiff2d._launch_ad_star_bwd(p, m0, g, mw),
                                epdiff2d._launch_ad_star_bwd(p, m0, g, mw, epdiff2d.THREAD)):

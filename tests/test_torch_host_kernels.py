@@ -1,9 +1,11 @@
 """The 2D per-substep stencil kernels' CUDA source, compiled for the host
 and run on the CPU against their plain versions.
 
-K10-K13 (``lagomorph_tpu_torch/csrc/epdiff2d.cu``): per-thread kernels with
-one ballot, and K12's row tiles, staged in shared memory between barriers
-(``csrc/tile2d.cuh``, which K9 shares).  The source is built with g++
+K10-K13 (``lagomorph_tpu_torch/csrc/epdiff2d.cu``): K10 and K11 on column
+strips whose warps march down bands of rows, the halo columns shuffled
+between lanes and the flag voted once a block; K12's row tiles, staged in
+shared memory between barriers (``csrc/tile2d.cuh``, which K9 shares); and
+the per-thread kernels with one ballot.  The source is built with g++
 against the threaded emulation of the CUDA runtime
 (``tests/cuda_host/threaded/``: each CUDA thread an OS thread, a block's
 barrier a ``std::barrier``), each launch and shared-memory declaration
@@ -11,8 +13,9 @@ rewritten as ``tests/test_torch_host_barrier_kernels.py`` rewrites its
 sources, into a host library with the same C entry points, which the kernel
 wrappers then call in place of the card's library.  It is built from
 ``csrc/profile/epdiff2d_variants.cu``, which includes ``epdiff2d.cu``, so
-the forms the library does not take (K13 on K12's tiles, K12's tiles for a
-batch-1 m0), which ``profile_epdiff2d.py`` times on the card, are held
+the forms the library does not take (K10 and K11 one thread a pixel on
+their live taps, or at any strip width and band height, with or without the
+prefetch; K13 on K12's tiles, K12's tiles for a batch-1 m0), which ``profile_epdiff2d.py`` times on the card, are held
 here too.  So the kernels' arithmetic, indexing, tiles and halos, clamp
 folds, batch-1 sums and flags are checked here, in float32, before the card
 sees them; the card itself is checked by ``tests/test_torch_cuda.py`` and
@@ -37,7 +40,7 @@ import torch
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
 from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d
-from profile_epdiff2d import PARTS12, PARTS13, PIXEL12, parts12, parts13
+from profile_epdiff2d import FWD10, FWD11, PARTS12, PARTS13, PIXEL12, fwd10, fwd11, parts12, parts13
 from test_torch_host_barrier_kernels import SHIM, _host_source
 
 torch.set_num_threads(2)
@@ -46,7 +49,8 @@ HEADERS = ("stencil2d.cuh", "tile2d.cuh", "epdiff2d.cu")
 SOURCE = os.path.join("profile", "epdiff2d_variants.cu")
 KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
 ENTRY_POINTS = ("lagomorph_ad_star2d_fwd", "lagomorph_compose2d_fwd", "lagomorph_ad_star2d_bwd",
-                "lagomorph_compose2d_bwd", "lagomorph_ad_star2d_bwd_grid")
+                "lagomorph_compose2d_bwd", "lagomorph_ad_star2d_bwd_grid",
+                "lagomorph_epdiff2d_fwd_grid")
 BWD_RTOL = 1e-5
 
 
@@ -77,7 +81,8 @@ def host_library(tmp_path_factory):
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     for name, types in (("prof_epdiff2d_parts12", PARTS12), ("prof_epdiff2d_parts13", PARTS13),
-                        ("prof_epdiff2d_pixel12", PIXEL12)):
+                        ("prof_epdiff2d_pixel12", PIXEL12), ("prof_ad_star2d_fwd", FWD10),
+                        ("prof_compose2d_fwd", FWD11)):
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = ctypes.c_int
     lib.lagomorph_error_string.argtypes = [ctypes.c_int]
@@ -153,6 +158,73 @@ def test_host_stencil2d_matches_plain(rng, host_kernels, shape):
     edge.view(-1)[3] = -1.0  # its lower bound is closed
     assert bool(epdiff2d.ad_star2d(edge, edge)[1]) and bool(epdiff2d.compose2d(edge, edge, 1.0)[1])
     assert all(kernels.launch_counts()[k] > 0 for k in KERNELS_2D_PER_OP)
+
+
+# Shapes for K10's and K11's strips: a row narrower than a warp's strips,
+# W % PX != 0 (7, and 9 at PX 2 and 4 against 12), H = 2, H not a multiple
+# of the band height, a row of one strip, a row of several warps' strips
+STRIP_SHAPES = [(2, 2, 9, 12), (3, 2, 2, 7), (2, 2, 5, 40), (1, 2, 3, 2), (2, 2, 4, 136)]
+# (form, PX, RJ) of the profile's entry points: the march (1) at each strip
+# width and bands of 1 and 3 rows, without its prefetch (2), and one thread
+# a pixel on the live taps (0)
+STRIP_FORMS = [(1, px, rj) for px in (1, 2, 4) for rj in (1, 3)] + [(2, 4, 2), (0, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+def test_host_epdiff2d_fwd_strips(rng, host_kernels, host_library, shape):
+    """K10 (out, with and without ``mw``; batch-1 and batch-N m0) and K11 (s
+    = -0.2) on column strips of PX columns marching down bands of RJ rows
+    (their route below ``2**31`` elements a field):
+    the library's launch at its chooser's geometry and at forced band
+    heights, and the profile's forms at every strip width, ``torch.equal``
+    to the plain versions and to the per-thread kernels (``march`` -1), the
+    flags equal; and each form's flag false for one value out of the unit
+    regime at several places (the upper bound is open) and true at -1 (the
+    lower bound is closed)."""
+    N, _, H, W = shape
+    assert epdiff2d.fwd_route(N, H, W) == "march"
+    assert epdiff2d.fwd_route(2**20, 2**5, 2**5) == "thread"  # 2**31 elements: int indices
+    assert epdiff2d.fwd_route(2**20 - 1, 2**5, 2**5) == "march"
+    cfg = epdiff2d.fwd_launch_config("ad_star2d_fwd", N, H, W, 3)
+    assert cfg["rj"] == 3 and cfg["px"] in (1, 2, 4)
+    own = epdiff2d.fwd_launch_config("compose2d_fwd", N, H, W)
+    assert W % own["px"] == 0 and own["blocks"] >= 1
+    p = f32(np.where(rng.uniform(size=shape) < 0.5, rng.uniform(-0.999, -0.001, shape),
+                     rng.uniform(0.001, 0.999, shape)))
+    v = f32(rng.uniform(-4.9, 4.9, shape))
+    for nb, want_mw in ((N, True), (1, False), (1, True)):
+        m0 = f32(rng.standard_normal((nb, 2, H, W)))
+        ref = epdiff2d.ad_star2d_plain(p, m0, want_mw=True)
+        thread = epdiff2d._launch_ad_star(p, m0, want_mw=True, march=epdiff2d.THREAD)
+        got = [epdiff2d._launch_ad_star(p, m0, want_mw=want_mw, march=rj) for rj in (0, 1, 2)]
+        got += [fwd10(host_library, f, p, m0, want_mw, None) for f in STRIP_FORMS]
+        for geo, (out, flag, *mw) in zip(["own", "rj 1", "rj 2", *STRIP_FORMS], got):
+            assert torch.equal(out, ref[0]) and torch.equal(out, thread[0]), \
+                f"K10 out at {geo}, m0 batch {nb}"
+            assert bool(flag) is bool(ref[1]) is bool(thread[1]) is True
+            if want_mw:
+                assert torch.equal(mw[0], ref[2]) and torch.equal(mw[0], thread[2]), \
+                    f"K10 mw at {geo}, m0 batch {nb}"
+    ref = epdiff2d.compose2d_plain(p, v, -0.2)
+    thread = epdiff2d._launch_compose(p, v, -0.2, march=epdiff2d.THREAD)
+    got = [epdiff2d._launch_compose(p, v, -0.2, march=rj) for rj in (0, 1, 2)]
+    got += [fwd11(host_library, f, p, v, -0.2, None) for f in STRIP_FORMS]
+    for geo, (out, flag) in zip(["own", "rj 1", "rj 2", *STRIP_FORMS], got):
+        assert torch.equal(out, ref[0]) and torch.equal(out, thread[0]), f"K11 at {geo}"
+        assert bool(flag) is bool(ref[1]) is bool(thread[1]) is True
+    numel = N * 2 * H * W
+    for at in sorted({0, W - 1, numel // 2 + 1, numel - W, numel - 1}):
+        bad = f32(rng.uniform(-0.9, 0.9, shape))
+        bad.view(-1)[at] = 1.0
+        edge = f32(rng.uniform(-0.9, 0.9, shape))
+        edge.view(-1)[at] = -1.0
+        for f in ((1, 4, 3), (1, 1, 1), (0, 1, 1)):
+            assert not fwd10(host_library, f, bad, bad, False, None)[1], f"K10 flag at {at}, {f}"
+            assert not fwd11(host_library, f, bad, bad, 1.0, None)[1], f"K11 flag at {at}, {f}"
+            assert fwd10(host_library, f, edge, edge, False, None)[1]
+            assert fwd11(host_library, f, edge, edge, 1.0, None)[1]
+        assert not bool(epdiff2d.ad_star2d(bad, bad)[1])
+        assert not bool(epdiff2d.compose2d(bad, bad, 1.0)[1])
 
 
 def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
