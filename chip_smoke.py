@@ -85,6 +85,32 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    ``set_fluid_mxu_whole(True)`` (K16 10 launches per step, no K3), then
    one step at 64^3 b4 on the default selectors (K3), with the route each
    setting takes logged;
+6f. (run last, after 7 and 8) the atlas builder (``LDDMMAtlasBuilder``)
+   over epochs at the JAX package's end-to-end configuration
+   (scripts/atlas_e2e_tpu.py: blobs from seed 0 offset by up to 2 voxels,
+   ``FluidMetric([0.05, 0, 0.05])``, ``reg_weight=1e-2``, learning rates
+   1e-3 and 50; ``profile_atlas.py`` builds them): whether h5py and tqdm
+   import here; 8 subjects at 128^3 b4 over 3 epochs through the kernels
+   (the counters, set to 0 just before and read just after, at each
+   kernel's step launches x 6 iterations; the epoch loss falling) against
+   the plain versions (every iteration's loss within 1e-5 relative, the
+   atlas within 1e-5 of max|I|, each minibatch's momenta within 1e-3 in
+   relative L2), both runs' drift from a float64 run logged; the same with
+   moving momenta (the north-star run's pose learning rate 500, offsets of
+   8 voxels and 10 integration steps, BASELINE.md), held and logged the
+   same way; one epoch with ``gradient_checkpointing`` ``torch.equal`` to
+   one without, with the recomputed forwards' launches and both peaks; one
+   step at 128^3 b4 and at 256^3 b1 (bench.py's inputs) with and without
+   checkpoints, equal, timed in turns with their peaks, the 256^3 step also
+   against the plain versions; one epoch with momenta on a 64^3 grid
+   against the plain versions; one epoch with ``keep_data_on_device``
+   ``torch.equal`` to streaming, and one with bfloat16 images; the 2D
+   builder, 16 subjects at 256^2 b8 over 2 epochs (K8, K9) against the
+   plain versions, and one epoch at ``beta = 0.05`` (K10-K13) with
+   checkpointing equal to one without; the epoch walls of 32 subjects at
+   128^3 b4, streaming and on the device, beside 8 x the builder's step;
+   and, where h5py imports, ``python -m lagomorph_tpu_torch lddmm atlas``
+   at 64^3 over 2 epochs against the builder in this process;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
@@ -1973,6 +1999,357 @@ def trace_run(device, card, fn, label, path, n=5):
     log(f"trace: written to {path}")
 
 
+# Phase 6f: the atlas builder (``LDDMMAtlasBuilder``) at the JAX package's
+# end-to-end configuration (scripts/atlas_e2e_tpu.py, through
+# profile_atlas.py: blobs from seed 0 offset by up to 2 voxels,
+# FluidMetric([0.05, 0, 0.05]), reg_weight 1e-2, learning rates 1e-3 (pose)
+# and 50 (image), 5 integration steps)
+BUILDER_3D = (128, 8, 4, 3)  # resolution, subjects, batch, epochs
+BUILDER_2D = (256, 16, 8, 2)
+BUILDER_WALLS = (128, 32, 4, 2)
+BUILDER_CLI = (64, 8, 4, 2)
+BIG = (1, 3, 256, 256, 256)  # bench.py's EXTRA_CONFIGS, 256cubed_b1
+# the builder through the kernels against the plain versions, float32:
+# every iteration's loss (relative), the atlas (of max|I|), each
+# minibatch's momenta (relative L2)
+BUILDER_LOSS_TOL, BUILDER_ATLAS_TOL, BUILDER_M_TOL = 1e-5, 1e-5, 1e-3
+# an atlas step with gradient checkpointing: each of the 4 substeps' forward
+# kernels (3D: K1, K2 and its K3 solve; 2D at beta != 0: K10, K11) runs
+# again in the backward
+STEP_CKPT_LAUNCHES = {**STEP_LAUNCHES, "ad_star_fwd": 8, "compose_fwd": 8, "fluid_flat": 14}
+STEP2D_BETA_CKPT_LAUNCHES = {**STEP2D_BETA_LAUNCHES, "ad_star2d_fwd": 8, "compose2d_fwd": 8}
+BUILDER_BETA = (0.05, 0.05, 0.05)  # the end-to-end metric with beta != 0
+# the north-star run's pose learning rate, offsets and integration steps
+# (BASELINE.md, "North-star"), whose momenta move
+BUILDER_ACTIVE = {"offset": 8.0, "learning_rate_pose": 500.0, "lddmm_integration_steps": 10}
+
+
+def builder_run(b, plain=False):
+    """Run the builder ``b`` through the kernels (or the plain versions),
+    the launch counters set to 0 just before and read just after.  Returns
+    its launches (the kernels launched), its wall in seconds and its peak
+    device memory in GiB."""
+    from lagomorph_tpu_torch.ops import kernels
+
+    device = torch.device("cuda", 0)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with kernels.plain_versions() if plain else contextlib.nullcontext():
+        b.run()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    return launched, wall, torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def builder_state(b):
+    """The builder's atlas and momenta (float64, on the host) and its
+    iteration and epoch losses."""
+    ms = [m if isinstance(m, torch.Tensor) else torch.from_numpy(m) for m in b.ms]
+    return (b.I.detach().double().cpu(), [m.detach().double().cpu() for m in ms],
+            list(b.iter_losses), list(b.epoch_losses))
+
+
+def builder_diff(got, ref):
+    """(largest relative loss difference, atlas max abs difference over
+    max|ref atlas|, largest relative L2 difference of a minibatch's
+    momenta)."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got[2], ref[2]))
+    atlas = max_err(got[0], ref[0]) / float(ref[0].abs().max())
+    return loss, atlas, max(rel_l2(a, b) for a, b in zip(got[1], ref[1]))
+
+
+def builder_compare(label, got, ref):
+    """Hold a builder run through the kernels against the plain versions'
+    (``BUILDER_*_TOL``)."""
+    check(len(got[2]) == len(ref[2]) and len(got[1]) == len(ref[1]), f"{label}: runs differ")
+    loss, atlas, mom = builder_diff(got, ref)
+    log(f"  {label}: kernels vs plain: iteration losses rel {loss:.3e} (tol "
+        f"{BUILDER_LOSS_TOL:g}), atlas {atlas:.3e} of max|I| ({BUILDER_ATLAS_TOL:g}), momenta "
+        f"rel l2 {mom:.3e} ({BUILDER_M_TOL:g}); epoch losses {got[3]} (plain {ref[3]})")
+    check(all(np.isfinite(x) for x in got[2]) and bool(torch.isfinite(got[0]).all()),
+          f"{label}: non-finite loss or atlas")
+    for name, err, tol in (("loss", loss, BUILDER_LOSS_TOL), ("atlas", atlas, BUILDER_ATLAS_TOL),
+                           ("momenta", mom, BUILDER_M_TOL)):
+        check(err <= tol, f"{label}: {name} differs from the plain run by {err:.3e} > {tol:g}")
+
+
+def builder_equal(label, got, ref):
+    same = (torch.equal(got[0], ref[0]) and all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+            and got[2] == ref[2] and got[3] == ref[3])
+    log(f"  {label}: atlas, momenta and losses torch.equal: {same}")
+    check(same, f"{label}: results differ")
+
+
+def want_launches(per_step, iterations):
+    return {k: n * iterations for k, n in per_step.items() if n}
+
+
+def ckpt_step_ab(lt, device, card, shape, label):
+    """One atlas step at ``shape`` on bench.py's inputs through the kernels
+    with and without gradient checkpointing: each step's launches, its
+    results equal both ways, its ms per step (in turns: without, with,
+    with, without) and its peak device memory."""
+    from lagomorph_tpu_torch.ops import kernels
+
+    metric = lt.FluidMetric(PARAMS)
+    I, m, img = bench_inputs(device, shape)
+    steps = {ckpt: lt.make_lddmm_atlas_step(metric, reg_weight=REG_WEIGHT,
+                                            learning_rate_pose=LR_POSE, integration_steps=STEPS,
+                                            checkpoints=ckpt) for ckpt in (False, True)}
+    out, peak = {}, {}
+    for ckpt, step in steps.items():
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launches()
+        out[ckpt] = step(I, m, img)
+        torch.cuda.synchronize(device)
+        peak[ckpt] = torch.cuda.max_memory_allocated(device) / 2**30
+        launched = {k: n for k, n in kernels.launch_counts().items() if n}
+        want = STEP_CKPT_LAUNCHES if ckpt else STEP_LAUNCHES
+        check(launched == want, f"{label} checkpoints={ckpt}: launches {launched}, want {want}")
+    same = all(torch.equal(a, b) for a, b in zip(out[False], out[True]))
+    samples = {False: [], True: []}
+    for ckpt in (False, True, True, False):
+        samples[ckpt].append(time_ms(lambda: float(steps[ckpt](I, m, img)[2]), device, 3,
+                                     warmup=1))
+    a, b = samples[False], samples[True]
+    log(f"time atlas step ({label}, {shape[2]}^3 b{shape[0]}): without checkpoints "
+        f"{a[0]:.3f}/{a[1]:.3f} ms, peak {peak[False]:.3f} GiB; with checkpoints "
+        f"{b[0]:.3f}/{b[1]:.3f} ms, peak {peak[True]:.3f} GiB; results torch.equal: {same} "
+        f"[{card}]")
+    check(same, f"{label}: the checkpointed step differs")
+    check(all(bool(torch.isfinite(x).all()) for x in out[False]), f"{label}: non-finite step")
+    return I, m, img, out[False]
+
+
+def atlas_builder(lt, device, card):
+    """Phase 6f, the atlas builder over epochs (``BUILDER_*``): the 3D
+    builder at 128^3 through the kernels, the plain versions and in float64;
+    gradient checkpointing (equal, with the recomputed forwards' launches;
+    the step at 128^3 b4 and 256^3 b1); momenta on a half grid; the data on
+    the device and bfloat16 images; the 2D builder at 256^2 with ``beta =
+    0`` (K8, K9) and at ``beta = 0.05`` under checkpointing (K10-K13);
+    epoch walls at 32 subjects; the ``lddmm atlas`` command."""
+    import importlib
+    import tempfile
+
+    from profile_atlas import e2e_builder, subjects
+    from lagomorph_tpu_torch.ops import kernels
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+
+    have = {}
+    for mod in ("h5py", "tqdm"):
+        try:
+            importlib.import_module(mod)
+            have[mod] = True
+        except ImportError:
+            have[mod] = False
+    log(f"builder: on this machine h5py imports: {have['h5py']}, tqdm imports: {have['tqdm']}")
+
+    # the 3D builder at 128^3: kernels, plain versions, float64
+    res, n, batch, epochs = BUILDER_3D
+    imgs = list(subjects(res, n, 2.0, device))
+    iters = epochs * (n // batch)
+    label = f"3D builder {res}^3, {n} subjects b{batch}, {epochs} epochs"
+    b = e2e_builder(lt, imgs, device, epochs, batch)
+    launched, wall, peak = builder_run(b)
+    kern = builder_state(b)
+    log(f"{label} through the kernels: {wall:.2f} s, peak {peak:.3f} GiB, epoch losses "
+        f"{b.epoch_losses}; launches {launched}")
+    check(launched == want_launches(STEP_LAUNCHES, iters),
+          f"{label}: launches {launched}, want {STEP_LAUNCHES} x {iters}")
+    check(b.epoch_losses[-1] < b.epoch_losses[0], f"{label}: the epoch loss did not fall")
+    b = e2e_builder(lt, imgs, device, epochs, batch)
+    launched, wall, _ = builder_run(b, plain=True)
+    check(not launched, f"{label}: the plain run launched {launched}")
+    plain = builder_state(b)
+    log(f"{label} through the plain versions: {wall:.2f} s")
+    builder_compare(label, kern, plain)
+    # float64 takes the plain versions, whose intermediates at 128^3 b4 in
+    # float64 outgrow the card unless each substep is rematerialised
+    b = e2e_builder(lt, imgs, device, epochs, batch, dtype=np.float64,
+                    gradient_checkpointing=True)
+    launched, wall, _ = builder_run(b)
+    check(not launched, f"{label} float64: launched {launched}")
+    ref64 = builder_state(b)
+    for name, st in (("kernels", kern), ("plain float32", plain)):
+        loss, atlas, mom = builder_diff(st, ref64)
+        log(f"  {label}: drift of the {name} run from a float64 plain run ({wall:.2f} s) after "
+            f"{epochs} epochs: atlas max {atlas:.3e} of max|I|, rel l2 {rel_l2(st[0], ref64[0]):.3e};"
+            f" momenta rel l2 {mom:.3e}; iteration losses rel {loss:.3e}; final epoch loss "
+            f"{st[3][-1]!r} (float64 {ref64[3][-1]!r})")
+    del b, kern, plain, ref64
+
+    # the same builder with moving momenta: the pose learning rate, offsets
+    # and integration steps of the JAX package's north-star run
+    # (BASELINE.md), through the kernels, the plain versions and in float64
+    imgs_far = list(subjects(res, n, BUILDER_ACTIVE["offset"], device))
+    kw = {k: v for k, v in BUILDER_ACTIVE.items() if k != "offset"}
+    st = {}
+    for name, plain, dtype in (("kernels", False, np.float32), ("plain float32", True, np.float32),
+                               ("float64", False, np.float64)):
+        b = e2e_builder(lt, imgs_far, device, epochs, batch, dtype=dtype,
+                        gradient_checkpointing=dtype == np.float64, **kw)
+        launched, wall, _ = builder_run(b, plain)
+        st[name] = builder_state(b)
+        log(f"{label}, moving momenta {BUILDER_ACTIVE} ({name}): {wall:.2f} s, epoch losses "
+            f"{b.epoch_losses}, max|m| {max(float(m.abs().max()) for m in st[name][1]):.4e}; "
+            f"launches {launched}")
+    check(st["kernels"][3][-1] < st["kernels"][3][0], "moving momenta: the loss did not fall")
+    for name in ("kernels", "plain float32"):
+        loss, atlas, mom = builder_diff(st[name], st["float64"])
+        log(f"  moving momenta: drift of the {name} run from float64 after {epochs} epochs: "
+            f"atlas max {atlas:.3e} of max|I|, rel l2 {rel_l2(st[name][0], st['float64'][0]):.3e}"
+            f"; momenta rel l2 {mom:.3e}; iteration losses rel {loss:.3e}")
+    builder_compare(f"{label}, moving momenta", st["kernels"], st["plain float32"])
+    del b, st, imgs_far
+
+    # gradient checkpointing: one epoch each way, then one step at 128^3 b4
+    # and at 256^3 b1
+    runs = {}
+    for ckpt in (False, True):
+        b = e2e_builder(lt, imgs, device, 1, batch, gradient_checkpointing=ckpt)
+        launched, wall, peak = builder_run(b)
+        runs[ckpt] = builder_state(b)
+        want = want_launches(STEP_CKPT_LAUNCHES if ckpt else STEP_LAUNCHES, n // batch)
+        log(f"3D builder one epoch, gradient_checkpointing={ckpt}: {wall:.2f} s, peak "
+            f"{peak:.3f} GiB; launches {launched}")
+        check(launched == want, f"checkpointing={ckpt}: launches {launched}, want {want}")
+    builder_equal("3D builder with gradient checkpointing vs without", runs[True], runs[False])
+    ckpt_step_ab(lt, device, card, FULL, "bench inputs")
+    I, m, img, big = ckpt_step_ab(lt, device, card, BIG, "bench inputs")
+    with kernels.plain_versions():
+        ref = make_step(lt, lt.FluidMetric(PARAMS))(I, m, img)
+    rel = abs(float(big[2]) - float(ref[2])) / abs(float(ref[2]))
+    e_I = max_err(big[1], ref[1]) / float(ref[1].abs().max())
+    log(f"  step at {BIG[2]}^3 b{BIG[0]} (route {lt.ops.fluid.fluid_route(BIG, PARAMS)}) vs the plain "
+        f"versions: loss rel {rel:.3e}, I_grad rel {e_I:.3e}")
+    check(rel <= 1e-5 and e_I <= 1e-5, f"the step at {BIG[2]}^3 differs from the plain versions")
+    del I, m, img, big, ref
+
+    # momenta on a half grid (the CLI's --deformation_downscale 2)
+    half = (res // 2,) * 3
+    st = {}
+    for plain in (False, True):
+        b = e2e_builder(lt, imgs, device, 1, batch, momentum_shape=half)
+        launched, wall, _ = builder_run(b, plain)
+        st[plain] = builder_state(b)
+        log(f"3D builder one epoch, momenta at {half} on {res}^3 images "
+            f"({'plain' if plain else 'kernels'}): {wall:.2f} s; launches {launched}")
+        if not plain:
+            check(all(launched.get(k, 0) > 0 for k in ("ad_star_fwd", "compose_fwd", "fluid_flat",
+                                                        "ad_star_bwd", "compose_bwd")),
+                  f"half grid: a shooting kernel was not launched: {launched}")
+    check(tuple(st[False][1][0].shape[2:]) == half, "half grid: momenta of the wrong shape")
+    builder_compare("half-grid momenta", st[False], st[True])
+
+    # the data kept on the device; bfloat16 images
+    b = e2e_builder(lt, imgs, device, 1, batch, keep_data_on_device=True)
+    builder_run(b)
+    builder_equal("keep_data_on_device vs streaming", builder_state(b), runs[False])
+    b = e2e_builder(lt, imgs, device, 1, batch, image_dtype="bfloat16")
+    builder_run(b)
+    check(b._staged(0)[0].dtype == torch.bfloat16, "bfloat16: images not staged in bfloat16")
+    log(f"  image_dtype=bfloat16: epoch loss {b.epoch_losses[0]!r} (float32 images "
+        f"{runs[False][3][0]!r})")
+    check(np.isfinite(b.epoch_losses[0]), "bfloat16: non-finite loss")
+    del b, runs, st, imgs
+
+    # the 2D builder at 256^2: beta = 0 (K8, K9), then beta = 0.05 (K10-K13)
+    res2, n2, batch2, epochs2 = BUILDER_2D
+    imgs2 = list(subjects(res2, n2, 2.0, device, dim=2))
+    label = f"2D builder {res2}^2, {n2} subjects b{batch2}, {epochs2} epochs"
+    st = {}
+    for plain in (False, True):
+        b = e2e_builder(lt, imgs2, device, epochs2, batch2)
+        launched, wall, peak = builder_run(b, plain)
+        st[plain] = builder_state(b)
+        log(f"{label} ({'plain' if plain else 'kernels'}): {wall:.2f} s, peak {peak:.3f} GiB, "
+            f"epoch losses {b.epoch_losses}; launches {launched}")
+        want = {} if plain else want_launches(STEP2D_LAUNCHES, epochs2 * (n2 // batch2))
+        check(launched == want, f"{label}: launches {launched}, want {want}")
+    check(st[False][3][-1] < st[False][3][0], f"{label}: the epoch loss did not fall")
+    builder_compare(label, st[False], st[True])
+    for ckpt in (False, True):
+        b = e2e_builder(lt, imgs2, device, 1, batch2, params=BUILDER_BETA,
+                        gradient_checkpointing=ckpt)
+        launched, wall, peak = builder_run(b)
+        st[ckpt] = builder_state(b)
+        want = want_launches(STEP2D_BETA_CKPT_LAUNCHES if ckpt else STEP2D_BETA_LAUNCHES,
+                             n2 // batch2)
+        log(f"2D builder one epoch, beta={BUILDER_BETA[1]}, gradient_checkpointing={ckpt}: {wall:.2f} s, "
+            f"peak {peak:.3f} GiB; launches {launched}")
+        check(launched == want, f"2D beta checkpointing={ckpt}: launches {launched}, want {want}")
+    builder_equal("2D builder, beta = 0.05, with gradient checkpointing vs without",
+                  st[True], st[False])
+    del b, st, imgs2
+
+    # epoch walls at 32 subjects, streaming and on the device
+    res, n, batch, epochs = BUILDER_WALLS
+    imgs = list(subjects(res, n, 2.0, device))
+    for on_device in (False, True):
+        b = e2e_builder(lt, imgs, device, epochs, batch, keep_data_on_device=on_device)
+        b.initialize()
+        walls = []
+        for b._epoch in range(epochs):
+            t0 = time.perf_counter()
+            b.epoch()
+            torch.cuda.synchronize(device)
+            walls.append(time.perf_counter() - t0)
+        img, m, _ = b._staged(0)
+        step_ms = time_ms(lambda: float(b._step(b.I, m, img)[2]), device, 3, warmup=1)
+        iters = n // batch
+        log(f"epoch walls, {res}^3, {n} subjects b{batch}, "
+            f"{'keep_data_on_device' if on_device else 'streaming'}: "
+            f"{', '.join(f'{w:.4f}' for w in walls)} s; {iters} x the builder's step "
+            f"({step_ms:.3f} ms) = {iters * step_ms / 1e3:.4f} s; the rest (staging and host): "
+            f"{', '.join(f'{w - iters * step_ms / 1e3:.4f}' for w in walls)} s [{card}]")
+        del b, img, m
+    del imgs
+
+    # the lddmm atlas command
+    if not have["h5py"]:
+        log("builder CLI: did not run: h5py does not import on this machine")
+        return
+    import h5py
+
+    res, n, batch, epochs = BUILDER_CLI
+    imgs = subjects(res, n, 2.0, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "images.h5"), os.path.join(tmp, "atlas.h5")
+        with h5py.File(src, "w") as f:
+            f.create_dataset("images", data=imgs)
+        args = ["--num_epochs", str(epochs), "--batch_size", str(batch), "--fluid_alpha", "0.05",
+                "--fluid_gamma", "0.05", "--reg_weight", "0.01", "--learning_rate_m", "1e-3",
+                "--learning_rate_I", "50"]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lagomorph_tpu_torch", "lddmm", "atlas", src, out,
+                            *args], cwd=HERE, capture_output=True, text=True, timeout=600,
+                           env=dict(os.environ, PYTHONPATH=HERE))
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"the lddmm atlas command failed:\n{r.stderr[-3000:]}")
+        b = e2e_builder(lt, lt.data.H5Dataset(src), device, epochs, batch)
+        b.run()
+        with h5py.File(out, "r") as f:
+            got = (torch.from_numpy(f["atlas"][...]).double(),
+                   [torch.from_numpy(f["momenta"][...]).double()],
+                   list(f["iter_losses"][...]), list(f["epoch_losses"][...]))
+        ref = builder_state(b)
+        ref = (ref[0], [torch.cat(ref[1])], ref[2], ref[3])
+        diff = builder_diff(got, ref)
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1][0], ref[1][0])
+        losses = got[3]
+        log(f"builder CLI: python -m lagomorph_tpu_torch lddmm atlas at {res}^3, {n} subjects "
+            f"b{batch}, {epochs} epochs: {wall:.2f} s (process start included); epoch losses "
+            f"{[float(x) for x in losses]}; against the builder in this process: losses rel {diff[0]:.3e}, atlas "
+            f"{diff[1]:.3e}, momenta rel l2 {diff[2]:.3e}, torch.equal {same}")
+        check(max(diff) <= 1e-6 and losses[-1] < losses[0], "the lddmm atlas command's result")
+
+
 def run(device, card, trace_path=None):
     sys.path.insert(0, HERE)
     import lagomorph_tpu_torch as lt
@@ -2086,6 +2463,11 @@ def run(device, card, trace_path=None):
         with selected(lt.set_fluid_mxu_whole, True):
             trace_run(device, card, lambda: float(step(I64, m64, img64)[2]), "whole step 64^3",
                       f"{base}_steps64_whole{ext or '.json'}")
+
+    # 6f. the atlas builder over epochs, its options and its command: last,
+    # so that phases 3-8 run as they did before it (its float64 and 256^3
+    # runs fill the allocator's cache)
+    atlas_builder(lt, device, card)
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,

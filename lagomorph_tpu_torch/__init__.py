@@ -1,6 +1,8 @@
 """lagomorph_tpu_torch: the PyTorch and CUDA port of lagomorph_tpu.
 
-The LDDMM atlas step in 3D and 2D: geodesic shooting of momenta to an
+The LDDMM atlas builder (``LDDMMAtlasBuilder``, ``lddmm_atlas`` and
+``python -m lagomorph_tpu_torch lddmm atlas``) on one device, over its atlas
+step in 3D and 2D: geodesic shooting of momenta to an
 inverse deformation, the atlas warp, the atlas loss, its gradients and the
 update of the momenta (``make_lddmm_atlas_step``), forward and backward on
 hand-written Hopper kernels (``ops/kernels``, sources in ``csrc/``) for CUDA
@@ -15,7 +17,8 @@ on the radix-2 kernels K14/K15 (``set_fluid_fft_kernel("radix")``,
 (``set_fluid_mxu_whole``, ``ops/kernels/fft_whole``) or the plain
 ``torch.fft`` / DFT routes (``set_fluid_fft_kernel(False)``,
 ``set_fluid_packing``, ``set_fluid_dft``).  Tensors are NC(D)HW, as in the
-JAX package.  This package imports torch and numpy, never jax.
+JAX package.  This package imports torch and numpy, never jax; ``h5py``
+and ``tqdm`` only where a file is read or written or a progress bar shown.
 """
 from .ops import (
     diff_central,
@@ -24,6 +27,7 @@ from .ops import (
     identity_grid,
     interp,
     interp_auto,
+    regrid,
     jacobian_times_vectorfield,
     jacobian_times_vectorfield_adjoint,
     sample_displacement_bounded,
@@ -36,10 +40,18 @@ from .ops import (
     shift_clamp,
 )
 from .deform import identity, compose, compose_disp_vel
-from .metric import FluidMetric
+from .metric import FluidMetric, Metric
 from .adjrep import Ad_star
-from .lddmm import expmap, EPDiff_step, make_lddmm_atlas_step, shooting_regime_ok
+from .lddmm import (
+    expmap,
+    EPDiff_step,
+    EPDiff_steps,
+    LDDMMAtlasBuilder,
+    lddmm_atlas,
+    make_lddmm_atlas_step,
+    shooting_regime_ok,
+)
 
-from . import adjrep, convert, deform, lddmm, metric, ops
+from . import adjrep, convert, data, deform, lddmm, metric, ops, utils
 
 __version__ = "0.1.0"

@@ -1,0 +1,43 @@
+"""Top-level command line: ``python -m lagomorph_tpu_torch <module> <command>
+[args]``.
+
+Only the ``lddmm`` module is ported (``lddmm atlas``); the JAX package's
+``affine`` and ``data`` modules are not.
+"""
+import sys
+
+from .utils import Tool
+
+
+class LagomorphTool(Tool):
+    """Command line interface to lagomorph_tpu_torch commands"""
+
+    module_name = "lagomorph_tpu_torch"
+    subcommands = ["lddmm"]
+
+    def _subtool(self, command):
+        if command == "lddmm":
+            from .lddmm import _Tool
+        else:  # pragma: no cover
+            raise ValueError(command)
+        return _Tool
+
+    def _overview(self):
+        return super()._overview() + (
+            "\nnot ported: affine, data (use python -m lagomorph_tpu)\n"
+        )
+
+    def call_subcommand(self, command):
+        del sys.argv[1]  # the module's tool reads its own command first
+        return self._subtool(command)().run()
+
+    def describe_subcommand(self, command):
+        return self._subtool(command).__doc__
+
+
+def main():
+    LagomorphTool().run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,16 @@
-"""LDDMM geodesic shooting, the atlas loss and the atlas step.
+"""LDDMM geodesic shooting, the atlas loss, the atlas step and the atlas
+builder.
 
-Port of ``lagomorph_tpu/lddmm.py``: ``EPDiff_step``, ``expmap`` with the
-peeled first step, the hoisted fast path with its validity flag and exact
-fallback (on the per-substep kernels; 2D with ``beta == 0`` and no
-momentum mask in one launch of the whole-shoot kernel),
-``shooting_regime_ok``, ``_lddmm_loss`` and ``make_lddmm_atlas_step`` (the
-loss, its gradients by autograd through the kernels' backwards, and the
-update of the momenta).
+Port of ``lagomorph_tpu/lddmm.py``: ``EPDiff_step``, ``EPDiff_steps``,
+``expmap`` with the peeled first step, the hoisted fast path with its
+validity flag and exact fallback (on the per-substep kernels; 2D with
+``beta == 0`` and no momentum mask in one launch of the whole-shoot
+kernel), optionally rematerialising each substep in the backward
+(``checkpoints``), ``shooting_regime_ok``, ``_lddmm_loss`` (with momenta on
+a coarser grid than the image), ``make_lddmm_atlas_step`` (the loss, its
+gradients by autograd through the kernels' backwards, and the update of
+the momenta), the epoch loop of :class:`LDDMMAtlasBuilder` on one device,
+:func:`lddmm_atlas` and the ``lddmm atlas`` command.
 """
 from __future__ import annotations
 
@@ -15,12 +19,30 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import adjrep, deform
-from .metric import FluidMetric
+from .metric import FluidMetric, Metric
+from .ops.affine import regrid
 from .ops.interp import in_unit as _in_unit
 from .ops import kernels
 from .ops.kernels import epdiff2d, epdiff_unit, shoot2d
+from .utils import Tool, progress
 
-__all__ = ["EPDiff_step", "expmap", "make_lddmm_atlas_step", "shooting_regime_ok"]
+__all__ = [
+    "EPDiff_step",
+    "EPDiff_steps",
+    "LDDMMAtlasBuilder",
+    "expmap",
+    "lddmm_atlas",
+    "make_lddmm_atlas_step",
+    "shooting_regime_ok",
+]
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` with its intermediates dropped after the forward and
+    recomputed in the backward (``torch.utils.checkpoint``), on the same
+    versions, kernels or plain, as the forward ran (:func:`kernels.
+    same_versions`); the JAX package's ``jax.checkpoint``."""
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=kernels.same_versions)
 
 
 def EPDiff_step(metric, m0, dt, phiinv, mommask=None, transport_mode=None,
@@ -40,8 +62,10 @@ def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
            checkpoints=False, transport_mode=None, compose_mode=None, v0=None):
     """Geodesic shooting: the inverse deformation ``phi^{-1}`` (as a
     displacement) at time ``T`` from the initial momentum ``m0``.  The JAX
-    package's signature; ``checkpoints=True`` (rematerialised shooting) is
-    not ported and raises ``NotImplementedError``.
+    package's signature.  ``checkpoints``: autograd keeps each substep's
+    inputs, not its intermediates, and the backward runs the substep again
+    (memory in the number of substeps drops to one field a substep); the
+    whole-shoot kernel K8 ignores it, as the JAX package's does.
 
     ``v0``: optional precomputed ``metric.sharp(m0 * mommask)``, shared with
     a caller that also needs the initial velocity.  Starting from the
@@ -50,11 +74,6 @@ def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
     takes the hoisted fast path (:func:`_expmap_hoisted`) on the flagged
     integrator that :func:`_fast_integrator` picks; otherwise the per-step
     loop."""
-    if checkpoints:
-        raise NotImplementedError(
-            "checkpoints=True (gradient checkpointing of the shooting, "
-            "rematerialised in the backward) is not ported"
-        )
     dt = T / num_steps
     length = num_steps
     if phiinv is None:
@@ -68,11 +87,11 @@ def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
         if transport_mode is None and compose_mode is None:
             fast = _fast_integrator(metric, m0, dt, mommask)
             if fast is not None:
-                return _expmap_hoisted(metric, m0, dt, length, phiinv, mommask, fast)
+                return _expmap_hoisted(metric, m0, dt, length, phiinv, mommask, fast,
+                                       checkpoints)
     for _ in range(length):
-        phiinv = EPDiff_step(metric, m0, dt, phiinv, mommask=mommask,
-                             transport_mode=transport_mode,
-                             compose_mode=compose_mode)
+        args = (metric, m0, dt, phiinv, mommask, transport_mode, compose_mode)
+        phiinv = _remat(EPDiff_step, *args) if checkpoints else EPDiff_step(*args)
     return phiinv
 
 
@@ -97,34 +116,40 @@ def _fast_integrator(metric, m0, dt, mommask):
     return _expmap_fast_flagged
 
 
-def _shoot2d_flagged(metric, m0, dt, length, phiinv0, mommask):
+def _shoot2d_flagged(metric, m0, dt, length, phiinv0, mommask, checkpoints=False):
     """The 2D hoisted fast path for ``beta == 0``: all ``length`` substeps
     in one launch of K8 (its backward one launch of K9).  ``mommask`` is
-    always None here (see :func:`_fast_integrator`).  Returns ``(phiinv,
-    ok)``."""
+    always None here (see :func:`_fast_integrator`); ``checkpoints`` is
+    ignored (K9 reads the trajectory that K8 stashes).  Returns
+    ``(phiinv, ok)``."""
     Mn = metric.packed_multiplier(m0.shape[2:], m0.dtype, m0.device)
     return shoot2d.shoot2d(phiinv0, m0, Mn, -dt, length)
 
 
-def _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask):
+def _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask, checkpoints=False):
     """The hoisted fast loop: ``length`` substeps on the unit-regime
     kernels for the fields' dimension (3D: K1 Ad*, K2 compose; 2D: K10,
     K11; ``lagomorph_tpu/lddmm.py:_hoisted_fused_pair``), accumulating
-    their flags on the device.  Returns ``(phiinv, ok)``; ``phiinv`` is
-    exact iff ``ok``."""
+    their flags on the device, each substep rematerialised with
+    ``checkpoints`` (the flag a non-differentiable output).  Returns
+    ``(phiinv, ok)``; ``phiinv`` is exact iff ``ok``."""
     if m0.dim() == 5:
         ad_star, compose = epdiff_unit.ad_star, epdiff_unit.compose
     else:
         ad_star, compose = epdiff2d.ad_star2d, epdiff2d.compose2d
-    phiinv = phiinv0
-    ok = torch.ones((), dtype=torch.bool, device=phiinv0.device)
-    for _ in range(length):
+
+    def substep(phiinv, ok):
         m, f_transport = ad_star(phiinv, m0)
         if mommask is not None:
             m = m * mommask
         v = metric.sharp(m)
         phiinv, f_compose = compose(phiinv, v, -dt)
-        ok = ok & f_transport & f_compose
+        return phiinv, ok & f_transport & f_compose
+
+    phiinv = phiinv0
+    ok = torch.ones((), dtype=torch.bool, device=phiinv0.device)
+    for _ in range(length):
+        phiinv, ok = _remat(substep, phiinv, ok) if checkpoints else substep(phiinv, ok)
     return phiinv, ok
 
 
@@ -138,20 +163,21 @@ def _expmap_general(metric, m0, dt, length, phiinv0, mommask, mode="auto"):
     same) and the same versions, kernels or plain."""
     phiinv = phiinv0
     for _ in range(length):
-        phiinv = checkpoint(EPDiff_step, metric, m0, dt, phiinv, mommask, mode, mode,
-                            use_reentrant=False, context_fn=kernels.same_versions)
+        phiinv = _remat(EPDiff_step, metric, m0, dt, phiinv, mommask, mode, mode)
     return phiinv
 
 
-def _expmap_hoisted(metric, m0, dt, length, phiinv0, mommask, fast_fn):
+def _expmap_hoisted(metric, m0, dt, length, phiinv0, mommask, fast_fn, checkpoints=False):
     """Integrate on the unit-regime kernels with a validity flag
-    (``fast_fn``, from :func:`_fast_integrator`), and re-run the exact
-    general integration when any substep left the unit regime.
+    (``fast_fn``, from :func:`_fast_integrator`, rematerialising its
+    substeps with ``checkpoints``), and re-run the exact general
+    integration (always rematerialised) when any substep left the unit
+    regime.
 
     The JAX package's ``lax.cond(ok, fast, general)`` becomes one host read
     of the flag per call.  That sync is why the shooting loop cannot yet be
     captured in a CUDA graph."""
-    fast, ok = fast_fn(metric, m0, dt, length, phiinv0, mommask)
+    fast, ok = fast_fn(metric, m0, dt, length, phiinv0, mommask, checkpoints)
     if bool(ok):
         return fast
     del fast  # frees its autograd graph before the re-run builds its own
@@ -178,27 +204,33 @@ def shooting_regime_ok(metric, m0, T=1.0, num_steps=10, mommask=None) -> torch.T
     return ok
 
 
+def EPDiff_steps(metric, m0, dt, N, phiinv):
+    """``N`` steps of :func:`EPDiff_step` from ``phiinv``, each
+    rematerialised in the backward (the JAX package's gradient-checkpointed
+    block)."""
+    for _ in range(N):
+        phiinv = _remat(EPDiff_step, metric, m0, dt, phiinv)
+    return phiinv
+
+
 def _lddmm_loss(I, m, img, metric, reg_weight, integration_steps, checkpoints=False,
                 image_shape=None, mask=None):
     """Loss of one minibatch: ``MSE(I o phi^{-1}(m), img) / |Omega| + reg``,
     returned as ``(loss, reg_term)``.  The JAX package's signature.
 
-    ``mask``: optional ``(B,)`` 0/1 weights for padded subjects.  Not
-    ported: ``checkpoints=True`` (rematerialised shooting) and momenta on
-    another grid than the image (``image_shape``, the regrid branch); both
-    raise ``NotImplementedError``."""
-    if checkpoints:
-        raise NotImplementedError(
-            "checkpoints=True (gradient checkpointing of the shooting, "
-            "rematerialised in the backward) is not ported"
-        )
+    ``mask``: optional ``(B,)`` 0/1 weights for padded subjects.
+    ``checkpoints``: rematerialise the shooting's substeps (:func:`expmap`).
+    ``image_shape``: the image grid, when the momenta live on another one;
+    the deformation is then regridded onto it *without* rescaling its
+    displacements (which stay in momentum-grid voxels: the behaviour of the
+    reference that the JAX package keeps for parity), and the regulariser
+    is scaled by the ratio of the grids' sizes."""
     # one fluid solve serves the regularizer and the peeled first step
     v = metric.sharp(m)
-    h = expmap(metric, m, num_steps=integration_steps, v0=v)
-    if image_shape is not None and tuple(h.shape[2:]) != tuple(image_shape):
-        raise NotImplementedError(
-            "momenta on a coarser grid than the image (regrid) are not ported"
-        )
+    h = expmap(metric, m, num_steps=integration_steps, checkpoints=checkpoints, v0=v)
+    regrid_momenta = image_shape is not None and tuple(h.shape[2:]) != tuple(image_shape)
+    if regrid_momenta:
+        h = regrid(h, shape=tuple(image_shape))
     Idef = deform.interp_auto(I, h)
     sq = torch.sum((Idef - img) ** 2, dim=tuple(range(1, img.dim())))
     vm = torch.sum(v * m, dim=tuple(range(1, m.dim())))
@@ -210,6 +242,8 @@ def _lddmm_loss(I, m, img, metric, reg_weight, integration_steps, checkpoints=Fa
         count = torch.sum(mask)
     numel = count * float(np.prod(img.shape[1:]))
     reg_term = reg_weight * torch.sum(vm) / numel
+    if regrid_momenta:  # the coarser grid averages over fewer voxels
+        reg_term = reg_term * (I.numel() / v[0, 0].numel())
     loss = torch.sum(sq) / numel + reg_term
     return loss, reg_term
 
@@ -230,9 +264,8 @@ def make_lddmm_atlas_step(metric, reg_weight=1e2, learning_rate_pose=2e2, lddmm_
     tensor on the inputs' device; the step reads nothing on the host beyond
     the shooting's flag and the atlas warp's tier.
 
-    Not ported: ``spatial_mesh`` (spatially sharded shooting), which
-    raises here, and, at the first call, ``checkpoints=True`` and an
-    ``image_shape`` other than the momenta's grid (see :func:`_lddmm_loss`)."""
+    ``checkpoints`` and ``image_shape`` as in :func:`_lddmm_loss`.  Not
+    ported: ``spatial_mesh`` (spatially sharded shooting), which raises."""
     if spatial_mesh is not None:
         raise NotImplementedError(
             f"spatial_mesh (shooting sharded over the {spatial_axis!r} axis of a "
@@ -258,3 +291,469 @@ def make_lddmm_atlas_step(metric, reg_weight=1e2, learning_rate_pose=2e2, lddmm_
         return m, I_grad, loss.detach(), reg.detach()
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Atlas building
+# ---------------------------------------------------------------------------
+
+
+def _host(x):
+    """A numpy array of ``x`` (a tensor on any device, or array-like)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _torch_dtype(dtype):
+    """The torch dtype of a numpy dtype, a dtype name or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, dtype if isinstance(dtype, str) else np.dtype(dtype).name)
+
+
+def lddmm_atlas(dataset, I0=None, num_epochs=500, batch_size=10, lddmm_steps=1,
+                lddmm_integration_steps=5, image_update_freq=0, reg_weight=1e2,
+                learning_rate_pose=2e2, learning_rate_image=1e4, metric=None,
+                momentum_shape=None, image_shape=None, momentum_preconditioning=False,
+                checkpoint_format=None, gradient_checkpointing=False, loader_workers=0,
+                loader_mode="thread", dataloader_cache=None, keep_data_on_device=False,
+                image_dtype=None, ms=None, mesh=None, spatial_shard=False, progress_bar=True,
+                dtype=np.float32, device=None):
+    """Functional atlas building (see :class:`LDDMMAtlasBuilder`).  Returns
+    ``(I, ms, epoch_losses, epoch_reg_terms, iter_losses, iter_reg_terms)``."""
+    builder = LDDMMAtlasBuilder(
+        dataset, I0=I0, ms=ms, num_epochs=num_epochs, batch_size=batch_size,
+        lddmm_steps=lddmm_steps, lddmm_integration_steps=lddmm_integration_steps,
+        image_update_freq=image_update_freq, reg_weight=reg_weight,
+        learning_rate_pose=learning_rate_pose, learning_rate_image=learning_rate_image,
+        metric=metric, momentum_shape=momentum_shape, image_shape=image_shape,
+        momentum_preconditioning=momentum_preconditioning,
+        checkpoint_format=checkpoint_format, gradient_checkpointing=gradient_checkpointing,
+        loader_workers=loader_workers, loader_mode=loader_mode,
+        dataloader_cache=dataloader_cache, keep_data_on_device=keep_data_on_device,
+        image_dtype=image_dtype, device=device, mesh=mesh, spatial_shard=spatial_shard,
+        progress_bar=progress_bar, dtype=dtype,
+    )
+    builder.run()
+    return (builder.I, builder.ms, builder.epoch_losses, builder.epoch_reg_terms,
+            builder.iter_losses, builder.iter_reg_terms)
+
+
+class LDDMMAtlasBuilder:
+    """Stateful LDDMM atlas builder: the JAX package's constructor and
+    methods, on one process and one device.
+
+    Each epoch runs the atlas step (:func:`make_lddmm_atlas_step`) on every
+    minibatch of ``dataset`` in order, accumulates the atlas gradient and
+    updates the atlas every ``image_update_freq`` iterations (0: once an
+    epoch).  The momenta live on the host as one numpy array a minibatch
+    and stream through the device with its images (``keep_data_on_device``:
+    both are staged once and stay there).  ``device``: a torch device, the
+    first CUDA card when None (no fallback to the CPU; pass ``"cpu"`` for
+    the plain versions there).  ``dtype``: of the atlas, the momenta and
+    the computation; ``image_dtype``: of the images on the device
+    (``"bfloat16"`` halves their memory and transfers, and the loss
+    computes in ``dtype``).  Not ported: more than one process
+    (``world_size``, ``rank``), a device ``mesh`` and ``spatial_shard``, and
+    ``loader_mode="process"``; they raise at :meth:`initialize`.
+
+    The arguments become members, frozen after :meth:`initialize`.
+    """
+
+    def __init__(self, dataset, I0=None, ms=None, num_epochs=500, batch_size=10,
+                 lddmm_steps=1, lddmm_integration_steps=5, image_update_freq=0,
+                 reg_weight=1e2, learning_rate_pose=2e2, learning_rate_image=1e4,
+                 metric=None, momentum_shape=None, image_shape=None,
+                 momentum_preconditioning=False, checkpoint_format=None,
+                 gradient_checkpointing=False, loader_workers=0, loader_mode="thread",
+                 dataloader_cache=None, keep_data_on_device=False, image_dtype=None,
+                 device=None, world_size=1, rank=0, mesh=None, spatial_shard=False,
+                 progress_bar=True, dtype=np.float32):
+        args = dict(locals())
+        self._initialized = False
+        self._initvars = []
+        for k, v in args.items():
+            if k != "self":
+                setattr(self, k, v)
+                self._initvars.append(k)
+
+    def __setattr__(self, k, v):
+        if (k not in ("_initvars", "_initialized") and getattr(self, "_initialized", False)
+                and k in getattr(self, "_initvars", ())):
+            raise Exception(
+                f"Member {k} was set in constructor and cannot be overwritten after "
+                "initialization"
+            )
+        self.__dict__[k] = v
+
+    # -- initialization ----------------------------------------------------
+    def initialize(self):
+        if not self._initialized:
+            self._init_batches()
+            self._init_atlas_image()
+            self._init_metric()
+            self._init_losses()
+            self._init_momenta()
+            self._init_step()
+            self._iteration = 0
+            self._epoch = 0
+            self._initialized = True
+
+    def _init_batches(self):
+        from .data import CachedDataLoader, batch_iterator, dataset_length
+
+        if self.world_size != 1 or self.rank != 0 or self.mesh is not None or self.spatial_shard:
+            raise NotImplementedError(
+                "more than one process, a device mesh and spatial sharding are not "
+                "ported (ROADMAP.md A.9): the builder runs one process on one device"
+            )
+        if self.loader_mode not in ("thread", "process"):
+            raise ValueError(f"loader_mode must be 'thread' or 'process', not {self.loader_mode!r}")
+        if self.loader_mode == "process":
+            raise NotImplementedError(
+                "loader_mode='process' (worker processes reading the batches) is not "
+                "ported; use loader_mode='thread'"
+            )
+        self._device = torch.device("cuda" if self.device is None else self.device)
+        if self._device.type != "cpu" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {self._device}: no CUDA device (torch.cuda.is_available() is "
+                "false); pass device='cpu' to run the plain versions on the CPU"
+            )
+        self._num_examples = dataset_length(self.dataset)
+        it = batch_iterator(self.dataset, self.batch_size, dtype=self.dtype)
+        if self.dataloader_cache is not None:
+            # the random-access cache of .npy files (the JAX package's
+            # native read-ahead cache is not ported)
+            self._batches = CachedDataLoader(it, cache_dir=self.dataloader_cache,
+                                             progress_bar=self.progress_bar)
+        else:
+            self._batches = list(it)
+        self._n_iters = len(self._batches)
+
+    def _init_atlas_image(self):
+        from .data import batch_average
+
+        if self.I0 is None:
+            I0 = batch_average(self._batches, progress_bar=self.progress_bar)
+        else:
+            I0 = _host(self.I0)
+        I0 = np.asarray(I0, dtype=self.dtype).squeeze()  # shaped (1, 1, *spatial) below
+        self.I = torch.from_numpy(np.ascontiguousarray(I0[None, None])).to(self._device)
+        if self.image_shape is not None and tuple(self.I.shape[2:]) != tuple(self.image_shape):
+            self.I = regrid(self.I, shape=tuple(self.image_shape))
+        self._image_grad_accum = torch.zeros_like(self.I)
+        self._image_iters = 0
+
+    def _init_metric(self):
+        if self.metric is None:
+            self.metric = FluidMetric([0.1, 0.0, 0.01])
+
+    def _init_losses(self):
+        for k in ("epoch_losses", "epoch_reg_terms", "iter_losses", "iter_reg_terms"):
+            if k not in self.__dict__:
+                setattr(self, k, [])
+
+    def _init_momenta(self):
+        dim = self.I.dim() - 2
+        if self.momentum_shape is None:
+            self.momentum_shape = tuple(self.I.shape[2:])
+        self.momentum_shape = tuple(self.momentum_shape)
+        if self.ms is None:
+            self.ms = [np.zeros((img.shape[0], dim) + self.momentum_shape, dtype=self.dtype)
+                       for img in self._batches]
+        else:
+            self.ms = [np.asarray(_host(m), dtype=self.dtype) for m in self.ms]
+
+    def _init_step(self):
+        self._step = make_lddmm_atlas_step(
+            self.metric,
+            reg_weight=self.reg_weight,
+            learning_rate_pose=self.learning_rate_pose,
+            lddmm_steps=self.lddmm_steps,
+            integration_steps=self.lddmm_integration_steps,
+            momentum_preconditioning=self.momentum_preconditioning,
+            checkpoints=self.gradient_checkpointing,
+            image_shape=tuple(self.I.shape[2:]),
+        )
+
+    # -- persistence (HDF5, the JAX package's schema) -----------------------
+    def save_momenta(self, handle):
+        ms_host = [_host(m) for m in self.ms]
+        n = sum(m.shape[0] for m in ms_host)
+        hms = handle.create_dataset("momenta", shape=(n, *ms_host[0].shape[1:]),
+                                    dtype=np.float32)
+        i = 0
+        batch_sizes = []
+        for m in ms_host:
+            hms[i:i + m.shape[0], ...] = m.astype(np.float32)
+            i += m.shape[0]
+            batch_sizes.append(m.shape[0])
+        hms.attrs["batch_sizes"] = batch_sizes
+
+    def save(self, filename):
+        import h5py
+
+        with h5py.File(filename, "w") as f:
+            f.create_dataset("atlas", data=_host(self.I))
+            self.save_momenta(f)
+            f.create_dataset("epoch_losses", data=np.asarray(self.epoch_losses))
+            f.create_dataset("epoch_reg_terms", data=np.asarray(self.epoch_reg_terms))
+            f.create_dataset("iter_losses", data=np.asarray(self.iter_losses))
+            f.create_dataset("iter_reg_terms", data=np.asarray(self.iter_reg_terms))
+
+    def load_momenta(self, handle):
+        self.ms = []
+        i = 0
+        for s in handle["momenta"].attrs["batch_sizes"]:
+            self.ms.append(np.asarray(handle["momenta"][i:i + s, ...]))
+            i += s
+
+    def load(self, filename, load_image=True, load_momenta=True, load_losses=True):
+        import h5py
+
+        with h5py.File(filename, "r") as f:
+            if load_image:
+                self.I0 = np.asarray(f["atlas"])
+            if load_momenta:
+                self.load_momenta(f)
+            if load_losses:
+                self.epoch_losses = list(f["epoch_losses"])
+                self.epoch_reg_terms = list(f["epoch_reg_terms"])
+                self.iter_losses = list(f["iter_losses"])
+                self.iter_reg_terms = list(f["iter_reg_terms"])
+
+    # -- training loop ------------------------------------------------------
+    def update_base_image(self, force=False):
+        if (self._image_iters < self.image_update_freq and not force) or self._image_iters == 0:
+            return
+        # the mean gradient of the iterations since the last update
+        self.I = self.I - self.learning_rate_image * (self._image_grad_accum
+                                                      / float(self._image_iters))
+        self._image_grad_accum = torch.zeros_like(self.I)
+        self._image_iters = 0
+
+    def _put(self, x, dtype=None):
+        """``x`` (an array or a tensor) on the builder's device, cast on the
+        host to ``dtype`` when given."""
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+        if dtype is not None:
+            t = t.to(dtype)
+        return t.to(self._device)
+
+    def _staged(self, batch_index):
+        """``(img, m, n)`` of one minibatch on the device, ``n`` its
+        subjects.  The momenta stream from the host; with
+        ``keep_data_on_device`` both are staged at the first use and stay,
+        ``ms[batch_index]`` holding the device tensor."""
+        image_dtype = None if self.image_dtype is None else _torch_dtype(self.image_dtype)
+        if self.keep_data_on_device:
+            if not hasattr(self, "_dev_cache"):
+                self._dev_cache = {}
+            if batch_index not in self._dev_cache:
+                img = self._put(self._batches[batch_index], image_dtype)
+                self._dev_cache[batch_index] = (img, img.shape[0])
+                self.ms[batch_index] = self._put(self.ms[batch_index])
+            img, n = self._dev_cache[batch_index]
+            return img, self.ms[batch_index], n
+        img = self._put(self._batches[batch_index], image_dtype)
+        return img, self._put(self.ms[batch_index]), img.shape[0]
+
+    def _stage_async(self, batch_index):
+        """Stage a minibatch on a thread of the loader pool (a Future), so
+        that its host read and copy to the device overlap the current step.
+        None when ``loader_workers`` is 0 or the data stays on the
+        device."""
+        if not self.loader_workers or self.keep_data_on_device:
+            return None
+        if getattr(self, "_stage_pool", None) is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._stage_pool = ThreadPoolExecutor(max_workers=int(self.loader_workers))
+        return self._stage_pool.submit(self._staged, batch_index)
+
+    def iteration(self, batch_index, staged=None):
+        img, m, n = staged if staged is not None else self._staged(batch_index)
+        m, gI, loss, reg = self._step(self.I, m, img)
+        self.ms[batch_index] = m if self.keep_data_on_device else m.cpu().numpy()
+        self._image_grad_accum = self._image_grad_accum + gI
+        self._image_iters += 1
+        if self.image_update_freq > 0:
+            self.update_base_image()
+        # the step's loss is the minibatch mean; weighted so that an epoch
+        # sums to the dataset's mean
+        norm = n / self._num_examples
+        return float(loss) * norm, float(reg) * norm
+
+    def epoch(self):
+        epoch_loss = 0.0
+        epoch_reg_term = 0.0
+        n_batches = self._n_iters
+        it = range(n_batches)
+        if self.progress_bar:
+            it = progress(it, desc="iter")
+        prefetched = None
+        for self._iteration, bi in enumerate(it):
+            staged = prefetched.result() if prefetched is not None else None
+            # queue the next minibatch's staging before this step
+            prefetched = self._stage_async(bi + 1) if bi + 1 < n_batches else None
+            iter_loss, iter_reg = self.iteration(bi, staged=staged)
+            self.iter_losses.append(iter_loss)
+            self.iter_reg_terms.append(iter_reg)
+            epoch_loss += iter_loss
+            epoch_reg_term += iter_reg
+        self.update_base_image(force=True)
+        if self.checkpoint_format is not None:
+            self.save(self.checkpoint_format.format(epoch=self._epoch, rank=self.rank))
+        return epoch_loss, epoch_reg_term
+
+    def run(self):
+        self.initialize()
+        epbar = range(self.num_epochs)
+        if self.progress_bar:
+            epbar = progress(epbar)
+        try:
+            for self._epoch in epbar:
+                epoch_loss, epoch_reg_term = self.epoch()
+                self.epoch_losses.append(epoch_loss)
+                self.epoch_reg_terms.append(epoch_reg_term)
+                if hasattr(epbar, "set_postfix"):
+                    epbar.set_postfix(epoch_loss=epoch_loss, epoch_reg=epoch_reg_term)
+        finally:
+            self.close_loaders()
+
+    def close_loaders(self):
+        """Shut the staging threads down (idempotent; they start again on
+        demand)."""
+        pool = getattr(self, "_stage_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=True)
+            self._stage_pool = None
+
+
+class _Tool(Tool):
+    """Diffeomorphic registration methods using LDDMM"""
+
+    module_name = "lagomorph_tpu_torch lddmm"
+    subcommands = ["atlas"]
+
+    def atlas(self):
+        """
+        Build LDDMM atlas from HDF5 image dataset.
+
+        Writes an HDF5 file with datasets: atlas, momenta, epoch_losses,
+        epoch_reg_terms, iter_losses, iter_reg_terms; provenance attrs are
+        stamped on 'atlas'.
+        """
+        import sys
+
+        parser = self.new_parser("atlas")
+        dg = parser.add_argument_group("data parameters")
+        dg.add_argument("input", type=str, help="Path to input image HDF5 file")
+        dg.add_argument("--force_dim", default=None, type=int,
+                        help="Force dimension of images instead of determining based on "
+                        "dataset shape")
+        dg.add_argument("--h5key", "-k", default="images",
+                        help="Name of dataset in input HDF5 file")
+        dg.add_argument("output", type=str, help="Path to output HDF5 file")
+        dg.add_argument("--checkpoint", default=None, type=str,
+                        help="Format for HDF5 checkpoints, with {epoch} placeholder")
+        dg.add_argument("--loader_workers", default=0, type=int,
+                        help="Host threads staging the next minibatch (host read and "
+                        "copy to the device) while the current step computes; 0 stages "
+                        "synchronously")
+        dg.add_argument("--loader_mode", default="thread", choices=["thread", "process"],
+                        help="How loader_workers prefetch: 'thread' (threads); 'process' "
+                        "(worker processes) is not ported")
+        dg.add_argument("--dataloader_cache", default=None, type=str,
+                        help="Directory in which to cache minibatches for faster "
+                        "dataloading after the first pass")
+        ag = parser.add_argument_group("algorithm parameters")
+        ag.add_argument("--initial_atlas", default=None, type=str,
+                        help="Path to h5 file with which to initialize image and momenta")
+        ag.add_argument("--num_epochs", default=1000, type=int, help="Number of epochs")
+        ag.add_argument("--batch_size", default=50, type=int, help="Batch size")
+        ag.add_argument("--precondition_momentum", action="store_true",
+                        help="Precondition momentum gradients with the metric operator")
+        ag.add_argument("--image_update_freq", default=0, type=int,
+                        help="Update base image every N iterations. 0 for once per epoch")
+        ag.add_argument("--lddmm_steps", default=1, type=int,
+                        help="LDDMM steps per iteration")
+        ag.add_argument("--lddmm_integration_steps", default=5, type=int,
+                        help="Euler integration steps for geodesic shooting")
+        ag.add_argument("--deformation_downscale", default=1, type=int,
+                        help="Downscale factor for the momenta/deformation grid")
+        ag.add_argument("--image_upscale", default=1, type=int,
+                        help="Upscale factor for the atlas image grid")
+        ag.add_argument("--gradient_checkpointing", action="store_true",
+                        help="Rematerialize the shooting loop in the backward pass")
+        ag.add_argument("--keep_data_on_device", action="store_true",
+                        help="Stage all batches and momenta in device memory once "
+                        "(fastest when the dataset fits on the device)")
+        ag.add_argument("--image_dtype", default=None, type=str,
+                        choices=["bfloat16", "float32"],
+                        help="Storage dtype for staged images (bfloat16 halves "
+                        "on-device image memory and transfer bytes; compute stays f32)")
+        ag.add_argument("--spatial_shard", action="store_true",
+                        help="Shard the volumes over a device mesh (not ported)")
+        ag.add_argument("--reg_weight", default=1e-1, type=float,
+                        help="Deformation regularization")
+        ag.add_argument("--learning_rate_m", default=1e-3, type=float,
+                        help="Momenta learning rate")
+        ag.add_argument("--learning_rate_I", default=1e5, type=float,
+                        help="Atlas learning rate")
+        mg = parser.add_argument_group("metric parameters")
+        Metric.add_args(mg)
+        self._compute_args(parser)
+        args = parser.parse_args(sys.argv[2:])
+        self._initialize_compute(args)
+
+        from .data import H5Dataset
+
+        dataset = H5Dataset(args.input, key=args.h5key, force_dim=args.force_dim)
+        im0 = dataset[0]
+        momentum_shape = None
+        image_shape = None
+        if args.deformation_downscale != 1:
+            momentum_shape = [s // args.deformation_downscale for s in im0.shape[1:]]
+        if args.image_upscale != 1:
+            image_shape = [s * args.image_upscale for s in im0.shape[1:]]
+        del im0
+
+        builder = LDDMMAtlasBuilder(
+            dataset,
+            num_epochs=args.num_epochs,
+            batch_size=args.batch_size,
+            lddmm_steps=args.lddmm_steps,
+            lddmm_integration_steps=args.lddmm_integration_steps,
+            image_update_freq=args.image_update_freq,
+            momentum_shape=momentum_shape,
+            image_shape=image_shape,
+            reg_weight=args.reg_weight,
+            momentum_preconditioning=args.precondition_momentum,
+            checkpoint_format=args.checkpoint,
+            gradient_checkpointing=args.gradient_checkpointing,
+            keep_data_on_device=args.keep_data_on_device,
+            image_dtype=args.image_dtype,
+            loader_workers=args.loader_workers,
+            loader_mode=args.loader_mode,
+            dataloader_cache=args.dataloader_cache,
+            metric=Metric.from_args(args),
+            learning_rate_pose=args.learning_rate_m,
+            learning_rate_image=args.learning_rate_I,
+            device=self.device,
+            mesh=self.mesh,
+            spatial_shard=args.spatial_shard,
+            progress_bar=self.rank == 0,
+        )
+        if args.initial_atlas is not None:
+            builder.load(args.initial_atlas.format(rank=self.rank))
+        builder.run()
+        args.output = args.output.format(rank=self.rank)
+        builder.save(args.output)
+
+        import h5py
+
+        with h5py.File(args.output, "a") as f:
+            self._stamp_dataset(f["atlas"], args)

@@ -4,7 +4,8 @@ Port of ``lagomorph_tpu/metric.py``: ``FluidMetric`` applies the Green's
 function of ``L'L = (-alpha Laplacian - beta grad div + gamma)^2``
 (:mod:`.ops.fluid`), keeping the per-frequency multiplier it built for each
 field shape, dtype, device and multiplier form (the form of the route the
-selectors give: half or full spectrum, natural or bit-reversed order).
+selectors give: half or full spectrum, natural or bit-reversed order);
+``Metric``, the command-line interface to the metric factory.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 
 from .ops.fluid import fluid_operator, fluid_route, form_multiplier, multiplier_form
 
-__all__ = ["FluidMetric"]
+__all__ = ["FluidMetric", "Metric"]
 
 
 class FluidMetric:
@@ -58,3 +59,41 @@ class FluidMetric:
     def flat(self, v: torch.Tensor) -> torch.Tensor:
         """Velocity -> momentum: the differential operator."""
         return self.operator(v, inverse=False)
+
+
+class Metric:
+    """Command-line interface to a metric factory: the arguments that
+    describe a metric and the metric they describe."""
+
+    @staticmethod
+    def add_args(parser):
+        parser.add_argument(
+            "--metric_type",
+            default="fluid",
+            type=str,
+            help="Type of metric. Currently only 'fluid' is supported.",
+        )
+        parser.add_argument(
+            "--fluid_alpha",
+            default=0.1,
+            type=float,
+            help="Fluid parameter for vector Laplacian term",
+        )
+        parser.add_argument(
+            "--fluid_beta",
+            default=0.0,
+            type=float,
+            help="Fluid parameter for gradient divergence term",
+        )
+        parser.add_argument(
+            "--fluid_gamma",
+            default=0.01,
+            type=float,
+            help="Fluid parameter for L2 term",
+        )
+
+    @classmethod
+    def from_args(cls, args):
+        if args.metric_type.lower() == "fluid":
+            return FluidMetric(params=[args.fluid_alpha, args.fluid_beta, args.fluid_gamma])
+        raise ValueError(f"Unknown metric type {args.metric_type}")

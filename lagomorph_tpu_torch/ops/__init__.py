@@ -1,5 +1,7 @@
 """Grid operators of the port: sampling, finite differences, the fluid
-operator, interpolation, and the hand-written kernels under ``kernels``."""
+operator, interpolation, regridding, and the hand-written kernels under
+``kernels``."""
+from .affine import regrid
 from .boundary import diff_central, diff_central_adjoint, shift_clamp
 from .diff import jacobian_times_vectorfield, jacobian_times_vectorfield_adjoint
 from .fluid import (
@@ -24,6 +26,7 @@ __all__ = [
     "identity_grid",
     "interp",
     "interp_auto",
+    "regrid",
     "jacobian_times_vectorfield",
     "jacobian_times_vectorfield_adjoint",
     "sample_displacement_bounded",

@@ -1,0 +1,204 @@
+"""The port's ``lddmm atlas`` command and its HDF5 files, on the CPU:
+
+* a file saved by either package's builder loads in the other's and
+  through ``convert.atlas_state_from_saved``, with the same keys and
+  ``batch_sizes``;
+* ``python -m lagomorph_tpu_torch lddmm atlas --device cpu`` against the
+  JAX builder on the same file (float32: atlas and losses within 1e-5,
+  momenta within 1e-4 of max|ref|, the two libraries' float32 FFTs
+  rounding differently);
+* in process: ``--checkpoint`` and a warm start from it through
+  ``--initial_atlas``, ``--help``, ``--fluid_transform radix`` and the
+  options that are not ported, which raise.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lagomorph_tpu as lm
+from lagomorph_tpu import data as jdata
+from lagomorph_tpu.ops import set_warp_mode
+import lagomorph_tpu_torch as lt
+from lagomorph_tpu_torch import convert
+from lagomorph_tpu_torch.__main__ import LagomorphTool
+from lagomorph_tpu_torch.ops import fluid as tfluid
+
+h5py = pytest.importorskip("h5py")
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KEYS = {"atlas", "momenta", "epoch_losses", "epoch_reg_terms", "iter_losses", "iter_reg_terms"}
+TRAIN = ["--num_epochs", "2", "--batch_size", "4", "--lddmm_integration_steps", "3",
+         "--fluid_alpha", "0.01", "--fluid_gamma", "0.1", "--learning_rate_m", "0.1",
+         "--learning_rate_I", "100", "--reg_weight", "0.1"]
+
+
+def blobs(path, n, res, dim, seed=5):
+    rng = np.random.default_rng(seed)
+    grid = np.stack(np.meshgrid(*[np.arange(res, dtype=float)] * dim, indexing="ij"))
+    c = (res - 1) / 2
+    imgs = [np.exp(-sum((grid[d] - c - o[d]) ** 2 for d in range(dim)) / (2 * (res / 5) ** 2))
+            for o in rng.uniform(-1.5, 1.5, (n, dim))]
+    with h5py.File(path, "w") as f:
+        f.create_dataset("images", data=np.stack(imgs)[:, None].astype(np.float32))
+    return str(path)
+
+
+def run_tool(argv, monkeypatch):
+    """The port's command line in this process (``python -m`` aside)."""
+    monkeypatch.setattr(sys, "argv", ["lagomorph_tpu_torch", *argv])
+    LagomorphTool().run()
+
+
+def test_h5_files_load_in_either_builder(rng, tmp_path):
+    """A builder's state saved by one package loads in the other (the
+    atlas, each minibatch's momenta by ``batch_sizes``, the losses) and
+    through ``convert.atlas_state_from_saved``."""
+    imgs = list(rng.standard_normal((5, 1, 6, 5)).astype(np.float32))
+    I0 = rng.standard_normal((6, 5)).astype(np.float32)
+    ms = [rng.standard_normal((b, 2, 6, 5)).astype(np.float32) for b in (2, 2, 1)]
+    kw = dict(num_epochs=1, batch_size=2, progress_bar=False)
+    saved = {}
+    for name, make in (("jax", lambda: lm.LDDMMAtlasBuilder(imgs, I0=I0, ms=ms, **kw)),
+                       ("port", lambda: lt.LDDMMAtlasBuilder(imgs, I0=I0, ms=ms, device="cpu",
+                                                             **kw))):
+        b = make()
+        b.initialize()
+        b.epoch_losses.append(0.5)
+        b.iter_losses.extend([0.25, 0.25])
+        saved[name] = str(tmp_path / f"{name}.h5")
+        b.save(saved[name])
+    for src, make in (("jax", lambda: lt.LDDMMAtlasBuilder(imgs, device="cpu", **kw)),
+                      ("port", lambda: lm.LDDMMAtlasBuilder(imgs, **kw))):
+        with h5py.File(saved[src], "r") as f:
+            assert set(f.keys()) == KEYS
+            assert list(f["momenta"].attrs["batch_sizes"]) == [2, 2, 1]
+            metric, I, m = convert.atlas_state_from_saved(f, (0.1, 0.0, 0.01), "cpu")
+        np.testing.assert_array_equal(I.numpy(), I0[None, None])
+        np.testing.assert_array_equal(m.numpy(), np.concatenate(ms))
+        b = make()
+        b.load(saved[src])
+        b.initialize()
+        np.testing.assert_array_equal(np.asarray(b.I)[0, 0], I0)
+        for got, want in zip(b.ms, ms):
+            np.testing.assert_array_equal(np.asarray(got), want)
+        assert b.epoch_losses == [0.5] and b.iter_losses == [0.25, 0.25]
+
+
+def test_cli_lddmm_atlas_matches_jax_builder(tmp_path):
+    """``python -m lagomorph_tpu_torch lddmm atlas --device cpu`` writes
+    what the JAX builder computes from the same file (an uneven last
+    batch), with the provenance on ``atlas``."""
+    src = blobs(tmp_path / "imgs.h5", 6, 12, 2)
+    out = str(tmp_path / "atlas.h5")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-m", "lagomorph_tpu_torch", "lddmm", "atlas", src, out,
+                        "--device", "cpu", *TRAIN], capture_output=True, text=True, cwd=REPO,
+                       env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    ref = lm.LDDMMAtlasBuilder(jdata.H5Dataset(src), num_epochs=2, batch_size=4,
+                               lddmm_integration_steps=3, reg_weight=0.1,
+                               learning_rate_pose=0.1, learning_rate_image=100.0,
+                               metric=lm.FluidMetric([0.01, 0.0, 0.1]), progress_bar=False)
+    prev = set_warp_mode("general")  # the same function, a third of the compile
+    try:
+        ref.run()
+    finally:
+        set_warp_mode(prev)
+    with h5py.File(out, "r") as f:
+        assert set(f.keys()) == KEYS
+        assert f["atlas"].attrs["lagomorph_version"] == lt.__version__
+        assert '"device": "cpu"' in f["atlas"].attrs["command_args"]
+        assert list(f["momenta"].attrs["batch_sizes"]) == [4, 2]
+        got = {k: f[k][...] for k in KEYS}
+    for k, want, tol in (("atlas", ref.I, 1e-5), ("momenta", np.concatenate(ref.ms), 1e-4),
+                         ("epoch_losses", ref.epoch_losses, 1e-5),
+                         ("iter_losses", ref.iter_losses, 1e-5)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got[k], want, rtol=0, atol=tol * np.abs(want).max())
+    assert got["epoch_losses"][-1] < got["epoch_losses"][0]
+
+
+def test_cli_checkpoint_and_warm_start(tmp_path, monkeypatch):
+    """``--checkpoint`` writes a file an epoch; ``--initial_atlas`` starts
+    from it (its atlas, momenta and losses) and so matches a run of both
+    epochs in one.  As in the JAX package, an epoch's checkpoint is written
+    before its loss joins ``epoch_losses``."""
+    src = blobs(tmp_path / "imgs.h5", 6, 12, 2)
+    args = ["--device", "cpu", *TRAIN]
+    run_tool(["lddmm", "atlas", src, str(tmp_path / "two.h5"), *args], monkeypatch)
+    args[args.index("--num_epochs") + 1] = "1"
+    run_tool(["lddmm", "atlas", src, str(tmp_path / "one.h5"), *args,
+              "--checkpoint", str(tmp_path / "ck_{epoch}.h5")], monkeypatch)
+    assert os.path.isfile(tmp_path / "ck_0.h5")
+    run_tool(["lddmm", "atlas", src, str(tmp_path / "warm.h5"), *args,
+              "--initial_atlas", str(tmp_path / "ck_0.h5")], monkeypatch)
+    with h5py.File(tmp_path / "two.h5", "r") as a, h5py.File(tmp_path / "warm.h5", "r") as b:
+        assert len(a["epoch_losses"]) == 2 and len(b["iter_losses"]) == 4
+        for k in ("atlas", "momenta", "epoch_losses", "iter_losses"):
+            want = a[k][1:] if k == "epoch_losses" else a[k][...]
+            np.testing.assert_allclose(b[k][...], want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_cli_help(monkeypatch, capsys):
+    with pytest.raises(SystemExit) as e:
+        run_tool(["--help"], monkeypatch)
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "lddmm" in out and "not ported: affine, data" in out
+    with pytest.raises(SystemExit) as e:
+        run_tool(["lddmm", "atlas", "--help"], monkeypatch)
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    for flag in ("--device", "--gradient_checkpointing", "--deformation_downscale",
+                 "--fluid_transform", "--fluid_beta"):
+        assert flag in out
+
+
+def test_cli_fluid_transform_radix(tmp_path, monkeypatch):
+    """``--fluid_transform radix`` puts the 3D solves on the radix-2 route
+    (K14, K15 on the card; their plain versions here), which gives the
+    default route's atlas; the selector is restored afterwards."""
+    src = blobs(tmp_path / "imgs.h5", 4, 8, 3)
+    routes = []
+    route = tfluid.fluid_route
+
+    def spy(shape, params):
+        routes.append(route(shape, params))
+        return routes[-1]
+    monkeypatch.setattr(tfluid, "fluid_route", spy)
+    args = ["--device", "cpu", *TRAIN[:-2], "--num_epochs", "1"]
+    try:
+        run_tool(["lddmm", "atlas", src, str(tmp_path / "radix.h5"), *args,
+                  "--fluid_transform", "radix"], monkeypatch)
+    finally:
+        prev = tfluid.set_fluid_fft_kernel("auto")
+    assert prev == "radix" and set(routes) == {"fluid_radix"}
+    routes.clear()
+    run_tool(["lddmm", "atlas", src, str(tmp_path / "auto.h5"), *args], monkeypatch)
+    assert set(routes) == {"fluid_flat"}
+    with h5py.File(tmp_path / "radix.h5", "r") as a, h5py.File(tmp_path / "auto.h5", "r") as b:
+        for k in ("atlas", "momenta"):
+            np.testing.assert_allclose(a[k][...], b[k][...], rtol=0,
+                                       atol=1e-5 * np.abs(b[k][...]).max())
+
+
+@pytest.mark.parametrize("flags,error", [
+    (["--warp_mode", "general"], NotImplementedError),
+    (["--spatial_shard"], NotImplementedError),
+    (["--loader_mode", "process", "--loader_workers", "1"], NotImplementedError),
+    ([], RuntimeError),  # the default device, cuda, on a machine without one
+])
+def test_cli_unported_options_raise(tmp_path, monkeypatch, flags, error):
+    if not flags and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    src = blobs(tmp_path / "imgs.h5", 2, 8, 2)
+    device = ["--device", "cpu"] if flags else []
+    with pytest.raises(error):
+        run_tool(["lddmm", "atlas", src, str(tmp_path / "out.h5"), "--num_epochs", "1",
+                  *device, *flags], monkeypatch)
+    assert not os.path.exists(tmp_path / "out.h5")

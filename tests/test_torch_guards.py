@@ -1,7 +1,8 @@
-"""Guards of the PyTorch port: it never imports jax; ``chip_smoke.py``
-refuses to run without a CUDA card, before building anything; and on the
-CPU, autograd through the plain versions of the atlas loss gives the JAX
-package's gradients (the reference the backward kernels will be held to).
+"""Guards of the PyTorch port: it never imports jax, nor h5py or tqdm at
+import; ``chip_smoke.py`` refuses to run without a CUDA card, before
+building anything; and on the CPU, autograd through the plain versions of
+the atlas loss gives the JAX package's gradients (the reference the
+backward kernels will be held to).
 """
 import os
 import subprocess
@@ -34,9 +35,33 @@ def test_port_never_imports_jax():
     r = _run(["-c", "import sys, lagomorph_tpu_torch, lagomorph_tpu_torch.convert, "
                     "lagomorph_tpu_torch.ops.kernels._build, "
                     "lagomorph_tpu_torch.ops.kernels.epdiff2d, "
-                    "chip_smoke, profile_warp, profile_radix, profile_shoot2d, profile_epdiff2d; "
+                    "lagomorph_tpu_torch.data, lagomorph_tpu_torch.utils, "
+                    "lagomorph_tpu_torch.__main__, "
+                    "chip_smoke, profile_warp, profile_radix, profile_shoot2d, profile_epdiff2d, "
+                    "profile_atlas; "
                     "assert 'jax' not in sys.modules, 'jax imported'; "
                     "assert 'lagomorph_tpu' not in sys.modules; print('clean')"])
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
+def test_port_imports_neither_h5py_nor_tqdm():
+    """Importing the package imports neither ``h5py`` nor ``tqdm`` (the
+    card's machine need not have them): the package and its CLI import
+    with both made unimportable, progress bars then show the bare
+    iterator, and after ``import torch`` (whose ``torch.hub`` imports tqdm
+    where it is installed) the package adds neither."""
+    r = _run(["-c", "import sys; sys.modules['h5py'] = sys.modules['tqdm'] = None; "
+                    "import lagomorph_tpu_torch as lt, lagomorph_tpu_torch.__main__; "
+                    "it = range(3); assert lt.utils.progress(it, 'x') is it; "
+                    "print('bare')"])
+    assert r.returncode == 0, r.stderr
+    assert "bare" in r.stdout
+    r = _run(["-c", "import sys, torch; before = set(sys.modules); "
+                    "import lagomorph_tpu_torch, lagomorph_tpu_torch.__main__; "
+                    "new = set(sys.modules) - before; "
+                    "bad = sorted(m for m in new if m.split('.')[0] in ('h5py', 'tqdm')); "
+                    "assert 'h5py' not in sys.modules and not bad, bad; print('clean')"])
     assert r.returncode == 0, r.stderr
     assert "clean" in r.stdout
 

@@ -139,14 +139,14 @@ def test_expmap_jax_positional_signature(rng):
 
 
 def test_expmap_checkpoints_not_ported(rng):
-    """``checkpoints=True`` (rematerialised shooting) raises until it is
-    ported, by keyword and in its JAX position."""
+    """``checkpoints=True`` (rematerialised shooting), by keyword and in
+    its JAX position, gives the shooting without it, bit for bit (its
+    gradients: ``tests/test_torch_atlas.py``)."""
     m = t(momenta(rng, 0.5, (1, 3, 6, 5, 4)))
     metric = lt.FluidMetric(PARAMS)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        lt.expmap(metric, m, num_steps=3, checkpoints=True)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        lt.expmap(metric, m, 1.0, 3, None, None, True)
+    ref = lt.expmap(metric, m, num_steps=3)
+    assert torch.equal(lt.expmap(metric, m, num_steps=3, checkpoints=True), ref)
+    assert torch.equal(lt.expmap(metric, m, 1.0, 3, None, None, True), ref)
 
 
 def test_expmap_forced_modes_and_mask(rng):
@@ -193,19 +193,22 @@ def test_lddmm_loss_matches_jax(rng, max_v0, use_mask):
 
 
 def test_lddmm_loss_regrid_not_ported(rng):
-    """What is not ported raises: the regrid branch, checkpoints=True (the
-    JAX signature's seventh argument), and a step on a spatial mesh."""
+    """The regrid branch (momenta on a half grid) and checkpoints=True (the
+    JAX signature's seventh argument) run, the loss and the step finite
+    (held against the JAX package in ``tests/test_torch_atlas.py``); a step
+    on a spatial mesh, still not ported, raises."""
     m = momenta(rng, 0.5, (1, 3, 9, 8, 7))
     img = t(np.zeros((1, 1, 18, 16, 14)))
-    with pytest.raises(NotImplementedError):
-        tlddmm._lddmm_loss(img, t(m), img, lt.FluidMetric(PARAMS), 0.1, 3, False,
-                           image_shape=(18, 16, 14))
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        tlddmm._lddmm_loss(img[..., :9, :8, :7], t(m), img[..., :9, :8, :7],
-                           lt.FluidMetric(PARAMS), 0.1, 3, True)
+    loss, reg = tlddmm._lddmm_loss(img, t(m), img, lt.FluidMetric(PARAMS), 0.1, 3, False,
+                                   image_shape=(18, 16, 14))
+    assert torch.isfinite(loss) and float(reg) > 0
+    small = img[..., :9, :8, :7]
+    pair = [tlddmm._lddmm_loss(small, t(m), small, lt.FluidMetric(PARAMS), 0.1, 3, ckpt)
+            for ckpt in (False, True)]
+    assert torch.equal(torch.stack(pair[0]), torch.stack(pair[1]))
     step = lt.make_lddmm_atlas_step(lt.FluidMetric(PARAMS), image_shape=(18, 16, 14))
-    with pytest.raises(NotImplementedError):
-        step(img, t(m), img)
+    m_new = step(img, t(m), img)[0]
+    assert m_new.shape == m.shape and torch.isfinite(m_new).all()
     with pytest.raises(NotImplementedError, match="spatial_mesh"):
         lt.make_lddmm_atlas_step(lt.FluidMetric(PARAMS), spatial_mesh=object())
 
