@@ -12,7 +12,8 @@ size of the JAX package's bench (128^3, batch 4, 5 integration steps,
 (``set_fluid_mxu_whole(True)``: K16), and its 2D atlas step at the bench's
 2D configurations (256^2 and 512^2, batch 8; bench.py:342-345), with that
 metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
---fluid_beta 0.05``):
+--fluid_beta 0.05``), then the atlas builder over epochs and the affine
+stack that comes before it in the registration workflow:
 
 1. device: needs a CUDA card; prints the card's name and power limit;
 2. build: compiles the hand-written kernels from ``lagomorph_tpu_torch/csrc``
@@ -85,7 +86,7 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    ``set_fluid_mxu_whole(True)`` (K16 10 launches per step, no K3), then
    one step at 64^3 b4 on the default selectors (K3), with the route each
    setting takes logged;
-6f. (run last, after 7 and 8) the atlas builder (``LDDMMAtlasBuilder``)
+6f. (run after 7 and 8) the atlas builder (``LDDMMAtlasBuilder``)
    over epochs at the JAX package's end-to-end configuration
    (scripts/atlas_e2e_tpu.py: blobs from seed 0 offset by up to 2 voxels,
    ``FluidMetric([0.05, 0, 0.05])``, ``reg_weight=1e-2``, learning rates
@@ -111,6 +112,19 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
    128^3 b4, streaming and on the device, beside 8 x the builder's step;
    and, where h5py imports, ``python -m lagomorph_tpu_torch lddmm atlas``
    at 64^3 over 2 epochs against the builder in this process;
+6g. (run last, after 6f) the affine stack, plain PyTorch (no kernel), at
+   examples/affine_atlas.py's configuration lifted to 3D (32 subjects at
+   128^3 drawn as the example draws them, batch 16, 3 epochs, its learning
+   rates): ``affine_interp`` at 128^3 b16 in float32 against float64 on the
+   card, value and gradients, for the broadcast atlas and batch-N images,
+   and two float32 runs of d_I; its times forward and with its backward, one
+   affine atlas step with its peak, and ``F.grid_sample`` (border,
+   ``align_corners=True``), beside the bound; ``affine_atlas`` in float32,
+   float64 and with ``keep_data_on_device``, with epoch walls (the epoch
+   loss falling); ``StandardizedDataset`` over the subjects with the
+   recovered transforms against float64; one ``LDDMMAtlasBuilder`` epoch
+   over the standardized subjects at 128^3 b4 through the kernels (its
+   launches counted as 6f counts them); one JSON line of its numbers;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
@@ -1371,6 +1385,13 @@ WGRAD2 = 2 * AXIS_W2 + 9 * (3 + 2 * 3)  # weights and slopes; per tap <c, I> and
 # gradient
 ADSTAR2_BWD = TRANSPOSE2 + WGRAD2 + 12 + 2 * 10 + 4
 COMPOSE2_BWD = TRANSPOSE2 + WGRAD2 + 4
+# the 3D affine warp per output voxel, one channel: the coordinates A (x -
+# o) + T + o (9 products, 9 sums), floors, fractions and 1 - fractions (9),
+# 8 corner weights (2 products each), 8 products and 7 sums; its backward
+# recomputes the coordinates and weights (43), scatters g w (16), takes the
+# 3 slopes (11 each) times g (3) and accumulates d_A and d_T (21)
+AFFINE_FWD_OPS = 18 + 9 + 16 + 15
+AFFINE_BWD_OPS = 18 + 9 + 16 + 16 + 3 * 11 + 3 + 21
 
 
 def work(name, N, V, F=None, axes=None):
@@ -1418,6 +1439,12 @@ def work(name, N, V, F=None, axes=None):
         return 6 * f2, N * V * ADSTAR2_BWD
     if name == "compose2d_bwd":  # read phi, v, g; write d_phi, d_v
         return 5 * f2, N * V * COMPOSE2_BWD
+    # the affine warp of a batch-1 one-channel atlas by N transforms (the
+    # transforms' 12 N floats left out)
+    if name == "affine_interp":  # read the atlas; write out
+        return atlas + f1, N * V * AFFINE_FWD_OPS
+    if name == "affine_interp_bwd":  # read g and the atlas; write d_I
+        return f1 + 2 * atlas, N * V * AFFINE_BWD_OPS
     raise KeyError(name)
 
 
@@ -2350,6 +2377,277 @@ def atlas_builder(lt, device, card):
         check(max(diff) <= 1e-6 and losses[-1] < losses[0], "the lddmm atlas command's result")
 
 
+# Phase 6g: the affine stack at examples/affine_atlas.py's configuration
+# lifted to 3D: subjects drawn as the example draws them (A = eye + 0.05 x
+# a standard normal, a shift uniform in +-3 voxels, an anisotropic Gaussian
+# blob, here of widths res/5, res/7, res/9), minibatches of 16, the
+# example's learning rates and no ridge terms
+AFFINE_3D = (128, 32, 16, 3)  # resolution, subjects, batch, epochs
+AFFINE_RATES = {"learning_rate_A": 1e-3, "learning_rate_T": 1e-1, "learning_rate_I": 1e2}
+AFFINE_LDDMM_BATCH = 4  # the LDDMM epoch over the standardized subjects
+# float32 on the card against float64 on the card (PERF.md, PR 19):
+# affine_interp's output (of max|I|), d_I (of max|d_I|) and d_A, d_T (of
+# their max|ref|: a slope of the linear interpolation jumps where a float32
+# coordinate lands across an integer from the float64 one); affine_atlas's
+# iteration losses (relative), atlas (of max|I|), As and Ts (relative L2:
+# their gradients cancel to a few thousandths of their terms, so those
+# jumps weigh more), and the standardized images (of max|image|)
+AFFINE_OUT_TOL, AFFINE_DI_TOL, AFFINE_DAT_TOL = 1e-5, 1e-4, 2e-3
+AFFINE_LOSS_TOL, AFFINE_ATLAS_TOL, AFFINE_AT_TOL, AFFINE_STD_TOL = 1e-5, 1e-5, 0.1, 1e-5
+
+
+def affine_subjects(res, n, device, seed=0):
+    """``(n, 1, res, res, res)`` float32 subjects drawn with numpy from
+    ``seed`` (``AFFINE_3D``'s comment), evaluated on ``device``."""
+    rng = np.random.default_rng(seed)
+    axis = torch.arange(res, dtype=torch.float64, device=device)
+    grid = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"))
+    c = (res - 1) / 2
+    widths = (res / 5, res / 7, res / 9)
+    out = np.empty((n, 1) + (res,) * 3, dtype=np.float32)
+    for i in range(n):
+        A = torch.tensor(np.eye(3) + 0.05 * rng.standard_normal((3, 3)), device=device)
+        t = torch.tensor(rng.uniform(-3, 3, 3) + c, device=device)
+        x = torch.einsum("ab,b...->a...", A, grid - c) + t.view(3, 1, 1, 1)
+        r2 = sum(((x[d] - c) / widths[d]) ** 2 for d in range(3))
+        out[i, 0] = torch.exp(-r2 / 2).float().cpu().numpy()
+    return out
+
+
+def affine_grid(I, A, T):
+    """``F.grid_sample``'s grid (align_corners=True) for ``affine_interp(I,
+    A, T)`` of a 3D ``I``: the same coordinates, normalised to [-1, 1], last
+    axis (z, y, x)."""
+    from lagomorph_tpu_torch.ops.sampling import identity_grid
+
+    spatial = tuple(I.shape[2:])
+    o = torch.tensor([(n - 1) * 0.5 for n in spatial], dtype=I.dtype, device=I.device)
+    grid = identity_grid(spatial, dtype=I.dtype, device=I.device) - o.view(3, 1, 1, 1)
+    coords = torch.einsum("nab,b...->na...", A, grid) + (T + o).view(-1, 3, 1, 1, 1)
+    size = torch.tensor(spatial, dtype=I.dtype, device=I.device).view(1, 3, 1, 1, 1)
+    return (2.0 * coords / (size - 1) - 1.0).flip(1).permute(0, 2, 3, 4, 1).contiguous()
+
+
+@contextlib.contextmanager
+def epoch_walls(lt, device):
+    """Record the wall of each epoch of ``affine_atlas`` (run with
+    ``progress_bar=True``), synchronised at each epoch's start and end,
+    through the progress helper it wraps its epochs in; the other progress
+    bars are left out.  Yields the list of walls in seconds."""
+    walls = []
+    helpers = (lt.affine, lt.data)
+    saved = [h.progress for h in helpers]
+
+    def timed(iterable, desc=None, **kw):
+        if desc != "epoch":
+            return iterable
+
+        def epochs():
+            for x in iterable:
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                yield x
+                torch.cuda.synchronize(device)
+                walls.append(time.perf_counter() - t0)
+        return epochs()
+
+    for h in helpers:
+        h.progress = timed
+    try:
+        yield walls
+    finally:
+        for h, p in zip(helpers, saved):
+            h.progress = p
+
+
+def affine_interp_checks(lt, device, card, imgs):
+    """Phase 6g (a) and (b): ``affine_interp`` at 128^3 b16 in float32
+    against float64 on the card, value and gradients, for the broadcast
+    atlas and a batch-N image; two float32 runs of d_I; then its times,
+    forward and with its backward, one atlas step with its peak, and the
+    ``grid_sample`` yardstick, beside the bound."""
+    import torch.nn.functional as F
+
+    from lagomorph_tpu_torch.affine import make_affine_atlas_step
+
+    N = AFFINE_3D[2]
+    res, V = imgs.shape[-1], imgs[0].size
+    rng = np.random.default_rng(7)
+    A = torch.tensor(np.eye(3) + rng.uniform(-0.05, 0.05, (N, 3, 3)), dtype=torch.float32,
+                     device=device)
+    T = torch.tensor(rng.uniform(-3, 3, (N, 3)), dtype=torch.float32, device=device)
+    gen = torch.Generator(device).manual_seed(7)
+    g = torch.randn((N, 1) + imgs.shape[2:], generator=gen, device=device)
+    atlas = torch.from_numpy(imgs.mean(axis=0, keepdims=True)).to(device)
+    batch = torch.from_numpy(imgs[:N]).to(device)
+    fidelity = {}
+    for label, I in (("broadcast atlas", atlas), ("batch-N images", batch)):
+        runs = {}
+        for name, dtype in (("float32", torch.float32), ("float32 again", torch.float32),
+                            ("float64", torch.float64)):
+            leaves = [x.to(dtype, copy=True).requires_grad_(True) for x in (I, A, T)]
+            out = lt.affine_interp(*leaves)
+            runs[name] = (out.detach(), *torch.autograd.grad(out, leaves, g.to(dtype)))
+            del out, leaves
+        got, ref = runs["float32"], runs["float64"]
+        errs = {}
+        for i, (part, tol) in enumerate((("out", AFFINE_OUT_TOL), ("d_I", AFFINE_DI_TOL),
+                                         ("d_A", AFFINE_DAT_TOL), ("d_T", AFFINE_DAT_TOL))):
+            scale = float(I.abs().max()) if part == "out" else float(ref[i].abs().max())
+            errs[part] = (max_err(got[i], ref[i]) / scale, rel_l2(got[i], ref[i]), tol)
+        again = runs["float32 again"][1]
+        rerun = max_err(again, got[1]) / float(ref[1].abs().max())
+        fidelity[label] = {"errors (max of scale, rel l2, tol)": errs,
+                      "d_I run to run (of max|d_I|)": rerun,
+                      "d_I runs torch.equal": bool(torch.equal(again, got[1]))}
+        log(f"affine_interp at {res}^3 b{N}, {label}, float32 against float64 on the card: "
+            + "; ".join(f"{k} {e:.3e} of max (rel l2 {r:.3e}, tol {t:g})"
+                        for k, (e, r, t) in errs.items())
+            + f"; two float32 runs of d_I: {rerun:.3e} of max|d_I|, torch.equal "
+            f"{torch.equal(again, got[1])}")
+        for part, (e, _, tol) in errs.items():
+            check(e <= tol, f"affine_interp {label}: {part} {e:.3e} > {tol:g} of max")
+        del runs, got, ref, again
+
+    # (b) times, float32, the broadcast atlas (the atlas step's operand)
+    leaves = [x.clone().requires_grad_(True) for x in (atlas, A, T)]
+
+    def fwd_bwd():
+        out = lt.affine_interp(*leaves)
+        return torch.autograd.grad(out, leaves, g)
+
+    ms = {"forward": time_ms(lambda: lt.affine_interp(atlas, A, T), device, 10),
+          "forward+backward": time_ms(fwd_bwd, device, 10)}
+    grid = affine_grid(atlas, A, T)
+    wide = atlas.expand(N, -1, -1, -1, -1)
+    ys = F.grid_sample(wide, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    ys_err = max_err(ys, lt.affine_interp(atlas, A, T)) / float(atlas.abs().max())
+    leaf = atlas.clone().requires_grad_(True)
+
+    def ys_fwd_bwd():
+        out = F.grid_sample(leaf.expand(N, -1, -1, -1, -1), grid, mode="bilinear",
+                            padding_mode="border", align_corners=True)
+        return torch.autograd.grad(out, leaf, g)
+
+    ms["grid_sample forward"] = time_ms(
+        lambda: F.grid_sample(wide, grid, mode="bilinear", padding_mode="border",
+                              align_corners=True), device, 10)
+    ms["grid_sample forward+backward (d_I)"] = time_ms(ys_fwd_bwd, device, 10)
+    step = make_affine_atlas_step(3, learning_rate_A=AFFINE_RATES["learning_rate_A"],
+                                  learning_rate_T=AFFINE_RATES["learning_rate_T"])
+    A0, T0 = A - torch.eye(3, device=device), T.clone()
+    mask = torch.ones(N, device=device)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    float(step(atlas, A0, T0, batch, mask)[3])
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    ms["atlas step"] = time_ms(lambda: float(step(atlas, A0, T0, batch, mask)[3]), device, 5)
+    fb, fo = work("affine_interp", N, V), work("affine_interp_bwd", N, V)
+    b_fwd, by_fwd = bound(*fb)
+    b_all, by_all = bound(fb[0] + fo[0], fb[1] + fo[1])
+    log(f"time affine_interp at {res}^3 b{N} (broadcast atlas, float32): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; bound forward {b_fwd:.4f} ms ({by_fwd}), forward+backward {b_all:.4f} ms "
+        f"({by_all}): forward {ms['forward'] / b_fwd:.1f}x, forward+backward "
+        f"{ms['forward+backward'] / b_all:.1f}x; grid_sample's output from affine_interp's "
+        f"{ys_err:.3e} of max|I|; atlas step (affine_steps 1) peak {peak:.3f} GiB [{card}]")
+    return fidelity, ms, {"forward": b_fwd, "forward+backward": b_all}, peak
+
+
+def affine_phase(lt, device, card):
+    """Phase 6g: the affine stack on the card at ``AFFINE_3D``:
+    ``affine_interp`` (a, b; :func:`affine_interp_checks`); ``affine_atlas``
+    in float32 and float64 and with ``keep_data_on_device`` (c);
+    ``StandardizedDataset`` over the subjects with the recovered transforms
+    against float64, then one LDDMM builder epoch on the standardized
+    subjects through the kernels (d).  Prints one JSON line of its
+    numbers."""
+    from profile_atlas import e2e_builder
+
+    torch.cuda.empty_cache()  # phase 6f's cached blocks
+    res, n, batch, epochs = AFFINE_3D
+    t0 = time.perf_counter()
+    imgs = affine_subjects(res, n, device)
+    log(f"affine: {n} subjects at {res}^3 drawn in {time.perf_counter() - t0:.2f} s")
+    record = {"card": card, "config": {"res": res, "subjects": n, "batch": batch,
+                                       "epochs": epochs, **AFFINE_RATES}}
+    (record["affine_interp fidelity"], record["ms"], record["bound ms"],
+     record["atlas step peak GiB"]) = affine_interp_checks(lt, device, card, imgs)
+
+    # (c) affine_atlas end to end: float32, float64, float32 on the device
+    items = list(imgs)
+    runs = {}
+    for label, dtype, on_device in (("float32", np.float32, False), ("float64", np.float64, False),
+                                    ("float32 keep_data_on_device", np.float32, True)):
+        As, Ts = np.zeros((n, 3, 3), dtype), np.zeros((n, 3), dtype)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with epoch_walls(lt, device) as walls:
+            out = lt.affine_atlas(items, As, Ts, num_epochs=epochs, batch_size=batch,
+                                  keep_data_on_device=on_device, device=device, **AFFINE_RATES)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        check(out[1] is As and out[2] is Ts, f"affine_atlas {label}: As, Ts not updated in place")
+        runs[label] = out
+        record[f"affine_atlas {label}"] = {"wall s": wall, "epoch walls s": walls,
+                                           "peak GiB": peak, "epoch losses": out[3]}
+        log(f"affine_atlas {label}, {n} subjects at {res}^3 b{batch}, {epochs} epochs: {wall:.2f} s "
+            f"(set-up included), epoch walls {', '.join(f'{w:.4f}' for w in walls)} s, peak "
+            f"{peak:.3f} GiB, epoch losses {out[3]}, max|A| {np.abs(As).max():.4e}, max|T| "
+            f"{np.abs(Ts).max():.4e} [{card}]")
+        check(len(walls) == epochs, f"affine_atlas {label}: {len(walls)} epoch walls")
+        check(all(np.isfinite(x) for x in out[4]) and bool(torch.isfinite(out[0]).all()),
+              f"affine_atlas {label}: non-finite loss or atlas")
+    ref = runs["float64"]
+    check(runs["float32"][3][-1] < runs["float32"][3][0], "affine_atlas: the epoch loss did not fall")
+    for label in ("float32", "float32 keep_data_on_device"):
+        base = ref if label == "float32" else runs["float32"]
+        got = runs[label]
+        errs = {"iteration losses": max(abs(a - b) / abs(b) for a, b in zip(got[4], base[4])),
+                "atlas": max_err(got[0], base[0]) / float(base[0].abs().max()),
+                "As": rel_l2(torch.from_numpy(got[1]), torch.from_numpy(base[1])),
+                "Ts": rel_l2(torch.from_numpy(got[2]), torch.from_numpy(base[2]))}
+        against = "float64" if label == "float32" else "the streamed float32 run"
+        record[f"affine_atlas {label} against {against}"] = errs
+        log(f"  affine_atlas {label} against {against}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol: losses {AFFINE_LOSS_TOL:g} rel, "
+            f"atlas {AFFINE_ATLAS_TOL:g} of max|I|, As and Ts {AFFINE_AT_TOL:g} rel l2)")
+        for k, tol in (("iteration losses", AFFINE_LOSS_TOL), ("atlas", AFFINE_ATLAS_TOL),
+                       ("As", AFFINE_AT_TOL), ("Ts", AFFINE_AT_TOL)):
+            check(errs[k] <= tol, f"affine_atlas {label}: {k} {errs[k]:.3e} > {tol:g}")
+
+    # (d) the workflow's last two stages: standardize, then an LDDMM epoch
+    As, Ts = runs["float32"][1], runs["float32"][2]
+    del runs, ref
+    t0 = time.perf_counter()
+    std = lt.data.MemoryDataset(lt.StandardizedDataset(items, As, Ts, device=device),
+                                progress_bar=False)
+    std_s = time.perf_counter() - t0
+    std64 = lt.StandardizedDataset([x.astype(np.float64) for x in items], As.astype(np.float64),
+                                   Ts.astype(np.float64), device=device)
+    err = max(float(np.abs(std[i] - std64[i]).max()) / float(np.abs(std64[i]).max())
+              for i in range(n))
+    check(all(x.dtype == np.float32 and x.shape == items[0].shape for x in std.elements),
+          "StandardizedDataset: items of the wrong dtype or shape")
+    log(f"StandardizedDataset over {n} subjects at {res}^3 on the card: {std_s:.2f} s; float32 "
+        f"against float64: {err:.3e} of max|image| (tol {AFFINE_STD_TOL:g})")
+    check(err <= AFFINE_STD_TOL, f"StandardizedDataset: {err:.3e} > {AFFINE_STD_TOL:g}")
+    record["StandardizedDataset"] = {"s": std_s, "float32 against float64": err}
+    b = e2e_builder(lt, std, device, 1, AFFINE_LDDMM_BATCH)
+    launched, wall, peak = builder_run(b)
+    want = want_launches(STEP_LAUNCHES, n // AFFINE_LDDMM_BATCH)
+    log(f"LDDMM builder, one epoch over the {n} standardized subjects at {res}^3 "
+        f"b{AFFINE_LDDMM_BATCH}: {wall:.2f} s, peak {peak:.3f} GiB, epoch loss "
+        f"{b.epoch_losses}; launches {launched} [{card}]")
+    check(launched == want, f"LDDMM epoch on standardized subjects: launches {launched}, "
+          f"want {want}")
+    check(np.isfinite(b.epoch_losses[0]), "LDDMM epoch on standardized subjects: non-finite loss")
+    record["LDDMM epoch"] = {"wall s": wall, "peak GiB": peak, "loss": b.epoch_losses[0],
+                             "launches": launched}
+    log(json.dumps({"phase": "6g affine", **record}))
+
+
 def run(device, card, trace_path=None):
     sys.path.insert(0, HERE)
     import lagomorph_tpu_torch as lt
@@ -2464,10 +2762,12 @@ def run(device, card, trace_path=None):
             trace_run(device, card, lambda: float(step(I64, m64, img64)[2]), "whole step 64^3",
                       f"{base}_steps64_whole{ext or '.json'}")
 
-    # 6f. the atlas builder over epochs, its options and its command: last,
-    # so that phases 3-8 run as they did before it (its float64 and 256^3
-    # runs fill the allocator's cache)
+    # 6f. the atlas builder over epochs, its options and its command, then
+    # 6g. the affine stack and the registration workflow's last stages:
+    # after phases 7 and 8, so that they run as they did before (6f's
+    # float64 and 256^3 runs fill the allocator's cache)
     atlas_builder(lt, device, card)
+    affine_phase(lt, device, card)
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,

@@ -17,10 +17,17 @@ on the radix-2 kernels K14/K15 (``set_fluid_fft_kernel("radix")``,
 (``set_fluid_mxu_whole``, ``ops/kernels/fft_whole``) or the plain
 ``torch.fft`` / DFT routes (``set_fluid_fft_kernel(False)``,
 ``set_fluid_packing``, ``set_fluid_dft``).  Tensors are NC(D)HW, as in the
-JAX package.  This package imports torch and numpy, never jax; ``h5py``
-and ``tqdm`` only where a file is read or written or a progress bar shown.
+JAX package.
+
+The affine stack (``affine_interp``, the small-matrix and rigid helpers,
+``affine_atlas``, ``StandardizedDataset`` and ``python -m
+lagomorph_tpu_torch affine atlas`` / ``affine standardize``) runs as plain
+PyTorch on the general gather, as the JAX package's runs on XLA's.  This
+package imports torch and numpy, never jax; ``h5py`` and ``tqdm`` only
+where a file is read or written or a progress bar shown.
 """
 from .ops import (
+    affine_interp,
     diff_central,
     diff_central_adjoint,
     fluid_operator,
@@ -39,6 +46,13 @@ from .ops import (
     set_fluid_packing,
     shift_clamp,
 )
+from .affine import (
+    StandardizedDataset,
+    affine_atlas,
+    affine_inverse,
+    rigid_inverse,
+    rotation_exp_map,
+)
 from .deform import identity, compose, compose_disp_vel
 from .metric import FluidMetric, Metric
 from .adjrep import Ad_star
@@ -52,6 +66,6 @@ from .lddmm import (
     shooting_regime_ok,
 )
 
-from . import adjrep, convert, data, deform, lddmm, metric, ops, utils
+from . import adjrep, affine, convert, data, deform, lddmm, metric, ops, utils
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Top-level command line: ``python -m lagomorph_tpu_torch <module> <command>
 [args]``.
 
-Only the ``lddmm`` module is ported (``lddmm atlas``); the JAX package's
-``affine`` and ``data`` modules are not.
+The ``affine`` (``affine atlas``, ``affine standardize``) and ``lddmm``
+(``lddmm atlas``) modules are ported; the JAX package's ``data`` module is
+not.
 """
 import sys
 
@@ -13,10 +14,12 @@ class LagomorphTool(Tool):
     """Command line interface to lagomorph_tpu_torch commands"""
 
     module_name = "lagomorph_tpu_torch"
-    subcommands = ["lddmm"]
+    subcommands = ["affine", "lddmm"]
 
     def _subtool(self, command):
-        if command == "lddmm":
+        if command == "affine":
+            from .affine import _Tool
+        elif command == "lddmm":
             from .lddmm import _Tool
         else:  # pragma: no cover
             raise ValueError(command)
@@ -24,7 +27,7 @@ class LagomorphTool(Tool):
 
     def _overview(self):
         return super()._overview() + (
-            "\nnot ported: affine, data (use python -m lagomorph_tpu)\n"
+            "\nnot ported: data (use python -m lagomorph_tpu)\n"
         )
 
     def call_subcommand(self, command):

@@ -2,7 +2,8 @@
 
 The JAX package's state is numpy-convertible: ``np.asarray`` of its arrays,
 or the datasets that ``LDDMMAtlasBuilder.save`` writes (``"atlas"`` and
-``"momenta"``).  These helpers turn it into the port's metric and tensors on
+``"momenta"``) and that ``affine atlas`` writes (``"atlas"``, ``"A"`` and
+``"T"``).  These helpers turn it into the port's metric and tensors on
 an explicit device and dtype.  Nothing here imports jax.
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from .metric import FluidMetric
 
-__all__ = ["to_tensor", "atlas_state", "atlas_state_from_saved"]
+__all__ = ["to_tensor", "atlas_state", "atlas_state_from_saved", "affine_state_from_saved"]
 
 
 def to_tensor(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -38,3 +39,12 @@ def atlas_state_from_saved(saved, params, device, dtype=torch.float32, subjects=
     momenta = saved["momenta"]
     momenta = momenta[...] if subjects is None else momenta[subjects]
     return atlas_state(params, saved["atlas"][...], momenta, device, dtype)
+
+
+def affine_state_from_saved(saved, device, dtype=torch.float32):
+    """``(I, A, T)``: the atlas image ``(1, 1, *spatial)`` and the
+    per-subject transforms ``(N, dim, dim)`` (offsets from the identity)
+    and ``(N, dim)`` from the datasets that ``affine atlas`` writes
+    (``"atlas"``, ``"A"`` and ``"T"``; an open ``h5py.File``, or a dict of
+    arrays), as tensors on ``device``."""
+    return tuple(to_tensor(saved[k][...], device, dtype) for k in ("atlas", "A", "T"))

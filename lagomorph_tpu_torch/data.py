@@ -1,12 +1,15 @@
-"""Datasets, minibatches and streaming averages for the atlas builder.
+"""Datasets, minibatches, streaming averages and dataset files for the
+atlas builders.
 
-Port of the numpy parts of ``lagomorph_tpu/data.py`` that the builder
-uses: the dataset protocol, in-memory, HDF5 and indexed datasets,
-``batch_iterator``, the on-disk minibatch cache and ``batch_average``.
-Datasets yield numpy arrays; the builder stages them on its device.
-``h5py`` is imported only by :class:`H5Dataset`, ``tqdm`` only for a
-progress bar.  Not ported: the Zarr, cropping, mapping and cached
-datasets, the process prefetcher, the writers and the ``data`` command.
+Port of the numpy parts of ``lagomorph_tpu/data.py`` that the builders and
+their commands use: the dataset protocol, in-memory, HDF5 and indexed
+datasets, ``batch_iterator``, the on-disk minibatch cache,
+``batch_average``, and the HDF5 writer and loader (``write_dataset``,
+``load_dataset``).  Datasets yield numpy arrays; the builders stage them on
+their device.  ``h5py`` is imported only where a file is read or written,
+``tqdm`` only for a progress bar.  Not ported (ROADMAP.md A.7): the Zarr,
+cropping, mapping and cached datasets, the Zarr writer, the process
+prefetcher and the ``data`` command.
 """
 from __future__ import annotations
 
@@ -26,7 +29,12 @@ __all__ = [
     "batch_iterator",
     "dataset_length",
     "batch_average",
+    "load_dataset",
+    "write_dataset",
+    "write_dataset_h5",
 ]
+
+_H5_EXTENSIONS = (".h5", ".hdf5", ".hdf")
 
 
 class Dataset:
@@ -196,3 +204,73 @@ def batch_average(batches, dim=0, progress_bar=True):
     if dtype in (np.float32, np.float64):
         avg = avg.astype(dtype)
     return avg
+
+
+def _item_parts(item):
+    """One dataset item as a tuple of numpy arrays (a single array becomes
+    a 1-tuple)."""
+    parts = item if isinstance(item, (list, tuple)) else (item,)
+    return tuple(np.asarray(p) for p in parts)
+
+
+def _sizing_plan(dataset, key):
+    """``key`` as a tuple and the per-key prototypes (shape, dtype) of the
+    dataset's first item, checked against the number of keys."""
+    keys = tuple(key) if isinstance(key, (list, tuple)) else (key,)
+    protos = _item_parts(dataset[0])
+    if len(protos) != len(keys):
+        raise Exception(
+            f"Dataset returns tuple with {len(protos)} entries, "
+            f"but only {len(keys)} keys given"
+        )
+    return keys, protos
+
+
+def _fill_arrays(dataset, arrays, desc):
+    """Stream every item of ``dataset`` into pre-allocated per-key arrays
+    (anything supporting ``arr[i, ...] = value``)."""
+    for i in progress(range(len(dataset)), desc):
+        for sink, part in zip(arrays, _item_parts(dataset[i])):
+            sink[i, ...] = part
+
+
+def write_dataset_h5(dataset, h5path, key="images"):
+    """Write ``dataset`` to an HDF5 file in the JAX package's layout: one
+    dataset a key, chunks of one subject, ``lzf`` compression.  ``key``
+    may be a tuple for datasets whose items are tuples."""
+    import h5py
+
+    keys, protos = _sizing_plan(dataset, key)
+    with h5py.File(h5path, "w") as f:
+        arrays = [
+            f.create_dataset(k, shape=(len(dataset), *p.shape), dtype=p.dtype,
+                             chunks=(1, *p.shape), compression="lzf")
+            for k, p in zip(keys, protos)
+        ]
+        _fill_arrays(dataset, arrays, desc=f"writing {os.path.basename(h5path)}")
+
+
+def _check_h5_path(path):
+    """Raise unless ``path``'s extension names an HDF5 file (a Zarr path:
+    not ported)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in _H5_EXTENSIONS:
+        return
+    if ext == ".zarr":
+        raise NotImplementedError(
+            f"{path}: Zarr datasets are not ported (ROADMAP.md A.7); use an HDF5 file")
+    raise RuntimeError(f'Could not determine file type from extension "{ext}"')
+
+
+def write_dataset(dataset, path, **kwargs):
+    """Write ``dataset`` to ``path``, whose extension names the format
+    (HDF5: ``.h5``, ``.hdf5``, ``.hdf``)."""
+    _check_h5_path(path)
+    return write_dataset_h5(dataset, path, **kwargs)
+
+
+def load_dataset(path, **kwargs):
+    """The dataset stored at ``path`` (an :class:`H5Dataset`; ``kwargs`` go
+    to it)."""
+    _check_h5_path(path)
+    return H5Dataset(path, **kwargs)

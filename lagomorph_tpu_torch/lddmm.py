@@ -24,7 +24,7 @@ from .ops.affine import regrid
 from .ops.interp import in_unit as _in_unit
 from .ops import kernels
 from .ops.kernels import epdiff2d, epdiff_unit, shoot2d
-from .utils import Tool, progress
+from .utils import Tool, progress, torch_device
 
 __all__ = [
     "EPDiff_step",
@@ -415,12 +415,7 @@ class LDDMMAtlasBuilder:
                 "loader_mode='process' (worker processes reading the batches) is not "
                 "ported; use loader_mode='thread'"
             )
-        self._device = torch.device("cuda" if self.device is None else self.device)
-        if self._device.type != "cpu" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {self._device}: no CUDA device (torch.cuda.is_available() is "
-                "false); pass device='cpu' to run the plain versions on the CPU"
-            )
+        self._device = torch_device(self.device)
         self._num_examples = dataset_length(self.dataset)
         it = batch_iterator(self.dataset, self.batch_size, dtype=self.dtype)
         if self.dataloader_cache is not None:

@@ -1,7 +1,7 @@
 """Grid operators of the port: sampling, finite differences, the fluid
-operator, interpolation, regridding, and the hand-written kernels under
-``kernels``."""
-from .affine import regrid
+operator, interpolation, affine warps, regridding, and the hand-written
+kernels under ``kernels``."""
+from .affine import affine_interp, regrid
 from .boundary import diff_central, diff_central_adjoint, shift_clamp
 from .diff import jacobian_times_vectorfield, jacobian_times_vectorfield_adjoint
 from .fluid import (
@@ -20,6 +20,7 @@ from .sampling import (
 )
 
 __all__ = [
+    "affine_interp",
     "diff_central",
     "diff_central_adjoint",
     "fluid_operator",

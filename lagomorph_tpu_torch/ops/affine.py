@@ -1,9 +1,11 @@
-"""Regridding: resample a field from one regular grid to another.
+"""Affine warps and regridding.
 
-Port of ``regrid`` from ``lagomorph_tpu/ops/affine.py`` (the rest of that
-module, the affine warps, is not ported).  Plain PyTorch on the port's
-general gather (:func:`.sampling.sample_linear`), as the JAX function is
-plain XLA; autograd gives its backward.
+Port of ``lagomorph_tpu/ops/affine.py``: ``affine_interp`` samples images
+through affine maps about the grid centre, ``regrid`` resamples a field
+from one regular grid to another.  Plain PyTorch on the port's general
+gather (:func:`.sampling.sample_linear`), as the JAX functions are plain
+XLA; autograd gives their backwards (on CUDA the gather's backward adds
+with atomics, so two runs agree within rounding, not bit for bit).
 """
 from __future__ import annotations
 
@@ -11,7 +13,30 @@ import torch
 
 from .sampling import identity_grid, sample_linear
 
-__all__ = ["regrid"]
+__all__ = ["affine_interp", "regrid"]
+
+
+def affine_interp(I: torch.Tensor, A: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Apply batched affine transforms to images:
+    ``out_n(x) = I_n(A_n (x - o) + T_n + o)`` with ``o = (N - 1) / 2`` the
+    grid centre.
+
+    ``I``: ``(NI, C, *spatial)`` with ``NI`` in ``{1, N}`` (1 broadcasts over
+    the transforms); ``A``: ``(N, dim, dim)``; ``T``: ``(N, dim)``, both
+    cast to ``I``'s dtype.  Returns ``(N, C, *spatial)``."""
+    if A.shape[0] != T.shape[0]:
+        raise ValueError("A and T must have same first dimension")
+    dim = A.shape[1]
+    spatial = tuple(I.shape[2:])
+    if len(spatial) != dim:
+        raise ValueError("A/T dimension does not match image rank")
+    dtype = I.dtype
+    grid = identity_grid(spatial, dtype=dtype, device=I.device)
+    o = torch.tensor([(n - 1) * 0.5 for n in spatial], dtype=dtype, device=I.device)
+    centered = grid - o.reshape((dim,) + (1,) * dim)
+    coords = (torch.einsum("nab,b...->na...", A.to(dtype), centered)
+              + (T.to(dtype) + o).reshape((A.shape[0], dim) + (1,) * dim))
+    return sample_linear(I, coords)
 
 
 def regrid(I: torch.Tensor, shape=None, origin=None, spacing=None,

@@ -14,7 +14,7 @@ import argparse
 import json
 import sys
 
-__all__ = ["Tool", "progress"]
+__all__ = ["Tool", "progress", "torch_device"]
 
 
 def progress(iterable, desc=None, **kwargs):
@@ -25,6 +25,20 @@ def progress(iterable, desc=None, **kwargs):
     except ImportError:
         return iterable
     return tqdm(iterable, desc=desc, **kwargs)
+
+
+def torch_device(device):
+    """``device`` as a torch device, the first CUDA card when None; a CUDA
+    device raises where there is none (no fallback to the CPU)."""
+    import torch
+
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: no CUDA device (torch.cuda.is_available() is false); "
+            "pass device='cpu' to run the plain versions on the CPU"
+        )
+    return device
 
 
 class Tool:

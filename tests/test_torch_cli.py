@@ -1,4 +1,5 @@
-"""The port's ``lddmm atlas`` command and its HDF5 files, on the CPU:
+"""The port's ``lddmm atlas``, ``affine atlas`` and ``affine standardize``
+commands and their HDF5 files, on the CPU:
 
 * a file saved by either package's builder loads in the other's and
   through ``convert.atlas_state_from_saved``, with the same keys and
@@ -9,7 +10,12 @@
   rounding differently);
 * in process: ``--checkpoint`` and a warm start from it through
   ``--initial_atlas``, ``--help``, ``--fluid_transform radix`` and the
-  options that are not ported, which raise.
+  options that are not ported, which raise;
+* ``python -m lagomorph_tpu_torch affine atlas --device cpu`` and ``affine
+  standardize`` against the JAX package's commands on the same file
+  (float32: the atlas, the losses, ``A`` and ``T`` within 1e-5 of
+  max|ref|), each package's ``standardize`` reading the other's atlas
+  file.
 """
 import os
 import subprocess
@@ -46,6 +52,14 @@ def blobs(path, n, res, dim, seed=5):
     with h5py.File(path, "w") as f:
         f.create_dataset("images", data=np.stack(imgs)[:, None].astype(np.float32))
     return str(path)
+
+
+def run_module(module, argv):
+    """``python -m module argv`` on the CPU, the repository on the path."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-m", module, *argv], capture_output=True, text=True,
+                       cwd=REPO, env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
 
 
 def run_tool(argv, monkeypatch):
@@ -149,7 +163,7 @@ def test_cli_help(monkeypatch, capsys):
         run_tool(["--help"], monkeypatch)
     assert e.value.code == 0
     out = capsys.readouterr().out
-    assert "lddmm" in out and "not ported: affine, data" in out
+    assert "lddmm" in out and "affine" in out and "not ported: data" in out
     with pytest.raises(SystemExit) as e:
         run_tool(["lddmm", "atlas", "--help"], monkeypatch)
     assert e.value.code == 0
@@ -157,6 +171,13 @@ def test_cli_help(monkeypatch, capsys):
     for flag in ("--device", "--gradient_checkpointing", "--deformation_downscale",
                  "--fluid_transform", "--fluid_beta"):
         assert flag in out
+    for command, flags in (("atlas", ("--device", "--affine_steps", "--keep_data_on_device")),
+                           ("standardize", ("--device", "--rescale", "--copy_other_keys"))):
+        with pytest.raises(SystemExit) as e:
+            run_tool(["affine", command, "--help"], monkeypatch)
+        assert e.value.code == 0
+        out = capsys.readouterr().out
+        assert all(flag in out for flag in flags), out
 
 
 def test_cli_fluid_transform_radix(tmp_path, monkeypatch):
@@ -201,4 +222,101 @@ def test_cli_unported_options_raise(tmp_path, monkeypatch, flags, error):
     with pytest.raises(error):
         run_tool(["lddmm", "atlas", src, str(tmp_path / "out.h5"), "--num_epochs", "1",
                   *device, *flags], monkeypatch)
+    assert not os.path.exists(tmp_path / "out.h5")
+
+
+@pytest.fixture
+def image_h5(tmp_path, rng):
+    """6 Gaussian blobs at 12^2, the file of tests/test_cli.py's workflow."""
+    res = 12
+    grid = np.stack(np.meshgrid(*[np.arange(res, dtype=float)] * 2, indexing="ij"))
+    c = (res - 1) / 2
+    imgs = []
+    for _ in range(6):
+        off = rng.uniform(-1.5, 1.5, 2)
+        imgs.append(np.exp(-((grid[0] - c - off[0]) ** 2 + (grid[1] - c - off[1]) ** 2)
+                           / (2 * (res / 5) ** 2)))
+    fn = str(tmp_path / "imgs.h5")
+    with h5py.File(fn, "w") as f:
+        f.create_dataset("images", data=np.stack(imgs)[:, None].astype(np.float32))
+        f.create_dataset("labels", data=np.arange(6))
+    return fn
+
+
+AFFINE_KEYS = {"atlas", "A", "T", "epoch_losses", "iter_losses"}
+AFFINE_TOL = 1e-5  # float32, of max|ref|
+AFFINE_TRAIN = ["--num_epochs", "3", "--batch_size", "4", "--learning_rate_I", "10",
+                "--learning_rate_T", "0.5"]
+
+
+def test_cli_affine_atlas_and_standardize_match_jax(image_h5, tmp_path, monkeypatch):
+    """``affine atlas --device cpu`` (an uneven last batch) writes what the
+    JAX package's command writes from the same file, with the provenance
+    on ``atlas``; ``affine standardize`` of either package reads the
+    other's atlas file, and the port's copies the other keys."""
+    out = {name: str(tmp_path / f"atlas_{name}.h5") for name in ("port", "jax")}
+    run_module("lagomorph_tpu_torch", ["affine", "atlas", image_h5, out["port"], "--device", "cpu",
+                                       *AFFINE_TRAIN])
+    run_module("lagomorph_tpu", ["affine", "atlas", image_h5, out["jax"], *AFFINE_TRAIN])
+    files = {}
+    for name, fn in out.items():
+        with h5py.File(fn, "r") as f:
+            assert set(f.keys()) == AFFINE_KEYS
+            files[name] = {k: f[k][...] for k in AFFINE_KEYS}
+            if name == "port":
+                assert f["atlas"].attrs["lagomorph_version"] == lt.__version__
+                assert '"device": "cpu"' in f["atlas"].attrs["command_args"]
+                I, A, T = convert.affine_state_from_saved(f, "cpu")
+                assert I.shape == (1, 1, 12, 12) and A.shape == (6, 2, 2) and T.shape == (6, 2)
+                np.testing.assert_array_equal(T.numpy(), f["T"][...])
+    errs = {}
+    for k in AFFINE_KEYS:
+        got, want = files["port"][k], files["jax"][k]
+        assert got.shape == want.shape and got.dtype == want.dtype, k
+        errs[k] = float(np.abs(got - want).max() / np.abs(want).max())
+    print("affine atlas, port against JAX, of max|ref|:", errs)
+    assert max(errs.values()) <= AFFINE_TOL, errs
+    assert files["port"]["epoch_losses"][-1] < files["port"]["epoch_losses"][0]
+    assert np.abs(files["port"]["T"]).max() > 1e-3
+
+    std = {"port": str(tmp_path / "std_port.h5"), "port_of_jax": str(tmp_path / "std_pj.h5"),
+           "jax_of_port": str(tmp_path / "std_jp.h5")}
+    run_tool(["affine", "standardize", image_h5, out["port"], std["port"], "--device", "cpu",
+              "--copy_other_keys"], monkeypatch)
+    run_tool(["affine", "standardize", image_h5, out["jax"], std["port_of_jax"], "--device", "cpu"],
+             monkeypatch)
+    run_module("lagomorph_tpu", ["affine", "standardize", image_h5, out["port"],
+                                 std["jax_of_port"]])
+    imgs = {}
+    for name, fn in std.items():
+        with h5py.File(fn, "r") as f:
+            imgs[name] = f["images"][...]
+            assert imgs[name].shape == (6, 1, 12, 12) and imgs[name].dtype == np.float32
+            if name == "port":
+                assert set(f.keys()) == {"images", "labels"}
+                assert "command_args" in f["images"].attrs
+                np.testing.assert_array_equal(f["labels"][...], np.arange(6))
+                assert f["images"].chunks == (1, 1, 12, 12)
+    ref = imgs["jax_of_port"]
+    for name in ("port", "port_of_jax"):
+        np.testing.assert_allclose(imgs[name], ref, rtol=0, atol=AFFINE_TOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("command", ["atlas", "standardize"])
+@pytest.mark.parametrize("flags,error", [
+    (["--warp_mode", "unit"], NotImplementedError),  # the global warp mode: ROADMAP A.5
+    ([], RuntimeError),  # the default device, cuda, on a machine without one
+])
+def test_cli_affine_unported_options_raise(image_h5, tmp_path, monkeypatch, command, flags,
+                                           error):
+    if not flags and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    files = [image_h5, str(tmp_path / "out.h5")]
+    if command == "standardize":
+        files.insert(1, str(tmp_path / "atlas.h5"))
+    argv = ["affine", command, *files, *(["--device", "cpu"] if flags else []), *flags]
+    if command == "atlas":
+        argv += ["--num_epochs", "1"]
+    with pytest.raises(error):
+        run_tool(argv, monkeypatch)
     assert not os.path.exists(tmp_path / "out.h5")

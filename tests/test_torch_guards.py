@@ -36,7 +36,7 @@ def test_port_never_imports_jax():
                     "lagomorph_tpu_torch.ops.kernels._build, "
                     "lagomorph_tpu_torch.ops.kernels.epdiff2d, "
                     "lagomorph_tpu_torch.data, lagomorph_tpu_torch.utils, "
-                    "lagomorph_tpu_torch.__main__, "
+                    "lagomorph_tpu_torch.affine, lagomorph_tpu_torch.__main__, "
                     "chip_smoke, profile_warp, profile_radix, profile_shoot2d, profile_epdiff2d, "
                     "profile_atlas; "
                     "assert 'jax' not in sys.modules, 'jax imported'; "
@@ -52,13 +52,15 @@ def test_port_imports_neither_h5py_nor_tqdm():
     iterator, and after ``import torch`` (whose ``torch.hub`` imports tqdm
     where it is installed) the package adds neither."""
     r = _run(["-c", "import sys; sys.modules['h5py'] = sys.modules['tqdm'] = None; "
-                    "import lagomorph_tpu_torch as lt, lagomorph_tpu_torch.__main__; "
+                    "import lagomorph_tpu_torch as lt, lagomorph_tpu_torch.affine, "
+                    "lagomorph_tpu_torch.__main__; "
                     "it = range(3); assert lt.utils.progress(it, 'x') is it; "
                     "print('bare')"])
     assert r.returncode == 0, r.stderr
     assert "bare" in r.stdout
     r = _run(["-c", "import sys, torch; before = set(sys.modules); "
-                    "import lagomorph_tpu_torch, lagomorph_tpu_torch.__main__; "
+                    "import lagomorph_tpu_torch, lagomorph_tpu_torch.affine, "
+                    "lagomorph_tpu_torch.__main__; "
                     "new = set(sys.modules) - before; "
                     "bad = sorted(m for m in new if m.split('.')[0] in ('h5py', 'tqdm')); "
                     "assert 'h5py' not in sys.modules and not bad, bad; print('clean')"])
