@@ -12,8 +12,10 @@ size of the JAX package's bench (128^3, batch 4, 5 integration steps,
 (``set_fluid_mxu_whole(True)``: K16), and its 2D atlas step at the bench's
 2D configurations (256^2 and 512^2, batch 8; bench.py:342-345), with that
 metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
---fluid_beta 0.05``), then the atlas builder over epochs and the affine
-stack that comes before it in the registration workflow:
+--fluid_beta 0.05``), then the atlas builder over epochs, the affine
+stack that comes before it in the registration workflow, the rest of the
+core API and the models (``lddmm_register``, ``affine_register``,
+``rigid_register``, ``DeepLDDMMAtlas``):
 
 1. device: needs a CUDA card; prints the card's name and power limit;
 2. build: compiles the hand-written kernels from ``lagomorph_tpu_torch/csrc``
@@ -125,6 +127,26 @@ stack that comes before it in the registration workflow:
    recovered transforms against float64; one ``LDDMMAtlasBuilder`` epoch
    over the standardized subjects at 128^3 b4 through the kernels (its
    launches counted as 6f counts them); one JSON line of its numbers;
+6h. (after 6g) the rest of the core API and the models, float32 through
+   the kernels against the plain versions or float64 on the card: (a)
+   ``splat``, ``interp_hessian_diagonal_image``, ``Ad``, ``ad_star``,
+   ``sym``, ``Ad_dagger`` (K1, K3) and ``expmap_advect`` (K2, K3) at 128^3
+   b4 against float64, their launches, two float32 splats within 1e-6 of
+   max, ``splat``'s time beside its bound, and one atlas step at 64^3 b4
+   under ``set_warp_mode("bounded")`` and ``("general")`` (K3's launches
+   only; ``p`` within ``FALLBACK_P_TOL`` of float64; "auto" restored);
+   (b) ``lddmm_register`` at examples/pairwise_registration.py's
+   configuration (BASELINE.json config 3) on 256^2 b8 (K8, K9) and 128^3
+   b4 (K1-K3, K6, K7), 10 of its 100 iterations, against its plain run
+   (losses, momenta), the loss falling, the launches (counters set to 0
+   just before, read just after), ms an iteration; (c)
+   ``affine_register`` and ``rigid_register`` at 128^3 b4, 5 iterations,
+   against float64; (d) ``DeepLDDMMAtlas`` at examples/deep_lddmm_atlas.py's
+   configuration (config 5), 16 subjects at 256^2 over 2 epochs and 8 at
+   128^3 b4 over 1, against its plain run (epoch losses, atlas), its
+   launches, epoch walls and peak, and the net's forward and backward
+   beside its bound (TF32 off, as the port runs it; TF32 on and
+   ``cudnn.benchmark`` as yardsticks); one JSON line of its numbers;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
@@ -2648,6 +2670,429 @@ def affine_phase(lt, device, card):
     log(json.dumps({"phase": "6g affine", **record}))
 
 
+# 6h. the rest of the core API (A.5) at the headline shape, the global warp
+# mode's forced tiers at 64^3 b4, and the models (A.8)
+ADVECT_STEPS = 5
+# float32 on the card against float64 on the card, of max|ref|: the
+# scatters, warps and differences; the actions with fluid solves (sym,
+# Ad_dagger) as the solves are held in phase 3; expmap_advect's phiinv of
+# 1 + max|ref| (voxels) as the slice's; two float32 splats, of max|ref|
+A5_TOL, A5_SOLVE_TOL, ADVECT_TOL, SPLAT_RERUN_TOL = 1e-5, 1e-4, 1e-5, 1e-6
+# examples/pairwise_registration.py's configuration (BASELINE.json config 3)
+# at the bench shapes: its blobs (source width res/6; targets of widths
+# res/5, res/7 (and res/6 along z in 3D), the first shifted by (+3, -2)
+# (and 0 along z) as the example's, the others by shifts in +-3 voxels from
+# numpy seed 0), its metric and rates; 10 of its 100 iterations
+REGISTER_PARAMS = (0.1, 0.0, 0.03)
+REGISTER = {"num_iters": 10, "learning_rate": 5e-2, "reg_weight": 1e-3, "integration_steps": 5}
+REGISTER_2D, REGISTER_3D = FULL2D, FULL
+AFFINE_REGISTER = {"num_iters": 5, "learning_rate_A": 1e-2, "learning_rate_T": 3e2}
+RIGID_REGISTER = {"num_iters": 5, "learning_rate_v": 1e-1, "learning_rate_T": 3e2}
+# the registrations through the kernels against the plain versions,
+# float32: every loss (relative) and the momenta (relative L2)
+REGISTER_LOSS_TOL, REGISTER_M_TOL = 1e-5, 1e-3
+# examples/deep_lddmm_atlas.py's configuration: its blobs (offsets in
+# +-2.5 voxels, widths res/6 (1 + 0.2 N(0, 1)), numpy seed 0), metric and
+# rates, batch 8 (4 at 128^3); resolution, subjects, batch, epochs
+DEEP_PARAMS = (0.05, 0.0, 0.05)
+DEEP = {"integration_steps": 4, "reg_weight": 1e-2, "learning_rate_net": 1e-3,
+        "learning_rate_image": 30.0}
+DEEP_2D, DEEP_3D = (256, 16, 8, 2), (128, 8, 4, 1)
+# DeepLDDMMAtlas through the kernels against the plain versions, float32:
+# each epoch loss (relative), the atlas (of max|I|)
+DEEP_LOSS_TOL, DEEP_ATLAS_TOL = 1e-5, 1e-5
+# launches per iteration (recounted from the code): an LDDMM registration
+# step of 5 integration steps in 3D (the peeled first step's solve, then 4
+# substeps of K1, K3, K2; the backward K6, K7 and K3 for each; the warp is
+# the general gather: no K4, K5), the final shooting of lddmm_register (no
+# backward), a DeepLDDMMAtlas step of 4 integration steps, and the 2D
+# steps at beta = 0 (one K8, its backward one K9)
+REGISTER_STEP_3D = {"ad_star_fwd": 4, "compose_fwd": 4, "fluid_flat": 10, "ad_star_bwd": 4,
+                    "compose_bwd": 4}
+REGISTER_FINAL_3D = {"ad_star_fwd": 4, "compose_fwd": 4, "fluid_flat": 5}
+DEEP_STEP_3D = {"ad_star_fwd": 3, "compose_fwd": 3, "fluid_flat": 8, "ad_star_bwd": 3,
+                "compose_bwd": 3}
+STEP2D_FINAL = {"shoot2d_fwd": 1}
+
+
+def blob(res, dim, shift, widths, device):
+    """A Gaussian blob on a ``res``^``dim`` grid, centred ``shift`` voxels
+    off the grid centre, of ``widths`` (standard deviations) by axis,
+    float32, evaluated on ``device`` in float64."""
+    axis = torch.arange(res, dtype=torch.float64, device=device)
+    grid = torch.meshgrid(*[axis] * dim, indexing="ij")
+    c = (res - 1) / 2
+    r2 = sum(((grid[d] - c - shift[d]) / widths[d]) ** 2 for d in range(dim))
+    return torch.exp(-r2 / 2).float()
+
+
+def register_pair(shape, device):
+    """``REGISTER``'s source ``(1, 1, *spatial)`` and ``N`` targets at
+    ``shape`` ``(N, dim, *spatial)`` (see its comment)."""
+    N, dim, res = shape[0], shape[1], shape[2]
+    shifts = np.random.default_rng(0).uniform(-3, 3, (N, dim))
+    shifts[0] = (3, -2, 0)[:dim]
+    widths = (res / 5, res / 7, res / 6)[:dim]
+    src = blob(res, dim, (0.0,) * dim, (res / 6,) * dim, device)[None, None]
+    tgt = torch.stack([blob(res, dim, s, widths, device) for s in shifts])[:, None]
+    return src, tgt
+
+
+def deep_subjects(res, n, dim, device):
+    """``(n, 1, *[res] * dim)`` float32 blobs drawn as
+    examples/deep_lddmm_atlas.py draws them (its ``make_dataset``), on the
+    host."""
+    rng = np.random.default_rng(0)
+    out = np.empty((n, 1) + (res,) * dim, dtype=np.float32)
+    for i in range(n):
+        off = rng.uniform(-2.5, 2.5, dim)
+        w = res / 6 * (1 + 0.2 * rng.standard_normal())
+        out[i, 0] = blob(res, dim, off, (w,) * dim, device).cpu().numpy()
+    return out
+
+
+def counted(fn):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after: ``(result, {kernel: launches} of the kernels launched)``."""
+    from lagomorph_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    return out, {k: n for k, n in kernels.launch_counts().items() if n}
+
+
+def a5_checks(lt, device, card):
+    """Phase 6h (a): the A.5 functions at 128^3 b4 in float32 (the kernels
+    where they reach one) against float64 on the card, their launches, two
+    float32 splats, splat's time beside its bound; then one atlas step at
+    64^3 b4 under each forced global warp mode, with no unit-regime kernel
+    launched and its momentum gradient against float64.  Returns the
+    record."""
+    from lagomorph_tpu_torch import lddmm
+
+    N, _, X, Y, Z = FULL
+    V = X * Y * Z
+    rng = np.random.default_rng(31)
+    metric = lt.FluidMetric(PARAMS)
+
+    def pair(a):
+        return (torch.as_tensor(a, dtype=torch.float32, device=device),
+                torch.as_tensor(a, dtype=torch.float64, device=device))
+
+    u = pair(rng.uniform(-3, 3, FULL))
+    phi_unit = pair(rng.uniform(-0.9, 0.9, FULL))
+    vals, v, w = (pair(rng.standard_normal(FULL)) for _ in range(3))
+    atlas = pair(rng.standard_normal((1, 1, X, Y, Z)))
+    m0 = bench_inputs(device)[1]
+    m0 = m0 * (0.5 / float(metric.sharp(m0).abs().max()))
+    m0 = (m0, m0.double())
+    calls = {
+        "splat": (lambda i: lt.splat(vals[i], u[i]), A5_TOL, 0.0, {}),
+        "interp_hessian_diagonal_image": (
+            lambda i: lt.interp_hessian_diagonal_image(atlas[i], u[i]), A5_TOL, 0.0, {}),
+        "Ad": (lambda i: lt.Ad(u[i], v[i]), A5_TOL, 0.0, {}),
+        "ad_star": (lambda i: lt.ad_star(v[i], w[i]), A5_TOL, 0.0, {}),
+        "sym": (lambda i: lt.sym(v[i], w[i], metric), A5_SOLVE_TOL, 0.0, {"fluid_flat": 4}),
+        "Ad_dagger": (lambda i: lt.Ad_dagger(phi_unit[i], w[i], metric), A5_SOLVE_TOL, 0.0,
+                      {"ad_star_fwd": 1, "fluid_flat": 2}),
+        "expmap_advect": (lambda i: lt.expmap_advect(metric, m0[i], num_steps=ADVECT_STEPS),
+                          ADVECT_TOL, 1.0, {"compose_fwd": ADVECT_STEPS,
+                                            "fluid_flat": ADVECT_STEPS}),
+    }
+    record = {}
+    for name, (fn, tol, offset, want) in calls.items():
+        with torch.no_grad():
+            got, launched = counted(lambda: fn(0))
+            ref = fn(1)
+        check(got.dtype == torch.float32 and got.shape == ref.shape, f"{name}: bad output")
+        err = compare(f"{name} at 128^3 b4, float32 against float64", got, ref, tol, offset)
+        log(f"    launches {launched} (want {want})")
+        check(launched == want, f"{name}: launches {launched}, want {want}")
+        record[name] = {"max_abs_err": err, "max|ref|": float(ref.abs().max()), "tol": tol,
+                        "launches": launched}
+        if name == "splat":
+            again = fn(0)
+            rerun = max_err(again, got) / float(ref.abs().max())
+            log(f"  two float32 splats: {rerun:.3e} of max|ref| apart (tol {SPLAT_RERUN_TOL:g}), "
+                f"torch.equal {torch.equal(again, got)}")
+            check(rerun <= SPLAT_RERUN_TOL, f"splat run to run {rerun:.3e} > {SPLAT_RERUN_TOL:g}")
+            record[name].update({"run to run (of max|ref|)": rerun,
+                                 "runs torch.equal": bool(torch.equal(again, got))})
+        del got, ref
+    ms = time_ms(lambda: lt.splat(vals[0], u[0]), device, 10)
+    # read the values and the displacement, write the grid; per voxel the
+    # weights (floors, fractions, 8 corner products of 2) and per channel 8
+    # products and 8 sums
+    b_ms, b_by = bound(4 * N * V * (3 + 3 + 3), N * V * (9 + 16 + 16 * 3))
+    log(f"time splat at 128^3 b4 (3 channels, |u| < 3, float32): {ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}): {ms / b_ms:.1f}x [{card}]")
+    record["splat"].update({"ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+    del u, phi_unit, vals, v, w, atlas, m0
+
+    # the global warp mode's forced tiers: one atlas step at 64^3 b4 each
+    I, m, img = bench_inputs(device, FULL64)
+    m = m * (0.5 / float(metric.sharp(m).abs().max()))
+    step = make_step(lt, metric)
+    for mode in ("bounded", "general"):
+        prev = lt.set_warp_mode(mode)
+        try:
+            check(lddmm._fast_integrator(metric, m, 0.2, None) is None,
+                  f"warp mode {mode}: the hoisted path's gate is open")
+            t0 = time.perf_counter()
+            out = step_chain(step, I, m, img, "kernels", steps=1)[0][0]
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            launched = {k: n for k, n in out[4].items() if n}
+            grads = {k: momentum_grads(metric, I, [m], img, k)[0] for k in ("kernels", "float64")}
+        finally:
+            lt.set_warp_mode(prev)
+        l2 = rel_l2(grads["kernels"][0], grads["float64"][0])
+        applied = max_err(out[1], m - LR_POSE * grads["kernels"][0])
+        log(f"atlas step at 64^3 b4 under set_warp_mode({mode!r}): {wall:.3f} s (first call), "
+            f"launches {launched}; p against float64 relative l2 {l2:.3e} (tol "
+            f"{FALLBACK_P_TOL:g}); loss {out[3]!r}, float64 {grads['float64'][1]!r}; m_new - "
+            f"(m - lr p) {applied:.3e}")
+        check(launched == {"fluid_flat": 2 * STEPS},
+              f"warp mode {mode}: launches {launched}, want only K3's {2 * STEPS}")
+        check(np.isfinite(out[3]) and l2 <= FALLBACK_P_TOL,
+              f"warp mode {mode}: p differs from float64 by {l2:.3e} > {FALLBACK_P_TOL:g}")
+        record[f"atlas step 64^3 b4, warp mode {mode}"] = {
+            "s": wall, "launches": launched, "p rel l2 against float64": l2}
+    check(lt.ops.get_warp_mode() == "auto", "the global warp mode was not restored")
+    return record
+
+
+def registration_run(fn, plain=False):
+    """``fn()`` through the kernels (or the plain versions), counted and
+    timed (synchronised): ``(result, launches, wall s, peak GiB)``."""
+    from lagomorph_tpu_torch.ops import kernels
+
+    device = torch.device("cuda", 0)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with kernels.plain_versions() if plain else contextlib.nullcontext():
+        out, launched = counted(fn)
+    torch.cuda.synchronize(device)
+    return out, launched, time.perf_counter() - t0, torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def lddmm_register_checks(lt, device, card):
+    """Phase 6h (b): ``lddmm_register`` at ``REGISTER`` on 256^2 b8 (K8,
+    K9) and 128^3 b4 (K1-K3, K6, K7) through the kernels against the plain
+    versions (losses, momenta), the loss falling, the launches, ms an
+    iteration; the float64 run's drift logged."""
+    from lagomorph_tpu_torch.models import lddmm_register
+
+    record = {}
+    iters = REGISTER["num_iters"]
+    for shape, per_step, final in ((REGISTER_2D, STEP2D_LAUNCHES, STEP2D_FINAL),
+                                   (REGISTER_3D, REGISTER_STEP_3D, REGISTER_FINAL_3D)):
+        label = "x".join(map(str, shape))
+        src, tgt = register_pair(shape, device)
+        metric = lt.FluidMetric(REGISTER_PARAMS)
+
+        def run(dtype=torch.float32):
+            return lddmm_register(src.to(dtype), tgt.to(dtype), metric, **REGISTER)
+        got, launched, first, peak = registration_run(run)
+        ref, plain_launched, plain_wall, _ = registration_run(run, plain=True)
+        r64 = registration_run(lambda: run(torch.float64))[0]
+        wall = registration_run(run)[2]  # warm: the first run set up cuFFT plans and buffers
+        want = {k: per_step.get(k, 0) * iters + final.get(k, 0) for k in {*per_step, *final}}
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[2].tolist(), ref[2].tolist()))
+        m_err, m64 = rel_l2(got[0], ref[0]), rel_l2(got[0], r64[0])
+        h_err = max_err(got[1], ref[1])
+        losses = got[2].tolist()
+        log(f"lddmm_register at {label}, {iters} iterations: {wall:.3f} s through the kernels "
+            f"({wall / iters * 1e3:.2f} ms an iteration, the final shooting included; the first "
+            f"run {first / iters * 1e3:.2f}; plain {plain_wall / iters * 1e3:.2f}), peak "
+            f"{peak:.3f} GiB; losses {losses[0]!r} -> "
+            f"{losses[-1]!r}; kernels vs plain: losses rel {loss_err:.3e} (tol "
+            f"{REGISTER_LOSS_TOL:g}), m rel l2 {m_err:.3e} (tol {REGISTER_M_TOL:g}), phiinv "
+            f"{h_err:.3e} voxel (max|phiinv| {float(ref[1].abs().max()):.4e}); float64 drift: m "
+            f"rel l2 {m64:.3e}, losses rel {max(abs(a - b) / abs(b) for a, b in zip(losses, r64[2].tolist())):.3e}; "
+            f"launches {launched} [{card}]")
+        check(launched == want, f"lddmm_register {label}: launches {launched}, want {want}")
+        check(not plain_launched, f"lddmm_register {label}: the plain run launched a kernel")
+        check(all(np.isfinite(losses)) and bool(torch.isfinite(got[1]).all()),
+              f"lddmm_register {label}: non-finite loss or phiinv")
+        check(losses[-1] < losses[0], f"lddmm_register {label}: the loss did not fall")
+        check(loss_err <= REGISTER_LOSS_TOL and m_err <= REGISTER_M_TOL,
+              f"lddmm_register {label}: kernels vs plain losses {loss_err:.3e}, m {m_err:.3e}")
+        record[f"lddmm_register {label}"] = {
+            "ms an iteration": wall / iters * 1e3, "first run ms an iteration": first / iters * 1e3,
+            "plain ms an iteration": plain_wall / iters * 1e3,
+            "peak GiB": peak, "losses": [losses[0], losses[-1]], "loss rel err": loss_err,
+            "m rel l2": m_err, "m rel l2 against float64": m64, "launches": launched}
+        del got, ref, r64, src, tgt
+    return record
+
+
+def affine_register_checks(lt, device, card):
+    """Phase 6h (c): ``affine_register`` and ``rigid_register`` at 128^3
+    b4 on ``REGISTER``'s blobs, float32 against float64 on the card."""
+    from lagomorph_tpu_torch.models import affine_register, rigid_register
+
+    src, tgt = register_pair(REGISTER_3D, device)
+    record = {}
+    for name, fn, kw in (("affine_register", affine_register, AFFINE_REGISTER),
+                         ("rigid_register", rigid_register, RIGID_REGISTER)):
+        got, launched, first, peak = registration_run(lambda: fn(src, tgt, **kw))
+        ref = fn(src.double(), tgt.double(), **kw)
+        wall = registration_run(lambda: fn(src, tgt, **kw))[2]  # warm
+        errs = {"losses": max(abs(a - b) / abs(b) for a, b in zip(got[2].tolist(),
+                                                                  ref[2].tolist())),
+                "params": rel_l2(got[0], ref[0]), "T": rel_l2(got[1], ref[1])}
+        losses = got[2].tolist()
+        log(f"{name} at 128^3 b4, {kw['num_iters']} iterations: {wall / kw['num_iters'] * 1e3:.2f} "
+            f"ms an iteration (the first run {first / kw['num_iters'] * 1e3:.2f}), peak "
+            f"{peak:.3f} GiB; losses {losses[0]!r} -> {losses[-1]!r}; "
+            f"float32 against float64: losses rel {errs['losses']:.3e} (tol {AFFINE_LOSS_TOL:g}), "
+            f"A/v rel l2 {errs['params']:.3e}, T {errs['T']:.3e} (tol {AFFINE_AT_TOL:g}); max|T| "
+            f"{float(got[1].abs().max()):.4e} [{card}]")
+        check(not launched, f"{name}: launched {launched}")
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall")
+        check(errs["losses"] <= AFFINE_LOSS_TOL and max(errs["params"], errs["T"]) <= AFFINE_AT_TOL,
+              f"{name}: float32 against float64 {errs}")
+        record[name] = {"ms an iteration": wall / kw["num_iters"] * 1e3,
+                        "first run ms an iteration": first / kw["num_iters"] * 1e3, "peak GiB": peak,
+                        "losses": [losses[0], losses[-1]], "against float64": errs}
+    return record
+
+
+def momentum_net_ms(device, card, x):
+    """ms of one forward and backward (the parameters' gradients) of a
+    fresh ``MomentumNet`` on ``x`` (CUDA events, 3 calls), as the port runs
+    its convolutions (TF32 off) and, as yardsticks, with cuDNN's TF32 on and
+    with its autotuner (``cudnn.benchmark``), each setting restored after;
+    beside the float32 bound of its convolutions' operations."""
+    import torch.nn.functional as F
+
+    from lagomorph_tpu_torch.models import MomentumNet
+    from lagomorph_tpu_torch.models.deep_atlas import init_momentum_net
+
+    dim = x.dim() - 2
+    net = init_momentum_net(MomentumNet(dim=dim, in_channels=x.shape[1])).to(device)
+    params = list(net.parameters())
+    conv = F.conv3d if dim == 3 else F.conv2d
+
+    def fwd_bwd():
+        y = x
+        for i, c in enumerate(net.convs):
+            y = conv(y, c.weight, c.bias, padding=1)
+            if i < len(net.convs) - 1:
+                y = F.gelu(y, approximate="tanh")
+        return torch.autograd.grad(y.square().sum(), params)
+
+    # multiply-adds per voxel: the forward and the weight gradients of every
+    # convolution, the input gradients of all but the first
+    macs = [c.weight[0].numel() * c.weight.shape[0] for c in net.convs]
+    flops = 2 * x.shape[0] * x[0, 0].numel() * (2 * sum(macs) + sum(macs[1:]))
+    b_ms, b_by = bound(0, flops)
+    cd = torch.backends.cudnn
+    prev = (cd.allow_tf32, cd.benchmark)
+    ms = {}
+    try:
+        for label, tf32, bench in (("TF32 off (the port's)", False, False), ("TF32 on", True, False),
+                                   ("TF32 off, cudnn.benchmark", False, True)):
+            cd.allow_tf32, cd.benchmark = tf32, bench
+            ms[label] = time_ms(fwd_bwd, device, 3)
+    finally:
+        cd.allow_tf32, cd.benchmark = prev
+    log(f"MomentumNet forward+backward at {'x'.join(map(str, x.shape))}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; float32 bound {b_ms:.3f} ms ({b_by}, {flops / 1e9:.1f} GFLOP) [{card}]")
+    return {"ms": ms, "bound_ms": b_ms, "GFLOP": flops / 1e9}
+
+
+def deep_atlas_checks(lt, device, card):
+    """Phase 6h (d): ``DeepLDDMMAtlas`` at ``DEEP`` on 16 subjects at 256^2
+    over 2 epochs (K8, K9, cuDNN conv2d) and 8 at 128^3 b4 for 1 epoch
+    (K1-K3, K6, K7, cuDNN conv3d), through the kernels against the plain
+    versions (epoch losses, atlas), the launches, epoch walls and peaks;
+    the float64 run's drift logged."""
+    from lagomorph_tpu_torch.models import DeepLDDMMAtlas
+    from lagomorph_tpu_torch.ops import kernels
+
+    record = {}
+    for (res, n, batch, epochs), dim, per_step in ((DEEP_2D, 2, STEP2D_LAUNCHES),
+                                                   (DEEP_3D, 3, DEEP_STEP_3D)):
+        label = f"{n} subjects at {res}^{dim} b{batch}"
+        imgs = list(deep_subjects(res, n, dim, device))
+        runs = {}
+        for mode, dtype in (("kernels", np.float32), ("plain", np.float32),
+                            ("float64", np.float64)):
+            model = DeepLDDMMAtlas(imgs, metric=lt.FluidMetric(DEEP_PARAMS), batch_size=batch,
+                                   dtype=dtype, progress_bar=False, device=device, **DEEP)
+            walls = []
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            kernels.reset_launches()
+            with kernels.plain_versions() if mode == "plain" else contextlib.nullcontext():
+                for _ in range(epochs):
+                    t0 = time.perf_counter()
+                    model.fit(num_epochs=1)
+                    torch.cuda.synchronize(device)
+                    walls.append(time.perf_counter() - t0)
+            launched = {k: c for k, c in kernels.launch_counts().items() if c}
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            runs[mode] = (list(model.epoch_losses), model.I.detach().double(), walls, peak,
+                          launched)
+            if mode == "kernels":  # one epoch more, timed only: the first set up cuDNN
+                t0 = time.perf_counter()
+                model.fit(num_epochs=1)
+                torch.cuda.synchronize(device)
+                warm = time.perf_counter() - t0
+            del model
+        got, ref, r64 = runs["kernels"], runs["plain"], runs["float64"]
+        want = want_launches(per_step, epochs * (n // batch))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0], ref[0]))
+        atlas_err = max_err(got[1], ref[1]) / float(ref[1].abs().max())
+        drift = (max(abs(a - b) / abs(b) for a, b in zip(got[0], r64[0])),
+                 max_err(got[1], r64[1]) / float(r64[1].abs().max()))
+        log(f"DeepLDDMMAtlas, {label}, {epochs} epoch(s): epoch walls "
+            f"{', '.join(f'{x:.4f}' for x in got[2])} s and one more {warm:.4f} s (plain "
+            f"{', '.join(f'{x:.4f}' for x in ref[2])}, "
+            f"float64 {', '.join(f'{x:.4f}' for x in r64[2])}), peak {got[3]:.3f} GiB; epoch losses "
+            f"{got[0]} (plain {ref[0]}); kernels vs plain: losses rel {loss_err:.3e} (tol "
+            f"{DEEP_LOSS_TOL:g}), atlas {atlas_err:.3e} of max|I| (tol {DEEP_ATLAS_TOL:g}); float64 "
+            f"drift: losses rel {drift[0]:.3e}, atlas {drift[1]:.3e}; launches {got[4]} [{card}]")
+        check(got[4] == want, f"DeepLDDMMAtlas {label}: launches {got[4]}, want {want}")
+        check(not ref[4], f"DeepLDDMMAtlas {label}: the plain run launched {ref[4]}")
+        check(all(np.isfinite(got[0])) and bool(torch.isfinite(got[1]).all()),
+              f"DeepLDDMMAtlas {label}: non-finite loss or atlas")
+        check(loss_err <= DEEP_LOSS_TOL and atlas_err <= DEEP_ATLAS_TOL,
+              f"DeepLDDMMAtlas {label}: kernels vs plain losses {loss_err:.3e}, atlas "
+              f"{atlas_err:.3e}")
+        record[f"DeepLDDMMAtlas {label}"] = {
+            "epoch walls s": got[2], "one more epoch s": warm, "plain epoch walls s": ref[2],
+            "peak GiB": got[3],
+            "epoch losses": got[0], "loss rel err": loss_err, "atlas err": atlas_err,
+            "float64 drift (losses, atlas)": drift, "launches": got[4]}
+        del runs, got, ref, r64
+        x = torch.from_numpy(np.stack(imgs[:batch])).to(device)
+        record[f"MomentumNet {label}"] = momentum_net_ms(device, card, x)
+        del x
+    return record
+
+
+def models_phase(lt, device, card):
+    """Phase 6h: the A.5 functions and the global warp mode (a), then the
+    models: ``lddmm_register`` (b), ``affine_register`` and
+    ``rigid_register`` (c), ``DeepLDDMMAtlas`` (d).  Prints one JSON line
+    of its numbers."""
+    torch.cuda.empty_cache()  # phase 6g's cached blocks
+    t0 = time.perf_counter()
+    record = {"card": card}
+    record["a5"] = a5_checks(lt, device, card)
+    record.update(lddmm_register_checks(lt, device, card))
+    record.update(affine_register_checks(lt, device, card))
+    record.update(deep_atlas_checks(lt, device, card))
+    record["wall s"] = time.perf_counter() - t0
+    log(f"phase 6h: {record['wall s']:.1f} s")
+    log(json.dumps({"phase": "6h models", **record}))
+
+
 def run(device, card, trace_path=None):
     sys.path.insert(0, HERE)
     import lagomorph_tpu_torch as lt
@@ -2768,6 +3213,8 @@ def run(device, card, trace_path=None):
     # float64 and 256^3 runs fill the allocator's cache)
     atlas_builder(lt, device, card)
     affine_phase(lt, device, card)
+    # 6h. the rest of the core API, the global warp mode and the models
+    models_phase(lt, device, card)
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,

@@ -22,9 +22,14 @@ JAX package.
 The affine stack (``affine_interp``, the small-matrix and rigid helpers,
 ``affine_atlas``, ``StandardizedDataset`` and ``python -m
 lagomorph_tpu_torch affine atlas`` / ``affine standardize``) runs as plain
-PyTorch on the general gather, as the JAX package's runs on XLA's.  This
-package imports torch and numpy, never jax; ``h5py`` and ``tqdm`` only
-where a file is read or written or a progress bar shown.
+PyTorch on the general gather, as the JAX package's runs on XLA's.  The
+rest of the core API (``splat``, ``interp_hessian_diagonal_image``, the
+adjoint actions of ``adjrep``, ``compose_vel_disp``, ``expmap_advect`` and
+the global warp mode ``set_warp_mode``) and the models of ``models``
+(``affine_register``, ``rigid_register``, ``lddmm_register``,
+``MomentumNet``, ``DeepLDDMMAtlas``) run over the same ops and kernels.
+This package imports torch and numpy, never jax; ``h5py`` and ``tqdm``
+only where a file is read or written or a progress bar shown.
 """
 from .ops import (
     affine_interp,
@@ -34,6 +39,7 @@ from .ops import (
     identity_grid,
     interp,
     interp_auto,
+    interp_hessian_diagonal_image,
     regrid,
     jacobian_times_vectorfield,
     jacobian_times_vectorfield_adjoint,
@@ -44,20 +50,26 @@ from .ops import (
     set_fluid_fft_kernel,
     set_fluid_mxu_whole,
     set_fluid_packing,
+    set_warp_mode,
     shift_clamp,
+    splat,
 )
 from .affine import (
     StandardizedDataset,
     affine_atlas,
     affine_inverse,
+    det_2x2,
+    invert_2x2,
+    invert_3x3,
     rigid_inverse,
     rotation_exp_map,
 )
-from .deform import identity, compose, compose_disp_vel
+from .deform import identity, compose, compose_disp_vel, compose_vel_disp
 from .metric import FluidMetric, Metric
-from .adjrep import Ad_star
+from .adjrep import ad, Ad, ad_star, Ad_star, ad_dagger, Ad_dagger, sym, sym_dagger
 from .lddmm import (
     expmap,
+    expmap_advect,
     EPDiff_step,
     EPDiff_steps,
     LDDMMAtlasBuilder,
@@ -66,6 +78,6 @@ from .lddmm import (
     shooting_regime_ok,
 )
 
-from . import adjrep, affine, convert, data, deform, lddmm, metric, ops, utils
+from . import adjrep, affine, convert, data, deform, lddmm, metric, models, ops, utils
 
 __version__ = "0.1.0"

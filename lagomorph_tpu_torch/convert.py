@@ -3,8 +3,9 @@
 The JAX package's state is numpy-convertible: ``np.asarray`` of its arrays,
 or the datasets that ``LDDMMAtlasBuilder.save`` writes (``"atlas"`` and
 ``"momenta"``) and that ``affine atlas`` writes (``"atlas"``, ``"A"`` and
-``"T"``).  These helpers turn it into the port's metric and tensors on
-an explicit device and dtype.  Nothing here imports jax.
+``"T"``), or a flax ``MomentumNet``'s parameter tree.  These helpers turn
+it into the port's metric, tensors on an explicit device and dtype, and
+``state_dict``.  Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch
 
 from .metric import FluidMetric
 
-__all__ = ["to_tensor", "atlas_state", "atlas_state_from_saved", "affine_state_from_saved"]
+__all__ = ["to_tensor", "atlas_state", "atlas_state_from_saved", "affine_state_from_saved",
+           "momentum_net_state"]
 
 
 def to_tensor(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -48,3 +50,22 @@ def affine_state_from_saved(saved, device, dtype=torch.float32):
     (``"atlas"``, ``"A"`` and ``"T"``; an open ``h5py.File``, or a dict of
     arrays), as tensors on ``device``."""
     return tuple(to_tensor(saved[k][...], device, dtype) for k in ("atlas", "A", "T"))
+
+
+def momentum_net_state(params):
+    """The ``state_dict`` of the port's ``models.MomentumNet`` holding the
+    parameters of a flax ``MomentumNet``: ``params`` is its parameter tree
+    (``{"params": {"Conv_i": {"kernel", "bias"}}}`` or the inner dict), of
+    numpy-convertible arrays.  Each kernel ``(k..., in, out)`` becomes a
+    weight ``(out, in, k...)``; both libraries' convolutions are
+    cross-correlations, so nothing is flipped.  The tensors keep the
+    arrays' dtype, on the host."""
+    tree = params.get("params", params)
+    names = sorted(tree, key=lambda k: int(k.rsplit("_", 1)[1]))
+    state = {}
+    for i, name in enumerate(names):
+        kernel = np.asarray(tree[name]["kernel"])
+        order = (kernel.ndim - 1, kernel.ndim - 2) + tuple(range(kernel.ndim - 2))
+        state[f"convs.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(order)))
+        state[f"convs.{i}.bias"] = torch.from_numpy(np.array(tree[name]["bias"]))
+    return state

@@ -1,4 +1,4 @@
-"""Deformation-field utilities: identity, composition.
+"""Deformation-field utilities: identity, warping, composition.
 
 Port of ``lagomorph_tpu/deform.py``.  Tensors are NC(D)HW; a displacement
 field has ``dim`` channels.
@@ -7,11 +7,28 @@ from __future__ import annotations
 
 import torch
 
-from .ops.interp import interp_auto, warp_tier
+from .ops.interp import (
+    interp,
+    interp_auto,
+    interp_hessian_diagonal_image,
+    resolve_mode,
+    splat,
+    warp_tier,
+)
 from .ops.kernels import epdiff2d, epdiff_unit
 from .ops.sampling import identity_grid
 
-__all__ = ["identity", "compose", "compose_disp_vel"]
+__all__ = [
+    "identity",
+    "identity_grid",
+    "interp",
+    "interp_auto",
+    "splat",
+    "interp_hessian_diagonal_image",
+    "compose",
+    "compose_disp_vel",
+    "compose_vel_disp",
+]
 
 
 def identity(defshape, dtype=torch.float32, *, device) -> torch.Tensor:
@@ -38,12 +55,15 @@ def compose(u: torch.Tensor, v: torch.Tensor, ds: float = 1.0, dt: float = 1.0,
             mode: str | None = None) -> torch.Tensor:
     """``ds*u(x) + dt*v(x + ds*u(x))``.
 
+    ``mode`` None takes the global warp mode (``ops.interp.set_warp_mode``).
     With ``dt == 1`` the unit regime runs kernel K2 on 3D fields, K11 on 2D
-    ones: always for ``mode="unit"``; for ``mode`` None or "auto" when the
-    warp tier of ``ds*u`` (read on the host once) is "unit", else that
-    tier's warp.  ``mode`` "bounded" / "general" forces that warp tier."""
-    mode = "auto" if mode is None else mode
-    kernel = _unit_kernel(u, v) if isinstance(ds, (int, float)) and dt == 1.0 else None
+    ones: always for ``mode="unit"``; for "auto" when the warp tier of
+    ``ds*u`` (read on the host once) is "unit", else that tier's warp.
+    ``mode`` "bounded" / "general" forces that warp tier, and no kernel."""
+    mode = resolve_mode(mode)
+    kernel = None
+    if isinstance(ds, (int, float)) and dt == 1.0 and mode in ("auto", "unit"):
+        kernel = _unit_kernel(u, v)
     if kernel is not None and mode == "auto":
         mode = warp_tier(ds * u)
     if kernel is not None and mode == "unit":
@@ -55,3 +75,9 @@ def compose_disp_vel(u: torch.Tensor, v: torch.Tensor, dt: float = 1.0,
                      mode: str | None = None) -> torch.Tensor:
     """Displacement-then-velocity composition ``dt*v(x) + u(x + dt*v(x))``."""
     return compose(v, u, ds=dt, dt=1.0, mode=mode)
+
+
+def compose_vel_disp(v: torch.Tensor, u: torch.Tensor, dt: float = 1.0,
+                     mode: str | None = None) -> torch.Tensor:
+    """Velocity-then-displacement composition ``u(x) + dt*v(x + u(x))``."""
+    return compose(u, v, ds=1.0, dt=dt, mode=mode)

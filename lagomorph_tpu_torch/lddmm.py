@@ -2,10 +2,10 @@
 builder.
 
 Port of ``lagomorph_tpu/lddmm.py``: ``EPDiff_step``, ``EPDiff_steps``,
-``expmap`` with the peeled first step, the hoisted fast path with its
-validity flag and exact fallback (on the per-substep kernels; 2D with
-``beta == 0`` and no momentum mask in one launch of the whole-shoot
-kernel), optionally rematerialising each substep in the backward
+``expmap_advect``, ``expmap`` with the peeled first step, the hoisted
+fast path with its validity flag and exact fallback (on the per-substep
+kernels; 2D with ``beta == 0`` and no momentum mask in one launch of the
+whole-shoot kernel), optionally rematerialising each substep in the backward
 (``checkpoints``), ``shooting_regime_ok``, ``_lddmm_loss`` (with momenta on
 a coarser grid than the image), ``make_lddmm_atlas_step`` (the loss, its
 gradients by autograd through the kernels' backwards, and the update of
@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from . import adjrep, deform
 from .metric import FluidMetric, Metric
 from .ops.affine import regrid
+from .ops.interp import get_warp_mode
 from .ops.interp import in_unit as _in_unit
 from .ops import kernels
 from .ops.kernels import epdiff2d, epdiff_unit, shoot2d
@@ -31,6 +32,7 @@ __all__ = [
     "EPDiff_steps",
     "LDDMMAtlasBuilder",
     "expmap",
+    "expmap_advect",
     "lddmm_atlas",
     "make_lddmm_atlas_step",
     "shooting_regime_ok",
@@ -70,10 +72,11 @@ def expmap(metric, m0, T=1.0, num_steps=10, phiinv=None, mommask=None,
     ``v0``: optional precomputed ``metric.sharp(m0 * mommask)``, shared with
     a caller that also needs the initial velocity.  Starting from the
     identity, the first step is peeled (``Ad*(0, m0) = m0`` and the first
-    composition is ``-dt * v0`` exactly).  With no tier forced, the rest
-    takes the hoisted fast path (:func:`_expmap_hoisted`) on the flagged
-    integrator that :func:`_fast_integrator` picks; otherwise the per-step
-    loop."""
+    composition is ``-dt * v0`` exactly).  With no tier forced (neither
+    ``transport_mode`` nor ``compose_mode``, and the global warp mode
+    "auto" or "unit"), the rest takes the hoisted fast path
+    (:func:`_expmap_hoisted`) on the flagged integrator that
+    :func:`_fast_integrator` picks; otherwise the per-step loop."""
     dt = T / num_steps
     length = num_steps
     if phiinv is None:
@@ -103,12 +106,14 @@ def _fast_integrator(metric, m0, dt, mommask):
     of K8) under the JAX package's conditions (``lagomorph_tpu/lddmm.py:
     276-294``, ``lagomorph_tpu/ops/pallas/shoot2d.py:104-111``): no
     ``mommask``, a ``FluidMetric`` with ``beta == 0``, a Python number
-    ``dt``.  None: the per-step loop.  The TPU-only conditions of the JAX
+    ``dt``.  None: the per-step loop, also under a global warp mode of
+    "bounded" or "general" (``lagomorph_tpu/lddmm.py:_hoisted_fused_pair``),
+    read at each call.  The TPU-only conditions of the JAX
     gates (``H % 8``, ``W % 128``, ``H, W <= 512``, ``T <= 32`` and the VMEM
     budgets, ``shoot2d.py:64-86, 112-115``, ``epdiff2d.py:52-72``) do not
     apply to the card's kernels and are dropped."""
     dim = m0.dim() - 2
-    if dim not in (2, 3) or m0.shape[1] != dim:
+    if dim not in (2, 3) or m0.shape[1] != dim or get_warp_mode() not in ("auto", "unit"):
         return None
     if (dim == 2 and mommask is None and isinstance(metric, FluidMetric)
             and metric.params[1] == 0.0 and isinstance(dt, (int, float))):
@@ -210,6 +215,27 @@ def EPDiff_steps(metric, m0, dt, N, phiinv):
     block)."""
     for _ in range(N):
         phiinv = _remat(EPDiff_step, metric, m0, dt, phiinv)
+    return phiinv
+
+
+def expmap_advect(metric, m, T=1.0, num_steps=10, phiinv=None):
+    """EPDiff by explicit Euler advection of the momentum (the
+    non-integrated form, ``d/dt m = -ad_v^* m``): the inverse deformation
+    at time ``T``.  Each step advects the momentum with the plain
+    ``adjrep.ad_star``, sharpens it (K3 on 3D fields) and composes the
+    velocity into ``phiinv`` (``compose_disp_vel(., ., dt=-dt)``: K2 on 3D
+    fields in the unit regime).  The JAX package sharpens each momentum
+    twice; the port keeps the first velocity for the next step's
+    advection, the same tensor."""
+    if phiinv is None:
+        phiinv = torch.zeros_like(m)
+    dt = T / num_steps
+    v = metric.sharp(m)
+    phiinv = deform.compose_disp_vel(phiinv, v, dt=-dt)
+    for _ in range(num_steps - 1):
+        m = m - dt * adjrep.ad_star(v, m)
+        v = metric.sharp(m)
+        phiinv = deform.compose_disp_vel(phiinv, v, dt=-dt)
     return phiinv
 
 

@@ -1,6 +1,6 @@
-"""Grid operators of the port: sampling, finite differences, the fluid
-operator, interpolation, affine warps, regridding, and the hand-written
-kernels under ``kernels``."""
+"""Grid operators of the port: sampling and splatting, finite differences,
+the fluid operator, interpolation and the global warp mode, affine warps,
+regridding, and the hand-written kernels under ``kernels``."""
 from .affine import affine_interp, regrid
 from .boundary import diff_central, diff_central_adjoint, shift_clamp
 from .diff import jacobian_times_vectorfield, jacobian_times_vectorfield_adjoint
@@ -11,12 +11,20 @@ from .fluid import (
     set_fluid_mxu_whole,
     set_fluid_packing,
 )
-from .interp import interp, interp_auto
+from .interp import (
+    get_warp_mode,
+    interp,
+    interp_auto,
+    interp_hessian_diagonal_image,
+    set_warp_mode,
+    splat,
+)
 from .sampling import (
     identity_grid,
     sample_displacement_bounded,
     sample_displacement_unit,
     sample_linear,
+    splat_linear,
 )
 
 __all__ = [
@@ -24,9 +32,11 @@ __all__ = [
     "diff_central",
     "diff_central_adjoint",
     "fluid_operator",
+    "get_warp_mode",
     "identity_grid",
     "interp",
     "interp_auto",
+    "interp_hessian_diagonal_image",
     "regrid",
     "jacobian_times_vectorfield",
     "jacobian_times_vectorfield_adjoint",
@@ -37,5 +47,8 @@ __all__ = [
     "set_fluid_fft_kernel",
     "set_fluid_mxu_whole",
     "set_fluid_packing",
+    "set_warp_mode",
     "shift_clamp",
+    "splat",
+    "splat_linear",
 ]

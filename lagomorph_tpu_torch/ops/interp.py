@@ -1,14 +1,19 @@
-"""Free-form deformation interpolation (forward).
+"""Free-form deformation interpolation and its transpose.
 
 Port of ``lagomorph_tpu/ops/interp.py``: sample an image or vector field
 ``I`` through a displacement field ``u``,
 
     out_{n,c}(x) = I_{n,c}(x + dt * u_n(x)),
 
-with CLAMP boundary and broadcasting of a size-1 image batch.
+with CLAMP boundary and broadcasting of a size-1 image batch; its
+transpose in ``I`` (:func:`splat`) and the diagonal of the Hessian of a
+sum of squares through it (:func:`interp_hessian_diagonal_image`).
 :func:`interp_auto` picks one of three exact tiers from the displacement's
 bound; where the JAX package switches with ``lax.cond``, the port reads the
-tier flags on the host (one sync per call) and branches.
+tier flags on the host (one sync per call) and branches.  The global warp
+mode (:func:`set_warp_mode`) forces a tier wherever no ``mode`` is passed,
+and a forced "bounded" or "general" mode keeps every unit-regime kernel
+(K1, K2, K4, K8, K10, K11) off.
 """
 from __future__ import annotations
 
@@ -20,9 +25,47 @@ from .sampling import (
     sample_displacement_bounded,
     sample_displacement_unit,
     sample_linear,
+    scatter_corners,
+    splat_linear,
 )
 
 WARP_MODES = ("auto", "unit", "bounded", "general")
+
+# The global warp mode: "auto" picks each warp's tier from its displacement
+# and lets the unit-regime kernels run; "unit", "bounded" and "general"
+# force that tier (the caller guarantees its regime), and the last two keep
+# the unit-regime kernels and the hoisted shooting off.
+_WARP_MODE = "auto"
+
+
+def set_warp_mode(mode: str) -> str:
+    """Set the global warp mode (one of :data:`WARP_MODES`); returns the
+    previous one.  The port reads it at every call that is given no
+    ``mode`` (:func:`interp_auto`, ``deform.compose``, ``adjrep.Ad_star``,
+    the shooting's choice of the hoisted path), so a change takes effect at
+    the next call; the JAX package reads it when a function is traced, and
+    a function jitted before the change keeps the mode it was traced
+    with."""
+    global _WARP_MODE
+    if mode not in WARP_MODES:
+        raise ValueError(mode)
+    prev = _WARP_MODE
+    _WARP_MODE = mode
+    return prev
+
+
+def get_warp_mode() -> str:
+    """The current global warp mode (see :func:`set_warp_mode`)."""
+    return _WARP_MODE
+
+
+def resolve_mode(mode: str | None) -> str:
+    """``mode``, or the global warp mode when it is None; raises outside
+    :data:`WARP_MODES`."""
+    mode = _WARP_MODE if mode is None else mode
+    if mode not in WARP_MODES:
+        raise ValueError(mode)
+    return mode
 
 
 def interp(I: torch.Tensor, u: torch.Tensor, dt: float = 1.0,
@@ -67,12 +110,11 @@ def interp_auto(I: torch.Tensor, u: torch.Tensor, dt: float = 1.0, radius: int =
     stencil (kernel K4 on CUDA).  Tier 2, "bounded": components in
     ``[-radius, radius + 1)``: the dense offset sweep.  Tier 3, "general":
     the gather.  Every tier equals the gather in its regime.  ``mode``
-    forces a tier (the caller guarantees its regime); None or "auto" picks
-    it from the displacement."""
+    forces a tier (the caller guarantees its regime); "auto" picks it from
+    the displacement; None takes the global warp mode
+    (:func:`set_warp_mode`)."""
     d = dt * u if dt != 1.0 else u
-    mode = "auto" if mode is None else mode
-    if mode not in WARP_MODES:
-        raise ValueError(mode)
+    mode = resolve_mode(mode)
     if mode == "auto":
         mode = warp_tier(d, radius)
     if mode == "unit":
@@ -84,3 +126,26 @@ def interp_auto(I: torch.Tensor, u: torch.Tensor, dt: float = 1.0, radius: int =
     if mode == "bounded":
         return sample_displacement_bounded(I, d, radius)
     return interp(I, d, 1.0)
+
+
+def splat(values: torch.Tensor, u: torch.Tensor, dt: float = 1.0) -> torch.Tensor:
+    """Transpose of :func:`interp` in the image slot: ``values`` (``(N, C,
+    *spatial)``) scattered through the displacement ``u`` (``(N, dim,
+    *spatial)``, the same ``N``) at ``x + dt*u(x)`` (:func:`splat_linear`;
+    atomic adds on the card)."""
+    grid = identity_grid(u.shape[2:], dtype=u.dtype, device=u.device)
+    return splat_linear(values, grid[None] + dt * u, tuple(u.shape[2:]))
+
+
+def interp_hessian_diagonal_image(I: torch.Tensor, u: torch.Tensor,
+                                  dt: float = 1.0) -> torch.Tensor:
+    """Diagonal of the Hessian in ``I`` of a sum of squares through
+    :func:`interp`: the squared multilinear weights of every output point
+    added at its clamped corners.  Dimension-generic, batched ``(N, C,
+    *spatial)`` (each channel the same), in ``I``'s dtype."""
+    N = u.shape[0]
+    spatial = tuple(u.shape[2:])
+    grid = identity_grid(spatial, dtype=u.dtype, device=u.device)
+    ones = torch.ones((N, 1) + spatial, dtype=u.dtype, device=u.device)
+    H = scatter_corners(ones, grid[None] + dt * u, spatial, square=True)
+    return H.expand((N, I.shape[1]) + spatial).to(I.dtype)

@@ -1,7 +1,8 @@
 """Multilinear sampling on regular grids.
 
 Port of ``lagomorph_tpu/ops/sampling.py``: the general gather
-(:func:`sample_linear`), the exact 27-tap form for displacements in
+(:func:`sample_linear`) and its linear transpose, the splat
+(:func:`splat_linear`), the exact 27-tap form for displacements in
 ``[-1, 1)`` (:func:`sample_displacement_unit`, the plain version of kernel
 K4) and the dense offset sweep for displacements bounded by a radius
 (:func:`sample_displacement_bounded`, with the JAX package's scatter-free
@@ -35,6 +36,16 @@ def _pad_edge(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     return x
 
 
+def _strides(spatial):
+    """Row-major strides of a grid of ``spatial`` size, and its size."""
+    strides = []
+    s = 1
+    for n in reversed(spatial):
+        strides.append(s)
+        s *= n
+    return strides[::-1], s
+
+
 def sample_linear(I: torch.Tensor, coords: torch.Tensor, background: str = "clamp",
                   background_value: float = 0.0) -> torch.Tensor:
     """Batched multilinear sampling at fractional voxel coordinates.
@@ -59,12 +70,7 @@ def sample_linear(I: torch.Tensor, coords: torch.Tensor, background: str = "clam
     floor = torch.floor(coords)
     frac = coords - floor  # weights from unclamped coordinates
     floor = floor.to(torch.int64)
-    strides = []
-    s = 1
-    for n in reversed(spatial):
-        strides.append(s)
-        s *= n
-    strides = strides[::-1]
+    strides, _ = _strides(spatial)
     Iflat = I.reshape(I.shape[0], C, -1).expand(N, C, -1)
 
     out = None
@@ -91,6 +97,49 @@ def sample_linear(I: torch.Tensor, coords: torch.Tensor, background: str = "clam
         term = w[:, None] * vals
         out = term if out is None else out + term
     return out
+
+
+def scatter_corners(values: torch.Tensor, coords: torch.Tensor, spatial, square=False):
+    """``(N, C, *spatial)``: each of ``values`` (``(N, C, *out_spatial)``)
+    times each multilinear weight of the fractional voxel coordinates
+    ``coords`` (``(N, dim, *out_spatial)``; its square with ``square``)
+    added at that corner of its own subject's grid, clamped into it
+    (CLAMP), the weights from the unclamped coordinate: one ``index_add_``
+    a corner on int64 linear indices offset by subject and channel."""
+    N, C = values.shape[:2]
+    dim = coords.shape[1]
+    floor = torch.floor(coords)
+    frac = coords - floor
+    floor = floor.to(torch.int64)
+    strides, nvox = _strides(spatial)
+    out = torch.zeros(N * C * nvox, dtype=values.dtype, device=values.device)
+    base = (torch.arange(N * C, device=values.device) * nvox).view(N, C, 1)
+    for corner in itertools.product((0, 1), repeat=dim):
+        lin = None
+        w = None
+        for d in range(dim):
+            idx = (floor[:, d] + corner[d]).clamp(0, spatial[d] - 1)
+            lin = idx * strides[d] if lin is None else lin + idx * strides[d]
+            wd = frac[:, d] if corner[d] else 1.0 - frac[:, d]
+            w = wd if w is None else w * wd
+        if square:
+            w = w * w
+        idx = base + lin.reshape(N, 1, -1)
+        out.index_add_(0, idx.reshape(-1), (w[:, None] * values).reshape(-1))
+    return out.view((N, C) + tuple(spatial))
+
+
+def splat_linear(values: torch.Tensor, coords: torch.Tensor, spatial) -> torch.Tensor:
+    """Linear transpose of :func:`sample_linear` with CLAMP: ``values``
+    (``(N, C, *out_spatial)``) scattered at the fractional voxel
+    coordinates ``coords`` (``(N, dim, *out_spatial)``, the same ``N``: no
+    broadcasting) into a zero grid ``(N, C, *spatial)``.  Out-of-range
+    corners are clamped, so their mass piles up at the edge.  On the card
+    ``index_add_`` adds with atomics, in no fixed order."""
+    if values.shape[0] != coords.shape[0]:
+        raise ValueError(f"Incompatible batch sizes values={values.shape[0]}, "
+                         f"coords={coords.shape[0]}")
+    return scatter_corners(values, coords, tuple(spatial))
 
 
 def sample_displacement_unit(I: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:

@@ -115,16 +115,20 @@ class Tool:
             "--warp_mode",
             default="auto",
             choices=["auto", "unit", "bounded", "general"],
-            help="Global warp-tier mode; only auto (runtime tiering and the "
-            "kernels) is ported",
+            help="Global warp-tier mode (set_warp_mode): auto = runtime tiering "
+            "and the unit-regime kernels; unit, bounded and general force that "
+            "tier, and bounded and general keep the unit-regime kernels and the "
+            "hoisted shooting off (debug/parity)",
         )
 
     def _initialize_compute(self, args):
-        """Check the device and set the fluid-solve selectors.  One process
-        on one device: ``rank`` 0, ``world_size`` 1, no mesh."""
+        """Check the device and set the fluid-solve selectors and the
+        global warp mode.  One process on one device: ``rank`` 0,
+        ``world_size`` 1, no mesh."""
         import torch
 
         from .ops.fluid import set_fluid_dft, set_fluid_fft_kernel, set_fluid_packing
+        from .ops.interp import set_warp_mode
 
         device = torch.device(getattr(args, "device", "cuda"))
         if device.type != "cpu" and not torch.cuda.is_available():
@@ -134,9 +138,7 @@ class Tool:
             )
         wm = getattr(args, "warp_mode", "auto")
         if wm != "auto":
-            raise NotImplementedError(
-                f"--warp_mode {wm}: the global warp mode (set_warp_mode) is not ported"
-            )
+            set_warp_mode(wm)
         ft = getattr(args, "fluid_transform", "auto")
         if ft in ("mxu", "radix"):
             set_fluid_fft_kernel(ft)

@@ -9,8 +9,10 @@ commands and their HDF5 files, on the CPU:
   momenta within 1e-4 of max|ref|, the two libraries' float32 FFTs
   rounding differently);
 * in process: ``--checkpoint`` and a warm start from it through
-  ``--initial_atlas``, ``--help``, ``--fluid_transform radix`` and the
-  options that are not ported, which raise;
+  ``--initial_atlas``, ``--help``, ``--fluid_transform radix``,
+  ``--warp_mode`` (``lddmm atlas --warp_mode general`` against the JAX
+  command with the same flags; ``affine atlas`` / ``affine standardize
+  --warp_mode unit``) and the options that are not ported, which raise;
 * ``python -m lagomorph_tpu_torch affine atlas --device cpu`` and ``affine
   standardize`` against the JAX package's commands on the same file
   (float32: the atlas, the losses, ``A`` and ``T`` within 1e-5 of
@@ -209,7 +211,6 @@ def test_cli_fluid_transform_radix(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--warp_mode", "general"], NotImplementedError),
     (["--spatial_shard"], NotImplementedError),
     (["--loader_mode", "process", "--loader_workers", "1"], NotImplementedError),
     ([], RuntimeError),  # the default device, cuda, on a machine without one
@@ -304,7 +305,6 @@ def test_cli_affine_atlas_and_standardize_match_jax(image_h5, tmp_path, monkeypa
 
 @pytest.mark.parametrize("command", ["atlas", "standardize"])
 @pytest.mark.parametrize("flags,error", [
-    (["--warp_mode", "unit"], NotImplementedError),  # the global warp mode: ROADMAP A.5
     ([], RuntimeError),  # the default device, cuda, on a machine without one
 ])
 def test_cli_affine_unported_options_raise(image_h5, tmp_path, monkeypatch, command, flags,
@@ -320,3 +320,61 @@ def test_cli_affine_unported_options_raise(image_h5, tmp_path, monkeypatch, comm
     with pytest.raises(error):
         run_tool(argv, monkeypatch)
     assert not os.path.exists(tmp_path / "out.h5")
+
+
+@pytest.fixture
+def selectors():
+    """The port's global warp mode and fluid selectors, restored to their
+    defaults after the test (a command leaves what its flags set)."""
+    yield
+    lt.set_warp_mode("auto")
+    tfluid.set_fluid_fft_kernel("auto")
+    tfluid.set_fluid_packing("auto")
+
+
+def test_cli_lddmm_atlas_warp_mode_general(image_h5, tmp_path, monkeypatch, selectors):
+    """``lddmm atlas --warp_mode general --fluid_transform packed`` (the
+    flags of tests/test_cli.py's run of the JAX command) leaves the global
+    mode "general", runs no unit-regime kernel wrapper, and writes what the
+    JAX command writes with the same flags (float32 tolerances as the
+    default command's test above)."""
+    from lagomorph_tpu_torch.ops.kernels import epdiff2d, shoot2d
+
+    calls = []
+    for module, name in ((shoot2d, "shoot2d"), (epdiff2d, "ad_star2d"),
+                         (epdiff2d, "compose2d")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, fn=fn, name=name, **k: calls.append(name)
+                            or fn(*a, **k))
+    flags = ["--num_epochs", "1", "--batch_size", "2", "--lddmm_integration_steps", "2",
+             "--fluid_transform", "packed", "--warp_mode", "general"]
+    out = {name: str(tmp_path / f"{name}.h5") for name in ("port", "jax")}
+    run_tool(["lddmm", "atlas", image_h5, out["port"], "--device", "cpu", *flags], monkeypatch)
+    assert lt.ops.get_warp_mode() == "general" and not calls, calls
+    run_module("lagomorph_tpu", ["lddmm", "atlas", image_h5, out["jax"], *flags])
+    with h5py.File(out["port"], "r") as a, h5py.File(out["jax"], "r") as b:
+        assert '"warp_mode": "general"' in a["atlas"].attrs["command_args"]
+        for k, tol in (("atlas", 1e-5), ("momenta", 1e-4), ("epoch_losses", 1e-5),
+                       ("iter_losses", 1e-5)):
+            want = b[k][...]
+            np.testing.assert_allclose(a[k][...], want, rtol=0, atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("command", ["atlas", "standardize"])
+def test_cli_affine_warp_mode_unit(image_h5, tmp_path, monkeypatch, selectors, command):
+    """``affine atlas`` and ``affine standardize`` take ``--warp_mode
+    unit``: they run (their warp is the general gather, which the mode does
+    not touch), write their file, and leave the global mode set."""
+    atlas = str(tmp_path / "atlas.h5")
+    run_tool(["affine", "atlas", image_h5, atlas, "--device", "cpu", "--num_epochs", "1",
+              *(["--warp_mode", "unit"] if command == "atlas" else [])], monkeypatch)
+    out = atlas
+    if command == "standardize":
+        assert lt.ops.get_warp_mode() == "auto"
+        out = str(tmp_path / "std.h5")
+        run_tool(["affine", "standardize", image_h5, atlas, out, "--device", "cpu",
+                  "--warp_mode", "unit"], monkeypatch)
+    assert lt.ops.get_warp_mode() == "unit"
+    with h5py.File(out, "r") as f:
+        data = f["atlas" if command == "atlas" else "images"]
+        assert np.isfinite(data[...]).all() and '"warp_mode": "unit"' in data.attrs["command_args"]

@@ -37,6 +37,7 @@ def test_port_never_imports_jax():
                     "lagomorph_tpu_torch.ops.kernels.epdiff2d, "
                     "lagomorph_tpu_torch.data, lagomorph_tpu_torch.utils, "
                     "lagomorph_tpu_torch.affine, lagomorph_tpu_torch.__main__, "
+                    "lagomorph_tpu_torch.models, lagomorph_tpu_torch.models.deep_atlas, "
                     "chip_smoke, profile_warp, profile_radix, profile_shoot2d, profile_epdiff2d, "
                     "profile_atlas; "
                     "assert 'jax' not in sys.modules, 'jax imported'; "
