@@ -147,6 +147,26 @@ core API and the models (``lddmm_register``, ``affine_register``,
    launches, epoch walls and peak, and the net's forward and backward
    beside its bound (TF32 off, as the port runs it; TF32 on and
    ``cudnn.benchmark`` as yardsticks); one JSON line of its numbers;
+6i. (after 6h) the data path: (a) which of h5py, zarr, numexpr,
+   matplotlib and sklearn import; 8 of profile_atlas.py's subjects at
+   256^3 downscaled by 2 on the host (``data.DownscaledDataset``, README.md's
+   ``data downscale`` step) against ``F.avg_pool3d`` on the card (1e-6 of
+   max), ``CropDataset`` through ``parse_slice_spec`` and ``NumexprDataset``
+   through its vetted fallback against numpy, and, where h5py imports,
+   ``python -m lagomorph_tpu_torch data downscale`` against them; (b) the
+   builder over the downscaled subjects at 128^3 b4, 2 epochs, with 2
+   loader workers: threads, worker processes (``loader_mode="process"``),
+   worker processes over the native read-ahead cache
+   (``dataloader_cache``) and threads over it, each ``torch.equal`` to the
+   threads' run, launching ``STEP_LAUNCHES`` an iteration, the cache a
+   ``NativeBatchCache``, no prefetcher degraded under
+   ``LM_PREFETCH_TIMEOUT=30``, their epoch walls; one ``ProcessPrefetcher``
+   alone over the minibatches; (c) one 64^3 b4 atlas step with
+   ``set_debug_mode`` on ``torch.equal`` to it off, both timed, a NaN in
+   one voxel of the momenta raising ``FloatingPointError`` naming a kernel,
+   the mode off after; (d) ``profiling.device_time`` of that step, a
+   ``profiling.trace`` around it holding the port's kernels, a
+   ``profiling.Timer``; one JSON line of its numbers;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
@@ -3093,6 +3113,316 @@ def models_phase(lt, device, card):
     log(json.dumps({"phase": "6h models", **record}))
 
 
+# Phase 6i: the data path.  profile_atlas.py's subjects at 256^3, downscaled
+# by 2 on the host to the builder's 128^3 (README.md's `data downscale`
+# step), then the builder at the end-to-end configuration over them with
+# each loader, the debug mode and the profiling helpers
+DATA_SUBJECTS = (256, 8)  # resolution, subjects
+DATA_BUILDER = (4, 2)  # batch, epochs
+DATA_CROP = ("8:-8,0:120,::2", np.s_[:, 8:-8, 0:120, ::2])  # the spec, its numpy slices
+DATA_EXPR = "sqrt(abs(x)) * 2 + where(x > 0.5, x, 0)"
+DATA_TOL = 1e-6  # DownscaledDataset (host numpy) against F.avg_pool3d, of max|ref|
+OPTIONAL_MODULES = ("h5py", "zarr", "numexpr", "matplotlib", "sklearn")
+
+
+def loader_run(b, epochs):
+    """Run the builder ``b`` epoch by epoch as ``run`` does, the launch
+    counters set to 0 just before and read just after.  Returns the kernels
+    launched, each epoch's wall in seconds (host clock, ending in a
+    synchronise), the set-up's seconds (``initialize``: the batches and the
+    cache) and whether a prefetcher was built and degraded."""
+    from lagomorph_tpu_torch.ops import kernels
+
+    device = torch.device("cuda", 0)
+    torch.cuda.synchronize(device)
+    kernels.reset_launches()
+    walls = []
+    t0 = time.perf_counter()
+    b.initialize()
+    setup = time.perf_counter() - t0
+    try:
+        for b._epoch in range(epochs):
+            t0 = time.perf_counter()
+            loss, reg = b.epoch()
+            torch.cuda.synchronize(device)
+            walls.append(time.perf_counter() - t0)
+            b.epoch_losses.append(loss)
+            b.epoch_reg_terms.append(reg)
+        pf = getattr(b, "_img_prefetch", None)
+        prefetcher = (pf is not None, pf is not None and pf._failed)
+    finally:
+        b.close_loaders()
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    return launched, walls, setup, prefetcher
+
+
+@contextlib.contextmanager
+def env(name, value):
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = prev
+
+
+def dataset_checks(device, card, have):
+    """Phase 6i (a): the subjects downscaled by ``DownscaledDataset`` against
+    ``F.avg_pool3d`` on the card, ``CropDataset`` through
+    ``parse_slice_spec`` and ``NumexprDataset`` through its vetted fallback
+    against numpy, and the ``data downscale`` command where h5py imports.
+    Returns the downscaled subjects and the phase's numbers."""
+    import tempfile
+
+    import torch.nn.functional as F
+    from profile_atlas import subjects
+    from lagomorph_tpu_torch import data as tdata
+
+    res, n = DATA_SUBJECTS
+    t0 = time.perf_counter()
+    big = subjects(res, n, 2.0, device)
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    down = tdata.DownscaledDataset(list(big), 2)
+    small = np.stack([down[i] for i in range(len(down))])
+    host_s = time.perf_counter() - t0
+    on_card = torch.from_numpy(big).to(device)
+    ref = F.avg_pool3d(on_card, 2)
+    card_ms = time_ms(lambda: F.avg_pool3d(on_card, 2), device, 3)
+    del on_card
+    err = max_err(torch.from_numpy(small), ref.cpu())
+    bound = DATA_TOL * float(ref.abs().max())
+    log(f"data (a): {n} subjects at {res}^3 ({big.nbytes / 2**30:.3f} GiB, made in {made:.2f} s) "
+        f"downscaled by 2 on the host in {host_s:.2f} s to {small.shape} {small.dtype}; against "
+        f"F.avg_pool3d on the card ({card_ms:.3f} ms): max abs err {err:.3e} (bound {bound:.3e}) "
+        f"[{card}]")
+    check(small.shape == (n, 1) + (res // 2,) * 3 and small.dtype == np.float32,
+          "DownscaledDataset: wrong shape or dtype")
+    check(np.isfinite(small).all() and err <= bound, "DownscaledDataset differs from avg_pool3d")
+    del ref
+
+    spec, slices = DATA_CROP
+    crop = tdata.CropDataset(list(small), tdata.parse_slice_spec(spec))
+    crop_ok = all(np.array_equal(crop[i], small[i][slices]) for i in range(n))
+    saved = sys.modules.get("numexpr")
+    sys.modules["numexpr"] = None  # the vetted fallback, whether or not numexpr imports
+    try:
+        expr = tdata.NumexprDataset(list(small), DATA_EXPR)
+        x = small[3]
+        expr_ok = np.array_equal(expr[3], np.sqrt(np.abs(x)) * 2 + np.where(x > 0.5, x, 0))
+    finally:
+        if saved is None:
+            del sys.modules["numexpr"]
+        else:
+            sys.modules["numexpr"] = saved
+    log(f"data (a): CropDataset({spec!r}) equal to numpy: {crop_ok}; NumexprDataset("
+        f"{DATA_EXPR!r}) through the vetted fallback equal to numpy: {expr_ok}")
+    check(crop_ok and expr_ok, "CropDataset or NumexprDataset differs from numpy")
+    record = {"subjects": f"{n} x {res}^3", "downscale host s": host_s,
+              "avg_pool3d ms on the card": card_ms, "downscale max abs err": err}
+
+    if not have["h5py"]:
+        log("data (a): the data downscale command did not run: h5py does not import here")
+        return small, record
+    import h5py
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "subjects.h5"), os.path.join(tmp, "down.h5")
+        with h5py.File(src, "w") as f:
+            f.create_dataset("images", data=big)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lagomorph_tpu_torch", "data", "downscale", src,
+                            out, "--scale", "2"], cwd=HERE, capture_output=True, text=True,
+                           timeout=600, env=dict(os.environ, PYTHONPATH=HERE))
+        record["data downscale command s"] = time.perf_counter() - t0
+        check(r.returncode == 0, f"data downscale failed:\n{r.stderr[-3000:]}")
+        with h5py.File(out, "r") as f:
+            same = np.array_equal(f["images"][...], small)
+    log(f"data (a): python -m lagomorph_tpu_torch data downscale: "
+        f"{record['data downscale command s']:.2f} s, equal to DownscaledDataset: {same}")
+    check(same, "the data downscale command differs from DownscaledDataset")
+    return small, record
+
+
+def loader_checks(lt, device, card, small):
+    """Phase 6i (b): the builder over the downscaled subjects at 128^3 with
+    the thread loader, the process loader, the process loader over the
+    native cache and the thread loader over it: each run ``torch.equal`` to
+    the thread loader's, its launches ``STEP_LAUNCHES`` an iteration, the
+    cache a ``NativeBatchCache``, no prefetcher degraded
+    (``LM_PREFETCH_TIMEOUT=30``); then one ``ProcessPrefetcher`` alone over
+    the minibatches.  Returns the walls."""
+    import tempfile
+    import warnings
+
+    from profile_atlas import e2e_builder
+    from lagomorph_tpu_torch import data as tdata
+    from lagomorph_tpu_torch.native import NativeBatchCache
+
+    batch, epochs = DATA_BUILDER
+    imgs = list(small)
+    iters = epochs * (len(imgs) // batch)
+    want = want_launches(STEP_LAUNCHES, iters)
+    record = {}
+    ref = None
+    with tempfile.TemporaryDirectory() as tmp, env("LM_PREFETCH_TIMEOUT", "30"):
+        for label, opts in (
+                ("thread", {"loader_mode": "thread"}),
+                ("process", {"loader_mode": "process"}),
+                ("process + cache", {"loader_mode": "process",
+                                     "dataloader_cache": os.path.join(tmp, "p")}),
+                ("thread + cache", {"loader_mode": "thread",
+                                    "dataloader_cache": os.path.join(tmp, "t")})):
+            b = e2e_builder(lt, imgs, device, epochs, batch, loader_workers=2, **opts)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                launched, walls, setup, (built, failed) = loader_run(b, epochs)
+            degraded = [str(w.message) for w in caught
+                        if issubclass(w.category, RuntimeWarning) and "degraded" in str(w.message)]
+            st = builder_state(b)
+            kind = type(b._batches).__name__
+            log(f"data (b): {label}: epoch walls {', '.join(f'{w:.4f}' for w in walls)} s, "
+                f"set-up {setup:.3f} s, batches {kind}, prefetcher built {built}, degraded "
+                f"{failed}, warnings {degraded}; launches {launched} [{card}]")
+            record[label] = {"epoch walls s": walls, "setup s": setup, "batches": kind}
+            check(launched == want, f"loader {label}: launches {launched}, want {want}")
+            check(not degraded and not failed, f"loader {label}: the prefetcher degraded")
+            check(built == (opts["loader_mode"] == "process"),
+                  f"loader {label}: prefetcher built: {built}")
+            if "dataloader_cache" in opts:
+                check(isinstance(b._batches, NativeBatchCache),
+                      f"loader {label}: the cache is a {kind}, not a NativeBatchCache")
+            if ref is None:
+                ref = st
+            else:
+                builder_equal(f"loader {label} vs thread", st, ref)
+            del b
+    thread = record["thread"]["epoch walls s"][-1]
+    for label, r in record.items():
+        log(f"data (b): second epoch {r['epoch walls s'][-1]:.4f} s with {label}, "
+            f"{r['epoch walls s'][-1] / thread:.3f} x the thread loader's")
+
+    batches = list(tdata.batch_iterator(imgs, batch))
+    pf = tdata.ProcessPrefetcher(batches, workers=2)
+    try:
+        with env("LM_PREFETCH_TIMEOUT", "30"):
+            t0 = time.perf_counter()
+            for i in range(len(batches)):
+                pf.submit(i)
+            got = [pf.get(i) for i in range(len(batches))]
+            wall = time.perf_counter() - t0
+        same = all(np.array_equal(g, x) for g, x in zip(got, batches))
+        failed = pf._failed
+    finally:
+        pf.close()
+    log(f"data (b): ProcessPrefetcher alone, 2 workers, {len(batches)} batches of "
+        f"{batches[0].nbytes / 2**20:.0f} MiB: equal to the direct reads {same}, degraded "
+        f"{failed}, {wall:.3f} s (fork included)")
+    check(same and not failed, "ProcessPrefetcher alone: a batch differs or it degraded")
+    record["prefetcher alone s"] = wall
+    return record
+
+
+def debug_checks(lt, device, card):
+    """Phase 6i (c) and (d): one 64^3 b4 atlas step (bench.py's inputs, the
+    default route, K1-K7) with the debug mode on ``torch.equal`` to the step
+    with it off, its ms both ways; a NaN in one voxel of ``m`` raises
+    ``FloatingPointError`` naming a kernel; the mode off again.  Then
+    ``profiling``: ``device_time`` of the step, a ``trace`` around it
+    holding the port's kernels, a ``Timer``."""
+    import glob
+    import tempfile
+
+    from lagomorph_tpu_torch import lddmm, profiling
+    from lagomorph_tpu_torch.ops import kernels
+
+    metric = lt.FluidMetric(PARAMS)
+    I, m, img = bench_inputs(device, FULL64)
+
+    def grads(mm):
+        m_ = mm.detach().requires_grad_(True)
+        I_ = I.detach().requires_grad_(True)
+        loss, _ = lddmm._lddmm_loss(I_, m_, img, metric, REG_WEIGHT, STEPS)
+        return (*torch.autograd.grad(loss, (m_, I_)), loss.detach())
+
+    record = {}
+    out = {}
+    try:
+        for on in (False, True):
+            lt.set_debug_mode(on)
+            out[on], launched = counted(lambda: grads(m))
+            check(launched == STEP_LAUNCHES, f"debug={on}: launches {launched}")
+            record[f"step ms, debug {'on' if on else 'off'}"] = time_ms(lambda: grads(m), device, 3)
+        same = all(torch.equal(a, b) for a, b in zip(out[False], out[True]))
+        bad = m.clone()
+        bad[1, 2, 7, 9, 11] = float("nan")
+        try:
+            grads(bad)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+    finally:
+        lt.set_debug_mode(False)
+    named = raised is not None and any(raised.startswith(k) for k in kernels.KERNELS)
+    log(f"data (c): 64^3 b4 step (p, I_grad, loss) with the debug mode torch.equal to without: "
+        f"{same}; ms off {record['step ms, debug off']:.3f}, on {record['step ms, debug on']:.3f} "
+        f"[{card}]; a NaN in m raised: {raised!r}; mode off after: {not kernels.debug_mode()}")
+    check(same, "the debug mode changed the step")
+    check(named, "a NaN in m did not raise FloatingPointError naming a kernel")
+    check(not kernels.debug_mode(), "the debug mode is still on")
+
+    record["device_time ms"] = profiling.device_time(lambda: grads(m), warmup=1, iters=5) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            grads(m)
+        paths = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        check(len(paths) == 1, f"trace wrote {paths}")
+        ours = [e for e in device_events(paths[0])
+                if e.get("cat") == "kernel" and "lagomorph::" in e["name"]]
+    timer = profiling.Timer()
+    for _ in range(3):
+        with timer("step"):
+            grads(m)
+            torch.cuda.synchronize(device)
+    summary = timer.summary()
+    log(f"data (d): profiling.device_time of the step {record['device_time ms']:.3f} ms; "
+        f"profiling.trace caught {len(ours)} kernel events of the port "
+        f"({len({e['name'] for e in ours})} kernels); Timer {summary}")
+    check(len(ours) > 0, "profiling.trace holds no kernel of the port")
+    record["trace kernel events"] = len(ours)
+    record["timer mean ms"] = summary["step"]["mean_s"] * 1e3
+    return record
+
+
+def data_phase(lt, device, card):
+    """Phase 6i, the data path: (a) the datasets, (b) the builder's
+    loaders, (c) the debug mode, (d) profiling.  Prints one JSON line of
+    its numbers."""
+    import importlib
+
+    torch.cuda.empty_cache()  # phase 6h's cached blocks
+    t0 = time.perf_counter()
+    have = {}
+    for mod in OPTIONAL_MODULES:
+        try:
+            importlib.import_module(mod)
+            have[mod] = True
+        except ImportError:
+            have[mod] = False
+    log(f"data: on this machine these import: {have}")
+    record = {"card": card, "imports": have}
+    small, record["datasets"] = dataset_checks(device, card, have)
+    record["loaders"] = loader_checks(lt, device, card, small)
+    del small
+    record["debug and profiling"] = debug_checks(lt, device, card)
+    record["wall s"] = time.perf_counter() - t0
+    log(f"phase 6i: {record['wall s']:.1f} s")
+    log(json.dumps({"phase": "6i data", **record}))
+
+
 def run(device, card, trace_path=None):
     sys.path.insert(0, HERE)
     import lagomorph_tpu_torch as lt
@@ -3215,6 +3545,9 @@ def run(device, card, trace_path=None):
     affine_phase(lt, device, card)
     # 6h. the rest of the core API, the global warp mode and the models
     models_phase(lt, device, card)
+    # 6i. the data path: the datasets, the builder's loaders, the debug
+    # mode and profiling
+    data_phase(lt, device, card)
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,

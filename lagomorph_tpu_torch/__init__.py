@@ -28,8 +28,13 @@ adjoint actions of ``adjrep``, ``compose_vel_disp``, ``expmap_advect`` and
 the global warp mode ``set_warp_mode``) and the models of ``models``
 (``affine_register``, ``rigid_register``, ``lddmm_register``,
 ``MomentumNet``, ``DeepLDDMMAtlas``) run over the same ops and kernels.
-This package imports torch and numpy, never jax; ``h5py`` and ``tqdm``
-only where a file is read or written or a progress bar shown.
+The data tools (``data``: the datasets, the minibatch caches, the process
+prefetcher behind the builders' ``loader_mode="process"``, the HDF5 and
+Zarr files and ``python -m lagomorph_tpu_torch data``), the read-ahead
+cache of ``native`` behind ``dataloader_cache``, ``profiling``, ``vis``
+and :func:`set_debug_mode` complete the JAX package's API.  This package
+imports torch and numpy, never jax; ``h5py``, ``zarr``, ``numexpr``,
+``sklearn``, ``matplotlib`` and ``tqdm`` only where they are used.
 """
 from .ops import (
     affine_interp,
@@ -78,6 +83,20 @@ from .lddmm import (
     shooting_regime_ok,
 )
 
-from . import adjrep, affine, convert, data, deform, lddmm, metric, models, ops, utils
+from . import (adjrep, affine, convert, data, deform, lddmm, metric, models, native, ops,
+               profiling, utils, vis)
 
 __version__ = "0.1.0"
+
+
+def set_debug_mode(mode=True):
+    """Turn numerical debugging on (or off, ``mode=False``): every kernel
+    launch synchronises the device and raises its CUDA error under the
+    kernel's name, and every kernel wrapper, on the card or through its
+    plain version on the CPU, raises ``FloatingPointError`` naming the
+    kernel when an output holds a non-finite value.  The JAX package's
+    counterpart turns on ``jax_debug_nans``.  The mode is global to the
+    process and never switches a kernel to its plain version."""
+    from .ops import kernels
+
+    kernels.set_debug_mode(mode)

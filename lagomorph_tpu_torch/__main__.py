@@ -1,9 +1,8 @@
 """Top-level command line: ``python -m lagomorph_tpu_torch <module> <command>
-[args]``.
-
-The ``affine`` (``affine atlas``, ``affine standardize``) and ``lddmm``
-(``lddmm atlas``) modules are ported; the JAX package's ``data`` module is
-not.
+[args]``, the JAX package's three modules: ``affine`` (``affine atlas``,
+``affine standardize``), ``data`` (``average``, ``crop``, ``downscale``,
+``numexpr``, ``split``, ``splitcv``; host only, no ``--device``) and
+``lddmm`` (``lddmm atlas``).
 """
 import sys
 
@@ -14,21 +13,18 @@ class LagomorphTool(Tool):
     """Command line interface to lagomorph_tpu_torch commands"""
 
     module_name = "lagomorph_tpu_torch"
-    subcommands = ["affine", "lddmm"]
+    subcommands = ["affine", "data", "lddmm"]
 
     def _subtool(self, command):
         if command == "affine":
             from .affine import _Tool
+        elif command == "data":
+            from .data import _Tool
         elif command == "lddmm":
             from .lddmm import _Tool
         else:  # pragma: no cover
             raise ValueError(command)
         return _Tool
-
-    def _overview(self):
-        return super()._overview() + (
-            "\nnot ported: data (use python -m lagomorph_tpu)\n"
-        )
 
     def call_subcommand(self, command):
         del sys.argv[1]  # the module's tool reads its own command first

@@ -380,9 +380,14 @@ class LDDMMAtlasBuilder:
     the plain versions there).  ``dtype``: of the atlas, the momenta and
     the computation; ``image_dtype``: of the images on the device
     (``"bfloat16"`` halves their memory and transfers, and the loss
-    computes in ``dtype``).  Not ported: more than one process
-    (``world_size``, ``rank``), a device ``mesh`` and ``spatial_shard``, and
-    ``loader_mode="process"``; they raise at :meth:`initialize`.
+    computes in ``dtype``).  ``loader_workers`` threads stage the next
+    minibatch while the current step computes; with ``loader_mode=
+    "process"`` as many worker processes read its images from the host
+    (:class:`.data.ProcessPrefetcher`).  ``dataloader_cache``: a directory
+    for the minibatches' read-ahead cache (:class:`.native.NativeBatchCache`,
+    or :class:`.data.CachedDataLoader` where no ``g++`` is found).  Not
+    ported: more than one process (``world_size``, ``rank``), a device
+    ``mesh`` and ``spatial_shard``; they raise at :meth:`initialize`.
 
     The arguments become members, frozen after :meth:`initialize`.
     """
@@ -436,19 +441,17 @@ class LDDMMAtlasBuilder:
             )
         if self.loader_mode not in ("thread", "process"):
             raise ValueError(f"loader_mode must be 'thread' or 'process', not {self.loader_mode!r}")
-        if self.loader_mode == "process":
-            raise NotImplementedError(
-                "loader_mode='process' (worker processes reading the batches) is not "
-                "ported; use loader_mode='thread'"
-            )
         self._device = torch_device(self.device)
         self._num_examples = dataset_length(self.dataset)
         it = batch_iterator(self.dataset, self.batch_size, dtype=self.dtype)
         if self.dataloader_cache is not None:
-            # the random-access cache of .npy files (the JAX package's
-            # native read-ahead cache is not ported)
-            self._batches = CachedDataLoader(it, cache_dir=self.dataloader_cache,
-                                             progress_bar=self.progress_bar)
+            # the read-ahead cache, or where no g++ is found to build it, the
+            # cache of .npy files; a failed build or read raises
+            from .native import NativeBatchCache, native_available
+
+            cache = NativeBatchCache if native_available() else CachedDataLoader
+            self._batches = cache(it, cache_dir=self.dataloader_cache,
+                                  progress_bar=self.progress_bar)
         else:
             self._batches = list(it)
         self._n_iters = len(self._batches)
@@ -565,7 +568,8 @@ class LDDMMAtlasBuilder:
 
     def _staged(self, batch_index):
         """``(img, m, n)`` of one minibatch on the device, ``n`` its
-        subjects.  The momenta stream from the host; with
+        subjects.  The images come through the process prefetcher when
+        there is one; the momenta stream from the host.  With
         ``keep_data_on_device`` both are staged at the first use and stay,
         ``ms[batch_index]`` holding the device tensor."""
         image_dtype = None if self.image_dtype is None else _torch_dtype(self.image_dtype)
@@ -578,16 +582,28 @@ class LDDMMAtlasBuilder:
                 self.ms[batch_index] = self._put(self.ms[batch_index])
             img, n = self._dev_cache[batch_index]
             return img, self.ms[batch_index], n
-        img = self._put(self._batches[batch_index], image_dtype)
+        pf = getattr(self, "_img_prefetch", None)
+        img = pf.get(batch_index) if pf is not None else self._batches[batch_index]
+        img = self._put(img, image_dtype)
         return img, self._put(self.ms[batch_index]), img.shape[0]
 
     def _stage_async(self, batch_index):
         """Stage a minibatch on a thread of the loader pool (a Future), so
-        that its host read and copy to the device overlap the current step.
-        None when ``loader_workers`` is 0 or the data stays on the
-        device."""
+        that its host read and copy to the device overlap the current step;
+        with ``loader_mode="process"`` its images are first submitted to the
+        worker processes of a :class:`.data.ProcessPrefetcher` (forked at the
+        first submit), which own the read.  None when ``loader_workers`` is
+        0 or the data stays on the device."""
         if not self.loader_workers or self.keep_data_on_device:
             return None
+        if self.loader_mode == "process" and getattr(self, "_img_prefetch", None) is None:
+            from .data import ProcessPrefetcher
+
+            self._img_prefetch = ProcessPrefetcher(self._batches,
+                                                   workers=int(self.loader_workers))
+        if getattr(self, "_img_prefetch", None) is not None:
+            # before the staging threads start: the first submit forks
+            self._img_prefetch.submit(batch_index)
         if getattr(self, "_stage_pool", None) is None:
             from concurrent.futures import ThreadPoolExecutor
 
@@ -645,12 +661,16 @@ class LDDMMAtlasBuilder:
             self.close_loaders()
 
     def close_loaders(self):
-        """Shut the staging threads down (idempotent; they start again on
-        demand)."""
+        """Shut the staging threads and the prefetcher's worker processes
+        down (idempotent; they start again on demand)."""
         pool = getattr(self, "_stage_pool", None)
         if pool is not None:
             pool.shutdown(wait=True)
             self._stage_pool = None
+        pf = getattr(self, "_img_prefetch", None)
+        if pf is not None:
+            pf.close()
+            self._img_prefetch = None
 
 
 class _Tool(Tool):
@@ -685,11 +705,13 @@ class _Tool(Tool):
                         "copy to the device) while the current step computes; 0 stages "
                         "synchronously")
         dg.add_argument("--loader_mode", default="thread", choices=["thread", "process"],
-                        help="How loader_workers prefetch: 'thread' (threads); 'process' "
-                        "(worker processes) is not ported")
+                        help="How loader_workers prefetch: 'thread' stages in threads; "
+                        "'process' adds forked worker processes that read the images "
+                        "and hand them over through shared memory")
         dg.add_argument("--dataloader_cache", default=None, type=str,
                         help="Directory in which to cache minibatches for faster "
-                        "dataloading after the first pass")
+                        "dataloading after the first pass (raw files with background "
+                        "read-ahead, built with g++; .npy files where g++ is missing)")
         ag = parser.add_argument_group("algorithm parameters")
         ag.add_argument("--initial_atlas", default=None, type=str,
                         help="Path to h5 file with which to initialize image and momenta")

@@ -31,6 +31,13 @@ ordinary torch code, which autograd differentiates.
 Every kernel is a :class:`Kernel` record in :data:`KERNELS` whose
 ``launches`` counts the launches of that kernel (not the plain-version calls),
 so a run can show that its main path went through the kernels.
+
+The debug mode (:func:`set_debug_mode`, the package's ``set_debug_mode``)
+synchronises the device after every launch and raises its CUDA error under
+the entry point's name (``_build.call``), and makes every wrapper, kernel or
+plain version, raise ``FloatingPointError`` naming the kernel when an
+output holds a non-finite value (:func:`checked`).  It never switches a
+kernel to its plain version; while it is off nothing is added to a launch.
 """
 from __future__ import annotations
 
@@ -43,11 +50,14 @@ import torch
 __all__ = [
     "Kernel",
     "KERNELS",
+    "checked",
+    "debug_mode",
     "grad_needed",
     "launch_counts",
     "plain_versions",
     "reset_launches",
     "same_versions",
+    "set_debug_mode",
     "use_kernel",
 ]
 
@@ -82,6 +92,31 @@ def launch_counts() -> dict[str, int]:
 
 
 _PLAIN = contextvars.ContextVar("lagomorph_plain_versions", default=False)
+_DEBUG = False
+
+
+def set_debug_mode(mode: bool = True) -> None:
+    """Turn the debug mode on or off for every thread of the process."""
+    global _DEBUG
+    _DEBUG = bool(mode)
+
+
+def debug_mode() -> bool:
+    return _DEBUG
+
+
+def checked(kernel: Kernel, out):
+    """``out`` (a tensor or a tuple of them) of ``kernel``'s wrapper; in the
+    debug mode, ``FloatingPointError`` naming the kernel when a floating
+    output holds a non-finite value (the device is read to know)."""
+    if _DEBUG:
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and not bool(torch.isfinite(t).all())):
+                raise FloatingPointError(
+                    f"{kernel.name}: non-finite value in an output of shape "
+                    f"{tuple(t.shape)} (debug mode)")
+    return out
 
 
 @contextlib.contextmanager

@@ -18,6 +18,10 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
+from . import debug_mode
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -177,9 +181,16 @@ def library():
 
 
 def call(name, *args):
-    """Call C entry point ``name``; raise if it reports a CUDA error."""
+    """Call C entry point ``name``; raise if it reports a CUDA error.  In
+    the debug mode (``kernels.set_debug_mode``), synchronise the device
+    after it and raise an error of the launch's execution under ``name``."""
     lib = library()
     err = getattr(lib, name)(*args)
     if err != 0:
         msg = lib.lagomorph_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    if debug_mode():
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            raise RuntimeError(f"{name}: CUDA error after the launch (debug mode): {e}") from e

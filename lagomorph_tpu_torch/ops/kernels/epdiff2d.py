@@ -46,7 +46,7 @@ import ctypes
 
 import torch
 
-from . import _build, check_cuda_f32, grad_needed, register, stream_of, use_kernel
+from . import _build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel
 from .epdiff_unit import ad_star_bwd_plain, ad_star_plain, compose_bwd_plain, compose_plain
 
 AD_STAR = register(
@@ -140,7 +140,7 @@ def _launch_ad_star(phiinv, m0, want_mw=False, march=None):
         N, m0.shape[0], H, W, int(march), stream_of(phiinv),
     )
     AD_STAR.launches += 1
-    return (out, flag.bool(), mw) if want_mw else (out, flag.bool())
+    return checked(AD_STAR, (out, flag.bool(), mw) if want_mw else (out, flag.bool()))
 
 
 def _launch_compose(phiinv, v, s, march=None):
@@ -155,7 +155,7 @@ def _launch_compose(phiinv, v, s, march=None):
         N, H, W, int(march), stream_of(phiinv),
     )
     COMPOSE.launches += 1
-    return out, flag.bool()
+    return checked(COMPOSE, (out, flag.bool()))
 
 
 def fwd_launch_config(kernel: str, N: int, H: int, W: int, march: int = 0) -> dict:
@@ -202,7 +202,7 @@ def _launch_ad_star_bwd(phiinv, m0, g, mw, tile=None):
         N, m0.shape[0], H, W, int(tile), stream_of(phiinv),
     )
     AD_STAR_BWD.launches += 1
-    return d_p, d_m0
+    return checked(AD_STAR_BWD, (d_p, d_m0))
 
 
 def _launch_compose_bwd(phiinv, v, s, g):
@@ -215,7 +215,7 @@ def _launch_compose_bwd(phiinv, v, s, g):
         d_v.data_ptr(), N, H, W, stream_of(phiinv),
     )
     COMPOSE_BWD.launches += 1
-    return d_p, d_v
+    return checked(COMPOSE_BWD, (d_p, d_v))
 
 
 def bwd_launch_config(N: int, H: int, W: int, tile: int = 0) -> dict:
@@ -270,7 +270,7 @@ def ad_star2d(phiinv: torch.Tensor, m0: torch.Tensor):
     have batch 1.  The result is exact where the flag is true; under
     autograd its backward is K12."""
     if not use_kernel(phiinv):
-        return ad_star2d_plain(phiinv, m0)
+        return checked(AD_STAR, ad_star2d_plain(phiinv, m0))
     _check("ad_star2d", phiinv, m0)
     if m0.shape[0] not in (1, phiinv.shape[0]):
         raise ValueError(f"ad_star2d: m0 batch {m0.shape[0]} vs phiinv {phiinv.shape[0]}")
@@ -284,7 +284,7 @@ def compose2d(phiinv: torch.Tensor, v: torch.Tensor, s: float):
     batch.  The result is exact where the flag is true; under autograd its
     backward is K13."""
     if not use_kernel(phiinv):
-        return compose2d_plain(phiinv, v, s)
+        return checked(COMPOSE, compose2d_plain(phiinv, v, s))
     _check("compose2d", phiinv, v)
     if v.shape[0] != phiinv.shape[0]:
         raise ValueError(f"compose2d: v batch {v.shape[0]} vs phiinv {phiinv.shape[0]}")

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, check_cuda_f32, grad_needed, register, stream_of, use_kernel
+from . import _build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel
 from .warp_unit import sample_displacement_unit_bwd_plain
 from ..diff import jacobian_times_vectorfield, jacobian_times_vectorfield_adjoint
 from ..interp import in_unit
@@ -124,7 +124,7 @@ def _launch_ad_star(phiinv, m0, want_mw=False):
         N, m0.shape[0], X, Y, Z, 0, stream_of(phiinv),
     )
     AD_STAR.launches += 1
-    return (out, flag.bool(), mw) if want_mw else (out, flag.bool())
+    return checked(AD_STAR, (out, flag.bool(), mw) if want_mw else (out, flag.bool()))
 
 
 def _launch_compose(phiinv, v, s):
@@ -137,7 +137,7 @@ def _launch_compose(phiinv, v, s):
         N, X, Y, Z, 0, stream_of(phiinv),
     )
     COMPOSE.launches += 1
-    return out, flag.bool()
+    return checked(COMPOSE, (out, flag.bool()))
 
 
 def _launch_ad_star_bwd(phiinv, m0, g, mw):
@@ -152,7 +152,7 @@ def _launch_ad_star_bwd(phiinv, m0, g, mw):
         N, m0.shape[0], X, Y, Z, stream_of(phiinv),
     )
     AD_STAR_BWD.launches += 1
-    return d_p, d_m0
+    return checked(AD_STAR_BWD, (d_p, d_m0))
 
 
 def _launch_compose_bwd(phiinv, v, s, g):
@@ -165,7 +165,7 @@ def _launch_compose_bwd(phiinv, v, s, g):
         d_v.data_ptr(), N, X, Y, Z, stream_of(phiinv),
     )
     COMPOSE_BWD.launches += 1
-    return d_p, d_v
+    return checked(COMPOSE_BWD, (d_p, d_v))
 
 
 class _AdStar(torch.autograd.Function):
@@ -208,7 +208,7 @@ def ad_star(phiinv: torch.Tensor, m0: torch.Tensor):
     have batch 1.  The result is exact where the flag is true; under
     autograd its backward is K6."""
     if not use_kernel(phiinv):
-        return ad_star_plain(phiinv, m0)
+        return checked(AD_STAR, ad_star_plain(phiinv, m0))
     _check("ad_star", phiinv, m0)
     if m0.shape[0] not in (1, phiinv.shape[0]):
         raise ValueError(f"ad_star: m0 batch {m0.shape[0]} vs phiinv {phiinv.shape[0]}")
@@ -222,7 +222,7 @@ def compose(phiinv: torch.Tensor, v: torch.Tensor, s: float):
     batch.  The result is exact where the flag is true; under autograd its
     backward is K7."""
     if not use_kernel(phiinv):
-        return compose_plain(phiinv, v, s)
+        return checked(COMPOSE, compose_plain(phiinv, v, s))
     _check("compose", phiinv, v)
     if v.shape[0] != phiinv.shape[0]:
         raise ValueError(f"compose: v batch {v.shape[0]} vs phiinv {phiinv.shape[0]}")

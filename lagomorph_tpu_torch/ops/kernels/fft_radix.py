@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..fft_radix import fft_dif, fft_dit, fftn_br, is_pow2
-from . import _build, check_cuda_f32, grad_needed, register, stream_of, use_kernel
+from . import _build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel
 
 SOURCE = "lagomorph_tpu_torch/csrc/fft_radix.cu"
 KERNEL_ZY = register("fluid_radix_zy", source=SOURCE,
@@ -77,7 +77,7 @@ def _launch_zy(x, inverse):
                 y[:F].data_ptr(), y[F:].data_ptr(), F, X, Y, Z, int(bool(inverse)),
                 stream_of(x))
     KERNEL_ZY.launches += 1
-    return y
+    return checked(KERNEL_ZY, y)
 
 
 def _launch_x(x, Mbr):
@@ -87,7 +87,7 @@ def _launch_x(x, Mbr):
     _build.call("lagomorph_fluid_radix_x", x[:F].data_ptr(), x[F:].data_ptr(), Mbr.data_ptr(),
                 y[:F].data_ptr(), y[F:].data_ptr(), F, X, Y, Z, stream_of(x))
     KERNEL_X.launches += 1
-    return y
+    return checked(KERNEL_X, y)
 
 
 def _pipeline(x, Mbr):
@@ -135,7 +135,7 @@ def radix_zy(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     contiguous; no backward of its own: under autograd use
     :func:`fluid_radix`), the plain version on the CPU."""
     if not use_kernel(x):
-        return _halves(radix_zy_plain, x, inverse)
+        return checked(KERNEL_ZY, _halves(radix_zy_plain, x, inverse))
     _check("fluid_radix_zy", x)
     if grad_needed(x):
         raise RuntimeError("fluid_radix_zy has no backward alone; differentiate fluid_radix")
@@ -146,7 +146,7 @@ def radix_x(x: torch.Tensor, Mbr: torch.Tensor) -> torch.Tensor:
     """K15 on ``(2F, X, Y, Z)`` pairs from K14's forward, with the
     bit-reversed multiplier ``Mbr`` of shape ``(X, Y, Z)``."""
     if not use_kernel(x):
-        return _halves(radix_x_plain, x, Mbr)
+        return checked(KERNEL_X, _halves(radix_x_plain, x, Mbr))
     _check("fluid_radix_x", x, Mbr)
     if grad_needed(x):
         raise RuntimeError("fluid_radix_x has no backward alone; differentiate fluid_radix")
@@ -162,7 +162,7 @@ def fluid_radix(x: torch.Tensor, Mbr: torch.Tensor) -> torch.Tensor:
     axes; differentiable through the same launches), the plain version on
     the CPU."""
     if not use_kernel(x):
-        return fluid_radix_plain(x, Mbr)
+        return checked(KERNEL_ZY, fluid_radix_plain(x, Mbr))
     _check("fluid_radix", x, Mbr)
     if grad_needed(x):
         return _FluidRadix.apply(x, Mbr)

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, check_cuda_f32, grad_needed, register, stream_of, use_kernel
+from . import _build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel
 
 KERNEL = register(
     "fluid_flat",
@@ -80,7 +80,7 @@ def _launch(x, Mn):
         stream_of(x),
     )
     KERNEL.launches += 1
-    return y
+    return checked(KERNEL, y)
 
 
 class _FluidFlat(torch.autograd.Function):
@@ -107,7 +107,7 @@ def fluid_flat(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
     CUDA (float32, contiguous; differentiable through K3 itself), the plain
     version on the CPU."""
     if not use_kernel(x):
-        return fluid_flat_plain(x, Mn)
+        return checked(KERNEL, fluid_flat_plain(x, Mn))
     check_cuda_f32("fluid_flat", x, Mn)
     if x.dim() != 4 or x.shape[0] % 2 or tuple(Mn.shape) != tuple(x.shape[1:]):
         raise ValueError(

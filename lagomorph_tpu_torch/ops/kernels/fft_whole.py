@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from . import _build, check_cuda_f32, grad_needed, register, stream_of, use_kernel
+from . import _build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel
 from .fft_unit import fluid_flat_plain, needs_scratch
 
 KERNEL = register(
@@ -55,7 +55,7 @@ def _launch(x, Mn):
         stream_of(x),
     )
     KERNEL.launches += 1
-    return y
+    return checked(KERNEL, y)
 
 
 PATHS = ("plane", "line", "tile")
@@ -94,7 +94,7 @@ def fluid_whole(x: torch.Tensor, Mn: torch.Tensor) -> torch.Tensor:
     contiguous; differentiable through K16 itself), the plain version on
     the CPU."""
     if not use_kernel(x):
-        return fluid_flat_plain(x, Mn)
+        return checked(KERNEL, fluid_flat_plain(x, Mn))
     check_cuda_f32("fluid_whole", x, Mn)
     if x.dim() != 4 or x.shape[0] % 2 or tuple(Mn.shape) != tuple(x.shape[1:]):
         raise ValueError(

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from . import _build, check_cuda_f32, grad_needed, register, stream_of, use_kernel
+from . import _build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel
 from .epdiff_unit import ad_star_bwd_plain, ad_star_plain, compose_bwd_plain, compose_plain
 
 FWD = register(
@@ -115,6 +115,7 @@ def _launch_fwd(phiinv0, m0, Mn, s, T, stash, tile=0):
         N, m0.shape[0], H, W, int(T), float(s), int(tile), stream_of(phiinv0),
     )
     FWD.launches += 1
+    checked(FWD, out)  # the trajectories are the backward's stash
     return (out, flag.bool(), *traj) if stash else (out, flag.bool())
 
 
@@ -137,7 +138,7 @@ def _launch_bwd(m0, g, traj_p, traj_v, traj_mw, Mn, s, tile=0):
         N, Nm, H, W, T, float(s), int(tile), stream_of(g),
     )
     BWD.launches += 1
-    return d_phi0, d_m0
+    return checked(BWD, (d_phi0, d_m0))
 
 
 def _launch_config(entry, N, H, W, tile):
@@ -194,7 +195,7 @@ def shoot2d(phiinv0: torch.Tensor, m0: torch.Tensor, Mn: torch.Tensor, s: float,
     (``beta == 0``).  The kernel on CUDA (differentiable through K9), the
     plain version on the CPU."""
     if not use_kernel(phiinv0):
-        return shoot2d_fwd_plain(phiinv0, m0, Mn, s, T, stash=False)
+        return checked(FWD, shoot2d_fwd_plain(phiinv0, m0, Mn, s, T, stash=False))
     check_cuda_f32("shoot2d", phiinv0, m0, Mn)
     if phiinv0.dim() != 4 or phiinv0.shape[1] != 2 or min(phiinv0.shape[2:]) < 2:
         raise ValueError(f"shoot2d: phiinv0 must be (N, 2, H, W), H, W >= 2, got "

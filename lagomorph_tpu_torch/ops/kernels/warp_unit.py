@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import (_build, check_cuda_f32, grad_needed, register, stream_of,
+from . import (_build, check_cuda_f32, checked, grad_needed, register, stream_of,
                use_kernel)
 from ..sampling import sample_displacement_unit as sample_displacement_unit_plain
 
@@ -59,7 +59,7 @@ def _launch(I, disp):
         N, NI, C, X, Y, Z, stream_of(disp),
     )
     KERNEL.launches += 1
-    return out
+    return checked(KERNEL, out)
 
 
 def _launch_bwd(I, disp, g):
@@ -73,7 +73,7 @@ def _launch_bwd(I, disp, g):
         N, NI, C, X, Y, Z, stream_of(disp),
     )
     BWD.launches += 1
-    return dI, dd
+    return checked(BWD, (dI, dd))
 
 
 class _Warp(torch.autograd.Function):
@@ -97,7 +97,7 @@ def sample_displacement_unit(I: torch.Tensor, disp: torch.Tensor) -> torch.Tenso
     the plain version on the CPU; values equal
     :func:`..sampling.sample_displacement_unit`."""
     if not use_kernel(disp):
-        return sample_displacement_unit_plain(I, disp)
+        return checked(KERNEL, sample_displacement_unit_plain(I, disp))
     check_cuda_f32("sample_displacement_unit", I, disp)
     if disp.dim() != 5 or disp.shape[1] != 3:
         raise ValueError(f"disp must be (N, 3, X, Y, Z), got {tuple(disp.shape)}")

@@ -424,16 +424,18 @@ def test_builder_matches_jax(case, tmp_path):
 def test_builder_device_and_unported_options():
     """The builder runs on the card unless given a device: with no CUDA
     device it raises rather than fall back to the CPU.  What is not ported
-    raises at ``initialize``; the members freeze after it."""
+    raises at ``initialize``, as does an unknown ``loader_mode``; the
+    members freeze after it."""
     imgs = list(synth_images(2, 8, 2))
     kw = dict(num_epochs=1, batch_size=2, progress_bar=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lt.LDDMMAtlasBuilder(imgs, **kw).initialize()
-    for bad in ({"world_size": 2}, {"rank": 1}, {"mesh": object()}, {"spatial_shard": True},
-                {"loader_mode": "process"}):
+    for bad in ({"world_size": 2}, {"rank": 1}, {"mesh": object()}, {"spatial_shard": True}):
         with pytest.raises(NotImplementedError):
             lt.LDDMMAtlasBuilder(imgs, device="cpu", **kw, **bad).initialize()
+    with pytest.raises(ValueError, match="loader_mode"):
+        lt.LDDMMAtlasBuilder(imgs, device="cpu", loader_mode="fork", **kw).initialize()
     b = lt.LDDMMAtlasBuilder(imgs, device="cpu", **kw)
     b.initialize()
     with pytest.raises(Exception, match="cannot be overwritten"):

@@ -9,7 +9,9 @@ commands and their HDF5 files, on the CPU:
   momenta within 1e-4 of max|ref|, the two libraries' float32 FFTs
   rounding differently);
 * in process: ``--checkpoint`` and a warm start from it through
-  ``--initial_atlas``, ``--help``, ``--fluid_transform radix``,
+  ``--initial_atlas``, ``--help`` (with the ``data`` verbs' flags), the
+  process loader and the minibatch cache (equal to the default
+  staging), ``--fluid_transform radix``,
   ``--warp_mode`` (``lddmm atlas --warp_mode general`` against the JAX
   command with the same flags; ``affine atlas`` / ``affine standardize
   --warp_mode unit``) and the options that are not ported, which raise;
@@ -165,7 +167,23 @@ def test_cli_help(monkeypatch, capsys):
         run_tool(["--help"], monkeypatch)
     assert e.value.code == 0
     out = capsys.readouterr().out
-    assert "lddmm" in out and "affine" in out and "not ported: data" in out
+    assert "lddmm" in out and "affine" in out and "data" in out and "not ported" not in out
+    with pytest.raises(SystemExit) as e:
+        run_tool(["data", "--help"], monkeypatch)
+    out = capsys.readouterr().out
+    assert all(verb in out for verb in ("average", "crop", "downscale", "numexpr", "split",
+                                        "splitcv")), out
+    for verb, flags in (("average", ("--h5key", "--output_h5key", "--batch_size")),
+                        ("downscale", ("--key", "--scale", "--copy_other_keys")),
+                        ("crop", ("--slices", "--copy_other_keys")),
+                        ("numexpr", ("--expression", "--copy_other_keys")),
+                        ("split", ("--h5keys", "--test_size", "--random_seed", "--stratify_key")),
+                        ("splitcv", ("--num_folds", "--random_seed", "--stratify_key"))):
+        with pytest.raises(SystemExit) as e:
+            run_tool(["data", verb, "--help"], monkeypatch)
+        assert e.value.code == 0
+        out = capsys.readouterr().out
+        assert all(flag in out for flag in flags) and "--device" not in out, out
     with pytest.raises(SystemExit) as e:
         run_tool(["lddmm", "atlas", "--help"], monkeypatch)
     assert e.value.code == 0
@@ -212,7 +230,9 @@ def test_cli_fluid_transform_radix(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,error", [
     (["--spatial_shard"], NotImplementedError),
-    (["--loader_mode", "process", "--loader_workers", "1"], NotImplementedError),
+    # the process loader (ported) runs ahead of no refusal
+    (["--spatial_shard", "--loader_mode", "process", "--loader_workers", "1"],
+     NotImplementedError),
     ([], RuntimeError),  # the default device, cuda, on a machine without one
 ])
 def test_cli_unported_options_raise(tmp_path, monkeypatch, flags, error):
@@ -224,6 +244,27 @@ def test_cli_unported_options_raise(tmp_path, monkeypatch, flags, error):
         run_tool(["lddmm", "atlas", src, str(tmp_path / "out.h5"), "--num_epochs", "1",
                   *device, *flags], monkeypatch)
     assert not os.path.exists(tmp_path / "out.h5")
+
+
+def test_cli_loaders_match_the_default(tmp_path, monkeypatch):
+    """``--loader_mode process --loader_workers 2`` and
+    ``--dataloader_cache`` write the atlas, momenta and losses of the
+    default synchronous staging exactly."""
+    src = blobs(tmp_path / "imgs.h5", 5, 8, 2)
+    monkeypatch.setenv("LM_PREFETCH_TIMEOUT", "30")
+    args = ["--device", "cpu", *TRAIN]
+    outs = {}
+    for name, flags in (("default", []),
+                        ("process", ["--loader_mode", "process", "--loader_workers", "2"]),
+                        ("cache", ["--loader_mode", "process", "--loader_workers", "2",
+                                   "--dataloader_cache", str(tmp_path / "cache")])):
+        outs[name] = str(tmp_path / f"{name}.h5")
+        run_tool(["lddmm", "atlas", src, outs[name], *args, *flags], monkeypatch)
+    with h5py.File(outs["default"], "r") as ref:
+        for name in ("process", "cache"):
+            with h5py.File(outs[name], "r") as f:
+                for k in KEYS:
+                    np.testing.assert_array_equal(f[k][...], ref[k][...])
 
 
 @pytest.fixture

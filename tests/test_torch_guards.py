@@ -1,5 +1,5 @@
-"""Guards of the PyTorch port: it never imports jax, nor h5py or tqdm at
-import; ``chip_smoke.py`` refuses to run without a CUDA card, before
+"""Guards of the PyTorch port: it never imports jax, nor h5py, tqdm,
+matplotlib, sklearn, zarr or numexpr at import; ``chip_smoke.py`` refuses to run without a CUDA card, before
 building anything; and on the CPU, autograd through the plain versions of
 the atlas loss gives the JAX package's gradients (the reference the
 backward kernels will be held to).
@@ -38,6 +38,8 @@ def test_port_never_imports_jax():
                     "lagomorph_tpu_torch.data, lagomorph_tpu_torch.utils, "
                     "lagomorph_tpu_torch.affine, lagomorph_tpu_torch.__main__, "
                     "lagomorph_tpu_torch.models, lagomorph_tpu_torch.models.deep_atlas, "
+                    "lagomorph_tpu_torch.native, lagomorph_tpu_torch.native.batch_cache, "
+                    "lagomorph_tpu_torch.profiling, lagomorph_tpu_torch.vis, "
                     "chip_smoke, profile_warp, profile_radix, profile_shoot2d, profile_epdiff2d, "
                     "profile_atlas; "
                     "assert 'jax' not in sys.modules, 'jax imported'; "
@@ -46,24 +48,31 @@ def test_port_never_imports_jax():
     assert "clean" in r.stdout
 
 
+OPTIONAL = ("h5py", "tqdm", "matplotlib", "sklearn", "zarr", "numexpr")
+
+
 def test_port_imports_neither_h5py_nor_tqdm():
-    """Importing the package imports neither ``h5py`` nor ``tqdm`` (the
-    card's machine need not have them): the package and its CLI import
-    with both made unimportable, progress bars then show the bare
+    """Importing the package imports none of ``h5py``, ``tqdm``,
+    ``matplotlib``, ``sklearn``, ``zarr`` and ``numexpr`` (the card's
+    machine need not have them): the package, its CLI with the ``data``
+    command, ``data``, ``native``, ``profiling`` and ``vis`` import with
+    all of them made unimportable, progress bars then show the bare
     iterator, and after ``import torch`` (whose ``torch.hub`` imports tqdm
-    where it is installed) the package adds neither."""
-    r = _run(["-c", "import sys; sys.modules['h5py'] = sys.modules['tqdm'] = None; "
-                    "import lagomorph_tpu_torch as lt, lagomorph_tpu_torch.affine, "
-                    "lagomorph_tpu_torch.__main__; "
+    where it is installed) the package adds none of them."""
+    mods = ("lagomorph_tpu_torch as lt, lagomorph_tpu_torch.affine, "
+            "lagomorph_tpu_torch.__main__, lagomorph_tpu_torch.data, lagomorph_tpu_torch.native, "
+            "lagomorph_tpu_torch.profiling, lagomorph_tpu_torch.vis")
+    r = _run(["-c", f"import sys; sys.modules.update(dict.fromkeys({OPTIONAL!r})); "
+                    f"import {mods}; "
+                    "from lagomorph_tpu_torch.data import _Tool; "
                     "it = range(3); assert lt.utils.progress(it, 'x') is it; "
                     "print('bare')"])
     assert r.returncode == 0, r.stderr
     assert "bare" in r.stdout
     r = _run(["-c", "import sys, torch; before = set(sys.modules); "
-                    "import lagomorph_tpu_torch, lagomorph_tpu_torch.affine, "
-                    "lagomorph_tpu_torch.__main__; "
+                    f"import {mods}; "
                     "new = set(sys.modules) - before; "
-                    "bad = sorted(m for m in new if m.split('.')[0] in ('h5py', 'tqdm')); "
+                    f"bad = sorted(m for m in new if m.split('.')[0] in {OPTIONAL!r}); "
                     "assert 'h5py' not in sys.modules and not bad, bad; print('clean')"])
     assert r.returncode == 0, r.stderr
     assert "clean" in r.stdout
