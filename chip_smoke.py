@@ -15,7 +15,8 @@ metric and with ``FluidMetric([0.1, 0.05, 0.01])`` (``lddmm atlas
 --fluid_beta 0.05``), then the atlas builder over epochs, the affine
 stack that comes before it in the registration workflow, the rest of the
 core API and the models (``lddmm_register``, ``affine_register``,
-``rigid_register``, ``DeepLDDMMAtlas``):
+``rigid_register``, ``DeepLDDMMAtlas``), the data path, and the parallel
+paths (the spatially sharded step, a device mesh, processes):
 
 1. device: needs a CUDA card; prints the card's name and power limit;
 2. build: compiles the hand-written kernels from ``lagomorph_tpu_torch/csrc``
@@ -167,6 +168,24 @@ core API and the models (``lddmm_register``, ``affine_register``,
    the mode off after; (d) ``profiling.device_time`` of that step, a
    ``profiling.trace`` around it holding the port's kernels, a
    ``profiling.Timer``; one JSON line of its numbers;
+6j. (after 6i) ``parallel/``, every mesh entry and process on the one card,
+   so nothing here measures communication: (a) one spatially sharded atlas
+   step (``make_lddmm_atlas_step(spatial_mesh=...)``, bench.py's inputs) at
+   128^3 b4 over 2 and 4 X slabs and at 256^3 b1 over 4, the counters set
+   to 0 just before and read just after (K1, K2, K6, K7 once per slab per
+   substep, no other kernel), its loss against the dense kernel step's
+   (1e-5 relative), ``p`` against a float64 sharded run on the plain
+   versions (``P_TOL``), that run against the float64 dense run (1e-9 of
+   max), the ms of both steps and their peaks; (b) the builder (8 of 6f's
+   subjects at 128^3, 2 epochs, minibatches of 4 and of 3), ``affine_atlas``
+   at 128^3 b16 and ``DeepLDDMMAtlas`` on 16 subjects at 256^2, 1 epoch
+   each, with a mesh of 2 entries of the card against none (losses and
+   atlas 1e-6, momenta in relative L2 to ``P_TOL``); (c) two processes on
+   the card over gloo (the builder at 128^3, 8 subjects, 2 a minibatch
+   each, 2 epochs): both ranks equal, and equal to one process over the
+   same global minibatches; then a one-rank world on ``cpu:gloo,cuda:nccl``
+   (its collectives, and a builder epoch in it ``torch.equal`` to one
+   without); one JSON line of its numbers;
 7. timings: CUDA-event times of each kernel beside its plain version, the
    bound of its work on the card and, where one PyTorch call computes the
    same function, that call (K5's: ``grid_sampler_3d_backward`` and the sum
@@ -2369,7 +2388,7 @@ def atlas_builder(lt, device, card):
             b.epoch()
             torch.cuda.synchronize(device)
             walls.append(time.perf_counter() - t0)
-        img, m, _ = b._staged(0)
+        img, m = b._staged(0)[:2]
         step_ms = time_ms(lambda: float(b._step(b.I, m, img)[2]), device, 3, warmup=1)
         iters = n // batch
         log(f"epoch walls, {res}^3, {n} subjects b{batch}, "
@@ -3423,6 +3442,415 @@ def data_phase(lt, device, card):
     log(json.dumps({"phase": "6i data", **record}))
 
 
+# 6j. parallel/: the spatially sharded atlas step (X slabs on a mesh naming
+# the one card several times), data parallelism on such a mesh, and two
+# processes over torch.distributed
+SPATIAL_CASES = ((FULL, 2), (FULL, 4), (BIG, 4))  # shape, slabs
+# launches of one spatially sharded atlas step per slab: its 4 substeps'
+# K1 and K2 and their backwards K6 and K7; the fluid solves are the pencil
+# solve on torch.fft and the atlas warp the gather (no K3, K4, K5)
+SPATIAL_STEP_LAUNCHES = {"ad_star_fwd": STEPS - 1, "compose_fwd": STEPS - 1,
+                         "ad_star_bwd": STEPS - 1, "compose_bwd": STEPS - 1}
+# the sharded step's loss against the dense step's, through the kernels
+# (relative); the float64 sharded run (plain versions) against the float64
+# dense run: p and the loss, of max|ref|
+SPATIAL_LOSS_TOL, SPATIAL_F64_TOL = 1e-5, 1e-9
+# the builders and models with a 2-entry mesh against none: every loss
+# (relative) and the atlas (of max|ref|); the momenta and the affine
+# transforms in relative L2 norm, to their float32 gradients' own accuracy
+# against float64 (P_TOL, AFFINE_AT_TOL): a shard of the minibatch pairs
+# other subjects' components in K3's packed solve (x[:F] + i x[F:]), and
+# sums each subject's voxels in other blocks, so the gradients round
+# differently
+MESH_TOL, MESH_M_TOL = 1e-6, P_TOL
+MESH_BUILDER = (128, 8, 2)  # resolution, subjects, epochs (6f's subjects)
+MESH_AFFINE = (128, 32, 16, 1)  # resolution, subjects, batch, epochs (6g's)
+MESH_DEEP = (256, 16, 8, 1)  # 6h's 2D DeepLDDMMAtlas, one epoch
+# two processes on the card (gloo), each 2 subjects a minibatch, against one
+# process over the same global minibatches: losses (relative), the atlas
+# (of max|ref|), the momenta as the mesh's
+MP_BUILDER = (128, 8, 2, 2)  # resolution, subjects, per-process batch, epochs
+MP_TOL = 1e-5
+MP_TIMEOUT_S = 300
+
+
+def spatial_grads(metric, mesh, I, m, img, dtype, plain):
+    """The momentum gradient ``p`` and the loss of ``sharded_atlas_loss`` on
+    X slabs of ``mesh``, in ``dtype``, through the kernels or the plain
+    versions (float64 rematerialises the substeps, to bound its memory)."""
+    from lagomorph_tpu_torch.ops import kernels
+    from lagomorph_tpu_torch.parallel import sharded_atlas_loss, spatial_sharding
+    from lagomorph_tpu_torch.parallel.mesh import Sharded
+
+    sp = spatial_sharding(mesh, 5)
+    ms, Is = (Sharded([x.detach().requires_grad_(True) for x in sp.put(v.detach().to(dtype))],
+                      2, mesh) for v in (m, I))
+    with kernels.plain_versions() if plain else contextlib.nullcontext():
+        loss, _ = sharded_atlas_loss(metric, Is, ms, sp.put(img.to(dtype)), mesh,
+                                     reg_weight=REG_WEIGHT, num_steps=STEPS,
+                                     checkpoints=dtype == torch.float64)
+        grads = torch.autograd.grad(loss, [*ms, *Is])
+    return ms.like(list(grads[:mesh.size])).gather(), float(loss.detach())
+
+
+def dense_grads64(metric, I, m, img):
+    """``p`` and the loss of the dense ``_lddmm_loss`` in float64 on the
+    plain versions (substeps rematerialised)."""
+    from lagomorph_tpu_torch import lddmm
+    from lagomorph_tpu_torch.ops import kernels
+
+    with kernels.plain_versions():
+        m_ = m.detach().double().requires_grad_(True)
+        I_ = I.detach().double().requires_grad_(True)
+        loss, _ = lddmm._lddmm_loss(I_, m_, img.double(), metric, REG_WEIGHT, STEPS, True)
+        return torch.autograd.grad(loss, (m_, I_))[0], float(loss.detach())
+
+
+def peak_of(fn, device):
+    """``fn()``'s peak device memory in GiB."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def spatial_checks(lt, device, card):
+    """Phase 6j (a): one spatially sharded atlas step (bench.py's inputs)
+    at 128^3 b4 over 2 and 4 slabs and at 256^3 b1 over 4, every slab on the
+    one card: its launches (K1, K2, K6, K7 once per slab per substep, no
+    other kernel), its loss against the dense kernel step's, its ``p``
+    against a float64 sharded run on the plain versions, that run against
+    the float64 dense run, and the ms of both steps with their peaks."""
+    from lagomorph_tpu_torch.parallel import spatial_sharding
+    from lagomorph_tpu_torch.parallel.mesh import Mesh
+
+    metric = lt.FluidMetric(PARAMS)
+    record = {}
+    for shape, n in SPATIAL_CASES:
+        label = f"{shape[2]}^3 b{shape[0]} over {n} slabs"
+        I, m, img = bench_inputs(device, shape)
+        mesh = Mesh([device] * n)
+        sp = spatial_sharding(mesh, 5)
+        dense = make_step(lt, metric)
+        spatial = lt.make_lddmm_atlas_step(metric, reg_weight=REG_WEIGHT,
+                                           learning_rate_pose=LR_POSE, lddmm_steps=1,
+                                           integration_steps=STEPS, spatial_mesh=mesh)
+        Is, ms, imgs = sp.put(I), sp.put(m), sp.put(img)
+        loss_d = float(dense(I, m, img)[2])
+        torch.cuda.synchronize(device)
+        out, launched = counted(lambda: spatial(Is, ms, imgs))
+        loss_s = float(out[2])
+        want = {k: v * n for k, v in SPATIAL_STEP_LAUNCHES.items()}
+        rel = abs(loss_s - loss_d) / abs(loss_d)
+        check(len(out[0]) == n and all(tuple(x.shape) == (shape[0], 3, shape[2] // n) + shape[3:]
+                                       for x in out[0]), f"spatial {label}: slabs of the wrong shape")
+        check(all(bool(torch.isfinite(x).all()) for x in (*out[0], *out[1])),
+              f"spatial {label}: non-finite momenta or atlas gradient")
+        check(launched == want, f"spatial {label}: launches {launched}, want {want}")
+        check(rel <= SPATIAL_LOSS_TOL, f"spatial {label}: loss {loss_s!r} against the dense "
+              f"step's {loss_d!r}: {rel:.3e} > {SPATIAL_LOSS_TOL:g}")
+        p32, _ = spatial_grads(metric, mesh, I, m, img, torch.float32, plain=False)
+        p64, l64 = spatial_grads(metric, mesh, I, m, img, torch.float64, plain=True)
+        pd64, ld64 = dense_grads64(metric, I, m, img)
+        p_rel = rel_l2(p32, p64)
+        f64_err = max_err(p64, pd64) / float(pd64.abs().max())
+        f64_loss = abs(l64 - ld64) / abs(ld64)
+        del p32, p64, pd64
+        check(p_rel <= P_TOL, f"spatial {label}: p against float64 {p_rel:.3e} > {P_TOL:g}")
+        check(f64_err <= SPATIAL_F64_TOL and f64_loss <= SPATIAL_F64_TOL,
+              f"spatial {label}: float64 sharded against dense: p {f64_err:.3e}, loss "
+              f"{f64_loss:.3e} > {SPATIAL_F64_TOL:g}")
+        ms_s = time_ms(lambda: spatial(Is, ms, imgs), device, 3)
+        ms_d = time_ms(lambda: dense(I, m, img), device, 3)
+        peak_s = peak_of(lambda: spatial(Is, ms, imgs), device)
+        peak_d = peak_of(lambda: dense(I, m, img), device)
+        log(f"spatial {label}: loss {loss_s!r} (dense {loss_d!r}, rel {rel:.3e}); p against "
+            f"float64 sharded rel l2 {p_rel:.3e} (tol {P_TOL:g}); float64 sharded against dense "
+            f"p {f64_err:.3e}, loss {f64_loss:.3e} of max (tol {SPATIAL_F64_TOL:g}); launches "
+            f"{launched}; step {ms_s:.3f} ms, peak {peak_s:.3f} GiB (dense step {ms_d:.3f} ms, "
+            f"peak {peak_d:.3f} GiB); the slabs share one card, so nothing here measures "
+            f"communication [{card}]")
+        record[label] = {"loss rel to dense": rel, "p rel l2 to float64": p_rel,
+                         "float64 sharded vs dense p": f64_err, "launches": launched,
+                         "step ms": ms_s, "dense step ms": ms_d, "peak GiB": peak_s,
+                         "dense peak GiB": peak_d}
+        del I, m, img, Is, ms, imgs, out
+        torch.cuda.empty_cache()
+    return record
+
+
+def rel_max(got, ref):
+    return max_err(got, ref) / float(ref.double().abs().max())
+
+
+def mesh_diff(got, ref):
+    """(largest relative loss difference, atlas max abs difference of
+    max|ref|, momenta relative L2 difference, momenta max abs difference of
+    max|ref|) of two ``builder_state``s."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got[2], ref[2]))
+    mg, mr = torch.cat(got[1]), torch.cat(ref[1])
+    return loss, rel_max(got[0], ref[0]), rel_l2(mg, mr), rel_max(mg, mr)
+
+
+def mesh_checks(lt, device, card):
+    """Phase 6j (b): the builder (8 of 6f's subjects at 128^3, 2 epochs, in
+    minibatches of 4 and of 3: padding and the mask) with a 2-entry mesh of
+    the card against no mesh, its launches the step's twice an iteration;
+    ``affine_atlas`` at 128^3 b16 for 1 epoch and ``DeepLDDMMAtlas`` on 16
+    subjects at 256^2 for 1 epoch, each with a 2-entry mesh against none."""
+    from profile_atlas import e2e_builder, subjects
+    from lagomorph_tpu_torch.models import DeepLDDMMAtlas
+    from lagomorph_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([device] * 2)
+    record = {}
+    res, n, epochs = MESH_BUILDER
+    imgs = list(subjects(res, n, 2.0, device))
+    for batch in (4, 3):
+        runs = {}
+        for label, kw in (("none", {}), ("mesh", {"mesh": mesh})):
+            b = e2e_builder(lt, imgs, device, epochs, batch, **kw)
+            launched, wall, peak = builder_run(b)
+            runs[label] = (builder_state(b), launched, wall)
+        iters = epochs * -(-n // batch)
+        want = want_launches(STEP_LAUNCHES, 2 * iters)
+        diffs = mesh_diff(runs["mesh"][0], runs["none"][0])
+        log(f"mesh builder, {n} subjects at {res}^3 b{batch} over 2 entries, {epochs} epochs: "
+            f"losses rel {diffs[0]:.3e}, atlas {diffs[1]:.3e} of max (tol {MESH_TOL:g}), momenta "
+            f"rel l2 {diffs[2]:.3e} (tol {MESH_M_TOL:g}), {diffs[3]:.3e} of max; walls "
+            f"{runs['mesh'][2]:.3f} s (no mesh {runs['none'][2]:.3f} s); launches "
+            f"{runs['mesh'][1]} [{card}]")
+        check(runs["mesh"][1] == want, f"mesh builder b{batch}: launches {runs['mesh'][1]}, "
+              f"want {want}")
+        check(diffs[0] <= MESH_TOL and diffs[1] <= MESH_TOL and diffs[2] <= MESH_M_TOL,
+              f"mesh builder b{batch}: {diffs}")
+        record[f"builder b{batch}"] = {"losses rel": diffs[0], "atlas": diffs[1],
+                                       "momenta rel l2": diffs[2], "momenta of max": diffs[3],
+                                       "wall s": runs["mesh"][2],
+                                       "no mesh wall s": runs["none"][2]}
+    del imgs
+
+    res, n, batch, epochs = MESH_AFFINE
+    items = list(affine_subjects(res, n, device))
+    out = {}
+    for label, kw in (("none", {}), ("mesh", {"mesh": mesh})):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out[label] = lt.affine_atlas(items, np.zeros((n, 3, 3), np.float32),
+                                     np.zeros((n, 3), np.float32), num_epochs=epochs,
+                                     batch_size=batch, device=device, progress_bar=False,
+                                     **AFFINE_RATES, **kw)
+        torch.cuda.synchronize(device)
+        out[label] += (time.perf_counter() - t0,)
+    got, ref = out["mesh"], out["none"]
+    As, Ts = ((torch.from_numpy(got[k]), torch.from_numpy(ref[k])) for k in (1, 2))
+    diffs = {"losses rel": max(abs(a - b) / abs(b) for a, b in zip(got[4], ref[4])),
+             "atlas": rel_max(got[0], ref[0]), "As rel l2": rel_l2(*As),
+             "Ts rel l2": rel_l2(*Ts), "As of max": rel_max(*As), "Ts of max": rel_max(*Ts)}
+    log(f"mesh affine_atlas, {n} subjects at {res}^3 b{batch} over 2 entries, {epochs} epoch: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()) + f" (tol: losses and atlas "
+        f"{MESH_TOL:g}, As and Ts rel l2 {AFFINE_AT_TOL:g}); {got[5]:.3f} s (no mesh "
+        f"{ref[5]:.3f} s) [{card}]")
+    check(diffs["losses rel"] <= MESH_TOL and diffs["atlas"] <= MESH_TOL
+          and diffs["As rel l2"] <= AFFINE_AT_TOL and diffs["Ts rel l2"] <= AFFINE_AT_TOL,
+          f"mesh affine_atlas: {diffs}")
+    record["affine_atlas"] = {**diffs, "s": got[5], "no mesh s": ref[5]}
+    del items, out, got, ref
+
+    res, n, batch, epochs = MESH_DEEP
+    imgs = list(deep_subjects(res, n, 2, device))
+    models = {}
+    for label, kw in (("none", {}), ("mesh", {"mesh": mesh})):
+        model = DeepLDDMMAtlas(imgs, metric=lt.FluidMetric(DEEP_PARAMS), batch_size=batch,
+                               progress_bar=False, device=device, **DEEP, **kw)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        model.fit(num_epochs=epochs)
+        torch.cuda.synchronize(device)
+        models[label] = (model, time.perf_counter() - t0)
+    got, ref = models["mesh"][0], models["none"][0]
+    net = max(rel_max(a.detach(), b.detach())
+              for a, b in zip(got.net.parameters(), ref.net.parameters()))
+    diffs = {"losses rel": max(abs(a - b) / abs(b)
+                               for a, b in zip(got.epoch_losses, ref.epoch_losses)),
+             "atlas": rel_max(got.I, ref.I)}
+    log(f"mesh DeepLDDMMAtlas, {n} subjects at {res}^2 b{batch} over 2 entries, {epochs} epoch: "
+        f"epoch losses rel {diffs['losses rel']:.3e}, atlas {diffs['atlas']:.3e} (tol "
+        f"{MESH_TOL:g}); the net's parameters {net:.3e} of max; {models['mesh'][1]:.3f} s (no "
+        f"mesh {models['none'][1]:.3f} s) [{card}]")
+    check(all(v <= MESH_TOL for v in diffs.values()), f"mesh DeepLDDMMAtlas: {diffs}")
+    record["DeepLDDMMAtlas"] = {**diffs, "net params": net, "s": models["mesh"][1],
+                                "no mesh s": models["none"][1]}
+    return record
+
+
+def mp_worker(mode, rank, world, port, outdir):
+    """One process of phase 6j (c), on the card: ``gloo``, rank ``rank`` of
+    a ``world`` over TCP, runs the builder over its shard of
+    ``MP_BUILDER``'s subjects; ``nccl``, a one-rank world started as the
+    command line starts one (``cpu:gloo,cuda:nccl``), sums a CUDA tensor
+    (NCCL) and a host float64 one (gloo), runs one epoch of the builder in
+    the group and one without.  Writes its results to ``outdir``."""
+    import argparse as _argparse
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import lagomorph_tpu_torch as lt
+    from lagomorph_tpu_torch.ops import kernels
+    from lagomorph_tpu_torch.ops.kernels import _build
+    from lagomorph_tpu_torch.utils import _init_process_group
+    from profile_atlas import e2e_builder, subjects
+
+    rank, world = int(rank), int(world)
+    device = torch.device("cuda", 0)
+    _build.library()
+    res, n, batch, epochs = MP_BUILDER
+    imgs = list(subjects(res, n, 2.0, device))
+    out = {}
+    if mode == "gloo":
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+        b = e2e_builder(lt, imgs, device, epochs, batch)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        b.run()
+        torch.cuda.synchronize(device)
+        out["wall"] = np.float64(time.perf_counter() - t0)
+        out["launches"] = np.asarray(json.dumps(
+            {k: c for k, c in kernels.launch_counts().items() if c}))
+        out.update(atlas=b.I.cpu().numpy(), momenta=np.concatenate(b._momenta_host()),
+                   iter_losses=np.asarray(b.iter_losses), epoch_losses=np.asarray(b.epoch_losses),
+                   world=np.int64(b._world))
+    else:
+        _init_process_group(_argparse.Namespace(coordinator_address=f"127.0.0.1:{port}",
+                                                num_processes=1, process_id=0), device)
+        out["backend"] = np.asarray(str(dist.get_backend()))
+        x = torch.arange(4, dtype=torch.float32, device=device)
+        dist.all_reduce(x)
+        h = torch.arange(3, dtype=torch.float64)
+        dist.all_reduce(h)
+        out["collectives"] = np.asarray(bool(torch.equal(x.cpu(), torch.arange(4.0)))
+                                        and bool(torch.equal(h, torch.arange(3.0, dtype=h.dtype))))
+        states = []
+        for grouped in (True, False):
+            if not grouped:
+                dist.destroy_process_group()
+            b = e2e_builder(lt, imgs, device, 1, 4)
+            b.run()
+            states.append(builder_state(b))
+        out["equal"] = np.asarray(bool(
+            torch.equal(states[0][0], states[1][0]) and states[0][2] == states[1][2]
+            and all(torch.equal(a, c) for a, c in zip(states[0][1], states[1][1]))))
+    np.savez(os.path.join(outdir, f"{mode}{rank}.npz"), **out)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_workers(mode, world, outdir):
+    """Run ``world`` processes of :func:`mp_worker` (``mode``), each with a
+    timeout; every process is ended before this returns."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-worker", mode,
+                               str(r), str(world), str(port), outdir], cwd=HERE, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{mode} worker {r} failed:\n{o[-3000:]}")
+    return [dict(np.load(os.path.join(outdir, f"{mode}{r}.npz"))) for r in range(world)]
+
+
+def process_checks(lt, device, card):
+    """Phase 6j (c): two processes on the card over gloo (the builder at
+    ``MP_BUILDER``): both ranks hold the same atlas and losses, equal to one
+    process over the same global minibatches (the subjects reordered as
+    tests/test_multiprocess.py reorders them); then a one-rank world on
+    ``cpu:gloo,cuda:nccl``."""
+    import tempfile
+
+    from profile_atlas import e2e_builder, subjects
+
+    res, n, batch, epochs = MP_BUILDER
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        r0, r1 = spawn_workers("gloo", 2, tmp)
+        wall = time.perf_counter() - t0
+        imgs = subjects(res, n, 2.0, device)
+        shard0, shard1 = list(range(0, n, 2)), list(range(1, n, 2))
+        order = []
+        for k in range(len(shard0) // batch):
+            order += shard0[k * batch:(k + 1) * batch] + shard1[k * batch:(k + 1) * batch]
+        b = e2e_builder(lt, [imgs[i] for i in order], device, epochs, 2 * batch)
+        builder_run(b)
+        ref = builder_state(b)
+        ms_ref = torch.cat(ref[1])
+        mp = torch.zeros_like(ms_ref)
+        for r, rr in enumerate((r0, r1)):
+            for subj, m in zip(range(r, n, 2), rr["momenta"]):
+                mp[order.index(subj)] = torch.from_numpy(m).double()
+        t = torch.from_numpy
+        ranks = (max_err(t(r0["atlas"]), t(r1["atlas"])),
+                 float(np.abs(r0["iter_losses"] - r1["iter_losses"]).max()))
+        diffs = {"losses rel": max(abs(a - b) / abs(b) for a, b in zip(r0["iter_losses"], ref[2])),
+                 "atlas": rel_max(t(r0["atlas"]), ref[0]),
+                 "momenta rel l2": rel_l2(mp, ms_ref), "momenta of max": rel_max(mp, ms_ref)}
+        log(f"processes: 2 gloo processes on the card, {n} subjects at {res}^3, {batch} a "
+            f"minibatch each, {epochs} epochs, world {int(r0['world'])}: rank 0 against rank 1 "
+            f"atlas {ranks[0]:.3e}, losses {ranks[1]:.3e}; against one process over the global "
+            f"minibatches: " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+            + f" (tol {MP_TOL:g}, momenta rel l2 {MESH_M_TOL:g}); launches per rank {str(r0['launches'])}; walls "
+            f"{float(r0['wall']):.2f}, {float(r1['wall']):.2f} s (spawn to exit {wall:.2f} s) "
+            f"[{card}]")
+        check(int(r0["world"]) == 2, "processes: the builder did not see two processes")
+        check(ranks == (0.0, 0.0), f"processes: the ranks differ: {ranks}")
+        check(diffs["losses rel"] <= MP_TOL and diffs["atlas"] <= MP_TOL
+              and diffs["momenta rel l2"] <= MESH_M_TOL, f"processes: {diffs}")
+        record["gloo"] = {**diffs, "rank walls s": [float(r0["wall"]), float(r1["wall"])],
+                          "spawn to exit s": wall}
+
+        (w,) = spawn_workers("nccl", 1, tmp)
+        log(f"processes: one-rank world, backend {str(w['backend'])}: an all_reduce of a CUDA "
+            f"tensor and of a host float64 tensor right: {bool(w['collectives'])}; one builder "
+            f"epoch in the group torch.equal to one without: {bool(w['equal'])}; no NCCL traffic "
+            f"between two cards ran (one card)")
+        check(bool(w["collectives"]) and bool(w["equal"]), "one-rank NCCL world failed")
+        record["nccl one rank"] = {"backend": str(w["backend"]), "equal": bool(w["equal"])}
+    return record
+
+
+def parallel_phase(lt, device, card):
+    """Phase 6j, ``parallel/``: (a) the spatially sharded step, (b) data
+    parallelism on a mesh, (c) processes.  Prints one JSON line of its
+    numbers."""
+    torch.cuda.empty_cache()  # phase 6i's cached blocks
+    t0 = time.perf_counter()
+    record = {"card": card}
+    record["spatial"] = spatial_checks(lt, device, card)
+    record["mesh"] = mesh_checks(lt, device, card)
+    record["processes"] = process_checks(lt, device, card)
+    record["wall s"] = time.perf_counter() - t0
+    log(f"phase 6j: {record['wall s']:.1f} s")
+    log(json.dumps({"phase": "6j parallel", **record}))
+
+
 def run(device, card, trace_path=None):
     sys.path.insert(0, HERE)
     import lagomorph_tpu_torch as lt
@@ -3548,6 +3976,8 @@ def run(device, card, trace_path=None):
     # 6i. the data path: the datasets, the builder's loaders, the debug
     # mode and profiling
     data_phase(lt, device, card)
+    # 6j. parallel/: the spatially sharded step, a mesh, processes
+    parallel_phase(lt, device, card)
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
@@ -3567,7 +3997,11 @@ def main():
                          "and 5 whole-volume steps at 64^3 b4 (_steps64_whole) with "
                          "torch.profiler, and print the device time by kernel and the "
                          "busy share")
+    ap.add_argument("--mp-worker", nargs=5, metavar=("MODE", "RANK", "WORLD", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mp_worker and torch.cuda.is_available():
+        return mp_worker(*args.mp_worker)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)

@@ -1,7 +1,8 @@
 """lagomorph_tpu_torch: the PyTorch and CUDA port of lagomorph_tpu.
 
 The LDDMM atlas builder (``LDDMMAtlasBuilder``, ``lddmm_atlas`` and
-``python -m lagomorph_tpu_torch lddmm atlas``) on one device, over its atlas
+``python -m lagomorph_tpu_torch lddmm atlas``) on one device, on a device
+mesh, over several processes or spatially sharded (``parallel``), over its atlas
 step in 3D and 2D: geodesic shooting of momenta to an
 inverse deformation, the atlas warp, the atlas loss, its gradients and the
 update of the momenta (``make_lddmm_atlas_step``), forward and backward on
@@ -84,7 +85,7 @@ from .lddmm import (
 )
 
 from . import (adjrep, affine, convert, data, deform, lddmm, metric, models, native, ops,
-               profiling, utils, vis)
+               parallel, profiling, utils, vis)
 
 __version__ = "0.1.0"
 

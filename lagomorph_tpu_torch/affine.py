@@ -5,7 +5,7 @@ helpers (closed-form 2x2 and 3x3 inverses, ``affine_inverse``,
 ``rotation_exp_map``, ``rigid_inverse``), the per-minibatch affine atlas
 update (``make_affine_atlas_step``: the affine warp, the mean squared
 error and ridge terms, their gradients by autograd, SGD on the transforms),
-the epoch loop of :func:`affine_atlas` on one device,
+the epoch loop of :func:`affine_atlas` on one device or a device mesh,
 :class:`StandardizedDataset` and the ``affine atlas`` / ``affine
 standardize`` commands.  The warp is plain PyTorch on the general gather
 (:func:`.ops.affine.affine_interp`), as in the JAX package, where it reaches
@@ -119,7 +119,7 @@ def rigid_inverse(v, T):
 # --- atlas building --------------------------------------------------------
 
 def make_affine_atlas_step(spatial_dim, affine_steps=1, reg_weightA=0.0, reg_weightT=0.0,
-                           learning_rate_A=1e-3, learning_rate_T=1e-2):
+                           learning_rate_A=1e-3, learning_rate_T=1e-2, mesh=None):
     """The per-minibatch affine atlas update.
 
     Returns ``step(I, A, T, img, mask=None) -> (A, T, I_grad, loss)``:
@@ -128,8 +128,15 @@ def make_affine_atlas_step(spatial_dim, affine_steps=1, reg_weightA=0.0, reg_wei
     the atlas's spatial size plus the ridge terms ``0.5 w |A|^2`` and ``0.5
     w |T|^2`` where their weights are > 0, averaged over the subjects
     (``mask``: over the subjects it weights).  The atlas gradient and the
-    loss are those of the last step."""
-    def loss_fn(A, T, I, img, mask):
+    loss are those of the last step.
+
+    ``mesh`` (a :class:`.parallel.mesh.Mesh`): the subjects are split over
+    its entries (``img`` may come split, a :class:`.parallel.mesh.Sharded`;
+    ``A``, ``T``, ``mask`` and ``I`` are tensors on the first entry, the
+    atlas copied to the others), each entry's masked sum is added on the
+    first and divided by ``sum(mask)``; the JAX package's step jitted with
+    the batch sharded over the mesh."""
+    def per_subject(A, T, I, img):
         eye = torch.eye(spatial_dim, dtype=A.dtype, device=A.device)
         Idef = affine_interp(I, A + eye, T)
         numel = 1.0
@@ -141,6 +148,21 @@ def make_affine_atlas_step(spatial_dim, affine_steps=1, reg_weightA=0.0, reg_wei
             per = per + 0.5 * reg_weightA * torch.sum(A * A, dim=(1, 2))
         if reg_weightT > 0:
             per = per + 0.5 * reg_weightT * torch.sum(T * T, dim=1)
+        return per
+
+    def loss_fn(A, T, I, img, mask):
+        if mesh is not None:
+            from .parallel.mesh import as_shards
+
+            if mask is None:
+                mask = torch.ones(A.shape[0], dtype=A.dtype, device=A.device)
+            parts = (as_shards(x, mesh, 0) for x in (A, T, img, mask))
+            total = None
+            for Ak, Tk, ik, mk in zip(*parts):
+                part = torch.sum(per_subject(Ak, Tk, I.to(Ak.device), ik) * mk).to(A.device)
+                total = part if total is None else total + part
+            return total / torch.sum(mask)
+        per = per_subject(A, T, I, img)
         if mask is None:
             return torch.sum(per) / img.shape[0]
         return torch.sum(per * mask) / torch.sum(mask)
@@ -187,20 +209,19 @@ def affine_atlas(dataset, As, Ts, I=None, num_epochs=1000, batch_size=50, image_
     (``keep_data_on_device``: the images are staged once and each
     minibatch's transforms stay on the device, written back at the end).
     ``device``: a torch device, the first CUDA card when None (no fallback
-    to the CPU).  ``loader_workers`` and ``gpu`` are accepted and unused;
-    a ``mesh`` and more than one process (``world_size``, ``rank``) are not
-    ported and raise.
+    to the CPU).  ``mesh`` (a :class:`.parallel.mesh.Mesh`; ``device`` is
+    then its first entry): each minibatch is padded to a multiple of the
+    mesh size (the padded subjects masked out) and split over it
+    (:func:`make_affine_atlas_step` with ``mesh``).  ``loader_workers``,
+    ``gpu``, ``world_size`` and ``rank`` are accepted and unused, as in the
+    JAX package.
 
     Returns ``(I, As, Ts, epoch_losses, iter_losses)``, ``I`` a tensor
     ``(1, 1, *spatial)`` on the device."""
     from .data import IndexedDataset, batch_average, batch_iterator
+    from .parallel import pad_batch_to_multiple, shard_batch
 
-    if mesh is not None or world_size not in (None, 1) or rank not in (None, 0):
-        raise NotImplementedError(
-            "more than one process and a device mesh are not ported (ROADMAP.md A.9): "
-            "affine_atlas runs one process on one device"
-        )
-    device = torch_device(device)
+    device = torch_device(device) if mesh is None else mesh.devices[0]
     As = np.asarray(As)
     Ts = np.asarray(Ts)
     probe = dataset[0]
@@ -218,18 +239,25 @@ def affine_atlas(dataset, As, Ts, I=None, num_epochs=1000, batch_size=50, image_
 
     step = make_affine_atlas_step(I.dim() - 2, affine_steps=affine_steps, reg_weightA=reg_weightA,
                                   reg_weightT=reg_weightT, learning_rate_A=learning_rate_A,
-                                  learning_rate_T=learning_rate_T)
+                                  learning_rate_T=learning_rate_T, mesh=mesh)
+    pad_multiple = 1 if mesh is None else mesh.size
+
+    def put_img(img):
+        return _put(img, device) if mesh is None else shard_batch(img, mesh)
 
     def image_update(I, g, n):
         return I - learning_rate_I * (g / float(n))
 
-    # each minibatch with its mask (all ones: one device pads nothing)
+    # each minibatch padded to the mesh, with its mask
     staged = []
     for ix, img in batches:
-        mask = np.ones(img.shape[0], dtype=img.dtype)
+        n_real = img.shape[0]
+        img, _ = pad_batch_to_multiple(img, pad_multiple)
+        mask = np.zeros(img.shape[0], dtype=img.dtype)
+        mask[:n_real] = 1.0
         if keep_data_on_device:
-            img, mask = _put(img, device), _put(mask, device)
-        staged.append((ix, img, mask, img.shape[0]))
+            img, mask = put_img(img), _put(mask, device)
+        staged.append((ix, img, mask, n_real))
 
     dev_AT = {}  # per-minibatch (A, T) on the device, with keep_data_on_device
     epoch_losses = []
@@ -246,15 +274,16 @@ def affine_atlas(dataset, As, Ts, I=None, num_epochs=1000, batch_size=50, image_
             if bi in dev_AT:
                 A, T = dev_AT[bi]
             else:
-                A, T = _put(As[ix], device), _put(Ts[ix], device)
+                A = _put(pad_batch_to_multiple(As[ix], pad_multiple)[0], device)
+                T = _put(pad_batch_to_multiple(Ts[ix], pad_multiple)[0], device)
             if not keep_data_on_device:
-                img, mask = _put(img, device), _put(mask, device)
+                img, mask = put_img(img), _put(mask, device)
             A, T, gI, loss = step(I, A, T, img, mask)
             if keep_data_on_device:
                 dev_AT[bi] = (A, T)
             else:
-                As[ix] = A.cpu().numpy()
-                Ts[ix] = T.cpu().numpy()
+                As[ix] = A.cpu().numpy()[:n_real]
+                Ts[ix] = T.cpu().numpy()[:n_real]
             Igrad = Igrad + gI
             image_iters += 1
             li = float(loss) * (n_real / n_total)
@@ -272,9 +301,9 @@ def affine_atlas(dataset, As, Ts, I=None, num_epochs=1000, batch_size=50, image_
         if hasattr(epbar, "set_postfix"):
             epbar.set_postfix(epoch_loss=epoch_loss)
     for bi, (A, T) in dev_AT.items():
-        ix = staged[bi][0]
-        As[ix] = A.cpu().numpy()
-        Ts[ix] = T.cpu().numpy()
+        ix, _, _, n_real = staged[bi]
+        As[ix] = A.cpu().numpy()[:n_real]
+        Ts[ix] = T.cpu().numpy()[:n_real]
     return I, As, Ts, epoch_losses, iter_losses
 
 

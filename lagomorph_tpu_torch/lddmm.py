@@ -9,8 +9,10 @@ whole-shoot kernel), optionally rematerialising each substep in the backward
 (``checkpoints``), ``shooting_regime_ok``, ``_lddmm_loss`` (with momenta on
 a coarser grid than the image), ``make_lddmm_atlas_step`` (the loss, its
 gradients by autograd through the kernels' backwards, and the update of
-the momenta), the epoch loop of :class:`LDDMMAtlasBuilder` on one device,
-:func:`lddmm_atlas` and the ``lddmm atlas`` command.
+the momenta; on X slabs of a mesh with ``spatial_mesh``), the epoch loop of
+:class:`LDDMMAtlasBuilder` on one device, on a device mesh, over several
+processes or spatially sharded, :func:`lddmm_atlas` and the ``lddmm atlas``
+command.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from .ops.interp import get_warp_mode
 from .ops.interp import in_unit as _in_unit
 from .ops import kernels
 from .ops.kernels import epdiff2d, epdiff_unit, shoot2d
-from .utils import Tool, progress, torch_device
+from .parallel.distributed import local_shard as _host
+from .parallel.mesh import Sharded, shardwise
+from .utils import Tool, process_count, process_index, progress, torch_device
 
 __all__ = [
     "EPDiff_step",
@@ -239,6 +243,39 @@ def expmap_advect(metric, m, T=1.0, num_steps=10, phiinv=None):
     return phiinv
 
 
+def _lddmm_sums(I, m, img, metric, integration_steps, checkpoints=False, image_shape=None,
+                mask=None):
+    """The sums of :func:`_lddmm_loss` before it normalises them: ``(sum of
+    the squared image error, sum of <v, m>, ratio)``, masked when ``mask``
+    is given; ``ratio`` scales the regulariser of momenta on another grid
+    than the image (None on the same grid)."""
+    # one fluid solve serves the regularizer and the peeled first step
+    v = metric.sharp(m)
+    h = expmap(metric, m, num_steps=integration_steps, checkpoints=checkpoints, v0=v)
+    regrid_momenta = image_shape is not None and tuple(h.shape[2:]) != tuple(image_shape)
+    if regrid_momenta:
+        h = regrid(h, shape=tuple(image_shape))
+    Idef = deform.interp_auto(I, h)
+    sq = torch.sum((Idef - img) ** 2, dim=tuple(range(1, img.dim())))
+    vm = torch.sum(v * m, dim=tuple(range(1, m.dim())))
+    if mask is not None:
+        sq = sq * mask
+        vm = vm * mask
+    # the coarser grid averages over fewer voxels
+    ratio = I.numel() / v[0, 0].numel() if regrid_momenta else None
+    return torch.sum(sq), torch.sum(vm), ratio
+
+
+def _normalise(sq, vm, ratio, count, img, reg_weight):
+    """``(loss, reg_term)`` of the sums of :func:`_lddmm_sums` over ``count``
+    subjects of ``img``'s shape."""
+    numel = count * float(np.prod(img.shape[1:]))
+    reg_term = reg_weight * vm / numel
+    if ratio is not None:
+        reg_term = reg_term * ratio
+    return sq / numel + reg_term, reg_term
+
+
 def _lddmm_loss(I, m, img, metric, reg_weight, integration_steps, checkpoints=False,
                 image_shape=None, mask=None):
     """Loss of one minibatch: ``MSE(I o phi^{-1}(m), img) / |Omega| + reg``,
@@ -251,27 +288,18 @@ def _lddmm_loss(I, m, img, metric, reg_weight, integration_steps, checkpoints=Fa
     displacements (which stay in momentum-grid voxels: the behaviour of the
     reference that the JAX package keeps for parity), and the regulariser
     is scaled by the ratio of the grids' sizes."""
-    # one fluid solve serves the regularizer and the peeled first step
-    v = metric.sharp(m)
-    h = expmap(metric, m, num_steps=integration_steps, checkpoints=checkpoints, v0=v)
-    regrid_momenta = image_shape is not None and tuple(h.shape[2:]) != tuple(image_shape)
-    if regrid_momenta:
-        h = regrid(h, shape=tuple(image_shape))
-    Idef = deform.interp_auto(I, h)
-    sq = torch.sum((Idef - img) ** 2, dim=tuple(range(1, img.dim())))
-    vm = torch.sum(v * m, dim=tuple(range(1, m.dim())))
-    if mask is None:
-        count = img.shape[0]
-    else:
-        sq = sq * mask
-        vm = vm * mask
-        count = torch.sum(mask)
-    numel = count * float(np.prod(img.shape[1:]))
-    reg_term = reg_weight * torch.sum(vm) / numel
-    if regrid_momenta:  # the coarser grid averages over fewer voxels
-        reg_term = reg_term * (I.numel() / v[0, 0].numel())
-    loss = torch.sum(sq) / numel + reg_term
-    return loss, reg_term
+    sq, vm, ratio = _lddmm_sums(I, m, img, metric, integration_steps, checkpoints,
+                                image_shape, mask)
+    count = img.shape[0] if mask is None else torch.sum(mask)
+    return _normalise(sq, vm, ratio, count, img, reg_weight)
+
+
+def _descend(metric, m, gm, learning_rate_pose, momentum_preconditioning):
+    """``m - lr * p``, ``p`` the gradient ``gm`` (``metric.flat`` of it with
+    ``momentum_preconditioning``)."""
+    with torch.no_grad():
+        p = metric.flat(gm) if momentum_preconditioning else gm
+        return m - learning_rate_pose * p
 
 
 def make_lddmm_atlas_step(metric, reg_weight=1e2, learning_rate_pose=2e2, lddmm_steps=1,
@@ -281,40 +309,103 @@ def make_lddmm_atlas_step(metric, reg_weight=1e2, learning_rate_pose=2e2, lddmm_
     """The per-minibatch atlas update of the JAX package's
     ``make_lddmm_atlas_step``.
 
-    Returns ``step(I, m, img, mask=None) -> (m_new, I_grad, loss, reg_term)``:
-    ``lddmm_steps`` gradient steps on the momenta, ``m <- m - lr * p`` with
-    ``p`` the gradient of :func:`_lddmm_loss` in ``m`` (``metric.flat`` of it
-    with ``momentum_preconditioning``); ``I_grad``, the gradient in the
-    atlas image of the last step's loss (shaped like ``I``, summed over the
-    batch), is for the caller to accumulate.  Every output is a detached
-    tensor on the inputs' device; the step reads nothing on the host beyond
-    the shooting's flag and the atlas warp's tier.
+    Returns ``step(I, m, img, mask=None, count=None) -> (m_new, I_grad,
+    loss, reg_term)``: ``lddmm_steps`` gradient steps on the momenta, ``m <-
+    m - lr * p`` with ``p`` the gradient of :func:`_lddmm_loss` in ``m``
+    (``metric.flat`` of it with ``momentum_preconditioning``); ``I_grad``,
+    the gradient in the atlas image of the last step's loss (shaped like
+    ``I``, summed over the batch), is for the caller to accumulate.  Every
+    output is a detached tensor on the inputs' device; the step reads
+    nothing on the host beyond the shooting's flag and the atlas warp's
+    tier.  ``checkpoints`` and ``image_shape`` as in :func:`_lddmm_loss`.
 
-    ``checkpoints`` and ``image_shape`` as in :func:`_lddmm_loss`.  Not
-    ported: ``spatial_mesh`` (spatially sharded shooting), which raises."""
+    Data parallelism, as the JAX step jitted with the batch sharded: ``m``,
+    ``img`` and ``mask`` may be split along the batch over a mesh
+    (:class:`.parallel.mesh.Sharded`, ``m_new`` returned so), ``I`` then
+    copied to each entry and each shard's sums added on ``I``'s device.
+    ``count``: the subjects the loss averages over (``sum(mask)``, or the
+    batch, by default); a process of a multi-process run passes the count
+    of the global batch, so that each momentum gets its gradient of the
+    global loss, and the loss, the regulariser and ``I_grad`` are then
+    summed over the processes (``all_reduce``), as the psum of the JAX
+    package's global step does.
+
+    ``spatial_mesh``: the whole loss (shooting, warp, MSE) runs X-sharded
+    over ``spatial_axis`` of that mesh (:func:`.parallel.sharded_atlas_loss`,
+    through K1, K2, K6 and K7 on each haloed slab), for volumes too large
+    for one device.  ``I``, ``m`` and ``img`` are then X-sharded
+    (:class:`.parallel.mesh.Sharded`, returned as such) or whole tensors
+    (split here, joined on their devices); preconditioning runs the pencil
+    solve.  Requires momenta and images on the same grid (no regrid path)."""
     if spatial_mesh is not None:
-        raise NotImplementedError(
-            f"spatial_mesh (shooting sharded over the {spatial_axis!r} axis of a "
-            "device mesh) is not ported"
-        )
+        return _spatial_step(metric, spatial_mesh, spatial_axis, reg_weight, learning_rate_pose,
+                             lddmm_steps, integration_steps, momentum_preconditioning,
+                             checkpoints)
 
-    def step(I, m, img, mask=None):
+    from .parallel.distributed import allsum_
+
+    def step(I, m, img, mask=None, count=None):
+        ms, imgs = (list(x) if isinstance(x, Sharded) else [x] for x in (m, img))
+        masks = [None] * len(ms) if mask is None else (
+            list(mask) if isinstance(mask, Sharded) else [mask])
+        if count is None:
+            count = img.shape[0] if mask is None else sum(torch.sum(k).to(I.device) for k in masks)
         loss = reg = I_grad = None
         for it in range(lddmm_steps):
             last = it == lddmm_steps - 1
             with torch.enable_grad():
-                m_ = m.detach().requires_grad_(True)
+                m_ = [x.detach().requires_grad_(True) for x in ms]
                 I_ = I.detach().requires_grad_(last)
-                loss, reg = _lddmm_loss(I_, m_, img, metric, reg_weight, integration_steps,
-                                        checkpoints, image_shape=image_shape, mask=mask)
-                if last:
-                    gm, I_grad = torch.autograd.grad(loss, (m_, I_))
-                else:
-                    (gm,) = torch.autograd.grad(loss, (m_,))
+                sq = vm = ratio = None
+                for mk, ik, kk in zip(m_, imgs, masks):
+                    s, v, ratio = _lddmm_sums(I_.to(mk.device), mk, ik, metric, integration_steps,
+                                              checkpoints, image_shape, kk)
+                    sq = s.to(I.device) if sq is None else sq + s.to(I.device)
+                    vm = v.to(I.device) if vm is None else vm + v.to(I.device)
+                loss, reg = _normalise(sq, vm, ratio, count, imgs[0], reg_weight)
+                grads = torch.autograd.grad(loss, m_ + [I_] if last else m_)
+            ms = [_descend(metric, x, g, learning_rate_pose, momentum_preconditioning)
+                  for x, g in zip(ms, grads)]
+            if last:
+                I_grad = grads[-1]
+        loss, reg = loss.detach(), reg.detach()
+        if process_count() > 1:
+            sums = torch.stack([loss, reg])
+            allsum_(sums, I_grad)
+            loss, reg = sums[0], sums[1]
+        return (m.like(ms) if isinstance(m, Sharded) else ms[0]), I_grad, loss, reg
+
+    return step
+
+
+def _spatial_step(metric, mesh, axis_name, reg_weight, learning_rate_pose, lddmm_steps,
+                  integration_steps, momentum_preconditioning, checkpoints):
+    """:func:`make_lddmm_atlas_step`'s step on X slabs over ``mesh``."""
+    from .parallel import ShardedFluidMetric, sharded_atlas_loss
+    from .parallel.mesh import as_shards, join_like
+
+    flat = ShardedFluidMetric(getattr(metric, "params", metric), mesh, axis_name)
+
+    def step(I, m, img, mask=None):
+        Is, ms, imgs = (as_shards(x, mesh, 2) for x in (I, m, img))
+        loss = reg = gI = None
+        for it in range(lddmm_steps):
+            last = it == lddmm_steps - 1
+            with torch.enable_grad():
+                m_ = Sharded([x.detach().requires_grad_(True) for x in ms], 2, mesh)
+                I_ = Sharded([x.detach().requires_grad_(last) for x in Is], 2, mesh)
+                loss, reg = sharded_atlas_loss(metric, I_, m_, Sharded(imgs, 2, mesh), mesh,
+                                               reg_weight=reg_weight, num_steps=integration_steps,
+                                               axis_name=axis_name, checkpoints=checkpoints,
+                                               mask=mask)
+                grads = torch.autograd.grad(loss, [*m_, *I_] if last else list(m_))
+            gm = list(grads[:len(ms)])
             with torch.no_grad():
-                p = metric.flat(gm) if momentum_preconditioning else gm
-                m = m - learning_rate_pose * p
-        return m, I_grad, loss.detach(), reg.detach()
+                p = flat.flat(Sharded(gm, 2, mesh)) if momentum_preconditioning else gm
+                ms = [x.detach() - learning_rate_pose * g for x, g in zip(ms, p)]
+            if last:
+                gI = list(grads[len(ms):])
+        return join_like(ms, m, 2), join_like(gI, I, 2), loss.detach(), reg.detach()
 
     return step
 
@@ -322,13 +413,6 @@ def make_lddmm_atlas_step(metric, reg_weight=1e2, learning_rate_pose=2e2, lddmm_
 # ---------------------------------------------------------------------------
 # Atlas building
 # ---------------------------------------------------------------------------
-
-
-def _host(x):
-    """A numpy array of ``x`` (a tensor on any device, or array-like)."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 def _torch_dtype(dtype):
@@ -368,7 +452,7 @@ def lddmm_atlas(dataset, I0=None, num_epochs=500, batch_size=10, lddmm_steps=1,
 
 class LDDMMAtlasBuilder:
     """Stateful LDDMM atlas builder: the JAX package's constructor and
-    methods, on one process and one device.
+    methods.
 
     Each epoch runs the atlas step (:func:`make_lddmm_atlas_step`) on every
     minibatch of ``dataset`` in order, accumulates the atlas gradient and
@@ -385,9 +469,28 @@ class LDDMMAtlasBuilder:
     "process"`` as many worker processes read its images from the host
     (:class:`.data.ProcessPrefetcher`).  ``dataloader_cache``: a directory
     for the minibatches' read-ahead cache (:class:`.native.NativeBatchCache`,
-    or :class:`.data.CachedDataLoader` where no ``g++`` is found).  Not
-    ported: more than one process (``world_size``, ``rank``), a device
-    ``mesh`` and ``spatial_shard``; they raise at :meth:`initialize`.
+    or :class:`.data.CachedDataLoader` where no ``g++`` is found).
+
+    Parallel runs, as the JAX package's (:mod:`.parallel`):
+
+    * ``mesh`` (a :class:`.parallel.mesh.Mesh`; ``device`` is then its
+      first entry): each minibatch is padded to a multiple of the mesh size
+      (the padded subjects masked out) and split over the mesh, the atlas
+      copied to each entry and its gradient summed on the first;
+    * several processes (a ``torch.distributed`` process group, one device
+      each; ``world_size`` and ``rank`` are read from the group, as the JAX
+      package reads ``jax.process_count()``): each process owns the
+      interleaved subjects ``rank, rank + world, ...`` and runs the same
+      number of iterations (a process whose shard ran out feeds all-masked
+      dummy minibatches); each iteration's loss is normalised by the
+      subjects of the global batch, and the loss and the atlas gradient
+      are summed over the processes, so that every process holds the same
+      atlas.  Checkpoints and outputs are per rank (``{rank}``);
+    * ``spatial_shard`` (with a ``mesh``, one process, momenta on the image
+      grid, X and Y divisible by the mesh size): images, momenta and the
+      atlas lie on the mesh as X slabs (:class:`.parallel.mesh.Sharded`;
+      ``I`` is one) and the step is the halo-exchange shooting
+      (:func:`make_lddmm_atlas_step` with ``spatial_mesh``).
 
     The arguments become members, frozen after :meth:`initialize`.
     """
@@ -433,17 +536,31 @@ class LDDMMAtlasBuilder:
 
     def _init_batches(self):
         from .data import CachedDataLoader, batch_iterator, dataset_length
+        from .parallel import process_shard_indices, shard_sizes
 
-        if self.world_size != 1 or self.rank != 0 or self.mesh is not None or self.spatial_shard:
-            raise NotImplementedError(
-                "more than one process, a device mesh and spatial sharding are not "
-                "ported (ROADMAP.md A.9): the builder runs one process on one device"
-            )
         if self.loader_mode not in ("thread", "process"):
             raise ValueError(f"loader_mode must be 'thread' or 'process', not {self.loader_mode!r}")
-        self._device = torch_device(self.device)
-        self._num_examples = dataset_length(self.dataset)
-        it = batch_iterator(self.dataset, self.batch_size, dtype=self.dtype)
+        self._device = (torch_device(self.device) if self.mesh is None
+                        else self.mesh.devices[0])
+        # several processes: each owns an interleaved shard of the subjects;
+        # batch_size is per process
+        self._world = process_count()
+        self._rank = process_index()
+        n_total = dataset_length(self.dataset)
+        self._num_examples = n_total  # the global count (loss normalisation)
+        indices = self._global_real = None
+        if self._world > 1:
+            indices = process_shard_indices(n_total, self._world, self._rank)
+            # iteration counts agree across processes: a process whose shard
+            # ran out feeds all-masked dummy minibatches
+            per_proc = shard_sizes(n_total, self._world)
+            bs = self.batch_size
+            self._n_iters = max(-(-s // bs) for s in per_proc)
+            # the real subjects of each iteration's global batch (the same on
+            # every process, with no communication)
+            self._global_real = [sum(max(0, min(bs, s - i * bs)) for s in per_proc)
+                                 for i in range(self._n_iters)]
+        it = batch_iterator(self.dataset, self.batch_size, dtype=self.dtype, indices=indices)
         if self.dataloader_cache is not None:
             # the read-ahead cache, or where no g++ is found to build it, the
             # cache of .npy files; a failed build or read raises
@@ -454,12 +571,26 @@ class LDDMMAtlasBuilder:
                                   progress_bar=self.progress_bar)
         else:
             self._batches = list(it)
-        self._n_iters = len(self._batches)
+        if self._world == 1:
+            self._n_iters = len(self._batches)
 
     def _init_atlas_image(self):
         from .data import batch_average
 
-        if self.I0 is None:
+        if self.I0 is None and self._world > 1:
+            # the global mean over every process's shard
+            from .parallel import allsum_hosts
+
+            lsum = None
+            count = 0
+            for b in self._batches:
+                b = np.asarray(b)
+                part = b.astype(np.float64).sum(axis=0)
+                lsum = part if lsum is None else lsum + part
+                count += b.shape[0]
+            tot = allsum_hosts(np.concatenate([lsum.ravel(), [np.float64(count)]]))
+            I0 = (tot[:-1] / tot[-1]).reshape(lsum.shape)
+        elif self.I0 is None:
             I0 = batch_average(self._batches, progress_bar=self.progress_bar)
         else:
             I0 = _host(self.I0)
@@ -491,20 +622,72 @@ class LDDMMAtlasBuilder:
             self.ms = [np.asarray(_host(m), dtype=self.dtype) for m in self.ms]
 
     def _init_step(self):
-        self._step = make_lddmm_atlas_step(
-            self.metric,
+        from .parallel import data_sharding, spatial_sharding
+
+        kw = dict(
             reg_weight=self.reg_weight,
             learning_rate_pose=self.learning_rate_pose,
             lddmm_steps=self.lddmm_steps,
             integration_steps=self.lddmm_integration_steps,
             momentum_preconditioning=self.momentum_preconditioning,
             checkpoints=self.gradient_checkpointing,
-            image_shape=tuple(self.I.shape[2:]),
         )
+        self._sharding = None  # how minibatches lie on the mesh
+        self._pad_multiple = 1
+        # minibatches padded and masked: split over a mesh, or every process
+        # staging the same number of rows
+        self._data_parallel = not self.spatial_shard and (self.mesh is not None
+                                                          or self._world > 1)
+        if self.spatial_shard:
+            # volumes too large for one device: the X axis of images, momenta
+            # and the atlas split over the mesh; the batch stays whole
+            if self.mesh is None:
+                raise ValueError("spatial_shard=True requires a mesh (pass mesh=get_mesh())")
+            if self._world > 1:
+                raise ValueError(
+                    "spatial_shard is single-process (one controller over the mesh); use "
+                    "multi-process DP without spatial_shard"
+                )
+            sp = tuple(self.I.shape[2:])
+            if tuple(self.momentum_shape) != sp:
+                raise ValueError(
+                    "spatial_shard requires momenta and images on the same grid "
+                    f"(got {tuple(self.momentum_shape)} vs {sp})"
+                )
+            n = self.mesh.size
+            if len(sp) != 3 or sp[0] % n or sp[1] % n:
+                raise ValueError(
+                    f"spatial_shard needs 3D X/Y divisible by the mesh size {n} (got {sp})"
+                )
+            self._step = make_lddmm_atlas_step(self.metric, spatial_mesh=self.mesh, **kw)
+            self._sharding = spatial_sharding(self.mesh, 5)
+            self.I = self._sharding.put(self.I)
+            self._image_grad_accum = shardwise(torch.zeros_like, self.I)
+        else:
+            self._step = make_lddmm_atlas_step(self.metric, image_shape=tuple(self.I.shape[2:]),
+                                               **kw)
+            if self.mesh is not None:
+                self._sharding = data_sharding(self.mesh)
+                self._pad_multiple = self.mesh.size
+        # several processes: every process stages the same number of rows
+        self._local_rows = (-(-self.batch_size // self._pad_multiple) * self._pad_multiple
+                            if self._world > 1 else None)
 
     # -- persistence (HDF5, the JAX package's schema) -----------------------
+    def _momenta_host(self):
+        """Each minibatch's momenta as a host array of its real (unpadded)
+        subjects, this process's."""
+        out = []
+        cache = getattr(self, "_dev_cache", {})
+        for i, m in enumerate(self.ms):
+            m = _host(m)
+            if self.keep_data_on_device and i in cache:
+                m = m[:cache[i][3]]
+            out.append(m)
+        return out
+
     def save_momenta(self, handle):
-        ms_host = [_host(m) for m in self.ms]
+        ms_host = self._momenta_host()
         n = sum(m.shape[0] for m in ms_host)
         hms = handle.create_dataset("momenta", shape=(n, *ms_host[0].shape[1:]),
                                     dtype=np.float32)
@@ -553,39 +736,80 @@ class LDDMMAtlasBuilder:
         if (self._image_iters < self.image_update_freq and not force) or self._image_iters == 0:
             return
         # the mean gradient of the iterations since the last update
-        self.I = self.I - self.learning_rate_image * (self._image_grad_accum
-                                                      / float(self._image_iters))
-        self._image_grad_accum = torch.zeros_like(self.I)
+        n = float(self._image_iters)
+        self.I = shardwise(lambda I, g: I - self.learning_rate_image * (g / n), self.I,
+                           self._image_grad_accum)
+        self._image_grad_accum = shardwise(torch.zeros_like, self.I)
         self._image_iters = 0
 
     def _put(self, x, dtype=None):
-        """``x`` (an array or a tensor) on the builder's device, cast on the
-        host to ``dtype`` when given."""
+        """``x`` (an array or a tensor) on the builder's device, or laid out
+        on its mesh (split along the batch or along X), cast on the host to
+        ``dtype`` when given."""
+        from .parallel import put_global
+
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
         if dtype is not None:
             t = t.to(dtype)
-        return t.to(self._device)
+        return put_global(t, self._device if self._sharding is None else self._sharding)
+
+    def _pad_rows(self, x):
+        """Pad a host minibatch: to a multiple of the mesh size (one process,
+        the last subject repeated), or to the fixed row count of every
+        process (several, zeros)."""
+        from .parallel import pad_batch_to_multiple
+
+        if self._local_rows is None:
+            return pad_batch_to_multiple(x, self._pad_multiple)[0]
+        n, rows = x.shape[0], self._local_rows
+        if n == rows:
+            return x
+        return np.concatenate([x, np.zeros((rows - n,) + x.shape[1:], dtype=x.dtype)], axis=0)
+
+    def _host_batch(self, batch_index):
+        """``(img, m)`` of one minibatch on the host: empty when this
+        process's shard has fewer minibatches than the global iteration
+        count (the dummy batch then holds only padding)."""
+        if batch_index < len(self._batches):
+            pf = getattr(self, "_img_prefetch", None)
+            img = pf.get(batch_index) if pf is not None else self._batches[batch_index]
+            return img, self.ms[batch_index]
+        if len(self._batches):
+            item = tuple(np.asarray(self._batches[0]).shape[1:])
+        else:
+            item = tuple(self.I.shape[1:])
+        dim = len(self.momentum_shape)
+        return (np.zeros((0,) + item, dtype=self.dtype),
+                np.zeros((0, dim) + tuple(self.momentum_shape), dtype=self.dtype))
 
     def _staged(self, batch_index):
-        """``(img, m, n)`` of one minibatch on the device, ``n`` its
-        subjects.  The images come through the process prefetcher when
-        there is one; the momenta stream from the host.  With
-        ``keep_data_on_device`` both are staged at the first use and stay,
-        ``ms[batch_index]`` holding the device tensor."""
+        """``(img, m, mask, n)`` of one minibatch on the device (or its mesh),
+        ``n`` its real subjects and ``mask`` their 0/1 weights over the
+        padded rows (None where nothing is padded: one process, no mesh).
+        The images come through the process prefetcher when there is one;
+        the momenta stream from the host.  With ``keep_data_on_device`` both
+        are staged at the first use and stay, ``ms[batch_index]`` holding
+        the device tensor."""
         image_dtype = None if self.image_dtype is None else _torch_dtype(self.image_dtype)
         if self.keep_data_on_device:
             if not hasattr(self, "_dev_cache"):
                 self._dev_cache = {}
             if batch_index not in self._dev_cache:
-                img = self._put(self._batches[batch_index], image_dtype)
-                self._dev_cache[batch_index] = (img, img.shape[0])
-                self.ms[batch_index] = self._put(self.ms[batch_index])
-            img, n = self._dev_cache[batch_index]
-            return img, self.ms[batch_index], n
-        pf = getattr(self, "_img_prefetch", None)
-        img = pf.get(batch_index) if pf is not None else self._batches[batch_index]
-        img = self._put(img, image_dtype)
-        return img, self._put(self.ms[batch_index]), img.shape[0]
+                self._dev_cache[batch_index] = list(self._stage(batch_index, image_dtype))
+                if batch_index < len(self.ms):
+                    self.ms[batch_index] = self._dev_cache[batch_index][1]
+            return tuple(self._dev_cache[batch_index])
+        return self._stage(batch_index, image_dtype)
+
+    def _stage(self, batch_index, image_dtype):
+        img, m = self._host_batch(batch_index)
+        n = img.shape[0]
+        if not self._data_parallel:
+            return self._put(img, image_dtype), self._put(m), None, n
+        img, m = self._pad_rows(np.asarray(img)), self._pad_rows(np.asarray(m))
+        mask = np.zeros(img.shape[0], dtype=self.dtype)
+        mask[:n] = 1.0
+        return self._put(img, image_dtype), self._put(m), self._put(mask), n
 
     def _stage_async(self, batch_index):
         """Stage a minibatch on a thread of the loader pool (a Future), so
@@ -601,7 +825,7 @@ class LDDMMAtlasBuilder:
 
             self._img_prefetch = ProcessPrefetcher(self._batches,
                                                    workers=int(self.loader_workers))
-        if getattr(self, "_img_prefetch", None) is not None:
+        if getattr(self, "_img_prefetch", None) is not None and batch_index < len(self._batches):
             # before the staging threads start: the first submit forks
             self._img_prefetch.submit(batch_index)
         if getattr(self, "_stage_pool", None) is None:
@@ -611,16 +835,27 @@ class LDDMMAtlasBuilder:
         return self._stage_pool.submit(self._staged, batch_index)
 
     def iteration(self, batch_index, staged=None):
-        img, m, n = staged if staged is not None else self._staged(batch_index)
-        m, gI, loss, reg = self._step(self.I, m, img)
-        self.ms[batch_index] = m if self.keep_data_on_device else m.cpu().numpy()
-        self._image_grad_accum = self._image_grad_accum + gI
+        img, m, mask, n = staged if staged is not None else self._staged(batch_index)
+        if self._global_real is None:
+            n_global = n
+            m, gI, loss, reg = self._step(self.I, m, img, mask)
+        else:  # the real subjects of the global batch (over every process)
+            n_global = self._global_real[batch_index]
+            m, gI, loss, reg = self._step(self.I, m, img, mask, count=n_global)
+        real = batch_index < len(self.ms)
+        if self.keep_data_on_device:
+            self._dev_cache[batch_index][1] = m
+            if real:
+                self.ms[batch_index] = m
+        elif real:
+            self.ms[batch_index] = _host(m)[:n]
+        self._image_grad_accum = shardwise(torch.add, self._image_grad_accum, gI)
         self._image_iters += 1
         if self.image_update_freq > 0:
             self.update_base_image()
-        # the step's loss is the minibatch mean; weighted so that an epoch
-        # sums to the dataset's mean
-        norm = n / self._num_examples
+        # the step's loss is the global minibatch's mean; weighted so that an
+        # epoch sums to the dataset's mean
+        norm = n_global / self._num_examples
         return float(loss) * norm, float(reg) * norm
 
     def epoch(self):
@@ -642,7 +877,20 @@ class LDDMMAtlasBuilder:
             epoch_reg_term += iter_reg
         self.update_base_image(force=True)
         if self.checkpoint_format is not None:
-            self.save(self.checkpoint_format.format(epoch=self._epoch, rank=self.rank))
+            # per rank (the momenta are the rank's); with no {rank}
+            # placeholder only rank 0 writes
+            per_rank = "{rank}" in self.checkpoint_format
+            if self._world == 1 or per_rank or self._rank == 0:
+                if self._world > 1 and not per_rank:
+                    import warnings
+
+                    warnings.warn(
+                        "multi-process run with no {rank} placeholder in checkpoint_format: "
+                        "the saved file contains ONLY rank 0's momenta shard (a fraction of "
+                        "the dataset's subjects). Add '{rank}' to save every process's shard.",
+                        stacklevel=2,
+                    )
+                self.save(self.checkpoint_format.format(epoch=self._epoch, rank=self._rank))
         return epoch_loss, epoch_reg_term
 
     def run(self):
@@ -739,7 +987,10 @@ class _Tool(Tool):
                         help="Storage dtype for staged images (bfloat16 halves "
                         "on-device image memory and transfer bytes; compute stays f32)")
         ag.add_argument("--spatial_shard", action="store_true",
-                        help="Shard the volumes over a device mesh (not ported)")
+                        help="Shard the X axis of images/momenta/atlas over the device mesh "
+                        "(halo-exchange shooting through the kernels on each slab and the "
+                        "pencil fluid solve), for volumes too large for one device; the "
+                        "batch stays whole")
         ag.add_argument("--reg_weight", default=1e-1, type=float,
                         help="Deformation regularization")
         ag.add_argument("--learning_rate_m", default=1e-3, type=float,
@@ -793,6 +1044,19 @@ class _Tool(Tool):
         if args.initial_atlas is not None:
             builder.load(args.initial_atlas.format(rank=self.rank))
         builder.run()
+        # per-rank outputs (the momenta are the rank's); with no {rank}
+        # placeholder only rank 0 writes
+        if self.world_size > 1 and "{rank}" not in args.output:
+            if self.rank != 0:
+                return
+            import warnings
+
+            warnings.warn(
+                "multi-process run with no {rank} placeholder in --output: the saved file "
+                "contains ONLY rank 0's momenta shard. Add '{rank}' to the output path to "
+                "save every process's shard.",
+                stacklevel=2,
+            )
         args.output = args.output.format(rank=self.rank)
         builder.save(args.output)
 

@@ -20,6 +20,7 @@ from torch import nn
 from ..deform import interp
 from ..lddmm import _host, _torch_dtype, expmap
 from ..metric import FluidMetric
+from ..parallel import pad_batch_to_multiple, shard_batch
 from ..utils import progress, torch_device
 
 __all__ = ["MomentumNet", "DeepLDDMMAtlas", "init_momentum_net", "pad_batch_to_multiple"]
@@ -88,16 +89,6 @@ def init_momentum_net(net, seed=0):
     return net
 
 
-def pad_batch_to_multiple(x: np.ndarray, multiple: int):
-    """Pad the leading axis up to a multiple by repeating the last item.
-    Returns ``(padded, original_size)``."""
-    n = x.shape[0]
-    rem = (-n) % multiple
-    if rem == 0:
-        return x, n
-    return np.concatenate([x, np.repeat(x[-1:], rem, axis=0)], axis=0), n
-
-
 class DeepLDDMMAtlas:
     """Train a momentum-prediction network and an atlas image jointly:
 
@@ -110,19 +101,21 @@ class DeepLDDMMAtlas:
     :class:`MomentumNet` of the data's dimension by default) is initialised
     by :func:`init_momentum_net` from ``seed``, in ``dtype``, and trained
     by ``torch.optim.Adam`` (optax's ``adam``); the atlas by ``I <- I -
-    learning_rate_image * g_I / sum(mask)``.  A device ``mesh`` is not
-    ported (ROADMAP A.9) and raises."""
+    learning_rate_image * g_I / sum(mask)``.
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`; ``device`` is then its first
+    entry): each minibatch is padded to a multiple of the mesh size (the
+    padded subjects masked out) and split over it; the network's parameters
+    and the atlas are copied to each entry (``.to``, so that one device may
+    appear more than once), each entry's masked sums are added on the first,
+    and autograd sums the gradients of the copies for one Adam step."""
 
     def __init__(self, dataset, metric=None, net=None, batch_size=8, integration_steps=5,
                  reg_weight=1e-1, learning_rate_net=1e-4, learning_rate_image=1e3, mesh=None,
                  seed=0, dtype=np.float32, progress_bar=True, device=None):
         from ..data import batch_average, batch_iterator
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported (ROADMAP.md A.9): DeepLDDMMAtlas runs on one device"
-            )
-        self.device = torch_device(device)
+        self.device = torch_device(device) if mesh is None else mesh.devices[0]
         self.dtype = _torch_dtype(dtype)
         self.metric = metric or FluidMetric([0.1, 0.0, 0.01])
         self.batches = list(batch_iterator(dataset, batch_size, dtype=dtype))
@@ -142,20 +135,39 @@ class DeepLDDMMAtlas:
                                     betas=(0.9, 0.999), eps=1e-8)
         self.lr_I = learning_rate_image
         self.epoch_losses = []
-        self._pad_multiple = 1
+        self._pad_multiple = 1 if mesh is None else mesh.size
 
     def _put(self, x):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=self.dtype, device=self.device)
 
-    def _loss(self, I, img, mask):
-        m = self.net(img)
+    def _sums(self, I, img, mask, params=None):
+        """The masked sums of the squared image error and of ``<v, m>`` over
+        ``img``'s subjects; ``params``: the network's parameters to run it
+        with (copies on ``img``'s device), its own when None."""
+        if params is None:
+            m = self.net(img)
+        else:
+            m = torch.func.functional_call(self.net, params, (img,))
         v = self.metric.sharp(m)  # shared with the peeled first step
         h = expmap(self.metric, m, num_steps=self.integration_steps, v0=v)
         Idef = interp(I, h)
         sq = torch.sum((Idef - img) ** 2, dim=tuple(range(1, img.dim())))
         vm = torch.sum(v * m, dim=tuple(range(1, m.dim())))
+        return torch.sum(sq * mask), torch.sum(vm * mask)
+
+    def _loss(self, I, img, mask):
         numel = torch.sum(mask) * float(np.prod(img.shape[1:]))
-        return torch.sum(sq * mask) / numel + self.reg_weight * torch.sum(vm * mask) / numel
+        if self.mesh is None:
+            sq, vm = self._sums(I, img, mask)
+        else:
+            named = dict(self.net.named_parameters())
+            sq = vm = None
+            for ik, mk in zip(shard_batch(img, self.mesh), shard_batch(mask, self.mesh)):
+                dev = ik.device
+                s, w = self._sums(I.to(dev), ik, mk, {k: p.to(dev) for k, p in named.items()})
+                sq = s.to(I.device) if sq is None else sq + s.to(I.device)
+                vm = w.to(I.device) if vm is None else vm + w.to(I.device)
+        return sq / numel + self.reg_weight * vm / numel
 
     def _train_step(self, img, mask):
         """One Adam step of the network and one descent step of the atlas

@@ -118,28 +118,37 @@ def _cholesky_inverse(L, d):
 
 
 def fluid_multiplier_entries(spatial, params, inverse, dtype=torch.float32,
-                             device=None, full_spectrum=False, bitrev=False):
+                             device=None, full_spectrum=False, bitrev=False, band=None):
     """The per-frequency multiplier as torch tensors: a dict
     ``{(a, b): M_ab}`` (``a >= b``) of the symmetric matrix entries, each of
     the half-spectrum shape (or of ``spatial`` with ``full_spectrum``, the
     layout of the complex packed paths).  ``bitrev`` (full spectrum,
     power-of-two axes) puts every axis in the bit-reversed frequency order
     of the radix-2 kernels, as the JAX package's
-    ``_fluid_multiplier_traced(bitrev=True)``.  Built in float64 on
-    ``device`` and cast to ``dtype``."""
+    ``_fluid_multiplier_traced(bitrev=True)``.  ``band = (axis, start,
+    length)`` keeps the frequencies ``start .. start + length - 1`` of one
+    axis (the band of one shard of the pencil solve,
+    :mod:`..parallel.sharded_fft`).  Built in float64 on ``device`` and
+    cast to ``dtype``."""
     alpha, beta, gamma = (float(p) for p in params)
     d = len(spatial)
-    freq_shape = (
+    freq_shape = list(
         tuple(spatial) if full_spectrum
         else tuple(spatial[:-1]) + (spatial[-1] // 2 + 1,)
     )
     if bitrev and not (full_spectrum and all(is_pow2(n) for n in spatial)):
         raise ValueError("a bit-reversed multiplier needs the full spectrum of power-of-two axes")
+    if bitrev and band is not None:
+        raise ValueError("a band of a bit-reversed multiplier is not defined")
+    start = [0] * d
+    if band is not None:
+        axis, start[axis], freq_shape[axis] = (int(b) for b in band)
+    freq_shape = tuple(freq_shape)
     f64 = dict(dtype=torch.float64, device=device)
     ws, ss = [], []
     for a in range(d):
         k = (torch.as_tensor(bitrev_perm(freq_shape[a]), **f64) if bitrev
-             else torch.arange(freq_shape[a], **f64))
+             else start[a] + torch.arange(freq_shape[a], **f64))
         shape = [1] * d
         shape[a] = freq_shape[a]
         ang = 2.0 * np.pi * k / spatial[a]

@@ -63,13 +63,46 @@ def sample_linear(I: torch.Tensor, coords: torch.Tensor, background: str = "clam
         raise ValueError(f"coords dim {dim} does not match image rank {len(spatial)}")
     if I.shape[0] not in (1, N):
         raise ValueError(f"Incompatible batch sizes I={I.shape[0]}, coords={N}")
-    C = I.shape[1]
-    out_spatial = tuple(coords.shape[2:])
-    bg = 0.0 if background == "zero" else background_value
-
     floor = torch.floor(coords)
     frac = coords - floor  # weights from unclamped coordinates
-    floor = floor.to(torch.int64)
+    return _sample_corners(I, floor.to(torch.int64), frac, background, background_value)
+
+
+def sample_displaced(I: torch.Tensor, disp: torch.Tensor, offset=None) -> torch.Tensor:
+    """``out(x) = I(x + offset + disp(x))`` for every voxel ``x`` of
+    ``disp``'s grid, multilinearly with CLAMP: :func:`sample_linear` at the
+    coordinates ``identity + offset + disp``, with each coordinate kept as
+    its integer part ``x + offset + floor(disp)`` and the fraction of
+    ``disp``, so that the weights keep ``disp``'s precision (a float32
+    coordinate of a few hundred voxels is rounded to 1e-5 voxel).
+
+    I: ``(NI, C, *spatial)`` (``NI in {1, N}``; ``spatial`` may differ from
+    ``disp``'s grid); disp: ``(N, dim, *out_spatial)``; offset: integer
+    voxels per axis (0 by default)."""
+    dim = disp.shape[1]
+    out_spatial = tuple(disp.shape[2:])
+    offset = (0,) * dim if offset is None else tuple(int(o) for o in offset)
+    f = torch.floor(disp)
+    frac = disp - f
+    floor = f.to(torch.int64)
+    base = []
+    for d in range(dim):
+        shape = [1] * dim
+        shape[d] = out_spatial[d]
+        base.append(torch.arange(out_spatial[d], device=disp.device).view(shape) + offset[d])
+    floor = torch.stack([floor[:, d] + base[d] for d in range(dim)], dim=1)
+    return _sample_corners(I, floor, frac, "clamp", 0.0)
+
+
+def _sample_corners(I, floor, frac, background, background_value):
+    """The multilinear sum over the ``2^dim`` corners ``floor + {0, 1}``
+    (``floor``: int64 ``(N, dim, *out_spatial)``) with weights from
+    ``frac``, the corners handled by ``background``."""
+    N, dim = floor.shape[:2]
+    spatial = tuple(I.shape[2:])
+    C = I.shape[1]
+    out_spatial = tuple(floor.shape[2:])
+    bg = 0.0 if background == "zero" else background_value
     strides, _ = _strides(spatial)
     Iflat = I.reshape(I.shape[0], C, -1).expand(N, C, -1)
 

@@ -1,20 +1,58 @@
-"""Progress bars and the command-line tooling of the port.
+"""Progress bars, the process group and the command-line tooling of the
+port.
 
-Port of ``lagomorph_tpu/utils.py``: :class:`Tool`, the base of the
-two-level command line (``python -m lagomorph_tpu_torch <module> <command>``),
-with its compute arguments and the provenance stamp of output files.  The
-JAX package's runtime and multi-host arguments (``--platform``,
-``--coordinator_address``, ``--num_processes``, ``--process_id``) have no
-meaning here; ``--device`` takes their place.  ``tqdm`` is optional: it is
-imported only when a progress bar is shown.
+Port of ``lagomorph_tpu/utils.py``: :func:`process_count`,
+:func:`process_index` and :func:`local_device_count`, and :class:`Tool`,
+the base of the two-level command line (``python -m lagomorph_tpu_torch
+<module> <command>``), with its compute arguments and the provenance stamp
+of output files.  The JAX package's multi-host arguments
+(``--coordinator_address``, ``--num_processes``, ``--process_id``) start a
+``torch.distributed`` process group, one process per device; ``--device``
+takes the place of ``--platform``, which has no meaning here.  ``tqdm`` is
+optional: it is imported only when a progress bar is shown.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
-__all__ = ["Tool", "progress", "torch_device"]
+__all__ = ["Tool", "local_device_count", "process_count", "process_index", "progress",
+           "torch_device"]
+
+# seconds a collective of the process group waits before it fails (a
+# process that stopped must not hang the others for ever)
+PROCESS_GROUP_TIMEOUT_S = 300
+
+
+def _group():
+    """``torch.distributed`` when a default process group is up, else None."""
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def process_count() -> int:
+    """Number of processes in this job: the default process group's world
+    size, 1 without one."""
+    dist = _group()
+    return dist.get_world_size() if dist is not None else 1
+
+
+def process_index() -> int:
+    """This process's rank (rank 0 does IO and progress), 0 without a
+    process group."""
+    dist = _group()
+    return dist.get_rank() if dist is not None else 0
+
+
+def local_device_count() -> int:
+    """Number of CUDA devices this process sees (1, the CPU, where there is
+    none)."""
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
 
 
 def progress(iterable, desc=None, **kwargs):
@@ -99,7 +137,28 @@ class Tool:
             default="cuda",
             type=str,
             help="torch device to run on (cuda, cuda:N or cpu); a CUDA device "
-            "runs the hand-written kernels, the CPU their plain versions",
+            "runs the hand-written kernels, the CPU their plain versions; in a "
+            "multi-process run cuda is cuda:<local rank>",
+        )
+        group.add_argument(
+            "--coordinator_address",
+            default=None,
+            type=str,
+            help="host:port of process 0, for a multi-process run (torch.distributed "
+            "over TCP; without it the torchrun variables WORLD_SIZE, RANK and "
+            "MASTER_ADDR are read)",
+        )
+        group.add_argument(
+            "--num_processes",
+            default=None,
+            type=int,
+            help="Total number of processes, for a multi-process run",
+        )
+        group.add_argument(
+            "--process_id",
+            default=None,
+            type=int,
+            help="This process's rank, for a multi-process run",
         )
         group.add_argument(
             "--fluid_transform",
@@ -122,15 +181,26 @@ class Tool:
         )
 
     def _initialize_compute(self, args):
-        """Check the device and set the fluid-solve selectors and the
-        global warp mode.  One process on one device: ``rank`` 0,
-        ``world_size`` 1, no mesh."""
+        """Start the process group of a multi-process run, check the device,
+        set the fluid-solve selectors and the global warp mode, and build
+        the mesh: over every visible CUDA device when one process sees more
+        than one (the JAX package's rule), else None.
+
+        A multi-process run (``--coordinator_address``, or the torchrun
+        variables) initialises ``torch.distributed`` with the backend
+        ``"cpu:gloo,cuda:nccl"`` on the card (host float64 sums go over
+        gloo, device tensors over NCCL) and ``gloo`` with ``--device cpu``;
+        ``--device cuda`` then means ``cuda:<local rank>``."""
         import torch
 
         from .ops.fluid import set_fluid_dft, set_fluid_fft_kernel, set_fluid_packing
         from .ops.interp import set_warp_mode
 
         device = torch.device(getattr(args, "device", "cuda"))
+        _init_process_group(args, device)
+        if process_count() > 1 and device.type == "cuda" and device.index is None:
+            local = int(os.environ.get("LOCAL_RANK", process_index()))
+            device = torch.device("cuda", local % max(torch.cuda.device_count(), 1))
         if device.type != "cpu" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"--device {device}: no CUDA device (torch.cuda.is_available() is "
@@ -149,10 +219,15 @@ class Tool:
                 set_fluid_dft(True)
             else:
                 set_fluid_packing(ft == "packed")
+        if device.type == "cuda" and device.index is not None:
+            torch.cuda.set_device(device)  # the current device of NCCL's collectives
         self.device = device
-        self.rank = 0
-        self.world_size = 1
-        self.mesh = None
+        self.rank = process_index()
+        self.world_size = process_count()
+        from .parallel import get_mesh
+
+        single = self.world_size == 1 and device.type == "cuda"
+        self.mesh = get_mesh() if single and torch.cuda.device_count() > 1 else None
 
     def _stamp_dataset(self, ds, args):
         """Stamp provenance attributes on an output HDF5 dataset."""
@@ -162,3 +237,27 @@ class Tool:
         ds.attrs["command_args"] = json.dumps(
             {k: v for k, v in vars(args).items() if not k.startswith("_")}
         )
+
+
+def _init_process_group(args, device):
+    """Initialise the default process group from the command's flags or
+    from the torchrun environment, when either asks for one and none is up."""
+    import datetime
+
+    import torch.distributed as dist
+
+    addr = getattr(args, "coordinator_address", None)
+    if addr:
+        init = f"tcp://{addr}"
+        world, rank = args.num_processes, args.process_id
+        if world is None or rank is None:
+            raise ValueError("--coordinator_address needs --num_processes and --process_id")
+    elif os.environ.get("MASTER_ADDR") and os.environ.get("WORLD_SIZE"):
+        init, world, rank = "env://", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    else:
+        return
+    if dist.is_initialized():
+        return
+    backend = "gloo" if device.type == "cpu" else "cpu:gloo,cuda:nccl"
+    dist.init_process_group(backend, init_method=init, world_size=int(world), rank=int(rank),
+                            timeout=datetime.timedelta(seconds=PROCESS_GROUP_TIMEOUT_S))

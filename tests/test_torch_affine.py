@@ -317,8 +317,9 @@ def test_writers_and_loader_read_either_way(rng, tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_there(rng):
-    """A CUDA device without one raises (no fallback to the CPU); a mesh
-    and more than one process raise, naming ROADMAP A.9."""
+    """A CUDA device without one raises (no fallback to the CPU); as in the
+    JAX package, ``world_size`` and ``rank`` are accepted and change
+    nothing, and a mesh of two entries gives the run without one."""
     imgs = list(blob_subjects(rng, 2, 6, 2))
     zeros = (np.zeros((2, 2, 2)), np.zeros((2, 2)))
     if not torch.cuda.is_available():
@@ -328,7 +329,16 @@ def test_entry_points_refuse_what_is_not_there(rng):
             taffine.affine_atlas(imgs, *zeros, num_epochs=1, progress_bar=False, device="cuda")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             taffine.StandardizedDataset(imgs, *zeros)
-    for kw in (dict(mesh=object()), dict(world_size=2, rank=1)):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            taffine.affine_atlas(imgs, *zeros, num_epochs=1, progress_bar=False, device="cpu",
-                                 **kw)
+    from lagomorph_tpu_torch.parallel import get_mesh
+
+    def run(**kw):
+        return taffine.affine_atlas(imgs, np.zeros((2, 2, 2)), np.zeros((2, 2)), num_epochs=1,
+                                    batch_size=2, progress_bar=False, **kw)
+
+    ref = run(device="cpu")
+    for kw in (dict(mesh=get_mesh(devices=["cpu"] * 2)), dict(world_size=2, rank=1, device="cpu")):
+        got = run(**kw)
+        np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(), rtol=0,
+                                   atol=1e-12 * float(ref[0].abs().max()))
+        for a, b in zip(got[1:], ref[1:]):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12, atol=1e-15)

@@ -423,17 +423,28 @@ def test_builder_matches_jax(case, tmp_path):
 
 def test_builder_device_and_unported_options():
     """The builder runs on the card unless given a device: with no CUDA
-    device it raises rather than fall back to the CPU.  What is not ported
-    raises at ``initialize``, as does an unknown ``loader_mode``; the
-    members freeze after it."""
+    device it raises rather than fall back to the CPU.  As in the JAX
+    package, ``world_size`` and ``rank`` are read from the process group
+    (none here: one process), a mesh pads the minibatch to its size, and
+    ``spatial_shard`` without a mesh raises ``ValueError`` at
+    ``initialize``, as does an unknown ``loader_mode``; the members freeze
+    after it."""
+    from lagomorph_tpu_torch.parallel import get_mesh
+
     imgs = list(synth_images(2, 8, 2))
     kw = dict(num_epochs=1, batch_size=2, progress_bar=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lt.LDDMMAtlasBuilder(imgs, **kw).initialize()
-    for bad in ({"world_size": 2}, {"rank": 1}, {"mesh": object()}, {"spatial_shard": True}):
-        with pytest.raises(NotImplementedError):
-            lt.LDDMMAtlasBuilder(imgs, device="cpu", **kw, **bad).initialize()
+    for opts in ({"world_size": 2}, {"rank": 1}):
+        b = lt.LDDMMAtlasBuilder(imgs, device="cpu", **kw, **opts)
+        b.initialize()
+        assert (b._world, b._rank, b._pad_multiple) == (1, 0, 1)
+    b = lt.LDDMMAtlasBuilder(imgs, mesh=get_mesh(devices=["cpu"] * 2), **kw)
+    b.initialize()
+    assert b._pad_multiple == 2 and b._staged(0)[1].mesh.size == 2
+    with pytest.raises(ValueError, match="requires a mesh"):
+        lt.LDDMMAtlasBuilder(imgs, device="cpu", spatial_shard=True, **kw).initialize()
     with pytest.raises(ValueError, match="loader_mode"):
         lt.LDDMMAtlasBuilder(imgs, device="cpu", loader_mode="fork", **kw).initialize()
     b = lt.LDDMMAtlasBuilder(imgs, device="cpu", **kw)

@@ -229,12 +229,12 @@ def test_cli_fluid_transform_radix(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--spatial_shard"], NotImplementedError),
+    # one CPU device, so no mesh: the JAX command's "requires a mesh"
+    (["--spatial_shard"], ValueError),
     # the process loader (ported) runs ahead of no refusal
-    (["--spatial_shard", "--loader_mode", "process", "--loader_workers", "1"],
-     NotImplementedError),
+    (["--spatial_shard", "--loader_mode", "process", "--loader_workers", "1"], ValueError),
     ([], RuntimeError),  # the default device, cuda, on a machine without one
-])
+], ids=["flags0-NotImplementedError", "flags1-NotImplementedError", "flags2-RuntimeError"])
 def test_cli_unported_options_raise(tmp_path, monkeypatch, flags, error):
     if not flags and torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device runs")

@@ -40,6 +40,10 @@ def test_port_never_imports_jax():
                     "lagomorph_tpu_torch.models, lagomorph_tpu_torch.models.deep_atlas, "
                     "lagomorph_tpu_torch.native, lagomorph_tpu_torch.native.batch_cache, "
                     "lagomorph_tpu_torch.profiling, lagomorph_tpu_torch.vis, "
+                    "lagomorph_tpu_torch.parallel, lagomorph_tpu_torch.parallel.mesh, "
+                    "lagomorph_tpu_torch.parallel.distributed, "
+                    "lagomorph_tpu_torch.parallel.sharded_fft, "
+                    "lagomorph_tpu_torch.parallel.sharded_epdiff, "
                     "chip_smoke, profile_warp, profile_radix, profile_shoot2d, profile_epdiff2d, "
                     "profile_atlas; "
                     "assert 'jax' not in sys.modules, 'jax imported'; "

@@ -196,7 +196,8 @@ def test_lddmm_loss_regrid_not_ported(rng):
     """The regrid branch (momenta on a half grid) and checkpoints=True (the
     JAX signature's seventh argument) run, the loss and the step finite
     (held against the JAX package in ``tests/test_torch_atlas.py``); a step
-    on a spatial mesh, still not ported, raises."""
+    on a spatial mesh runs on the same grid and gives the dense step's loss
+    (held against the JAX package in ``tests/test_torch_parallel.py``)."""
     m = momenta(rng, 0.5, (1, 3, 9, 8, 7))
     img = t(np.zeros((1, 1, 18, 16, 14)))
     loss, reg = tlddmm._lddmm_loss(img, t(m), img, lt.FluidMetric(PARAMS), 0.1, 3, False,
@@ -209,8 +210,15 @@ def test_lddmm_loss_regrid_not_ported(rng):
     step = lt.make_lddmm_atlas_step(lt.FluidMetric(PARAMS), image_shape=(18, 16, 14))
     m_new = step(img, t(m), img)[0]
     assert m_new.shape == m.shape and torch.isfinite(m_new).all()
-    with pytest.raises(NotImplementedError, match="spatial_mesh"):
-        lt.make_lddmm_atlas_step(lt.FluidMetric(PARAMS), spatial_mesh=object())
+    from lagomorph_tpu_torch.parallel import get_mesh
+
+    m8 = t(momenta(rng, 0.5, (1, 3, 8, 8, 6)))
+    img8 = t(rng.standard_normal((1, 1, 8, 8, 6)))
+    dense = lt.make_lddmm_atlas_step(lt.FluidMetric(PARAMS))(img8, m8, img8)
+    spatial = lt.make_lddmm_atlas_step(lt.FluidMetric(PARAMS),
+                                       spatial_mesh=get_mesh(devices=["cpu"] * 2))(img8, m8, img8)
+    assert spatial[0].shape == m8.shape and torch.isfinite(spatial[0]).all()
+    assert abs(float(spatial[2]) - float(dense[2])) <= 1e-9 * abs(float(dense[2]))
 
 
 # learning rates that move the momenta by 0.3-5% of max|m| per step here

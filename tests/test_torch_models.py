@@ -176,5 +176,8 @@ def test_deep_lddmm_atlas_matches_jax():
         close_rel(trained[k].numpy(), p, what=k)
     close_rel(ref_m, got.predict_momenta(imgs[:2]), what="predict_momenta")
     close_rel(ref_def, got.deform_atlas(imgs[:2]), what="deform_atlas")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tmodels.DeepLDDMMAtlas(list(imgs), mesh=object(), device="cpu", progress_bar=False)
+    from lagomorph_tpu_torch.parallel import get_mesh
+
+    meshed = tmodels.DeepLDDMMAtlas(list(imgs), mesh=get_mesh(devices=["cpu"] * 2),
+                                    progress_bar=False)
+    assert meshed.device.type == "cpu" and meshed._pad_multiple == 2
