@@ -29,6 +29,7 @@ from .ops import kernels
 from .ops.kernels import epdiff2d, epdiff_unit, shoot2d
 from .parallel.distributed import local_shard as _host
 from .parallel.mesh import Sharded, shardwise
+from .profiling import add as _count, span
 from .utils import Tool, process_count, process_index, progress, torch_device
 
 __all__ = [
@@ -184,13 +185,19 @@ def _expmap_hoisted(metric, m0, dt, length, phiinv0, mommask, fast_fn, checkpoin
     regime.
 
     The JAX package's ``lax.cond(ok, fast, general)`` becomes one host read
-    of the flag per call.  That sync is why the shooting loop cannot yet be
-    captured in a CUDA graph."""
-    fast, ok = fast_fn(metric, m0, dt, length, phiinv0, mommask, checkpoints)
-    if bool(ok):
-        return fast
-    del fast  # frees its autograd graph before the re-run builds its own
-    return _expmap_general(metric, m0, dt, length, phiinv0, mommask)
+    of the flag per call (span ``lt.read.flag``).  That sync is why the
+    shooting loop cannot yet be captured in a CUDA graph.  The whole call is
+    the span ``lt.shoot``; the re-run, ``lt.shoot.general``, counts the
+    fallbacks."""
+    with span("lt.shoot"):
+        fast, ok = fast_fn(metric, m0, dt, length, phiinv0, mommask, checkpoints)
+        with span("lt.read.flag"):
+            ok = bool(ok)
+        if ok:
+            return fast
+        del fast  # frees its autograd graph before the re-run builds its own
+        with span("lt.shoot.general"):
+            return _expmap_general(metric, m0, dt, length, phiinv0, mommask)
 
 
 def shooting_regime_ok(metric, m0, T=1.0, num_steps=10, mommask=None) -> torch.Tensor:
@@ -255,7 +262,8 @@ def _lddmm_sums(I, m, img, metric, integration_steps, checkpoints=False, image_s
     regrid_momenta = image_shape is not None and tuple(h.shape[2:]) != tuple(image_shape)
     if regrid_momenta:
         h = regrid(h, shape=tuple(image_shape))
-    Idef = deform.interp_auto(I, h)
+    with span("lt.warp"):
+        Idef = deform.interp_auto(I, h)
     sq = torch.sum((Idef - img) ** 2, dim=tuple(range(1, img.dim())))
     vm = torch.sum(v * m, dim=tuple(range(1, m.dim())))
     if mask is not None:
@@ -345,35 +353,41 @@ def make_lddmm_atlas_step(metric, reg_weight=1e2, learning_rate_pose=2e2, lddmm_
     from .parallel.distributed import allsum_
 
     def step(I, m, img, mask=None, count=None):
-        ms, imgs = (list(x) if isinstance(x, Sharded) else [x] for x in (m, img))
-        masks = [None] * len(ms) if mask is None else (
-            list(mask) if isinstance(mask, Sharded) else [mask])
-        if count is None:
-            count = img.shape[0] if mask is None else sum(torch.sum(k).to(I.device) for k in masks)
-        loss = reg = I_grad = None
-        for it in range(lddmm_steps):
-            last = it == lddmm_steps - 1
-            with torch.enable_grad():
-                m_ = [x.detach().requires_grad_(True) for x in ms]
-                I_ = I.detach().requires_grad_(last)
-                sq = vm = ratio = None
-                for mk, ik, kk in zip(m_, imgs, masks):
-                    s, v, ratio = _lddmm_sums(I_.to(mk.device), mk, ik, metric, integration_steps,
-                                              checkpoints, image_shape, kk)
-                    sq = s.to(I.device) if sq is None else sq + s.to(I.device)
-                    vm = v.to(I.device) if vm is None else vm + v.to(I.device)
-                loss, reg = _normalise(sq, vm, ratio, count, imgs[0], reg_weight)
-                grads = torch.autograd.grad(loss, m_ + [I_] if last else m_)
-            ms = [_descend(metric, x, g, learning_rate_pose, momentum_preconditioning)
-                  for x, g in zip(ms, grads)]
-            if last:
-                I_grad = grads[-1]
-        loss, reg = loss.detach(), reg.detach()
-        if process_count() > 1:
-            sums = torch.stack([loss, reg])
-            allsum_(sums, I_grad)
-            loss, reg = sums[0], sums[1]
-        return (m.like(ms) if isinstance(m, Sharded) else ms[0]), I_grad, loss, reg
+        with span("lt.step"):
+            ms, imgs = (list(x) if isinstance(x, Sharded) else [x] for x in (m, img))
+            masks = [None] * len(ms) if mask is None else (
+                list(mask) if isinstance(mask, Sharded) else [mask])
+            if count is None:
+                count = (img.shape[0] if mask is None
+                         else sum(torch.sum(k).to(I.device) for k in masks))
+            loss = reg = I_grad = None
+            for it in range(lddmm_steps):
+                last = it == lddmm_steps - 1
+                with torch.enable_grad():
+                    m_ = [x.detach().requires_grad_(True) for x in ms]
+                    I_ = I.detach().requires_grad_(last)
+                    sq = vm = ratio = None
+                    with span("lt.loss"):
+                        for mk, ik, kk in zip(m_, imgs, masks):
+                            s, v, ratio = _lddmm_sums(I_.to(mk.device), mk, ik, metric,
+                                                      integration_steps, checkpoints,
+                                                      image_shape, kk)
+                            sq = s.to(I.device) if sq is None else sq + s.to(I.device)
+                            vm = v.to(I.device) if vm is None else vm + v.to(I.device)
+                        loss, reg = _normalise(sq, vm, ratio, count, imgs[0], reg_weight)
+                    with span("lt.backward"):
+                        grads = torch.autograd.grad(loss, m_ + [I_] if last else m_)
+                with span("lt.descend"):
+                    ms = [_descend(metric, x, g, learning_rate_pose, momentum_preconditioning)
+                          for x, g in zip(ms, grads)]
+                if last:
+                    I_grad = grads[-1]
+            loss, reg = loss.detach(), reg.detach()
+            if process_count() > 1:
+                sums = torch.stack([loss, reg])
+                allsum_(sums, I_grad)
+                loss, reg = sums[0], sums[1]
+            return (m.like(ms) if isinstance(m, Sharded) else ms[0]), I_grad, loss, reg
 
     return step
 
@@ -387,25 +401,28 @@ def _spatial_step(metric, mesh, axis_name, reg_weight, learning_rate_pose, lddmm
     flat = ShardedFluidMetric(getattr(metric, "params", metric), mesh, axis_name)
 
     def step(I, m, img, mask=None):
-        Is, ms, imgs = (as_shards(x, mesh, 2) for x in (I, m, img))
-        loss = reg = gI = None
-        for it in range(lddmm_steps):
-            last = it == lddmm_steps - 1
-            with torch.enable_grad():
-                m_ = Sharded([x.detach().requires_grad_(True) for x in ms], 2, mesh)
-                I_ = Sharded([x.detach().requires_grad_(last) for x in Is], 2, mesh)
-                loss, reg = sharded_atlas_loss(metric, I_, m_, Sharded(imgs, 2, mesh), mesh,
-                                               reg_weight=reg_weight, num_steps=integration_steps,
-                                               axis_name=axis_name, checkpoints=checkpoints,
-                                               mask=mask)
-                grads = torch.autograd.grad(loss, [*m_, *I_] if last else list(m_))
-            gm = list(grads[:len(ms)])
-            with torch.no_grad():
-                p = flat.flat(Sharded(gm, 2, mesh)) if momentum_preconditioning else gm
-                ms = [x.detach() - learning_rate_pose * g for x, g in zip(ms, p)]
-            if last:
-                gI = list(grads[len(ms):])
-        return join_like(ms, m, 2), join_like(gI, I, 2), loss.detach(), reg.detach()
+        with span("lt.step"):
+            Is, ms, imgs = (as_shards(x, mesh, 2) for x in (I, m, img))
+            loss = reg = gI = None
+            for it in range(lddmm_steps):
+                last = it == lddmm_steps - 1
+                with torch.enable_grad():
+                    m_ = Sharded([x.detach().requires_grad_(True) for x in ms], 2, mesh)
+                    I_ = Sharded([x.detach().requires_grad_(last) for x in Is], 2, mesh)
+                    with span("lt.loss"):
+                        loss, reg = sharded_atlas_loss(
+                            metric, I_, m_, Sharded(imgs, 2, mesh), mesh, reg_weight=reg_weight,
+                            num_steps=integration_steps, axis_name=axis_name,
+                            checkpoints=checkpoints, mask=mask)
+                    with span("lt.backward"):
+                        grads = torch.autograd.grad(loss, [*m_, *I_] if last else list(m_))
+                gm = list(grads[:len(ms)])
+                with span("lt.descend"), torch.no_grad():
+                    p = flat.flat(Sharded(gm, 2, mesh)) if momentum_preconditioning else gm
+                    ms = [x.detach() - learning_rate_pose * g for x, g in zip(ms, p)]
+                if last:
+                    gI = list(grads[len(ms):])
+            return join_like(ms, m, 2), join_like(gI, I, 2), loss.detach(), reg.detach()
 
     return step
 
@@ -735,12 +752,13 @@ class LDDMMAtlasBuilder:
     def update_base_image(self, force=False):
         if (self._image_iters < self.image_update_freq and not force) or self._image_iters == 0:
             return
-        # the mean gradient of the iterations since the last update
-        n = float(self._image_iters)
-        self.I = shardwise(lambda I, g: I - self.learning_rate_image * (g / n), self.I,
-                           self._image_grad_accum)
-        self._image_grad_accum = shardwise(torch.zeros_like, self.I)
-        self._image_iters = 0
+        with span("lt.update_atlas"):
+            # the mean gradient of the iterations since the last update
+            n = float(self._image_iters)
+            self.I = shardwise(lambda I, g: I - self.learning_rate_image * (g / n), self.I,
+                               self._image_grad_accum)
+            self._image_grad_accum = shardwise(torch.zeros_like, self.I)
+            self._image_iters = 0
 
     def _put(self, x, dtype=None):
         """``x`` (an array or a tensor) on the builder's device, or laid out
@@ -751,6 +769,7 @@ class LDDMMAtlasBuilder:
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
         if dtype is not None:
             t = t.to(dtype)
+        _count("lt.stage.bytes", t.numel() * t.element_size())
         return put_global(t, self._device if self._sharding is None else self._sharding)
 
     def _pad_rows(self, x):
@@ -802,14 +821,15 @@ class LDDMMAtlasBuilder:
         return self._stage(batch_index, image_dtype)
 
     def _stage(self, batch_index, image_dtype):
-        img, m = self._host_batch(batch_index)
-        n = img.shape[0]
-        if not self._data_parallel:
-            return self._put(img, image_dtype), self._put(m), None, n
-        img, m = self._pad_rows(np.asarray(img)), self._pad_rows(np.asarray(m))
-        mask = np.zeros(img.shape[0], dtype=self.dtype)
-        mask[:n] = 1.0
-        return self._put(img, image_dtype), self._put(m), self._put(mask), n
+        with span("lt.stage"):
+            img, m = self._host_batch(batch_index)
+            n = img.shape[0]
+            if not self._data_parallel:
+                return self._put(img, image_dtype), self._put(m), None, n
+            img, m = self._pad_rows(np.asarray(img)), self._pad_rows(np.asarray(m))
+            mask = np.zeros(img.shape[0], dtype=self.dtype)
+            mask[:n] = 1.0
+            return self._put(img, image_dtype), self._put(m), self._put(mask), n
 
     def _stage_async(self, batch_index):
         """Stage a minibatch on a thread of the loader pool (a Future), so
@@ -835,28 +855,33 @@ class LDDMMAtlasBuilder:
         return self._stage_pool.submit(self._staged, batch_index)
 
     def iteration(self, batch_index, staged=None):
-        img, m, mask, n = staged if staged is not None else self._staged(batch_index)
-        if self._global_real is None:
-            n_global = n
-            m, gI, loss, reg = self._step(self.I, m, img, mask)
-        else:  # the real subjects of the global batch (over every process)
-            n_global = self._global_real[batch_index]
-            m, gI, loss, reg = self._step(self.I, m, img, mask, count=n_global)
-        real = batch_index < len(self.ms)
-        if self.keep_data_on_device:
-            self._dev_cache[batch_index][1] = m
-            if real:
-                self.ms[batch_index] = m
-        elif real:
-            self.ms[batch_index] = _host(m)[:n]
-        self._image_grad_accum = shardwise(torch.add, self._image_grad_accum, gI)
-        self._image_iters += 1
-        if self.image_update_freq > 0:
-            self.update_base_image()
-        # the step's loss is the global minibatch's mean; weighted so that an
-        # epoch sums to the dataset's mean
-        norm = n_global / self._num_examples
-        return float(loss) * norm, float(reg) * norm
+        with span("lt.iteration"):
+            img, m, mask, n = staged if staged is not None else self._staged(batch_index)
+            if self._global_real is None:
+                n_global = n
+                m, gI, loss, reg = self._step(self.I, m, img, mask)
+            else:  # the real subjects of the global batch (over every process)
+                n_global = self._global_real[batch_index]
+                m, gI, loss, reg = self._step(self.I, m, img, mask, count=n_global)
+            real = batch_index < len(self.ms)
+            if self.keep_data_on_device:
+                self._dev_cache[batch_index][1] = m
+                if real:
+                    self.ms[batch_index] = m
+            elif real:
+                self.ms[batch_index] = _host(m)[:n]
+            self._image_grad_accum = shardwise(torch.add, self._image_grad_accum, gI)
+            self._image_iters += 1
+            if self.image_update_freq > 0:
+                self.update_base_image()
+            # the step's loss is the global minibatch's mean; weighted so that
+            # an epoch sums to the dataset's mean
+            norm = n_global / self._num_examples
+            with span("lt.read.loss"):
+                loss = float(loss)
+            with span("lt.read.reg"):
+                reg = float(reg)
+            return loss * norm, reg * norm
 
     def epoch(self):
         epoch_loss = 0.0

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import span
 from .kernels import warp_unit
 from .sampling import (
     identity_grid,
@@ -95,8 +96,11 @@ def tier_flags(d: torch.Tensor, radius: int):
 
 def warp_tier(d: torch.Tensor, radius: int = 2) -> str:
     """The tier :func:`interp_auto` takes for displacement ``d``: "unit",
-    "bounded" or "general" (reads both flags on the host in one sync)."""
-    unit, bounded = torch.stack(tier_flags(d, radius)).tolist()
+    "bounded" or "general" (reads both flags on the host in one sync, the
+    span ``lt.read.tier``)."""
+    flags = torch.stack(tier_flags(d, radius))
+    with span("lt.read.tier"):
+        unit, bounded = flags.tolist()
     if unit:
         return "unit"
     return "bounded" if bounded else "general"

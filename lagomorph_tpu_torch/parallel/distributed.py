@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profiling import span
 from ..utils import process_count, process_index
 from .mesh import Sharded, Sharding
 
@@ -75,11 +76,13 @@ def allsum_hosts(x) -> np.ndarray:
 
 
 def allsum_(*tensors):
-    """Sum each tensor in place over the processes (``all_reduce``); nothing
-    without a process group.  Returns the tensors."""
+    """Sum each tensor in place over the processes (``all_reduce``, the span
+    ``lt.allsum``); nothing without a process group.  Returns the
+    tensors."""
     if process_count() > 1:
         import torch.distributed as dist
 
-        for t in tensors:
-            dist.all_reduce(t)
+        with span("lt.allsum"):
+            for t in tensors:
+                dist.all_reduce(t)
     return tensors
