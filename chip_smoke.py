@@ -1510,20 +1510,20 @@ def work(name, N, V, F=None, axes=None):
 
 
 def pass_work(kind, N, NI, C, V, compose=False):
-    """(bytes, operations) of one pass of the warp's backward launchers, as
-    K5, K6 and K7 run them: the transpose (read the displacement and the
-    cotangent, write the ``NI``-batch image gradient) or the weight
-    gradient (``kind == "dd"``: read the image, the displacement and the
-    cotangent, write the displacement gradient; with the compose epilogue,
-    s g + s dd); or K6's first pass (``kind == "adstar_first"``, ``C == 3``:
-    read phiinv, the ``NI``-batch momenta, the cotangent and the warped
-    momenta, write ``d_mw`` and ``d_phiinv``)."""
+    """(bytes, operations) of the warp backward's pass in each mode, as K5,
+    K6 and K7 run it: the transpose alone (``kind == "transpose"``: read the
+    displacement and the cotangent, write the ``NI``-batch image gradient)
+    or with the weight gradient (``kind == "pass"``: read the image too,
+    write the displacement gradient too; with the compose epilogue, s g + s
+    dd); or K6's first pass (``kind == "adstar_first"``, ``C == 3``: read
+    phiinv, the ``NI``-batch momenta, the cotangent and the warped momenta,
+    write ``d_mw`` and ``d_phiinv``)."""
     if kind == "transpose":
         return 4 * V * (3 * N + N * C + NI * C), N * V * transpose_ops(C)
     if kind == "adstar_first":
         return 4 * V * (5 * 3 * N + 3 * NI), N * V * (JAC_OPS + weight_grad_ops(3) + DIV_OPS + 3)
-    return 4 * V * (NI * C + 3 * N + N * C + 3 * N), N * V * (weight_grad_ops(C)
-                                                            + (3 if compose else 0))
+    return (4 * V * (3 * N + N * C + 2 * NI * C + 3 * N),
+            N * V * (transpose_ops(C) + weight_grad_ops(C) + (3 if compose else 0)))
 
 
 def grid_of(disp):
@@ -1654,36 +1654,43 @@ def timings(device, card, lt, metric, I, m, img):
         f"ms ({b_by}), {(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b4 [{card}]")
     compose_yardstick(device, card, phiinv, v, -0.2)
 
-    # each pass of the warp's backward launchers at the operand shapes the
-    # step runs: the transpose of K5 (C = 1, the atlas summed over the N
-    # subjects) and of K6 and K7 (C = 3, NI = N), the weight gradient of K5
-    # (C = 1) and of K7 (C = 3, the compose epilogue)
+    # the warp backward's pass in each mode at the operand shapes the step
+    # runs, at b4 and at the atlas cell's b50: with the weight gradient as
+    # K5 runs it (C = 1, the atlas summed over the subjects) and K7 (C = 3,
+    # the compose epilogue), the transpose alone as K6 (C = 3, NI = N)
     st = stream_of(phiinv)
-    dI1 = torch.empty_like(I)
-    d3 = torch.empty_like(phiinv)
-
-    def transpose(disp, s, cot, out, NI, C):
-        return lambda: _build.call("lagomorph_warp_transpose", disp.data_ptr(), s,
-                                   cot.data_ptr(), out.data_ptr(), N, NI, C, X, Y, Z, st)
-
-    def dd(img_, disp, s, cot, NI, C, compose):
-        return lambda: _build.call("lagomorph_warp_dd", img_.data_ptr(), disp.data_ptr(), s,
-                                   cot.data_ptr(), d3.data_ptr(), N, NI, C, X, Y, Z,
-                                   int(compose), st)
-
-    for label, kind, NI, C, compose, fn in (
-            ("transpose C=1 NI=1 (K5)", "transpose", 1, 1, False,
-             transpose(phiinv, 1.0, g1, dI1, 1, 1)),
-            ("transpose C=3 NI=N (K6, K7)", "transpose", N, 3, False,
-             transpose(v, -0.2, g3, d3, N, 3)),
-            ("weight gradient C=1 (K5)", "dd", 1, 1, False, dd(I, phiinv, 1.0, g1, 1, 1, False)),
-            ("weight gradient C=3 compose (K7)", "dd", N, 3, True,
-             dd(phiinv, v, -0.2, g3, N, 3, True))):
-        k1 = time_ms(fn, device, 10)
-        k2 = time_ms(fn, device, 10)
-        b_ms, b_by = bound(*pass_work(kind, N, NI, C, V, compose))
-        log(f"time pass {label}: {k1:.4f}/{k2:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b4 [{card}]")
+    PASS_B = 50
+    big = (PASS_B,) + FULL[1:]
+    p50, v50, g50 = (t(rng.uniform(-0.99, 0.99, big)), t(rng.uniform(-4.9, 4.9, big)),
+                     t(rng.standard_normal(big)))
+    g1_50 = t(rng.standard_normal((PASS_B, 1, X, Y, Z)))
+    for b in (N, PASS_B):
+        dI1, d3, dd3 = torch.empty_like(I), torch.empty_like(p50[:b]), torch.empty_like(p50[:b])
+        for label, kind, args in (
+                ("with the weight gradient C=1 NI=1 (K5)", "pass",
+                 (I, p50[:b], 1.0, g1_50[:b], dI1, d3, 1, 1, False)),
+                ("transpose alone C=3 NI=N (K6)", "transpose",
+                 (None, p50[:b], 1.0, g50[:b], d3, None, b, 3, False)),
+                ("with the weight gradient C=3 compose (K7)", "pass",
+                 (p50[:b], v50[:b], -0.2, g50[:b], d3, dd3, b, 3, True))):
+            img_, disp, s, cot, out_t, out_dd, NI, C, compose = args
+            if kind == "pass":
+                fn = (lambda img_=img_, disp=disp, s=s, cot=cot, out_t=out_t, out_dd=out_dd,
+                      NI=NI, C=C, compose=compose: _build.call(
+                          "lagomorph_warp_dd", img_.data_ptr(), disp.data_ptr(), s,
+                          cot.data_ptr(), out_t.data_ptr(), out_dd.data_ptr(), b, NI, C, X, Y,
+                          Z, int(compose), st))
+            else:
+                fn = (lambda disp=disp, s=s, cot=cot, out_t=out_t, NI=NI, C=C: _build.call(
+                    "lagomorph_warp_transpose", disp.data_ptr(), s, cot.data_ptr(),
+                    out_t.data_ptr(), b, NI, C, X, Y, Z, st))
+            k1 = time_ms(fn, device, 10)
+            k2 = time_ms(fn, device, 10)
+            b_ms, b_by = bound(*pass_work(kind, b, NI, C, V, compose))
+            log(f"time pass {label}: {k1:.4f}/{k2:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b{b} (beside the "
+                f"two passes it replaced: profile_warp.py) [{card}]")
+    del p50, v50, g50, g1_50
     # K6's first pass alone, at batch-N momenta as the step runs it
     k1 = time_ms(lambda: ad_star_bwd_first(phiinv, m, g3, mw), device, 10)
     k2 = time_ms(lambda: ad_star_bwd_first(phiinv, m, g3, mw), device, 10)

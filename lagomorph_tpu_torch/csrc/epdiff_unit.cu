@@ -78,9 +78,10 @@
 // Bound on the H100 (128^3 b4, 100.7 MB per 3-channel field): K6 must move
 // 6 fields (read phi, m0, g, mw; write d_phi, d_m0), ~180 us at 3.35 TB/s;
 // its two passes move 11 (the scratch d_mw and a second read of phi).  K7
-// must move 5 (read phi, v, g; write d_phi, d_v), ~150 us; its passes move
-// 7.  The transpose and weight-gradient passes are K5's (warp_unit.cu:
-// bricks staged in shared memory with a halo, the 8 live taps).  K6's first
+// must move 5 (read phi, v, g; write d_phi, d_v), ~150 us, and its one
+// pass moves those 5.  The transpose, and K7's weight gradient, are K5's
+// pass (warp_unit.cu: x-planes of a tile staged asynchronously with a
+// halo, the transpose and the 8 live taps from one staging).  K6's first
 // pass must move 6 fields (read phi, m0, g, mw; write d_mw, d_phi), ~180 us;
 // its staging adds the y/z halo, (AB_TY + 2)(AB_TZ + 2) / (AB_TY AB_TZ) - 1
 // = 33% more loads of its inputs, mostly from L2, and 2 planes a march.  It
@@ -407,26 +408,6 @@ __global__ void __launch_bounds__(AB_THREADS, 2)
 static inline long march_blocks(int N, int X, int Y, int Z, int march) {
   return (long)N * ((X + march - 1) / march) * ((Y + AB_TY - 1) / AB_TY) *
          ((Z + AB_TZ - 1) / AB_TZ);
-}
-
-// The value `ask(device, &value)` gives for the current device, asked once
-// per device and kept in `cache` (0: not asked yet); `fallback` when there
-// is no device to ask or asking fails
-constexpr int kDevices = 64;
-
-template <class Ask>
-static int per_device(std::atomic<int>* cache, int fallback, Ask ask) {
-  int dev = 0, v = fallback;
-  if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kDevices) {
-    v = cache[dev].load(std::memory_order_relaxed);
-    if (v == 0) {
-      if (ask(dev, &v) != cudaSuccess || v <= 0)
-        v = fallback;
-      else
-        cache[dev].store(v, std::memory_order_relaxed);
-    }
-  }
-  return v;
 }
 
 // the blocks of AB_THREADS threads and `smem` bytes of `kernel` that one SM
@@ -886,8 +867,8 @@ extern "C" int lagomorph_ad_star_bwd(const float* phiinv, const float* m0,
   const cudaError_t err = lagomorph::launch_ad_star_bwd_first<true>(
       phiinv, m0, g, mw, d_mw, d_phiinv, N, Nm, X, Y, Z, 0, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)lagomorph::launch_warp_transpose(phiinv, 1.0f, d_mw, d_m0, N, Nm,
-                                               3, X, Y, Z, st);
+  return (int)lagomorph::launch_warp_bwd(nullptr, phiinv, 1.0f, d_mw, d_m0, nullptr, N, Nm, 3,
+                                         X, Y, Z, false, st);
 }
 
 // K6's first pass alone (d_mw and d_phiinv), for timing it and testing it,
@@ -905,12 +886,8 @@ extern "C" int lagomorph_compose_bwd(const float* phiinv, const float* v,
                                      float s, const float* g, float* d_phiinv,
                                      float* d_v, int N, int X, int Y, int Z,
                                      void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err = lagomorph::launch_warp_transpose(v, s, g, d_phiinv, N,
-                                                           N, 3, X, Y, Z, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)lagomorph::launch_warp_dd(phiinv, v, s, g, d_v, N, N, 3, X, Y, Z,
-                                        true, st);
+  return (int)lagomorph::launch_warp_bwd(phiinv, v, s, g, d_phiinv, d_v, N, N, 3, X, Y, Z, true,
+                                         (cudaStream_t)stream);
 }
 
 // K2, marching over `march` planes (<= 0: the length K2 takes)

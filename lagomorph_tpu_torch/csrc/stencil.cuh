@@ -16,6 +16,8 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace lagomorph {
 
 // weights of the taps at offsets -1, 0, +1 along one axis
@@ -93,27 +95,80 @@ __device__ __forceinline__ float diff_central_adjoint(float qm, float q0, float 
   return __fmul_rn(0.5f, __fsub_rn(qm, qp));
 }
 
+// The unit regime's three weights of one axis, for the warp backward's pass
+// (warp_unit.cu), which forms them from the staged displacement at each use:
+// max(-d, 0), 1 - |d| and max(d, 0) for d in [-1, 1), zeros outside it (a
+// NaN d gives a NaN middle weight).  In the unit regime they equal
+// axis_weights' but for the offset -1, which is -d here and 1 - (d + 1)
+// there (an ulp of 1 apart at most).
+__device__ __forceinline__ AxisWeights unit_weights(float d) {
+  const bool out = d < -1.0f || d >= 1.0f;
+  AxisWeights w;
+  w.m = out ? 0.0f : fmaxf(-d, 0.0f);
+  w.z = out ? 0.0f : __fsub_rn(1.0f, fabsf(d));
+  w.p = out ? 0.0f : fmaxf(d, 0.0f);
+  return w;
+}
+
+// The two live taps of one axis from unit_weights: offsets lo and lo + 1
+// (lo = -1 for d < 0) with weights w[0], w[1], zeros outside the unit
+// regime (`in` false there; the slopes of both weights are -1 and +1
+// inside it)
+struct UnitPair {
+  int lo;
+  float w[2];
+  bool in;
+};
+
+__device__ __forceinline__ UnitPair unit_pair(float d) {
+  UnitPair p;
+  p.in = !(d < -1.0f || d >= 1.0f);
+  const bool neg = d < 0.0f;
+  p.lo = neg ? -1 : 0;
+  const float mid = __fsub_rn(1.0f, fabsf(d));
+  p.w[0] = p.in ? (neg ? -d : mid) : 0.0f;
+  p.w[1] = p.in ? (neg ? mid : d) : 0.0f;
+  return p;
+}
+
 }  // namespace lagomorph
 
 // ---------------------------------------------------------------------------
-// Host launchers of the two warp-backward passes, defined in warp_unit.cu and
-// shared by the backward entry points of warp_unit.cu and epdiff_unit.cu.
-// Each launches on `stream` and returns cudaGetLastError().
+// Host helpers of the launchers (warp_unit.cu, epdiff_unit.cu).
 // ---------------------------------------------------------------------------
 namespace lagomorph {
 
-// out[nI, c](v) = sum_{n of nI} sum_{(u, o): clamp(u + o) == v}
-//                 w_o(s * disp[n](u)) * cot[n, c](u)
-// (the gather-form transpose of the warp; NI == 1 < N sums the N subjects)
-cudaError_t launch_warp_transpose(const float* disp, float s, const float* cot,
-                                  float* out, int N, int NI, int C, int X, int Y,
-                                  int Z, cudaStream_t stream);
+// The value `ask(device, &value)` gives for the current device, asked once
+// per device and kept in `cache` (0: not asked yet); `fallback` when there
+// is no device to ask or asking fails
+constexpr int kDevices = 64;
 
-// dd_a(p) = sum_o dw_a(o_a) prod_{b != a} w_b(o_b) sum_c cot_c(p) I_c[clamp(p + o)]
-// at displacement s * disp; out_a = dd_a, or s * cot_a + s * dd_a when
-// `compose` (the d_v of the compose step, C == 3)
-cudaError_t launch_warp_dd(const float* I, const float* disp, float s,
-                           const float* cot, float* out, int N, int NI, int C,
-                           int X, int Y, int Z, bool compose, cudaStream_t stream);
+template <class Ask>
+static int per_device(std::atomic<int>* cache, int fallback, Ask ask) {
+  int dev = 0, v = fallback;
+  if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kDevices) {
+    v = cache[dev].load(std::memory_order_relaxed);
+    if (v == 0) {
+      if (ask(dev, &v) != cudaSuccess || v <= 0)
+        v = fallback;
+      else
+        cache[dev].store(v, std::memory_order_relaxed);
+    }
+  }
+  return v;
+}
+
+// The warp backward's pass (warp_unit.cu), which K5, K6 and K7 launch: the
+// gather-form transpose of the warp at displacement s * disp,
+//   out_t[nI, c](v) = sum_{n of nI} sum_{(u, o): clamp(u + o) == v}
+//                     w_o(s * disp[n](u)) * cot[n, c](u)
+// (NI == 1 < N sums the N subjects), and, when I is not null, the weight
+// gradient
+//   dd_a(p) = sum_o dw_a(o_a) prod_{b != a} w_b(o_b) sum_c cot_c(p) I_c[clamp(p + o)]
+// into out_dd: dd_a, or s * cot_a + s * dd_a when `compose` (the d_v of the
+// compose step, C == 3).  Launches on `stream`, returns cudaGetLastError().
+cudaError_t launch_warp_bwd(const float* I, const float* disp, float s, const float* cot,
+                            float* out_t, float* out_dd, int N, int NI, int C, int X, int Y,
+                            int Z, bool compose, cudaStream_t stream);
 
 }  // namespace lagomorph

@@ -42,11 +42,11 @@ SIGNATURES = {
     "lagomorph_warp_unit_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # I, disp, g, dI, d_disp, N, NI, C, X, Y, Z, stream
     "lagomorph_warp_unit_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # the two passes of K5 alone (also K6's and K7's), for timing:
-    # disp, s, cot, out, N, NI, C, X, Y, Z, stream
+    # K5's pass alone (also K6's and K7's) in each mode, for timing and tests:
+    # the transpose: disp, s, cot, out, N, NI, C, X, Y, Z, stream
     "lagomorph_warp_transpose": [_P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # I, disp, s, cot, out, N, NI, C, X, Y, Z, compose, stream
-    "lagomorph_warp_dd": [_P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # with the weight gradient: I, disp, s, cot, out_t, out_dd, N, NI, C, X, Y, Z, compose, stream
+    "lagomorph_warp_dd": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # phiinv, m0, out, mw (or NULL), flag, N, Nm, X, Y, Z, march (<= 0: K1's length), stream
     "lagomorph_ad_star_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # phiinv, m0, g, mw, d_mw (scratch), d_phiinv, d_m0, N, Nm, X, Y, Z, stream

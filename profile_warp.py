@@ -10,17 +10,16 @@ nvcc) and timed with CUDA events beside the previous kernel and the
 current one (``csrc/warp_unit.cu``), at the operand shapes of the 3D atlas
 step at 128^3 b4:
 
-* the transpose at K5's shape (C = 1, batch-1 atlas, summed over N = 4)
-  and at K7's (C = 3, NI = N, s = -0.2): the previous kernel, the previous
-  kernel reading precomputed weights (no recomputation; nothing staged),
-  and the current one (weights computed once per source and staged with
-  the cotangent in a brick with its halo);
-* the weight-gradient pass at K5's shape (C = 1) and K7's (C = 3 with the
-  compose epilogue): the previous kernel (27 taps), the previous kernel on
-  the 8 live taps (nothing staged), and the current one (8 live taps, the
-  brick of I staged);
+* the warp backward's pass (``lagomorph_warp_dd``: the transpose and the
+  weight gradient, as K5 and K7 run it; ``lagomorph_warp_transpose``: the
+  transpose alone, as K6 runs it) at the shapes of K5 (C = 1, the batch-1
+  atlas summed over the subjects), K6 (C = 3, NI = N) and K7 (C = 3, NI =
+  N, s = -0.2, the compose epilogue), at b4 and at b50 (the atlas cell's
+  minibatch), beside the two passes it replaced (``csrc/profile/
+  warp_variants.cu``: the transpose, then the weight gradient) and with
+  each of its load paths forced (TMA, which the launcher takes at these
+  shapes, and ``cp.async``, which it takes where TMA cannot);
 * the forward K4 (C = 1, the atlas): 27 taps and 8;
-* the current passes built with other brick shapes (``BRICKS``);
 * K6's first pass (``lagomorph_ad_star_bwd_first``, batch-N momenta, as
   the step runs it), at 128^3 b4 and at 64^3 b4 (the whole-volume step's
   shape): the previous kernel (27 taps, one thread per voxel, nothing
@@ -40,12 +39,12 @@ step at 128^3 b4:
   length it takes and at ``MARCHES``.
 
 Each line gives ms per call (two samples of 20 calls, in turns), the byte
-bound of the pass (``chip_smoke.pass_work``) and the largest difference of
-each variant's output from the previous kernel's (of each output, for K6's
-first pass: ``d_mw`` must be bit-equal and ``d_phiinv`` within 1e-5 * (1 +
-max|ref|), or the script fails; K2's output, and K1's out and ``mw``, must
-be bit-equal).  Needs a
-CUDA card; imports no jax.
+bound of the work (``chip_smoke.pass_work``, ``chip_smoke.work``) and the
+largest difference of each variant's output from the previous kernel's (of
+each output: the pass's within 1e-5 * (1 + max|ref|) of the previous
+passes', K6's first pass's ``d_mw`` bit-equal and ``d_phiinv`` within 1e-5
+* (1 + max|ref|), K2's output and K1's out and ``mw`` bit-equal, or the
+script fails).  Needs a CUDA card; imports no jax.
 """
 from __future__ import annotations
 
@@ -74,49 +73,33 @@ def ptxas(log, what, kernels=("warp", "transpose", "dd", "fwd", "ad_star")):
             print(f"ptxas ({what}) {name[:60]}: {line.split(':', 1)[-1].strip()}", flush=True)
 
 
-# other brick shapes (x, y) of the backward passes, beside the built-in 4 x 8 x 32
-BRICKS = ((8, 8), (4, 16))
+# the atlas cell's minibatch, beside SHAPE's b4
+BATCH = 50
+# the pass's load paths (csrc/warp_unit.cu launch_warp_bwd_path), forced
+PATHS = ((1, "TMA"), (0, "cp.async"))
 # K6's first pass, K2 and K1 at other march lengths
 MARCHES = (8, 16, 32, 64, 128)
 
 
 def build_variants():
-    """The variant kernels as shared libraries (nvcc, the kernels' flags,
-    in parallel): one with the library's brick and one per shape of
-    ``BRICKS``, whose current passes are timed beside it.  Returns (the
-    first library, {brick: library})."""
+    """The variant kernels as a shared library (nvcc, the kernels' flags)."""
     from lagomorph_tpu_torch.ops.kernels import _build
 
     src = os.path.join(_build.CSRC, "profile", "warp_variants.cu")
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    defines = [[]] + [[f"-DLAGOMORPH_WARP_BRICK_X={bx}", f"-DLAGOMORPH_WARP_BRICK_Y={by}"]
-                      for bx, by in BRICKS]
-    sos = [os.path.join(_build.BUILD_DIR, f"libwarp_variants_{os.getpid()}_{k}.so")
-           for k in range(len(defines))]
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *d, "-I", _build.CSRC,
-                               "-shared", "-o", so, src], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for d, so in zip(defines, sos)]
-    for d, p in zip(defines, procs):
-        out = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the variants {d}:\n{out}")
-        if not d:
-            ptxas(out, "variants")
-    libs = [ctypes.CDLL(so) for so in sos]
-    lib = libs[0]
+    so = os.path.join(_build.BUILD_DIR, f"libwarp_variants_{os.getpid()}.so")
+    p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-shared", "-o",
+                        so, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the variants:\n{p.stdout}")
+    ptxas(p.stdout, "variants")
+    lib = ctypes.CDLL(so)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for other in libs[1:]:
-        for name in ("lagomorph_warp_transpose", "lagomorph_warp_dd"):
-            getattr(other, name).argtypes = _build.SIGNATURES[name]
     sig = {
         "prof_old_fwd": [P, P, P] + [I] * 6 + [P],
-        "prof_old_transpose": [P, F, P, P] + [I] * 6 + [P],
-        "prof_weights": [P, F, P, I, I, P],
-        "prof_preweighted_transpose": [P, P, P] + [I] * 6 + [P],
-        "prof_old_dd": [P, P, F, P, P] + [I] * 7 + [P],
-        "prof_live_dd": [P, P, F, P, P] + [I] * 7 + [P],
-        "prof_transpose_variant": [I, P, F, P, P] + [I] * 6 + [P],
+        "prof_prev_transpose": [P, F, P, P] + [I] * 6 + [P],
+        "prof_prev_dd": [P, P, F, P, P] + [I] * 7 + [P],
+        "prof_pass": [I, P, P, F, P, P, P] + [I] * 7 + [P],
         "prof_adstar_first": [I] + [P] * 6 + [I] * 5 + [P],
         "prof_compose_fwd": [I, P, P, F, P, P] + [I] * 4 + [P],
         "prof_ad_star_fwd": [I] + [P] * 5 + [I] * 5 + [P],
@@ -124,7 +107,7 @@ def build_variants():
     for name, argtypes in sig.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
-    return lib, dict(zip(BRICKS, libs[1:]))
+    return lib
 
 
 def main():
@@ -140,7 +123,7 @@ def main():
     print(card, flush=True)
     _build.library()
     ptxas(_build.build_log, "library")
-    var, bricks = build_variants()
+    var = build_variants()
     N, _, X, Y, Z = SHAPE
     V = X * Y * Z
     rng = np.random.default_rng(21)
@@ -148,11 +131,13 @@ def main():
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
-    phiinv = t(rng.uniform(-0.99, 0.99, SHAPE))
-    v = t(rng.uniform(-4.9, 4.9, SHAPE))
+    big = (BATCH,) + SHAPE[1:]  # the b4 operands are their first N subjects
+    phi50 = t(rng.uniform(-0.99, 0.99, big))
+    v50 = t(rng.uniform(-4.9, 4.9, big))
+    g1_50 = t(rng.standard_normal((BATCH, 1, X, Y, Z)))
+    g3_50 = t(rng.standard_normal(big))
+    phiinv, v, g1, g3 = phi50[:N], v50[:N], g1_50[:N], g3_50[:N]
     I1 = t(rng.standard_normal((1, 1, X, Y, Z)))
-    g1 = t(rng.standard_normal((N, 1, X, Y, Z)))
-    g3 = t(rng.standard_normal(SHAPE))
     m3 = t(rng.standard_normal(SHAPE))
     st = stream_of(phiinv)
     lib = _build.library()
@@ -162,45 +147,42 @@ def main():
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err}")
 
+    def pass_case(label, I, disp, s, cot, NI, C, compose):
+        """The pass with the weight gradient beside the two previous passes."""
+        n = disp.shape[0]
+        outs = (torch.empty((NI, C, X, Y, Z), dtype=torch.float32, device=device),
+                torch.empty_like(disp))
+        ptr = (I.data_ptr(), disp.data_ptr(), s, cot.data_ptr())
+        dims = (n, NI, C, X, Y, Z)
+
+        def previous():
+            run(var, "prof_prev_transpose", *ptr[1:], outs[0].data_ptr(), *dims, st)
+            run(var, "prof_prev_dd", *ptr, outs[1].data_ptr(), *dims, int(compose), st)
+
+        def forced(path):
+            return lambda: run(var, "prof_pass", path, *ptr, outs[0].data_ptr(),
+                               outs[1].data_ptr(), *dims, int(compose), st)
+        return (f"{label} at 128^3 b{n}", outs, {
+            "previous (transpose, weight gradient)": previous,
+            "current": lambda: run(lib, "lagomorph_warp_dd", *ptr, outs[0].data_ptr(),
+                                   outs[1].data_ptr(), *dims, int(compose), st),
+            **{f"current, {name}": forced(path) for path, name in PATHS},
+        }, chip_smoke.pass_work("pass", n, NI, C, V, compose), None, (1e-5, 1e-5))
+
     def transpose_case(label, disp, s, cot, NI, C):
+        """The transpose alone beside the previous transpose."""
+        n = disp.shape[0]
         out = torch.empty((NI, C, X, Y, Z), dtype=torch.float32, device=device)
-        w9 = torch.empty((N, 9, X, Y, Z), dtype=torch.float32, device=device)
-        dims = (N, NI, C, X, Y, Z)
+        args = (disp.data_ptr(), s, cot.data_ptr(), out.data_ptr(), n, NI, C, X, Y, Z, st)
 
-        def weights():
-            run(var, "prof_weights", disp.data_ptr(), s, w9.data_ptr(), N, V, st)
-
-        weights()
-        return (label, out, {
-            "previous": lambda: run(var, "prof_old_transpose", disp.data_ptr(), s,
-                                    cot.data_ptr(), out.data_ptr(), *dims, st),
-            "previous, weights precomputed": lambda: run(
-                var, "prof_preweighted_transpose", w9.data_ptr(), cot.data_ptr(),
-                out.data_ptr(), *dims, st),
-            "current": lambda: run(lib, "lagomorph_warp_transpose", disp.data_ptr(), s,
-                                   cot.data_ptr(), out.data_ptr(), *dims, st),
-            "current, staging alone": lambda: run(
-                var, "prof_transpose_variant", 1, disp.data_ptr(), s, cot.data_ptr(),
-                out.data_ptr(), *dims, st),
-            "current, accumulation alone": lambda: run(
-                var, "prof_transpose_variant", 2, disp.data_ptr(), s, cot.data_ptr(),
-                out.data_ptr(), *dims, st),
-            **{f"current, brick {bx}x{by}x32": (lambda b=b: run(
-                b, "lagomorph_warp_transpose", disp.data_ptr(), s, cot.data_ptr(),
-                out.data_ptr(), *dims, st)) for (bx, by), b in bricks.items()},
-        }, chip_smoke.pass_work("transpose", N, NI, C, V), weights)
-
-    def dd_case(label, I, disp, s, cot, NI, C, compose):
-        out = torch.empty(SHAPE, dtype=torch.float32, device=device)
-        args = (I.data_ptr(), disp.data_ptr(), s, cot.data_ptr(), out.data_ptr(),
-                N, NI, C, X, Y, Z, compose, st)
-        return (label, out, {
-            "previous (27 taps)": lambda: run(var, "prof_old_dd", *args),
-            "previous, 8 live taps": lambda: run(var, "prof_live_dd", *args),
-            "current": lambda: run(lib, "lagomorph_warp_dd", *args),
-            **{f"current, brick {bx}x{by}x32": (lambda b=b: run(b, "lagomorph_warp_dd", *args))
-               for (bx, by), b in bricks.items()},
-        }, chip_smoke.pass_work("dd", N, NI, C, V, compose=bool(compose)), None)
+        def forced(path):  # prof_pass: no image, no weight gradient's output, compose 0
+            return lambda: run(var, "prof_pass", path, None, *args[:4], None, *args[4:-1], 0,
+                               args[-1])
+        return (f"{label} at 128^3 b{n}", (out,), {
+            "previous": lambda: run(var, "prof_prev_transpose", *args),
+            "current": lambda: run(lib, "lagomorph_warp_transpose", *args),
+            **{f"current, {name}": forced(path) for path, name in PATHS},
+        }, chip_smoke.pass_work("transpose", n, NI, C, V), None, (1e-5,))
 
     def adstar_first_case(shape):
         from lagomorph_tpu_torch.ops.kernels import epdiff_unit
@@ -270,11 +252,12 @@ def main():
 
     out = torch.empty((N, 1, X, Y, Z), dtype=torch.float32, device=device)
     fargs = (I1.data_ptr(), phiinv.data_ptr(), out.data_ptr(), N, 1, 1, X, Y, Z, st)
-    cases = [
-        transpose_case("transpose K5 (C=1, NI=1)", phiinv, 1.0, g1, 1, 1),
-        transpose_case("transpose K7 (C=3, NI=N)", v, -0.2, g3, N, 3),
-        dd_case("weight gradient K5 (C=1)", I1, phiinv, 1.0, g1, 1, 1, 0),
-        dd_case("weight gradient K7 (C=3, compose)", phiinv, v, -0.2, g3, N, 3, 1),
+    cases = [case for b in (N, BATCH) for case in (
+        pass_case("pass K5 (C=1, NI=1, weight gradient)", I1, phi50[:b], 1.0, g1_50[:b], 1, 1,
+                  False),
+        transpose_case("pass K6 (C=3, NI=N, transpose alone)", phi50[:b], 1.0, g3_50[:b], b, 3),
+        pass_case("pass K7 (C=3, NI=N, s=-0.2, compose)", phi50[:b], v50[:b], -0.2, g3_50[:b], b,
+                  3, True))] + [
         ("forward K4 (C=1, atlas)", out, {
             "previous (27 taps)": lambda: run(var, "prof_old_fwd", *fargs),
             "current (8 taps)": lambda: run(lib, "lagomorph_warp_unit_fwd", *fargs),

@@ -411,15 +411,18 @@ def test_fluid_whole_matches_plain_on_cuda(cuda, shape):
         fft_whole.fluid_whole(x, Mn.double())
 
 
-# shapes against the warp backward passes' brick of 4 x 8 x 32 voxels:
-# smaller than one brick, straddling bricks on every axis, axes of length 1
-# and 2, 17 voxels along x (more bricks than one transpose block walks);
-# and against K6's first pass, whose blocks march over 16 x-planes of an
-# 8 x 32 (y, z) tile: one march plus a remainder, less than one, y and z
-# straddling the tile; as tests/test_torch_host_barrier_kernels.py holds
-# them on the CPU
+# shapes against the warp backward's pass (16 x 32 (y, z) tiles marching along x):
+# smaller than one tile, straddling tiles, axes of length 1 and 2, 17 voxels
+# along x (its ring of 2 staged steps turns 8 times, and a remainder);
+# against K6's first pass, whose blocks march over 16 x-planes of an 8 x 32
+# (y, z) tile: one march plus a remainder, less than one, y and z
+# straddling the tile; as
+# tests/test_torch_host_barrier_kernels.py holds them on the CPU; and the
+# pass's two load paths at the sizes the card walks in waves of columns:
+# 128^3 b2 (Z a multiple of 4: TMA) and (3, 3, 43, 18, 37) (odd Z: cp.async)
 EDGE_SHAPES = [(2, 3, 3, 5, 7), (3, 3, 5, 9, 37), (2, 3, 1, 2, 6), (2, 3, 6, 2, 1),
-               (2, 3, 17, 3, 5), (2, 3, 19, 11, 35), (2, 3, 5, 9, 33)]
+               (2, 3, 17, 3, 5), (2, 3, 19, 11, 35), (2, 3, 5, 9, 33), (2, 3, 128, 128, 128),
+               (3, 3, 43, 18, 37)]
 
 
 @pytest.mark.cuda
@@ -427,8 +430,9 @@ EDGE_SHAPES = [(2, 3, 3, 5, 7), (3, 3, 5, 9, 37), (2, 3, 1, 2, 6), (2, 3, 6, 2, 
 def test_warp_passes_edge_cases_on_cuda(cuda, shape):
     """K4 bit-equal to its plain version, and K5, K6 and K7 within 1e-5 *
     (1 + max|ref|) of theirs, on displacements with voxels outside the unit
-    regime (zero weights) and at its edges, at shapes smaller than a brick,
-    straddling bricks and with thin axes: one-, three- and five-channel
+    regime (zero weights) and at its edges, at shapes smaller than a tile,
+    straddling tiles and with thin axes, and on both of the pass's load
+    paths at the card's column walk: one-, three- and five-channel
     images of batch 1 and N, batch-1 and batch-N momenta (no thin axis:
     Ad*'s Jacobian refuses one), s = -0.2 and 0.7; a second launch of each
     backward bit-identical to the first; and K6's first pass alone, its
@@ -474,6 +478,30 @@ def test_warp_passes_edge_cases_on_cuda(cuda, shape):
         hold(lambda a, b, g: epdiff_unit._launch_compose_bwd(a, b, s, g),
              lambda a, b, g: epdiff_unit.compose_bwd_plain(a, b, s, g), p, edge_disp(1.0 / s),
              c(rng.standard_normal(shape)))
+
+
+@pytest.mark.cuda
+def test_pass_launches_in_atlas_steps_on_cuda(cuda):
+    """The warp backward's pass launches 5 times with the weight gradient
+    (K5 once, K7 4 times) and 4 times without (K6) in one 3D atlas step on
+    the card, and never in a 2D one; the counts agree with the wrappers'
+    launches (a one-channel image: one chunk a launch)."""
+    rng = np.random.default_rng(17)
+    for shape in ((2, 3, 16, 12, 20), (2, 2, 32, 64)):
+        metric = lt.FluidMetric((0.1, 0.0, 0.01))
+        m = rng.standard_normal(shape) * 2e-6
+        I = rng.standard_normal((1, 1) + shape[2:])
+        img = rng.standard_normal((shape[0], 1) + shape[2:])
+        step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-4)
+        warp_unit.PASS.reset()
+        kernels.reset_launches()
+        step(*(torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in (I, m, img)))
+        torch.cuda.synchronize(cuda)
+        want = (5, 4) if len(shape) == 5 else (0, 0)
+        assert (warp_unit.PASS.weight_grad, warp_unit.PASS.transpose) == want, shape
+        counts = kernels.launch_counts()
+        assert warp_unit.PASS.weight_grad == counts["warp_unit_bwd"] + counts["compose_bwd"]
+        assert warp_unit.PASS.transpose == counts["ad_star_bwd"]
 
 
 @pytest.mark.cuda

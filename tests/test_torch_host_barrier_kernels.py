@@ -3,10 +3,11 @@ run on the CPU against their plain versions.
 
 K3 (``csrc/fft_unit.cu``), K14 and K15 (``fft_radix.cu``), K16
 (``fft_whole.cu``), K8/K9 (``shoot2d.cu``) and the 3D stencils K1, K2 and
-K4-K7 (``warp_unit.cu``, ``epdiff_unit.cu``: the warp's backward passes,
-which K5, K6 and K7 share, stage a brick and its halo in shared memory
-between barriers; K1, K2 and K6's first pass march along x through planes
-staged with their halo) share memory within a block and wait at barriers, and
+K4-K7 (``warp_unit.cu``, ``epdiff_unit.cu``: the warp's backward pass,
+which K5, K6 and K7 launch, marches along x staging each x-plane of a tile
+and its halo in a ring in shared memory, its copies synchronous here and
+its waits the block's barrier; K1, K2 and K6's first pass march along x
+through planes staged with their halo) share memory within a block and wait at barriers, and
 K8, K9 and K16 are cooperative launches whose phases meet at grid-wide
 barriers.  ``tests/cuda_host/threaded/cuda_runtime.h`` runs each CUDA
 thread as an OS thread (a block's barrier, a warp's vote, a block's
@@ -15,7 +16,7 @@ barrier of the grid), and this test rewrites each launch (template
 kernels included), each dynamic shared-memory declaration and each
 cooperative launch for it, so g++ builds the sources into a host library
 with the kernels' C entry points.  The wrappers then call it in place of
-the card's library.  So the kernels' indexing, tiles, bricks and halos,
+the card's library.  So the kernels' indexing, tiles, rings and halos,
 clamp folds, batch-1 sums, flags, stage loops, bit-reversed bookkeeping,
 phase order, K3's three paths (whole planes in registers, register line
 passes, tile passes through the scratch; its in-place passes and the
@@ -54,14 +55,15 @@ HEADERS = ("fft_lines.cuh", "fft_reg.cuh", "fft_plane.cuh", "cooperative.cuh", "
            "stencil2d.cuh", "tile2d.cuh")
 SOURCES = ("fft_unit.cu", "fft_radix.cu", "fft_whole.cu", "shoot2d.cu", "warp_unit.cu",
            "epdiff_unit.cu")
-# the 3D stencils: per-thread (K4), staging bricks (K5-K7's passes) or
-# marching through staged planes (K1, K2, K6's first pass)
+# the 3D stencils: per-thread (K4) or marching through staged planes (K1,
+# K2, K5-K7's pass, K6's first pass)
 STENCIL_KERNELS = ("warp_unit_fwd", "warp_unit_bwd", "ad_star_fwd", "compose_fwd",
                    "ad_star_bwd", "compose_bwd")
 ENTRY_POINTS = ("lagomorph_fluid_flat", "lagomorph_fluid_radix_zy", "lagomorph_fluid_radix_x",
                 "lagomorph_fluid_whole", "lagomorph_fluid_whole_grid", "lagomorph_shoot2d_fwd",
                 "lagomorph_shoot2d_fwd_grid", "lagomorph_shoot2d_bwd", "lagomorph_shoot2d_bwd_grid",
-                "lagomorph_ad_star_bwd_first", *(f"lagomorph_{k}" for k in STENCIL_KERNELS))
+                "lagomorph_ad_star_bwd_first", "lagomorph_warp_transpose", "lagomorph_warp_dd",
+                *(f"lagomorph_{k}" for k in STENCIL_KERNELS))
 RTOL = 1e-5
 BWD_RTOL = 1e-5  # of 1 + max|ref|: the stencils' backwards
 PARAMS = (0.1, 0.0, 0.01)
@@ -414,11 +416,32 @@ def test_host_atlas_step_matches_plain(rng, host_kernels, monkeypatch):
     assert abs(float(got[2]) - float(ref[2])) <= 1e-6 * abs(float(ref[2]))
 
 
-# shapes against the backward passes' brick of 4 x 8 x 32 output voxels:
-# smaller than one brick on every axis, straddling bricks on every axis,
-# with axes of length 1 and 2, and 17 voxels along x (a transpose block
-# walks 4 bricks along x, through its ring of staged x-planes, then the
-# next block takes the fifth)
+def test_host_pass_launches_in_atlas_steps(rng, host_kernels, monkeypatch):
+    """Through the host-built kernels (K3 plain), one 3D atlas step launches
+    the warp backward's pass 5 times with the weight gradient (K5 once, K7 4
+    times) and 4 times without (K6); one 2D step (K8/K9) never.  The
+    counts agree with the wrappers' launches (a one-channel image: one
+    chunk a launch)."""
+    monkeypatch.setattr(fft_unit, "use_kernel", lambda _t: False)
+    metric = lt.FluidMetric((0.1, 0.0, 0.01))
+    for shape, want in (((2, 3, 4, 6, 8), (5, 4)), ((2, 2, 8, 16), (0, 0))):
+        m = f32(rng.standard_normal(shape) * 2e-6)
+        I = f32(rng.standard_normal((1, 1) + shape[2:]))
+        img = f32(rng.standard_normal((2, 1) + shape[2:]))
+        step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-6)
+        warp_unit.PASS.reset()
+        kernels.reset_launches()
+        step(I, m, img)
+        assert (warp_unit.PASS.weight_grad, warp_unit.PASS.transpose) == want, shape
+        counts = kernels.launch_counts()
+        assert warp_unit.PASS.weight_grad == counts["warp_unit_bwd"] + counts["compose_bwd"]
+        assert warp_unit.PASS.transpose == counts["ad_star_bwd"]
+
+
+# shapes against the backward pass's column, a 16 x 32 (y, z) tile of
+# outputs marching along x: smaller than one tile on every axis, straddling
+# tiles on y and z, with axes of length 1 and 2, and 17 voxels along x (the
+# ring of 2 staged steps turns 8 times, and a remainder)
 EDGE_SHAPES = [(2, 3, 3, 5, 7), (3, 3, 5, 9, 37), (2, 3, 1, 2, 6), (2, 3, 6, 2, 1),
                (2, 3, 17, 3, 5)]
 
@@ -435,12 +458,12 @@ def _edge_disp(rng, shape, scale=1.0):
 
 @pytest.mark.parametrize("shape", EDGE_SHAPES)
 def test_host_warp_passes_edge_cases(rng, host_kernels, shape):
-    """The warp forward K4 and the two backward passes that K5, K6 and K7
-    share, at shapes smaller than one brick, straddling bricks on every
-    axis and with axes of length 1 or 2, on displacements with voxels
+    """The warp forward K4 and the backward pass that K5, K6 and K7
+    launch, at shapes smaller than one tile, straddling tiles and with axes
+    of length 1 or 2, on displacements with voxels
     outside the unit regime and at its edges: K4 (and K1, K2) bit-equal to
     the plain versions; K5 with one-, three- and five-channel images (five:
-    two staged chunks) of batch 1 and N, K6 with batch-1 and batch-N
+    two launches of the pass) of batch 1 and N, K6 with batch-1 and batch-N
     momenta (where no axis has length 1), and K7's compose epilogue at s = -0.2 and s = 0.7, within
     1e-5 * (1 + max|ref|); a second launch of each backward bit-identical
     to the first."""
@@ -475,6 +498,60 @@ def test_host_warp_passes_edge_cases(rng, host_kernels, shape):
         g = f32(rng.standard_normal(shape))
         hold(f"K7 s={s}", lambda a, b, c: epdiff_unit._launch_compose_bwd(a, b, s, c),
              lambda a, b, c: epdiff_unit.compose_bwd_plain(a, b, s, c), p, v, g)
+
+
+# The backward pass's walk on the emulated card (2 SMs of 2 blocks: 4
+# blocks): Z a multiple of 4 (the TMA path's form) with 6 columns of the
+# whole x for NI = N and 12 segments of 8 planes (the last 3) for NI = 1,
+# and odd Z (the cp.async path's) with 12 columns, each over 21 planes: X
+# longer than two rings of 3 steps plus a remainder, more columns than
+# blocks
+PASS_SHAPES = [(3, 3, 43, 18, 12), (3, 3, 21, 18, 37)]
+
+
+def _pass_plain(I, p, s, g, compose):
+    """The pass's outputs from the plain warp backward at s * p: the
+    transpose, and the weight gradient (s * g + s * it for ``compose``)."""
+    dI, dd = warp_unit.sample_displacement_unit_bwd_plain(I, s * p, g)
+    return dI, s * g + s * dd if compose else dd
+
+
+@pytest.mark.parametrize("shape", PASS_SHAPES)
+def test_host_warp_pass_modes(rng, host_library, shape):
+    """The warp backward's pass through its two C entry points (the
+    transpose alone, ``lagomorph_warp_transpose``; with the weight gradient,
+    ``lagomorph_warp_dd``) at s = 1 and -0.2, with one-, three- and
+    five-channel cotangents (five: two chunks, the second adding its
+    channels' weight gradient to the first's) of batch 1 and N, and K7's
+    compose epilogue, within 1e-5 * (1 + max|ref|) of the plain versions; a
+    second launch bit-identical to the first."""
+    N, _, X, Y, Z = shape
+    p = _edge_disp(rng, shape)
+
+    def launch(name, *args):
+        err = getattr(host_library, name)(*args)
+        assert err == 0, f"{name}: error {err}"
+
+    for s, nb, C, compose in ((1.0, 1, 1, False), (1.0, N, 3, False), (-0.2, 1, 5, False),
+                              (-0.2, N, 3, True)):
+        disp = f32(np.asarray(p) / s)
+        I = f32(rng.standard_normal((nb, C, X, Y, Z)))
+        g = f32(rng.standard_normal((N, C, X, Y, Z)))
+        r_t, r_dd = _pass_plain(I, disp, s, g, compose)
+        dims = (N, nb, C, X, Y, Z)
+        runs = []
+        for _ in range(2):
+            out_t, out_dd, only_t = torch.empty_like(I), torch.empty_like(disp), torch.empty_like(I)
+            launch("lagomorph_warp_dd", I.data_ptr(), disp.data_ptr(), s, g.data_ptr(),
+                   out_t.data_ptr(), out_dd.data_ptr(), *dims, int(compose), None)
+            launch("lagomorph_warp_transpose", disp.data_ptr(), s, g.data_ptr(), only_t.data_ptr(),
+                   *dims, None)
+            runs.append((out_t, out_dd, only_t))
+        label = f"pass s={s} I({nb},{C}) compose={compose}"
+        for what, got, ref in zip(("transpose", "weight gradient", "transpose alone"), runs[0],
+                                  (r_t, r_dd, r_t)):
+            close_stencil(f"{label} {what}", got, ref, BWD_RTOL)
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), f"{label}: rerun differs"
 
 
 # K6's first pass at (shape, march length; 0: the one K6 takes): its blocks
