@@ -141,8 +141,9 @@ def _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask, checkpoints=F
     kernels for the fields' dimension (3D: K1 Ad*, K2 compose; 2D: K10,
     K11; ``lagomorph_tpu/lddmm.py:_hoisted_fused_pair``), accumulating
     their flags on the device, each substep rematerialised with
-    ``checkpoints`` (the flag a non-differentiable output).  Returns
-    ``(phiinv, ok)``; ``phiinv`` is exact iff ``ok``."""
+    ``checkpoints`` (the flag a non-differentiable output), each issued
+    inside the span ``lt.substep``.  Returns ``(phiinv, ok)``; ``phiinv`` is
+    exact iff ``ok``."""
     if m0.dim() == 5:
         ad_star, compose = epdiff_unit.ad_star, epdiff_unit.compose
     else:
@@ -159,7 +160,8 @@ def _expmap_fast_flagged(metric, m0, dt, length, phiinv0, mommask, checkpoints=F
     phiinv = phiinv0
     ok = torch.ones((), dtype=torch.bool, device=phiinv0.device)
     for _ in range(length):
-        phiinv, ok = _remat(substep, phiinv, ok) if checkpoints else substep(phiinv, ok)
+        with span("lt.substep"):
+            phiinv, ok = _remat(substep, phiinv, ok) if checkpoints else substep(phiinv, ok)
     return phiinv, ok
 
 
@@ -432,6 +434,18 @@ def _spatial_step(metric, mesh, axis_name, reg_weight, learning_rate_pose, lddmm
 # ---------------------------------------------------------------------------
 
 
+def _write_back(dst, m, n):
+    """Copy the first ``n`` rows of the updated momenta ``m`` (a tensor, or
+    a mesh's :class:`Sharded`) into the minibatch's host array ``dst`` in
+    place.  A new host array each minibatch is allocated and faulted in
+    page by page during the copy: on an H100's host, 0.56-0.89 s for a
+    128^3 b50 minibatch's 1.2 GB, against 0.16-0.23 s in place."""
+    if isinstance(m, torch.Tensor):
+        torch.from_numpy(dst).copy_(m[:n])
+    else:
+        dst[...] = _host(m)[:n]
+
+
 def _torch_dtype(dtype):
     """The torch dtype of a numpy dtype, a dtype name or a torch dtype."""
     if isinstance(dtype, torch.dtype):
@@ -635,8 +649,9 @@ class LDDMMAtlasBuilder:
         if self.ms is None:
             self.ms = [np.zeros((img.shape[0], dim) + self.momentum_shape, dtype=self.dtype)
                        for img in self._batches]
-        else:
-            self.ms = [np.asarray(_host(m), dtype=self.dtype) for m in self.ms]
+        else:  # a streamed builder writes its updates back into its own copies
+            own = np.asarray if self.keep_data_on_device else np.array
+            self.ms = [own(_host(m), dtype=self.dtype) for m in self.ms]
 
     def _init_step(self):
         from .parallel import data_sharding, spatial_sharding
@@ -869,7 +884,7 @@ class LDDMMAtlasBuilder:
                 if real:
                     self.ms[batch_index] = m
             elif real:
-                self.ms[batch_index] = _host(m)[:n]
+                _write_back(self.ms[batch_index], m, n)
             self._image_grad_accum = shardwise(torch.add, self._image_grad_accum, gI)
             self._image_iters += 1
             if self.image_update_freq > 0:

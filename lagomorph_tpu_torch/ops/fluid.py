@@ -37,6 +37,9 @@ device (:func:`fluid_route`):
   ``tensordot`` calls): the JAX package's XLA paths, plain PyTorch on every
   device, taken only when a selector asks for them.
 
+Each call of :func:`fluid_operator` adds one to the count
+``fluid.route.<route>`` (:func:`..profiling.add`).
+
 On the kernel routes a wrapper launches its kernel for a float32 CUDA
 tensor and runs its plain version for a CPU tensor or a tensor of another
 dtype (``kernels.use_kernel``): a float64 field on the card takes the
@@ -48,6 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profiling import add as _count
 from .fft_radix import bitrev_perm, is_pow2
 from .kernels import fft_radix, fft_unit, fft_whole
 
@@ -411,12 +415,14 @@ def fluid_operator(mv: torch.Tensor, params, inverse: bool, M=None) -> torch.Ten
     *spatial)``, on the route :func:`fluid_route` gives.
 
     ``M``: the multiplier of that route (:func:`multiplier_form`,
-    :func:`form_multiplier`); built here when None."""
+    :func:`form_multiplier`); built here when None.  Counts the call under
+    ``fluid.route.<route>``."""
     B, dim = mv.shape[:2]
     spatial = tuple(mv.shape[2:])
     if dim != len(spatial):
         raise ValueError("Vector field has incorrect shape for dimension")
     route = fluid_route(mv.shape, params)
+    _count("fluid.route." + route, 1)
     if M is None:
         M = form_multiplier(multiplier_form(route), spatial, params, inverse, mv.dtype,
                             mv.device)

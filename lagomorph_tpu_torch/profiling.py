@@ -16,11 +16,15 @@ kernels lie on one clock.  The atlas builder's spans carry the prefix
 ``lt.stage`` (its host read, padding and copy to the device, with the bytes
 put counted under ``lt.stage.bytes``), ``lt.step`` (the atlas step),
 ``lt.loss`` (its forward: ``lt.shoot``, the hoisted shooting, with
+``lt.substep`` around each substep of its per-substep loop and
 ``lt.shoot.general`` on a tripped flag, and ``lt.warp``, the atlas warp),
 ``lt.backward``, ``lt.descend``, ``lt.allsum`` (the exchange between
 processes), ``lt.update_atlas`` (the atlas's update) and the host reads of
 the card, ``lt.read.flag``, ``lt.read.tier``, ``lt.read.loss`` and
-``lt.read.reg``.
+``lt.read.reg``.  Counts that are not spans: ``fluid.route.<route>``,
+one a fluid solve by the route it takes (``ops.fluid.fluid_operator``), and
+``epdiff2d.LAUNCH.<K10|K11|K12|K13>``, one a launch of the 2D per-substep
+kernels (``ops.kernels.epdiff2d``).
 """
 from __future__ import annotations
 

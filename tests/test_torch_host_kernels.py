@@ -38,6 +38,7 @@ import pytest
 import torch
 
 import lagomorph_tpu_torch as lt
+from lagomorph_tpu_torch import profiling
 from lagomorph_tpu_torch.ops import kernels
 from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d
 from profile_epdiff2d import FWD10, FWD11, PARTS12, PARTS13, PIXEL12, fwd10, fwd11, parts12, parts13
@@ -231,7 +232,9 @@ def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
     """Two chained 2D atlas steps with ``beta != 0`` (the per-substep
     kernels K10-K13, emulated; the fluid solve and the atlas warp plain on
     both sides) against the plain versions, at momenta in the unit regime
-    (max|v0| = 0.5), with 4 launches of each per step and no other kernel."""
+    (max|v0| = 0.5), with 4 launches of each per step and no other kernel,
+    each counted under ``epdiff2d.LAUNCH.<K10|K11|K12|K13>``, in 4
+    ``lt.substep`` spans and 5 fluid solves on the ``"rfftn"`` route."""
     shape = (2, 2, 12, 10)
     metric = lt.FluidMetric((0.1, 0.05, 0.01))
     m = f32(rng.standard_normal(shape))
@@ -243,10 +246,17 @@ def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
     got, mm = [], m
     for _ in range(2):
         kernels.reset_launches()
+        profiling.reset_counters()
         got.append(step(I, mm, img))
         mm = got[-1][0]
         assert kernels.launch_counts() == {k: (4 if k in KERNELS_2D_PER_OP else 0)
                                            for k in kernels.KERNELS}
+        counts = profiling.counters()
+        assert {k: v for k, v in counts.items() if k.startswith("epdiff2d.")} == {
+            f"epdiff2d.LAUNCH.K{k}": 4 for k in (10, 11, 12, 13)}
+        assert counts["lt.substep"] == 4
+        assert {k: v for k, v in counts.items() if k.startswith("fluid.route.")} == {
+            "fluid.route.rfftn": 5}
     ref, mm = [], m
     with kernels.plain_versions():
         for _ in range(2):

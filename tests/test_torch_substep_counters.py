@@ -1,0 +1,221 @@
+"""The shooting's per-substep span and the counters of the fluid solve's
+route and of the 2D per-substep kernels' launches, on the CPU:
+
+* ``lt.substep``: one span a substep of the per-substep loop
+  (``lddmm._expmap_fast_flagged``), 4 a shoot of 5 steps, each inside the
+  shoot's ``lt.shoot``, in 3D and in 2D with ``beta != 0``, with and
+  without checkpoints; none on the 2D ``beta == 0`` whole shoot (K8);
+* ``fluid.route.<route>``: one count a ``fluid_operator`` call, under the
+  route that :func:`ops.fluid.fluid_route` names, for each route;
+* ``epdiff2d.LAUNCH.<K10|K11|K12|K13>``: 4 of each through a 2D atlas step
+  with ``beta != 0``, and 5 solves on the ``"rfftn"`` route, with the
+  kernels' C entry points replaced by their plain versions (the wrappers'
+  Python, routes and allocations run as on the card); none in a step with
+  ``beta == 0``.
+"""
+import ctypes
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import lagomorph_tpu_torch as lt
+from lagomorph_tpu_torch import lddmm, profiling
+from lagomorph_tpu_torch.ops import fluid, kernels
+from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d
+
+torch.set_num_threads(2)
+
+BETA = (0.1, 0.05, 0.01)
+FLAT = (0.1, 0.0, 0.01)
+PER_SUBSTEP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")  # K10-K13
+
+
+def _momenta(shape, batch, params, vmax, seed, dtype=torch.float64):
+    """Seeded momenta whose velocities peak at ``vmax`` voxels."""
+    g = torch.Generator().manual_seed(seed)
+    m = torch.randn((batch, len(shape)) + shape, generator=g, dtype=torch.float64)
+    v = lt.FluidMetric(params).sharp(m)
+    return (m * (vmax / float(v.norm(dim=1).max()))).to(dtype)
+
+
+def _spans(prof, tmp_path):
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in events if e.get("cat") == "user_annotation"]
+
+
+@pytest.mark.parametrize("checkpoints", [False, True])
+@pytest.mark.parametrize("shape,params", [((12, 12, 12), FLAT), ((24, 20), BETA)],
+                         ids=["3d", "2d_beta"])
+def test_substep_spans_nest_in_the_shoot(shape, params, checkpoints, tmp_path):
+    m = _momenta(shape, 2, params, 0.5, seed=1).requires_grad_(True)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        h = lddmm.expmap(lt.FluidMetric(params), m, num_steps=5, checkpoints=checkpoints)
+    counts = profiling.counters()
+    assert counts["lt.substep"] == 4 and counts["lt.shoot"] == 1
+    assert "lt.shoot.general" not in counts
+    spans = _spans(prof, tmp_path)
+    (shoot,) = [s for s in spans if s[0] == "lt.shoot"]
+    subs = [s for s in spans if s[0] == "lt.substep"]
+    assert len(subs) == 4
+    assert all(shoot[1] <= s[1] and s[2] <= shoot[2] for s in subs)
+    assert all(a[2] <= b[1] for a, b in zip(subs, subs[1:]))  # one after another
+    profiling.reset_counters()
+    torch.autograd.grad(h.sum(), m)
+    # the backward opens no span; a checkpointed substep is recomputed there
+    assert "lt.substep" not in profiling.counters()
+
+
+def test_no_substep_span_on_the_2d_whole_shoot():
+    m = _momenta((24, 20), 2, FLAT, 0.5, seed=2)
+    profiling.reset_counters()
+    lddmm.expmap(lt.FluidMetric(FLAT), m, num_steps=5)
+    counts = profiling.counters()
+    assert counts["lt.shoot"] == 1 and "lt.substep" not in counts
+
+
+@pytest.fixture
+def selectors():
+    prev = (fluid.set_fluid_dft("auto"), fluid.set_fluid_packing("auto"),
+            fluid.set_fluid_fft_kernel("auto"), fluid.set_fluid_mxu_whole(False))
+    yield
+    fluid.set_fluid_dft(prev[0])
+    fluid.set_fluid_packing(prev[1])
+    fluid.set_fluid_fft_kernel(prev[2])
+    fluid.set_fluid_mxu_whole(prev[3])
+
+
+# route: (selectors (dft, packing, fft kernel, whole), field shape, params)
+ROUTES = {
+    "rfftn": (("auto", "auto", "auto", False), (2, 2, 8, 6), BETA),
+    "fluid_flat": (("auto", "auto", "auto", False), (2, 3, 4, 4, 4), FLAT),
+    "fluid_radix": (("auto", "auto", "radix", False), (2, 3, 4, 4, 4), FLAT),
+    "fluid_whole": (("auto", "auto", "auto", True), (2, 3, 4, 4, 4), FLAT),
+    "packed": (("auto", True, False, False), (3, 2, 8, 6), FLAT),
+    "batch": (("auto", True, "auto", False), (3, 2, 8, 6), BETA),
+    "dft": ((True, "auto", "auto", False), (2, 3, 4, 6, 4), BETA),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_route_counter_counts_each_call(selectors, route):
+    (dft, packing, kernel, whole), shape, params = ROUTES[route]
+    fluid.set_fluid_dft(dft)
+    fluid.set_fluid_packing(packing)
+    fluid.set_fluid_fft_kernel(kernel)
+    fluid.set_fluid_mxu_whole(whole)
+    assert fluid.fluid_route(shape, params) == route
+    x = torch.randn(shape, dtype=torch.float64)
+    metric = lt.FluidMetric(params)
+    profiling.reset_counters()
+    v = metric.sharp(x)
+    fluid.fluid_operator(v, params, inverse=False)
+    assert profiling.counters() == {f"fluid.route.{route}": 2}
+
+
+def _view(ptr, shape):
+    """The float32 tensor of ``shape`` at host address ``ptr``."""
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
+                            ).view(shape)
+
+
+def _put(ptr, t):
+    t = t.contiguous()
+    ctypes.memmove(ptr, t.data_ptr(), t.numel() * t.element_size())
+
+
+def _plain_entry_points(name, *args):
+    """K10-K13's C entry points, computed by their plain versions on the
+    host tensors at the pointers the wrappers pass."""
+    if name == "lagomorph_ad_star2d_fwd":
+        p, m0, out, mw, flag, N, Nm, H, W, _march, _stream = args
+        r = epdiff2d.ad_star2d_plain(_view(p, (N, 2, H, W)), _view(m0, (Nm, 2, H, W)), True)
+        _put(out, r[0])
+        if mw is not None:
+            _put(mw, r[2])
+        _put(flag, r[1].to(torch.int32))
+    elif name == "lagomorph_compose2d_fwd":
+        p, v, s, out, flag, N, H, W, _march, _stream = args
+        r = epdiff2d.compose2d_plain(_view(p, (N, 2, H, W)), _view(v, (N, 2, H, W)), s)
+        _put(out, r[0])
+        _put(flag, r[1].to(torch.int32))
+    elif name == "lagomorph_ad_star2d_bwd":
+        p, m0, g, mw, _d_mw, d_p, d_m0, N, Nm, H, W, _tile, _stream = args
+        f = (N, 2, H, W)
+        r = epdiff2d.ad_star2d_bwd_plain(_view(p, f), _view(m0, (Nm, 2, H, W)), _view(g, f),
+                                         _view(mw, f))
+        _put(d_p, r[0])
+        _put(d_m0, r[1])
+    elif name == "lagomorph_compose2d_bwd":
+        p, v, s, g, d_p, d_v, N, H, W, _stream = args
+        f = (N, 2, H, W)
+        r = epdiff2d.compose2d_bwd_plain(_view(p, f), _view(v, f), s, _view(g, f))
+        _put(d_p, r[0])
+        _put(d_v, r[1])
+    else:
+        raise AssertionError(f"no other entry point runs here: {name}")
+
+
+@pytest.fixture
+def plain_launches(monkeypatch):
+    """The 2D per-substep wrappers launch on CPU tensors, through their
+    ``_launch_*`` functions, whose entry points run the plain versions."""
+    monkeypatch.setattr(epdiff2d, "use_kernel", lambda _t: not kernels._PLAIN.get())
+    monkeypatch.setattr(epdiff2d, "check_cuda_f32", lambda _name, *_ts: None)
+    monkeypatch.setattr(epdiff2d, "stream_of", lambda _t: None)
+    monkeypatch.setattr(_build, "call", _plain_entry_points)
+
+
+def _step(params):
+    return lt.make_lddmm_atlas_step(lt.FluidMetric(params), reg_weight=0.1,
+                                    learning_rate_pose=1e-6, integration_steps=5)
+
+
+def _inputs(shape, params, seed):
+    g = torch.Generator().manual_seed(seed)
+    m = _momenta(shape, 2, params, 0.5, seed, dtype=torch.float32)
+    I = torch.randn((1, 1) + shape, generator=g)
+    img = torch.randn((2, 1) + shape, generator=g)
+    return I, m, img
+
+
+def test_2d_beta_step_counts_each_launch(plain_launches):
+    I, m, img = _inputs((12, 10), BETA, 3)
+    step = _step(BETA)
+    for _ in range(2):
+        kernels.reset_launches()
+        profiling.reset_counters()
+        got = step(I, m, img)
+        counts = profiling.counters()
+        assert {k: v for k, v in counts.items() if k.startswith("epdiff2d.")} == {
+            f"epdiff2d.LAUNCH.K{k}": 4 for k in (10, 11, 12, 13)}
+        assert {k: kernels.launch_counts()[k] for k in PER_SUBSTEP} == dict.fromkeys(PER_SUBSTEP, 4)
+        # v0 and the 4 substeps; the backward differentiates torch.fft itself
+        assert {k: v for k, v in counts.items() if k.startswith("fluid.route.")} == {
+            "fluid.route.rfftn": 5}
+        assert counts["lt.substep"] == 4 and "lt.shoot.general" not in counts
+        m = got[0]
+    with kernels.plain_versions():
+        profiling.reset_counters()
+        ref = step(I, m, img)
+        assert not any(k.startswith("epdiff2d.") for k in profiling.counters())
+    got = step(I, m, img)
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-7 * float(b.abs().max()))
+
+
+def test_2d_flat_step_launches_no_per_substep_kernel(plain_launches):
+    I, m, img = _inputs((12, 10), FLAT, 4)
+    profiling.reset_counters()
+    _step(FLAT)(I, m, img)
+    counts = profiling.counters()
+    assert not any(k.startswith("epdiff2d.") for k in counts) and "lt.substep" not in counts
+    assert counts["fluid.route.rfftn"] == 1  # v0; K8 solves its substeps itself

@@ -4,8 +4,10 @@
   counts; ``add`` counts what is not a span;
 * a traced epoch of a tiny atlas builder (16³ b2, 32² b4) holds every span
   of the path it takes, each nested in its parent, four host reads
-  (``lt.read.*``) an iteration on the fast path, and ``counters()`` agrees
-  with the trace, the staged bytes included;
+  (``lt.read.*``) an iteration on the fast path, four ``lt.substep`` a
+  shoot on the 3D per-substep path (the 2D ``beta == 0`` shoot is one
+  launch of K8, without them), and ``counters()`` agrees with the trace,
+  the staged bytes included;
 * momenta that leave the unit regime trip the shooting's flag: one
   ``lt.shoot.general`` an iteration;
 * ``Timer``'s sections are spans;
@@ -30,7 +32,8 @@ READS = ("lt.read.flag", "lt.read.tier", "lt.read.loss", "lt.read.reg")
 # each span of the builder's fast path, and the span it lies in
 PARENT = {
     "lt.stage": "lt.iteration", "lt.step": "lt.iteration", "lt.loss": "lt.step",
-    "lt.shoot": "lt.loss", "lt.read.flag": "lt.shoot", "lt.warp": "lt.loss",
+    "lt.shoot": "lt.loss", "lt.read.flag": "lt.shoot", "lt.substep": "lt.shoot",
+    "lt.warp": "lt.loss",
     "lt.read.tier": "lt.warp", "lt.backward": "lt.step", "lt.descend": "lt.step",
     "lt.read.loss": "lt.iteration", "lt.read.reg": "lt.iteration",
 }
@@ -115,11 +118,15 @@ def test_traced_epoch_holds_the_spans(case, tmp_path):
     iters = -(-n // batch)
     spans, counts = _traced_epoch(b, tmp_path)
     names = {s[0] for s in spans}
-    assert names == set(PARENT) | {"lt.iteration", "lt.update_atlas"}
+    dim = len(shape)
+    substeps = {"lt.substep"} if dim == 3 else set()  # 2D beta == 0: K8's one launch
+    assert names == set(PARENT) - {"lt.substep"} | substeps | {"lt.iteration",
+                                                               "lt.update_atlas"}
     by = {k: [s for s in spans if s[0] == k] for k in names}
     for child, parent in PARENT.items():
-        for s in by[child]:
+        for s in by.get(child, []):
             assert _inside(s, by[parent]), (child, parent)
+    assert counts.get("lt.substep", 0) == (4 * iters if dim == 3 else 0)
     assert len(by["lt.iteration"]) == iters and len(by["lt.update_atlas"]) == 1
     for it in by["lt.iteration"]:
         reads = [s for s in spans if s[0].startswith("lt.read.") and _inside(s, [it])]
@@ -128,7 +135,6 @@ def test_traced_epoch_holds_the_spans(case, tmp_path):
     # the counters count every entry, the trace's spans among them
     for k in names:
         assert counts[k] == len(by[k]), k
-    dim = len(shape)
     assert counts["lt.stage.bytes"] == 4 * n * (1 + dim) * int(np.prod(shape))
     assert "lt.shoot.general" not in counts and "lt.allsum" not in counts
 
