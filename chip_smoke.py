@@ -43,7 +43,11 @@ paths (the spatially sharded step, a device mesh, processes):
    their plain versions at the same three shapes, the same way (K10 and
    K11 on their column strips at the chooser's band height and at 3 and 8
    rows, bit-equal to the plain versions and to their per-thread route,
-   their strips logged); then the
+   their strips logged); then the 2D unit-regime warp K17 (bit-equal to the
+   plain stencil) and its backward K18 (under autograd) at 512^2 b8 and
+   (3, 2, 96, 80), for the batch-1 atlas and a batch-N two-channel field,
+   K17's and K18's ms at 512^2 b8 beside their bounds and the plain
+   stencil's; then the
    fluid solves that the selectors reach: K14 (both directions), K15 and
    the pipeline K14, K15, K14 at 128^3 b4, 64^3 b4, (3, 3, 32, 64, 128),
    (1, 3, 4, 256, 256) (256^2 planes: K14's two register line passes) and
@@ -72,12 +76,12 @@ paths (the spatially sharded step, a device mesh, processes):
    at 512^2 b8 (bench.py's inputs), and at 256^2 b8 at max|v0| = 0.5,
    both ways, with each step's momentum
    gradient held against a float64 one; the counters, set to 0 just before
-   the 256^2 kernel steps and read just after, show K8 and K9 each
-   launched once per step and no 3D kernel;
+   the 256^2 kernel steps and read just after, show K8, K9 and the atlas
+   warp's K17 and K18 each launched once per step and no 3D kernel;
 6c. 2D atlas steps with ``beta = 0.05``, the path of K10-K13: the same
    three chains, the counters set to 0 just before the 256^2 kernel steps
-   and read just after showing K10-K13 four times each per step and no
-   other kernel; then one step at 256^2 b8 on momenta whose flag trips
+   and read just after showing K10-K13 four times each per step, K17 and
+   K18 once, and no other kernel; then one step at 256^2 b8 on momenta whose flag trips
    (max|v0| = 8, and 2), re-run on the exact general integration, whose
    unit-regime warps run K10-K13;
 6d. the radix path: three chained atlas steps at 128^3 b4 under
@@ -265,16 +269,21 @@ FORWARD = ("warp_unit_fwd", "ad_star_fwd", "compose_fwd", "fluid_flat")
 KERNELS_2D = ("shoot2d_fwd", "shoot2d_bwd")
 FORCED_BANDS = (3, 8)  # band heights forced on K10's and K11's strips in phase 3
 KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
-# launches in one 2D atlas step: the whole shooting is one K8, its backward
-# one K9; the 2D fluid solve and warps are plain PyTorch (as in the JAX
-# package) and no 3D kernel runs
+# launches in one 2D shooting's forward and backward: the whole shooting is
+# one K8, its backward one K9; the 2D fluid solve is plain PyTorch (as in the
+# JAX package) and no 3D kernel runs (the models, which warp by the gather)
 STEP2D_LAUNCHES = {"shoot2d_fwd": 1, "shoot2d_bwd": 1}
+# the 2D unit-regime warp K17 and its backward K18: the atlas loss's warp,
+# once each in every 2D atlas step
+KERNELS_WARP2D = ("warp2d_fwd", "warp2d_bwd")
+STEP2D_WARP_LAUNCHES = dict.fromkeys(KERNELS_WARP2D, 1)
+STEP2D_ATLAS_LAUNCHES = {**STEP2D_LAUNCHES, **STEP2D_WARP_LAUNCHES}
 # the 2D step with a compressible fluid metric (`lddmm atlas --fluid_beta
 # 0.05`): K8's gate is closed by beta, so each of the 4 substeps after the
 # peeled first runs K10 (Ad*), the plain rfftn solve and K11 (compose), and
 # the backward K12 and K13 per substep
 PARAMS_BETA = (0.1, 0.05, 0.01)
-STEP2D_BETA_LAUNCHES = {k: STEPS - 1 for k in KERNELS_2D_PER_OP}
+STEP2D_BETA_LAUNCHES = {**{k: STEPS - 1 for k in KERNELS_2D_PER_OP}, **STEP2D_WARP_LAUNCHES}
 # the fluid solves of the selectors: K14, K15 (`set_fluid_fft_kernel("radix")`,
 # the CLI's `--fluid_transform radix`) and K16 (`set_fluid_mxu_whole(True)`);
 # each of a 3D step's 10 solves (5 forward, 5 backward) is K14, K15, K14 or
@@ -861,7 +870,7 @@ def atlas_steps(lt, metric, I, m, img, m_half):
         check(e <= 1e-5, f"{label}: atlas update differs by {e:.3e} relative > 1e-5")
         del got, ref, grads
     log(f"main path (atlas steps at the bench momenta) launches: {main}")
-    others = KERNELS_2D + KERNELS_2D_PER_OP + KERNELS_SOLVE
+    others = KERNELS_2D + KERNELS_2D_PER_OP + KERNELS_WARP2D + KERNELS_SOLVE
     check(all(n > 0 for k, n in main.items() if k not in others),
           f"a kernel of the 3D path was not launched: {main}")
     check(all(main[k] == 0 for k in others),
@@ -916,7 +925,7 @@ def fallback_step(lt, device, params, max_v0, m, I, img):
     check(all(launched.get(k, 0) >= STEPS - 1 for k in fast),
           f"{label}: the fast path did not run first")
     if len(shape) == 4:
-        check(all(k in KERNELS_2D_PER_OP for k in launched),
+        check(all(k in KERNELS_2D_PER_OP + KERNELS_WARP2D for k in launched),
               f"{label}: a kernel off the 2D per-substep path ran: {launched}")
         check(max_v0 > 2 or (launched["ad_star2d_fwd"] > STEPS - 1
                              and launched.get("ad_star2d_bwd", 0) > 0
@@ -1175,6 +1184,82 @@ def epdiff2d_checks(device, shape, seed):
     return errs
 
 
+def warp2d_checks(device, shape, seed, timed=False):
+    """Phase 3, the 2D unit-regime warp at one shape (``N`` subjects of the
+    2-channel field ``shape``): K17 ``torch.equal`` to the plain stencil and
+    K18, through the wrapper under ``torch.autograd.grad``, within 1e-5 * (1
+    + max|ref|) of autograd of the plain stencil, for a batch-1 one-channel
+    image (the atlas, dI summed over the subjects) and a batch-N
+    two-channel field; one launch of each a call, a second K18 launch
+    bit-identical.  ``timed``: also the ms a call (CUDA events, 20 calls) of
+    K17, K18 and the plain forward and backward on the atlas, beside the
+    bound.  Returns ({kernel: err}, {kernel: its times} (empty unless
+    ``timed``))."""
+    from lagomorph_tpu_torch.ops.kernels import launch_counts, plain_versions, warp2d
+
+    N, _, H, W = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    p = t(rng.uniform(-0.99, 0.99, shape))
+    errs = dict.fromkeys(KERNELS_WARP2D, 0.0)
+    log(f"2D unit warp K17/K18 at {'x'.join(map(str, shape))}:")
+    for nb, C in ((1, 1), (N, 2)):
+        label = f"I({nb},{C})"
+        I = t(rng.standard_normal((nb, C, H, W)))
+        g = t(rng.standard_normal((N, C, H, W)))
+        before = launch_counts()
+        out = warp2d.sample_displacement_unit(I, p)
+        with plain_versions():
+            ref = warp2d.sample_displacement_unit(I, p)
+        check(torch.equal(out, ref), f"warp2d_fwd {label}: not bit-equal to the plain stencil "
+              f"(max diff {max_err(out, ref):.3e})")
+        log(f"  warp2d_fwd {label}: bit-equal to the plain stencil")
+        grads = []
+        for plain in (False, True):
+            leaves = (I.clone().requires_grad_(True), p.clone().requires_grad_(True))
+            with plain_versions() if plain else contextlib.nullcontext():
+                grads.append(torch.autograd.grad(warp2d.sample_displacement_unit(*leaves),
+                                                 leaves, g))
+        for what, a, b in zip(("dI", "d_disp"), *grads):
+            errs["warp2d_bwd"] = max(errs["warp2d_bwd"],
+                                     compare(f"warp2d_bwd {label} {what}", a, b, 1e-5))
+        after = launch_counts()
+        check((after["warp2d_fwd"] - before["warp2d_fwd"], after["warp2d_bwd"]
+               - before["warp2d_bwd"]) == (2, 1), f"warp2d {label}: launches")
+        again = warp2d._launch_bwd(I, p, g)
+        check(all(torch.equal(a, b) for a, b in zip(grads[0], again)),
+              f"warp2d_bwd {label}: two launches differ")
+    times = {}
+    if timed:
+        I = t(rng.standard_normal((1, 1, H, W)))
+        g = t(rng.standard_normal((N, 1, H, W)))
+        V = H * W
+        b_fwd = bound(4 * (2 * N * V + V + N * V), 0)[0]
+        b_bwd = bound(4 * (2 * 2 * N * V + N * V + 2 * V), 0)[0]
+
+        def plain_both():
+            leaves = (I.clone().requires_grad_(True), p.clone().requires_grad_(True))
+            with plain_versions():
+                return torch.autograd.grad(warp2d.sample_displacement_unit(*leaves), leaves, g)
+
+        k17 = time_ms(lambda: warp2d._launch(I, p), device, 20)
+        k18 = time_ms(lambda: warp2d._launch_bwd(I, p, g), device, 20)
+        p_fwd = time_ms(lambda: warp2d.sample_displacement_unit_plain(I, p), device, 20)
+        p_both = time_ms(plain_both, device, 20)
+        times = {"warp2d_fwd": {"ms": k17, "plain_ms": p_fwd, "library_ms": None,
+                                "bound_ms": b_fwd, "bound_by": "bytes"},
+                 "warp2d_bwd": {"ms": k18, "plain_ms": p_both - p_fwd, "library_ms": None,
+                                "bound_ms": b_bwd, "bound_by": "bytes"}}
+        log(f"  K17 {k17:.4f} ms ({k17 / b_fwd:.2f}x its bound {b_fwd:.4f}), K18 "
+            f"{k18:.4f} ms ({k18 / b_bwd:.2f}x its bound {b_bwd:.4f}); the plain "
+            f"stencil {p_fwd:.4f} ms forward, {p_both:.4f} with autograd's backward "
+            f"[{card_line()}]")
+    return errs, times
+
+
 def solve_checks(lt, device, shape, seed, radix=True, whole=True):
     """Phase 3, the fluid solves at one shape: K3 against its plain version
     (the ``torch.fft`` packed solve; 128^3 and 64^3 take its plane path,
@@ -1273,7 +1358,7 @@ def solve_checks(lt, device, shape, seed, radix=True, whole=True):
     return errs
 
 
-def atlas_steps_2d(lt, device, params=PARAMS, launches=STEP2D_LAUNCHES):
+def atlas_steps_2d(lt, device, params=PARAMS, launches=STEP2D_ATLAS_LAUNCHES):
     """Phases 6b and 6c, the 2D main paths: ``CHAIN`` chained 2D atlas steps
     with ``FluidMetric(params)`` at 256^2 b8 and 512^2 b8 on bench.py's
     inputs, and at 256^2 b8 on its momenta scaled to max|v0| = 0.5, through
@@ -1281,8 +1366,8 @@ def atlas_steps_2d(lt, device, params=PARAMS, launches=STEP2D_LAUNCHES):
     against a float64 one.  The counters are set to 0 just before the 256^2
     bench momenta's kernel steps and read just after: each step must make
     ``launches`` (6b, ``beta == 0``: K8 and K9 once; 6c, ``beta != 0``:
-    K10-K13 four times each), and no other kernel may run.  Returns those
-    counts."""
+    K10-K13 four times each; both K17 and K18 once), and no other kernel
+    may run.  Returns those counts."""
     from lagomorph_tpu_torch.ops import kernels
 
     metric = lt.FluidMetric(params)
@@ -2365,7 +2450,7 @@ def atlas_builder(lt, device, card):
         st[plain] = builder_state(b)
         log(f"{label} ({'plain' if plain else 'kernels'}): {wall:.2f} s, peak {peak:.3f} GiB, "
             f"epoch losses {b.epoch_losses}; launches {launched}")
-        want = {} if plain else want_launches(STEP2D_LAUNCHES, epochs2 * (n2 // batch2))
+        want = {} if plain else want_launches(STEP2D_ATLAS_LAUNCHES, epochs2 * (n2 // batch2))
         check(launched == want, f"{label}: launches {launched}, want {want}")
     check(st[False][3][-1] < st[False][3][0], f"{label}: the epoch loss did not fall")
     builder_compare(label, st[False], st[True])
@@ -3894,6 +3979,10 @@ def run(device, card, trace_path=None):
     for shape, seed in ((FULL2D_512, 11), (ODD2D, 12)):
         for name, err in epdiff2d_checks(device, shape, seed).items():
             errs[name] = max(errs[name], err)
+    warp2d_errs, warp2d_times = warp2d_checks(device, FULL2D_512, seed=25, timed=True)
+    errs.update(warp2d_errs)
+    for name, err in warp2d_checks(device, ODD2D, seed=26)[0].items():
+        errs[name] = max(errs[name], err)
     for shape, seed, radix, whole in ((FULL, 13, True, True), (FULL64, 14, True, True),
                                       (RADIX_ODD, 15, True, True), (RADIX_WIDE, 16, True, False),
                                       (RADIX_LONG, 18, True, False), (ODD, 17, False, True)):
@@ -3928,7 +4017,7 @@ def run(device, card, trace_path=None):
     fallback_step(lt, device, PARAMS, 8.0, *fallback_inputs(device, FALLBACK, seed=3))
     # 6b. the 2D main path: its kernels' launches come from its own run
     main2d = atlas_steps_2d(lt, device)
-    main.update({k: main2d[k] for k in KERNELS_2D})
+    main.update({k: main2d[k] for k in KERNELS_2D + KERNELS_WARP2D})
     # 6c. the 2D path with beta != 0 on K10-K13, and its fallback
     main2d = atlas_steps_2d(lt, device, PARAMS_BETA, STEP2D_BETA_LAUNCHES)
     main.update({k: main2d[k] for k in KERNELS_2D_PER_OP})
@@ -3948,6 +4037,7 @@ def run(device, card, trace_path=None):
     times = timings(device, card, lt, metric, I, m, img)
     times.update(timings2d(device, card, lt))
     times.update(timings_solves(device, card, lt))
+    times.update(warp2d_times)
 
     # 8. traces
     if trace_path:

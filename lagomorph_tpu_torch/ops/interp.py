@@ -13,14 +13,14 @@ bound; where the JAX package switches with ``lax.cond``, the port reads the
 tier flags on the host (one sync per call) and branches.  The global warp
 mode (:func:`set_warp_mode`) forces a tier wherever no ``mode`` is passed,
 and a forced "bounded" or "general" mode keeps every unit-regime kernel
-(K1, K2, K4, K8, K10, K11) off.
+(K1, K2, K4, K8, K10, K11, K17) off.
 """
 from __future__ import annotations
 
 import torch
 
 from ..profiling import span
-from .kernels import warp_unit
+from .kernels import warp2d, warp_unit
 from .sampling import (
     identity_grid,
     sample_displacement_bounded,
@@ -111,21 +111,22 @@ def interp_auto(I: torch.Tensor, u: torch.Tensor, dt: float = 1.0, radius: int =
     """:func:`interp` through the exact tiered fast paths.
 
     Tier 1, "unit": every component of ``dt*u`` in ``[-1, 1)``: the 27-tap
-    stencil (kernel K4 on CUDA).  Tier 2, "bounded": components in
-    ``[-radius, radius + 1)``: the dense offset sweep.  Tier 3, "general":
-    the gather.  Every tier equals the gather in its regime.  ``mode``
-    forces a tier (the caller guarantees its regime); "auto" picks it from
-    the displacement; None takes the global warp mode
+    stencil (kernel K4 on CUDA; in 2D the 9-tap one, K17).  Tier 2,
+    "bounded": components in ``[-radius, radius + 1)``: the dense offset
+    sweep.  Tier 3, "general": the gather.  Every tier equals the gather in
+    its regime.  ``mode`` forces a tier (the caller guarantees its regime);
+    "auto" picks it from the displacement; None takes the global warp mode
     (:func:`set_warp_mode`)."""
     d = dt * u if dt != 1.0 else u
     mode = resolve_mode(mode)
     if mode == "auto":
         mode = warp_tier(d, radius)
     if mode == "unit":
-        # kernel K4 covers 3D fields; 2D takes the plain stencil, as the JAX
-        # package's warp kernel is 3D only
+        # kernel K4 covers 3D fields, K17 2D ones
         if d.dim() == 5:
             return warp_unit.sample_displacement_unit(I, d)
+        if d.dim() == 4:
+            return warp2d.sample_displacement_unit(I, d)
         return sample_displacement_unit(I, d)
     if mode == "bounded":
         return sample_displacement_bounded(I, d, radius)

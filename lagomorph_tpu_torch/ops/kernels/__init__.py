@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
 Each kernel module (``warp_unit``, ``epdiff_unit``, ``fft_unit``,
-``fft_radix``, ``fft_whole``, ``shoot2d``, ``epdiff2d``) holds, for every
+``fft_radix``, ``fft_whole``, ``shoot2d``, ``epdiff2d``, ``warp2d``) holds, for every
 kernel, a wrapper that launches the CUDA kernel for tensors on a CUDA
 device and the plain PyTorch function of the same signature that it is held
 against.  Dispatch is by device and dtype (:func:`use_kernel`):
@@ -69,7 +69,8 @@ class Kernel:
 
     name: str
     source: str  # path of the CUDA source in the repository
-    replaces: str  # file:line of the Pallas kernel it replaces
+    replaces: str  # file:line of the Pallas kernel it replaces (of the JAX
+    # function, where the JAX package has no kernel for it)
     launches: int = 0
 
 

@@ -94,6 +94,10 @@ SIGNATURES = {
     # N, H, W, tile, out (8 ints: path, tile height, blocks, threads, shared
     # bytes, the tiles of phases 1-3)
     "lagomorph_shoot2d_bwd_grid": [_I, _I, _I, _I, _P],
+    # I, disp, out, N, NI, C, H, W, stream
+    "lagomorph_warp2d_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # I, disp, g, dI, d_disp, N, NI, C, H, W, stream
+    "lagomorph_warp2d_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -20,8 +20,9 @@ import torch
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
 from lagomorph_tpu_torch.ops import fluid
+from lagomorph_tpu_torch import profiling
 from lagomorph_tpu_torch.ops.kernels import (_build, epdiff2d, epdiff_unit, fft_radix, fft_unit,
-                                             fft_whole, shoot2d, warp_unit)
+                                             fft_whole, shoot2d, warp2d, warp_unit)
 
 
 @pytest.fixture
@@ -649,3 +650,89 @@ def test_ad_star_march_on_cuda(cuda, shape, march):
     if march:
         p[N - 1, 1, min(march, X) - 1, Y - 1, Z - 1] = 1.0  # the upper bound is open
         assert not launch(p, m0, True)[1] and not launch(p, m0, False)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 512, 512), (3, 13, 37)])
+@pytest.mark.parametrize("batch", ["one", "N"])
+def test_warp2d_kernels_match_plain_on_cuda(cuda, shape, batch):
+    """K17 and K18 (``csrc/warp2d.cu``) against the plain 2D stencil on the
+    card, for a batch-1 one-channel image (the atlas) and a batch-N
+    two-channel field: K17 ``torch.equal`` (displacements in the unit
+    regime, a quarter at -1, 0 and just under 1), K18 through the wrapper
+    under autograd within 1e-5 * (1 + max|ref|), one launch each and one
+    count each of ``warp2d.LAUNCH.fwd`` / ``.bwd``, a rerun bit-identical; a
+    batch-1 dI the ordered float32 sum of the subjects' own, and <dI, v>
+    for a random v against the float64 plain warp's <warp(I + v) - warp(I),
+    g> (the loss is linear in I); float64 takes the plain version."""
+    rng = np.random.default_rng(29)
+    N, H, W = shape
+
+    def c(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    d = rng.uniform(-0.999, 0.999, (N, 2, H, W))
+    pick = rng.uniform(size=d.shape) < 0.25
+    d[pick] = rng.choice([-1.0, 0.0, float(np.nextafter(np.float32(1), np.float32(0)))],
+                         size=int(pick.sum()))
+    p = c(d)
+    nb, C = (1, 1) if batch == "one" else (N, 2)
+    I = c(rng.standard_normal((nb, C, H, W)))
+    g = c(rng.standard_normal((N, C, H, W)))
+    kernels.reset_launches()
+    profiling.reset_counters()
+    out = warp2d.sample_displacement_unit(I, p)
+    assert torch.equal(out, warp2d.sample_displacement_unit_plain(I, p))
+    leaves = (I.clone().requires_grad_(True), p.clone().requires_grad_(True))
+    got = torch.autograd.grad(warp2d.sample_displacement_unit(*leaves), leaves, g)
+    with kernels.plain_versions():
+        refs = (I.clone().requires_grad_(True), p.clone().requires_grad_(True))
+        ref = torch.autograd.grad(warp2d.sample_displacement_unit(*refs), refs, g)
+    for a, b in zip(got, ref):
+        _compare(a, b, 1e-5)
+    counts = kernels.launch_counts()
+    assert (counts["warp2d_fwd"], counts["warp2d_bwd"]) == (2, 1)
+    assert {k: v for k, v in profiling.counters().items() if k.startswith("warp2d.")} == {
+        "warp2d.LAUNCH.fwd": 2, "warp2d.LAUNCH.bwd": 1}
+    again = warp2d._launch_bwd(I, p, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if nb == 1:
+        each = warp2d._launch_bwd(I.expand(N, -1, -1, -1).contiguous(), p, g)
+        total = torch.zeros_like(I)
+        for n in range(N):
+            total = total + each[0][n:n + 1]
+        assert torch.equal(got[0], total) and torch.equal(got[1], each[1])
+        v = rng.standard_normal(I.shape)
+        I64, p64, g64 = I.double(), p.double(), g.double()
+        v64 = torch.as_tensor(v, dtype=torch.float64, device=cuda)
+        fd = float(((warp2d.sample_displacement_unit(I64 + v64, p64)
+                     - warp2d.sample_displacement_unit(I64, p64)) * g64).sum())
+        terms = got[0].double() * v64
+        assert abs(float(terms.sum()) - fd) <= 1e-5 * float(terms.abs().sum())
+    _plain_on_card(warp2d.sample_displacement_unit, I.double(), p.double())
+    with pytest.raises(TypeError):  # a float64 image with a float32 displacement
+        warp2d.sample_displacement_unit(I.double(), p)
+
+
+@pytest.mark.cuda
+def test_warp2d_launches_in_atlas_steps_on_cuda(cuda):
+    """One atlas step launches K17 and K18 once each in 2D (``beta`` 0 and
+    0.05), read by ``warp2d.LAUNCH.fwd`` / ``.bwd``, and neither in 3D."""
+    rng = np.random.default_rng(31)
+    for shape, params, want in (((2, 2, 32, 64), (0.1, 0.0, 0.01), 1),
+                                ((2, 2, 32, 64), (0.1, 0.05, 0.01), 1),
+                                ((2, 3, 16, 12, 20), (0.1, 0.0, 0.01), 0)):
+        metric = lt.FluidMetric(params)
+        m = rng.standard_normal(shape) * 2e-6
+        I = rng.standard_normal((1, 1) + shape[2:])
+        img = rng.standard_normal((shape[0], 1) + shape[2:])
+        step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-4)
+        kernels.reset_launches()
+        profiling.reset_counters()
+        step(*(torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in (I, m, img)))
+        torch.cuda.synchronize(cuda)
+        counts = profiling.counters()
+        assert (counts.get("warp2d.LAUNCH.fwd", 0), counts.get("warp2d.LAUNCH.bwd", 0)) == (
+            want, want), (shape, params)
+        launches = kernels.launch_counts()
+        assert (launches["warp2d_fwd"], launches["warp2d_bwd"]) == (want, want)

@@ -29,7 +29,7 @@ from lagomorph_tpu_torch import lddmm as tlddmm
 from lagomorph_tpu_torch import profiling
 from lagomorph_tpu_torch.ops import fluid as tfluid
 from lagomorph_tpu_torch.ops import kernels
-from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d, epdiff_unit, warp_unit
+from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d, epdiff_unit, warp2d, warp_unit
 
 torch.set_num_threads(2)
 PARAMS = (0.1, 0.0, 0.01)
@@ -108,6 +108,8 @@ WRAPPERS = {
         torch.zeros(1, 3, 4, 5, 6), torch.full((1, 3, 4, 5, 6), NAN)),
     "compose_fwd": lambda rng: epdiff_unit.compose(
         torch.full((1, 3, 4, 5, 6), NAN), torch.zeros(1, 3, 4, 5, 6), 0.1),
+    "warp2d_fwd": lambda rng: warp2d.sample_displacement_unit(
+        torch.full((1, 1, 6, 7), NAN), torch.zeros(1, 2, 6, 7)),
     "ad_star2d_fwd": lambda rng: epdiff2d.ad_star2d(
         torch.zeros(1, 2, 6, 7), torch.full((1, 2, 6, 7), NAN)),
     "compose2d_fwd": lambda rng: epdiff2d.compose2d(

@@ -406,7 +406,8 @@ def test_host_atlas_step_matches_plain(rng, host_kernels, monkeypatch):
         "fluid_flat": 0, "warp_unit_fwd": 1, "warp_unit_bwd": 1, "ad_star_fwd": 4,
         "compose_fwd": 4, "ad_star_bwd": 4, "compose_bwd": 4, "shoot2d_fwd": 0,
         "shoot2d_bwd": 0, "ad_star2d_fwd": 0, "compose2d_fwd": 0, "ad_star2d_bwd": 0,
-        "compose2d_bwd": 0, "fluid_radix_zy": 0, "fluid_radix_x": 0, "fluid_whole": 0}
+        "compose2d_bwd": 0, "fluid_radix_zy": 0, "fluid_radix_x": 0, "fluid_whole": 0,
+        "warp2d_fwd": 0, "warp2d_bwd": 0}
     assert not fft_unit.use_kernel(m)  # K3 took its plain version
     with kernels.plain_versions():
         ref = step(I, m, img)

@@ -1,5 +1,5 @@
-"""The 2D per-substep stencil kernels' CUDA source, compiled for the host
-and run on the CPU against their plain versions.
+"""The 2D stencil kernels' CUDA source, compiled for the host and run on
+the CPU against their plain versions.
 
 K10-K13 (``lagomorph_tpu_torch/csrc/epdiff2d.cu``): K10 and K11 on column
 strips whose warps march down bands of rows, the halo columns shuffled
@@ -16,7 +16,9 @@ wrappers then call in place of the card's library.  It is built from
 the forms the library does not take (K10 and K11 one thread a pixel on
 their live taps, or at any strip width and band height, with or without the
 prefetch; K13 on K12's tiles, K12's tiles for a batch-1 m0), which ``profile_epdiff2d.py`` times on the card, are held
-here too.  So the kernels' arithmetic, indexing, tiles and halos, clamp
+here too.  The 2D unit-regime warp K17 and its one-pass backward K18
+(``csrc/warp2d.cu``, staging a tile and its halo in shared memory a
+subject) are built into the same library.  So the kernels' arithmetic, indexing, tiles and halos, clamp
 folds, batch-1 sums and flags are checked here, in float32, before the card
 sees them; the card itself is checked by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.  The other kernels run on the threaded emulation of
@@ -24,7 +26,8 @@ sees them; the card itself is checked by ``tests/test_torch_cuda.py`` and
 plain versions.
 
 Tolerances, float32 against the plain version on the same inputs: the
-forwards round each operation like the plain version (bit-equal); the
+forwards (K17 included) round each operation like the plain version
+(bit-equal); the
 backwards sum in another order than autograd (1e-5 * (1 + max|ref|)); the
 tile forms give the per-thread kernels' bits (``torch.equal``).
 """
@@ -40,38 +43,39 @@ import torch
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch import profiling
 from lagomorph_tpu_torch.ops import kernels
-from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d
+from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d, warp2d
 from profile_epdiff2d import FWD10, FWD11, PARTS12, PARTS13, PIXEL12, fwd10, fwd11, parts12, parts13
 from test_torch_host_barrier_kernels import SHIM, _host_source
 
 torch.set_num_threads(2)
 
 HEADERS = ("stencil2d.cuh", "tile2d.cuh", "epdiff2d.cu")
-SOURCE = os.path.join("profile", "epdiff2d_variants.cu")
+SOURCES = (os.path.join("profile", "epdiff2d_variants.cu"), "warp2d.cu")
 KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
+WARP2D = ("warp2d_fwd", "warp2d_bwd")  # K17, K18
 ENTRY_POINTS = ("lagomorph_ad_star2d_fwd", "lagomorph_compose2d_fwd", "lagomorph_ad_star2d_bwd",
                 "lagomorph_compose2d_bwd", "lagomorph_ad_star2d_bwd_grid",
-                "lagomorph_epdiff2d_fwd_grid")
+                "lagomorph_epdiff2d_fwd_grid", "lagomorph_warp2d_fwd", "lagomorph_warp2d_bwd")
 BWD_RTOL = 1e-5
 
 
 @pytest.fixture(scope="module")
 def host_library(tmp_path_factory):
-    """The 2D stencil source built as a threaded host library (skips
+    """The 2D stencil sources built as a threaded host library (skips
     without a g++ that has C++20's <barrier>)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' sources for the host")
     out = tmp_path_factory.mktemp("host_kernels")
     (out / "profile").mkdir()
-    for name in HEADERS + (SOURCE,):
+    for name in HEADERS + SOURCES:
         with open(os.path.join(_build.CSRC, name)) as f:
             (out / name).write_text(_host_source(f.read()))
     (out / "error_string.cpp").write_text(
         'extern "C" const char* lagomorph_error_string(int) { return "host emulation"; }\n')
     so = out / "libhost_kernels.so"
     cmd = [gxx, "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
-           "-I", SHIM, "-I", str(out), "-o", str(so), str(out / SOURCE),
+           "-I", SHIM, "-I", str(out), "-o", str(so), *(str(out / src) for src in SOURCES),
            str(out / "error_string.cpp")]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0 and "barrier" in r.stderr and "No such file" in r.stderr:
@@ -93,15 +97,16 @@ def host_library(tmp_path_factory):
 
 @pytest.fixture
 def host_kernels(monkeypatch, host_library):
-    """The 2D stencil wrappers launch the host library on CPU tensors, as on
-    the card: float32 and contiguous, or they raise."""
+    """The 2D stencil wrappers (K10-K13, K17, K18) launch the host library
+    on CPU tensors, as on the card: float32 and contiguous, or they
+    raise."""
     def check_cpu_f32(name, *tensors):
         for t in tensors:
             if t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError(f"{name}: kernel takes contiguous float32 tensors")
 
     monkeypatch.setattr(_build, "library", lambda: host_library)
-    for mod in (epdiff2d,):
+    for mod in (epdiff2d, warp2d):
         monkeypatch.setattr(mod, "use_kernel", lambda _t: not kernels._PLAIN.get())
         monkeypatch.setattr(mod, "check_cuda_f32", check_cpu_f32)
         monkeypatch.setattr(mod, "stream_of", lambda _t: None)
@@ -230,11 +235,12 @@ def test_host_epdiff2d_fwd_strips(rng, host_kernels, host_library, shape):
 
 def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
     """Two chained 2D atlas steps with ``beta != 0`` (the per-substep
-    kernels K10-K13, emulated; the fluid solve and the atlas warp plain on
-    both sides) against the plain versions, at momenta in the unit regime
-    (max|v0| = 0.5), with 4 launches of each per step and no other kernel,
-    each counted under ``epdiff2d.LAUNCH.<K10|K11|K12|K13>``, in 4
-    ``lt.substep`` spans and 5 fluid solves on the ``"rfftn"`` route."""
+    kernels K10-K13 and the atlas warp K17, K18, emulated; the fluid solve
+    plain on both sides) against the plain versions, at momenta in the unit
+    regime (max|v0| = 0.5), with 4 launches of each of K10-K13 and one of
+    K17 and K18 per step and no other kernel, counted under
+    ``epdiff2d.LAUNCH.<K10|K11|K12|K13>`` and ``warp2d.LAUNCH.<fwd|bwd>``, in
+    4 ``lt.substep`` spans and 5 fluid solves on the ``"rfftn"`` route."""
     shape = (2, 2, 12, 10)
     metric = lt.FluidMetric((0.1, 0.05, 0.01))
     m = f32(rng.standard_normal(shape))
@@ -249,11 +255,14 @@ def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
         profiling.reset_counters()
         got.append(step(I, mm, img))
         mm = got[-1][0]
-        assert kernels.launch_counts() == {k: (4 if k in KERNELS_2D_PER_OP else 0)
-                                           for k in kernels.KERNELS}
+        assert kernels.launch_counts() == {
+            k: (4 if k in KERNELS_2D_PER_OP else 1 if k in WARP2D else 0)
+            for k in kernels.KERNELS}
         counts = profiling.counters()
         assert {k: v for k, v in counts.items() if k.startswith("epdiff2d.")} == {
             f"epdiff2d.LAUNCH.K{k}": 4 for k in (10, 11, 12, 13)}
+        assert {k: v for k, v in counts.items() if k.startswith("warp2d.")} == {
+            "warp2d.LAUNCH.fwd": 1, "warp2d.LAUNCH.bwd": 1}
         assert counts["lt.substep"] == 4
         assert {k: v for k, v in counts.items() if k.startswith("fluid.route.")} == {
             "fluid.route.rfftn": 5}
@@ -352,3 +361,110 @@ def test_host_epdiff2d_bwd_routes(rng, host_kernels):
     assert kernels.launch_counts()["ad_star2d_bwd"] == 1
     with pytest.raises(RuntimeError, match="lagomorph_ad_star2d_bwd"):
         epdiff2d._launch_ad_star_bwd(p, m0, g, mw, 0)
+
+
+# K17/K18 shapes (N, H, W) against the 8 x 32 tiles: odd and crossing tiles
+# on both axes (halo rows and columns inside the image), smaller than a
+# tile, exact multiples of it, one row, one row and one column past a tile
+WARP2D_SHAPES = [(3, 13, 37), (2, 5, 7), (2, 16, 64), (2, 1, 3), (5, 9, 33)]
+JUST_UNDER_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+
+
+def _unit_disp(rng, shape):
+    """Displacements in the unit regime, a quarter of them at its edges and
+    at the integers: exactly -1 and 0, and just under 1 and -1."""
+    p = rng.uniform(-0.999, 0.999, shape)
+    edge = rng.uniform(size=shape) < 0.25
+    special = rng.choice([-1.0, 0.0, JUST_UNDER_ONE, -JUST_UNDER_ONE], size=shape)
+    return f32(np.where(edge, special, p))
+
+
+@pytest.mark.parametrize("shape", WARP2D_SHAPES)
+@pytest.mark.parametrize("batch", ["one", "N"])
+def test_host_warp2d_matches_plain(rng, host_kernels, shape, batch):
+    """K17 and K18 (``csrc/warp2d.cu``) against the plain 2D stencil and
+    its autograd, for I of batch 1 and batch N with 1, 2 and 3 channels
+    (two launches of K18, the second adding its weight gradient): K17
+    ``torch.equal``; K18's ``dI`` and ``d_disp`` within 1e-5 * (1 +
+    max|ref|), through the autograd Function, a rerun bit-identical; a
+    batch-1 ``dI`` the float32 sum, in subject order, of the subjects' own
+    (batch-N) ``dI``, bit for bit, and its ``d_disp`` theirs; one
+    ``warp2d.LAUNCH.fwd`` and one ``.bwd`` a pair of channels."""
+    N, H, W = shape
+    p = _unit_disp(rng, (N, 2, H, W))
+    for C in (1, 2, 3):
+        nb = 1 if batch == "one" else N
+        I = f32(rng.standard_normal((nb, C, H, W)))
+        g = f32(rng.standard_normal((N, C, H, W)))
+        kernels.reset_launches()
+        profiling.reset_counters()
+        out = warp2d.sample_displacement_unit(I, p)
+        assert torch.equal(out, warp2d.sample_displacement_unit_plain(I, p)), f"K17 C={C}"
+        leaves = (I.clone().requires_grad_(True), p.clone().requires_grad_(True))
+        got = torch.autograd.grad(warp2d.sample_displacement_unit(*leaves), leaves, g)
+        ref = warp2d.sample_displacement_unit_bwd_plain(I, p, g)
+        for what, a, b in zip(("dI", "d_disp"), got, ref):
+            close(f"K18 {what} (C={C}, I batch {nb})", a, b, BWD_RTOL)
+        pairs = -(-C // 2)
+        assert kernels.launch_counts()["warp2d_fwd"] == 2
+        assert kernels.launch_counts()["warp2d_bwd"] == pairs
+        assert {k: v for k, v in profiling.counters().items() if k.startswith("warp2d.")} == {
+            "warp2d.LAUNCH.fwd": 2, "warp2d.LAUNCH.bwd": pairs}
+        again = warp2d._launch_bwd(I, p, g)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), "K18 is not deterministic"
+        if nb == 1:
+            each = warp2d._launch_bwd(I.expand(N, -1, -1, -1).contiguous(), p, g)
+            total = torch.zeros_like(I)
+            for n in range(N):
+                total = total + each[0][n:n + 1]
+            assert torch.equal(got[0], total), "K18's batch-1 dI is not the ordered sum"
+            assert torch.equal(got[1], each[1])
+
+
+def test_host_warp2d_refuses_bad_inputs(rng, host_kernels):
+    """K17's wrapper raises for a displacement that is not ``(N, 2, H,
+    W)``, an image of another batch or grid, and (as on the card) a
+    non-contiguous or non-float32 tensor; it falls back to nothing."""
+    p = _unit_disp(rng, (2, 2, 6, 5))
+    I = f32(rng.standard_normal((1, 1, 6, 5)))
+    strided = p.transpose(2, 3).contiguous().transpose(2, 3)
+    assert strided.shape == p.shape and not strided.is_contiguous()
+    for bad_I, bad_p in ((I, p[:, :1]), (I[:, :, :5], p), (I.expand(3, -1, -1, -1), p),
+                         (I, strided), (I.double(), p)):
+        with pytest.raises((ValueError, TypeError)):
+            warp2d.sample_displacement_unit(bad_I, bad_p)
+
+
+def test_host_atlas_step_2d_warp_matches_plain(rng, host_kernels):
+    """Two chained 2D atlas steps with ``beta == 0`` (the whole shoot plain,
+    the atlas warp on K17 and K18, emulated) against the plain versions at
+    momenta in the unit regime (max|v0| = 0.5): one launch of K17 and one of
+    K18 a step, counted under ``warp2d.LAUNCH.fwd`` and ``.bwd``, and no
+    other kernel; the updated momenta, the atlas gradient and the loss as
+    the plain step's."""
+    shape = (3, 2, 13, 37)
+    metric = lt.FluidMetric((0.1, 0.0, 0.01))
+    m = f32(rng.standard_normal(shape))
+    m = m * (0.5 / float(metric.sharp(m).abs().max()))
+    I = f32(rng.standard_normal((1, 1) + shape[2:]))
+    img = f32(rng.standard_normal((3, 1) + shape[2:]))
+    step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-6)
+    got, mm = [], m
+    for _ in range(2):
+        kernels.reset_launches()
+        profiling.reset_counters()
+        got.append(step(I, mm, img))
+        mm = got[-1][0]
+        assert kernels.launch_counts() == {k: (1 if k in WARP2D else 0) for k in kernels.KERNELS}
+        assert {k: v for k, v in profiling.counters().items() if k.startswith("warp2d.")} == {
+            "warp2d.LAUNCH.fwd": 1, "warp2d.LAUNCH.bwd": 1}
+    ref, mm = [], m
+    with kernels.plain_versions():
+        for _ in range(2):
+            ref.append(step(I, mm, img))
+            mm = ref[-1][0]
+    for (g_m, g_I, g_loss, _), (r_m, r_I, r_loss, _) in zip(got, ref):
+        update, r_update = g_m - m, r_m - m
+        assert float((update - r_update).abs().max()) <= 1e-4 * float(r_update.abs().max())
+        assert float((g_I - r_I).abs().max()) <= 1e-5 * float(r_I.abs().max())
+        assert abs(float(g_loss) - float(r_loss)) <= 1e-6 * abs(float(r_loss))

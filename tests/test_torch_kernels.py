@@ -8,6 +8,8 @@ plain versions on the card by ``tests/test_torch_cuda.py`` and
 * K2 ``epdiff_unit.compose`` vs ``lm.compose_disp_vel(..., mode="unit")``;
 * K4 ``warp_unit.sample_displacement_unit`` vs
   ``ops.sampling.sample_displacement_unit``;
+* K17 and K18 ``warp2d.sample_displacement_unit``'s Function (2D batch-1
+  and batch-N images) vs autograd of the plain 2D stencil;
 * K3 ``fft_unit.fluid_flat`` (through ``FluidMetric.sharp``) vs the JAX
   ``FluidMetric.sharp``;
 * the backwards K5, K6, K7 (``*_bwd_plain``) vs ``jax.vjp`` of the same
@@ -37,7 +39,7 @@ from lagomorph_tpu import lddmm as jlddmm
 from lagomorph_tpu.ops import sampling as jsamp
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch.ops import kernels
-from lagomorph_tpu_torch.ops.kernels import epdiff_unit, fft_unit, warp_unit
+from lagomorph_tpu_torch.ops.kernels import epdiff_unit, fft_unit, warp2d, warp_unit
 
 torch.set_num_threads(2)
 
@@ -127,7 +129,7 @@ def test_plain_versions_context_and_counters(rng):
         "warp_unit_fwd", "ad_star_fwd", "compose_fwd", "fluid_flat",
         "warp_unit_bwd", "ad_star_bwd", "compose_bwd", "shoot2d_fwd", "shoot2d_bwd",
         "ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd",
-        "fluid_radix_zy", "fluid_radix_x", "fluid_whole"}
+        "fluid_radix_zy", "fluid_radix_x", "fluid_whole", "warp2d_fwd", "warp2d_bwd"}
     a = epdiff_unit.ad_star(p, p)[0]
     with kernels.plain_versions():
         assert kernels._PLAIN.get()
@@ -139,7 +141,10 @@ def test_plain_versions_context_and_counters(rng):
         kernels.use_kernel(torch.empty(1, device="meta"))
     for k in kernels.KERNELS.values():
         assert k.source.startswith("lagomorph_tpu_torch/csrc/") and k.source.endswith(".cu")
-        assert k.replaces.startswith("lagomorph_tpu/ops/pallas/")
+        # K17/K18: the JAX package warps 2D fields with its plain stencil
+        assert k.replaces.startswith("lagomorph_tpu/ops/pallas/") or (
+            k.name in ("warp2d_fwd", "warp2d_bwd")
+            and k.replaces == "lagomorph_tpu/ops/sampling.py:176")
 
 
 def test_plain_versions_differentiate_on_cpu(rng):
@@ -245,12 +250,14 @@ def kernel_glue(monkeypatch):
             return fn(*args, **kw)
         return launch
 
-    for mod in (warp_unit, epdiff_unit, fft_unit):  # as for a tensor on the card
+    for mod in (warp_unit, epdiff_unit, fft_unit, warp2d):  # as for a tensor on the card
         monkeypatch.setattr(mod, "use_kernel", lambda _t: not kernels._PLAIN.get())
         monkeypatch.setattr(mod, "check_cuda_f32", lambda _name, *_ts: None)
     for mod, name, plain in (
         (warp_unit, "_launch", warp_unit.sample_displacement_unit_plain),
         (warp_unit, "_launch_bwd", warp_unit.sample_displacement_unit_bwd_plain),
+        (warp2d, "_launch", warp2d.sample_displacement_unit_plain),
+        (warp2d, "_launch_bwd", warp2d.sample_displacement_unit_bwd_plain),
         (epdiff_unit, "_launch_ad_star", epdiff_unit.ad_star_plain),
         (epdiff_unit, "_launch_ad_star_bwd", epdiff_unit.ad_star_bwd_plain),
         (epdiff_unit, "_launch_compose", epdiff_unit.compose_plain),
@@ -274,23 +281,32 @@ def _grads(fn, inputs, cot):
         elif how == "sum":
             loss = y.sum()
         else:
-            loss = (y.transpose(2, 4) * cot.transpose(2, 4).contiguous()).sum()
+            loss = (y.transpose(2, -1) * cot.transpose(2, -1).contiguous()).sum()
         out.append(torch.autograd.grad(loss, leaves))
     return out
 
 
 @pytest.mark.parametrize("case", ["warp_atlas", "warp_N3", "ad_star_m1", "ad_star_mN",
-                                  "compose", "fluid_flat", "sharp_odd"])
+                                  "compose", "fluid_flat", "sharp_odd", "warp2d_atlas",
+                                  "warp2d_N2"])
 def test_autograd_functions_match_plain(rng, kernel_glue, case):
     """The Functions around the kernel launches, on the CPU with every
     launch replaced by its plain version: gradients equal autograd of the
     plain forward (under ``plain_versions()``), for batch-1 operands
     (summed over the batch), the flag outputs (non-differentiable, unused),
-    the step scale s and non-contiguous cotangents."""
+    the step scale s and non-contiguous cotangents; 2D warps (K17, K18) of
+    a batch-1 atlas and of a batch-N two-channel field."""
     shape = SHAPES[1] if case == "sharp_odd" else SHAPES[0]
     N, _, X, Y, Z = shape
     p = t(rng.uniform(-0.95, 0.95, shape))
-    if case.startswith("warp"):
+    if case.startswith("warp2d"):
+        C, NI = (1, 1) if case == "warp2d_atlas" else (2, N)
+        p = t(rng.uniform(-0.95, 0.95, (N, 2, X, Y)))
+        I = t(rng.standard_normal((NI, C, X, Y)))
+        fn, plain, inputs = (warp2d.sample_displacement_unit,
+                             warp2d.sample_displacement_unit_plain, (I, p))
+        cot = t(rng.standard_normal((N, C, X, Y)))
+    elif case.startswith("warp"):
         C, NI = (1, 1) if case == "warp_atlas" else (3, N)
         I = t(rng.standard_normal((NI, C, X, Y, Z)))
         fn, plain, inputs = (warp_unit.sample_displacement_unit,

@@ -1,5 +1,6 @@
 """The shooting's per-substep span and the counters of the fluid solve's
-route and of the 2D per-substep kernels' launches, on the CPU:
+route and of the 2D per-substep kernels' and the 2D warp's launches, on the
+CPU:
 
 * ``lt.substep``: one span a substep of the per-substep loop
   (``lddmm._expmap_fast_flagged``), 4 a shoot of 5 steps, each inside the
@@ -11,7 +12,12 @@ route and of the 2D per-substep kernels' launches, on the CPU:
   with ``beta != 0``, and 5 solves on the ``"rfftn"`` route, with the
   kernels' C entry points replaced by their plain versions (the wrappers'
   Python, routes and allocations run as on the card); none in a step with
-  ``beta == 0``.
+  ``beta == 0``;
+* ``warp2d.LAUNCH.<fwd|bwd>``: 1 and 1 through a 2D atlas step (the atlas
+  warp K17 and its backward K18, the same plain entry points), with and
+  without ``beta``; none in a 3D step; and ``interp_auto``'s 2D unit tier
+  keeping CPU tensors, and on a card other dtypes than float32, on the
+  plain stencil.
 """
 import ctypes
 import json
@@ -23,8 +29,9 @@ from torch.profiler import ProfilerActivity, profile
 
 import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch import lddmm, profiling
-from lagomorph_tpu_torch.ops import fluid, kernels
-from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d
+from lagomorph_tpu_torch.ops import fluid, kernels, sampling
+from lagomorph_tpu_torch.ops.interp import interp_auto
+from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d, warp2d
 
 torch.set_num_threads(2)
 
@@ -160,17 +167,30 @@ def _plain_entry_points(name, *args):
         r = epdiff2d.compose2d_bwd_plain(_view(p, f), _view(v, f), s, _view(g, f))
         _put(d_p, r[0])
         _put(d_v, r[1])
+    elif name == "lagomorph_warp2d_fwd":
+        I, p, out, N, NI, C, H, W, _stream = args
+        _put(out, warp2d.sample_displacement_unit_plain(_view(I, (NI, C, H, W)),
+                                                        _view(p, (N, 2, H, W))))
+    elif name == "lagomorph_warp2d_bwd":
+        I, p, g, dI, dd, N, NI, C, H, W, _stream = args
+        r = warp2d.sample_displacement_unit_bwd_plain(
+            _view(I, (NI, C, H, W)), _view(p, (N, 2, H, W)), _view(g, (N, C, H, W)))
+        _put(dI, r[0])
+        _put(dd, r[1])
     else:
         raise AssertionError(f"no other entry point runs here: {name}")
 
 
 @pytest.fixture
 def plain_launches(monkeypatch):
-    """The 2D per-substep wrappers launch on CPU tensors, through their
-    ``_launch_*`` functions, whose entry points run the plain versions."""
-    monkeypatch.setattr(epdiff2d, "use_kernel", lambda _t: not kernels._PLAIN.get())
-    monkeypatch.setattr(epdiff2d, "check_cuda_f32", lambda _name, *_ts: None)
-    monkeypatch.setattr(epdiff2d, "stream_of", lambda _t: None)
+    """The 2D per-substep and warp wrappers launch on float32 CPU tensors,
+    as on the card, through their ``_launch*`` functions, whose entry
+    points run the plain versions."""
+    for mod in (epdiff2d, warp2d):
+        monkeypatch.setattr(mod, "use_kernel",
+                            lambda t: t.dtype == torch.float32 and not kernels._PLAIN.get())
+        monkeypatch.setattr(mod, "check_cuda_f32", lambda _name, *_ts: None)
+        monkeypatch.setattr(mod, "stream_of", lambda _t: None)
     monkeypatch.setattr(_build, "call", _plain_entry_points)
 
 
@@ -219,3 +239,67 @@ def test_2d_flat_step_launches_no_per_substep_kernel(plain_launches):
     counts = profiling.counters()
     assert not any(k.startswith("epdiff2d.") for k in counts) and "lt.substep" not in counts
     assert counts["fluid.route.rfftn"] == 1  # v0; K8 solves its substeps itself
+
+
+WARP_COUNTS = {"warp2d.LAUNCH.fwd": 1, "warp2d.LAUNCH.bwd": 1}
+
+
+def _warp_counts():
+    return {k: v for k, v in profiling.counters().items() if k.startswith("warp2d.")}
+
+
+@pytest.mark.parametrize("params", [FLAT, BETA], ids=["flat", "beta"])
+def test_2d_step_counts_one_warp_launch_each_way(plain_launches, params):
+    """A 2D atlas step warps the atlas once through K17 and takes its
+    gradient once through K18 (``warp2d.LAUNCH.fwd`` / ``.bwd`` 1 and 1, the
+    kernels' ``launches`` too), with ``beta`` 0 (K8/K9 plain here) and not
+    (K10-K13); under ``plain_versions`` none, and the same step."""
+    I, m, img = _inputs((12, 10), params, 5)
+    step = _step(params)
+    for _ in range(2):
+        kernels.reset_launches()
+        profiling.reset_counters()
+        got = step(I, m, img)
+        assert _warp_counts() == WARP_COUNTS
+        assert {k: kernels.launch_counts()[k] for k in ("warp2d_fwd", "warp2d_bwd")} == {
+            "warp2d_fwd": 1, "warp2d_bwd": 1}
+    with kernels.plain_versions():
+        profiling.reset_counters()
+        ref = step(I, m, img)
+        assert _warp_counts() == {}
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-7 * float(b.abs().max()))
+
+
+def test_3d_step_counts_no_warp2d_launch(plain_launches):
+    """The 3D atlas step's warp is K4's (plain here): no K17 or K18."""
+    I, m, img = _inputs((6, 5, 4), FLAT, 6)
+    profiling.reset_counters()
+    _step(FLAT)(I, m, img)
+    assert _warp_counts() == {} and profiling.counters()["lt.warp"] == 1
+
+
+def test_interp_auto_2d_keeps_cpu_and_other_dtypes_plain(request):
+    """``interp_auto``'s 2D unit tier: CPU tensors (float32 and bfloat16)
+    take the plain stencil, no launch and its values bit for bit; with the
+    card's dtype gate (the ``plain_launches`` wrappers), a float32 field
+    launches K17 once and a bfloat16 one (the control's image dtype) or a
+    float64 one stays on the plain stencil."""
+    g = torch.Generator().manual_seed(7)
+    d = torch.rand((2, 2, 9, 11), generator=g) * 1.98 - 0.99
+    I = torch.randn((1, 1, 9, 11), generator=g)
+    kernels.reset_launches()
+    profiling.reset_counters()
+    for dtype in (torch.float32, torch.bfloat16):
+        got = interp_auto(I.to(dtype), d.to(dtype))
+        assert got.dtype == dtype
+        assert torch.equal(got, sampling.sample_displacement_unit(I.to(dtype), d.to(dtype)))
+    assert kernels.launch_counts()["warp2d_fwd"] == 0 and _warp_counts() == {}
+    request.getfixturevalue("plain_launches")
+    assert torch.equal(interp_auto(I, d), sampling.sample_displacement_unit(I, d))
+    assert _warp_counts() == {"warp2d.LAUNCH.fwd": 1}
+    for dtype in (torch.bfloat16, torch.float64):
+        got = interp_auto(I.to(dtype), d.to(dtype))
+        assert torch.equal(got, sampling.sample_displacement_unit(I.to(dtype), d.to(dtype)))
+    assert _warp_counts() == {"warp2d.LAUNCH.fwd": 1}
+    assert kernels.launch_counts()["warp2d_fwd"] == 1
