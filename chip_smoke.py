@@ -1773,8 +1773,7 @@ def timings(device, card, lt, metric, I, m, img):
             k2 = time_ms(fn, device, 10)
             b_ms, b_by = bound(*pass_work(kind, b, NI, C, V, compose))
             log(f"time pass {label}: {k1:.4f}/{k2:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"{(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b{b} (beside the "
-                f"two passes it replaced: profile_warp.py) [{card}]")
+                f"{(k1 + k2) / 2 / b_ms:.2f}x the bound, per call at 128^3 b{b} [{card}]")
     del p50, v50, g50, g1_50
     # K6's first pass alone, at batch-N momenta as the step runs it
     k1 = time_ms(lambda: ad_star_bwd_first(phiinv, m, g3, mw), device, 10)

@@ -37,7 +37,7 @@
 // no atomics, by the per-thread route's two passes: the first writes d_mw
 // to a scratch field and finishes d_phi, the second sums the gather
 // transposes of that field (the tile kernel writing its rows' d_mw for
-// that sum measured slower: profile_epdiff2d.py).
+// that sum measured slower on an H100).
 //
 // K13, compose backward (cotangent g of out = s v + phiinv(x + s v)):
 //   d_phi = warp transpose of g at weights(s v)
@@ -47,10 +47,9 @@
 // forward's rounding wherever it is needed, never stored.  K9's phase 1 on
 // the same tiles (the packed weights of s v staged once a pixel, in place
 // of 9 evaluations) measured slower on the H100, at every tile height and
-// register bound tried (profile_epdiff2d.py): its per-pixel part alone
-// takes most of the per-thread kernel's time, so the 9 evaluations were
-// not what that kernel waits on, and the stage adds to it
-// (csrc/profile/epdiff2d_variants.cu keeps that form).
+// register bound tried: its per-pixel part alone takes most of the
+// per-thread kernel's time, so the 9 evaluations were not what that kernel
+// waits on, and the stage adds to it.
 //
 // Design.  K10 and K11: column strips that march down rows.  A warp's
 // lanes own consecutive strips of PX columns (1, 2 or 4) of one row of one
@@ -303,8 +302,8 @@ __device__ __forceinline__ bool march_of(const Strips& st, int N, int H, int lan
 
 // K10 on column strips: rings of phiinv's and m0's two channels, rows i - 1
 // .. i + 1 (clamped) at columns j0 - 1 .. j0 + PX; row i + 2's loads issued
-// before row i's arithmetic (PREFETCH).  Bounded for two blocks an SM.
-template <int PX, bool VEC, bool PREFETCH>
+// before row i's arithmetic.  Bounded for two blocks an SM.
+template <int PX, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
 ad_star2d_march_kernel(const float* __restrict__ phiinv, const float* __restrict__ m0,
                        float* __restrict__ out, float* __restrict__ mw_out, int* flag, int N,
@@ -336,7 +335,7 @@ ad_star2d_march_kernel(const float* __restrict__ phiinv, const float* __restrict
     }
     for (int i = m.i0; i < m.i1; ++i) {
       const bool more = i + 1 < m.i1;
-      if (PREFETCH && more) load(s2d::clampi(i + 2, H));
+      if (more) load(s2d::clampi(i + 2, H));
       float o[2][PX], w[2][PX];
 #pragma unroll
       for (int k = 0; k < PX; ++k) {
@@ -366,7 +365,6 @@ ad_star2d_march_kernel(const float* __restrict__ phiinv, const float* __restrict
         store_own<PX, VEC>(out + q + c * HW, o[c], m.j0, W);
         if (mw_out != nullptr) store_own<PX, VEC>(mw_out + q + c * HW, w[c], m.j0, W);
       }
-      if (!PREFETCH && more) load(s2d::clampi(i + 2, H));
       if (more) {
         ring_down<PX, 2>(P, rp, m.j0, W, lane);
         ring_down<PX, 2>(M, rm, m.j0, W, lane);
@@ -378,8 +376,8 @@ ad_star2d_march_kernel(const float* __restrict__ phiinv, const float* __restrict
 
 // K11 on column strips: a ring of phiinv's two channels as K10's, and the
 // strip's own v of row i (no halo); row i + 2's phiinv and row i + 1's v
-// loaded before row i's arithmetic (PREFETCH)
-template <int PX, bool VEC, bool PREFETCH>
+// loaded before row i's arithmetic
+template <int PX, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
 compose2d_march_kernel(const float* __restrict__ phiinv, const float* __restrict__ v, float s,
                        float* __restrict__ out, int* flag, int N, int H, int W, Strips st) {
@@ -411,7 +409,7 @@ compose2d_march_kernel(const float* __restrict__ phiinv, const float* __restrict
       for (int k = 0; k < PX; ++k) V[c][k] = nv[c][k];
     for (int i = m.i0; i < m.i1; ++i) {
       const bool more = i + 1 < m.i1;
-      if (PREFETCH && more) load(s2d::clampi(i + 2, H), i + 1);
+      if (more) load(s2d::clampi(i + 2, H), i + 1);
       float o[2][PX];
 #pragma unroll
       for (int k = 0; k < PX; ++k) {
@@ -425,7 +423,6 @@ compose2d_march_kernel(const float* __restrict__ phiinv, const float* __restrict
       const int q = m.n * F + i * W;
 #pragma unroll
       for (int c = 0; c < 2; ++c) store_own<PX, VEC>(out + q + c * HW, o[c], m.j0, W);
-      if (!PREFETCH && more) load(s2d::clampi(i + 2, H), i + 1);
       if (more) {
         ring_down<PX, 2>(P, rp, m.j0, W, lane);
 #pragma unroll
@@ -458,50 +455,48 @@ bool vec_ok(int px, int W, std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-template <int PX, bool VEC, bool PF>
+template <int PX, bool VEC>
 int ad_star2d_march(const Strips& st, const float* phiinv, const float* m0, float* out, float* mw,
                     int* flag, int N, int Nm, int H, int W, cudaStream_t stream) {
-  const auto kernel = ad_star2d_march_kernel<PX, VEC, PF>;
+  const auto kernel = ad_star2d_march_kernel<PX, VEC>;
   kernel<<<strip_blocks(st, N), kThreads, 0, stream>>>(phiinv, m0, out, mw, flag, N, Nm, H, W, st);
   return (int)cudaGetLastError();
 }
 
-// K10 on the strips `st`, vector loads where vec_ok; PF: the prefetch
-template <bool PF>
+// K10 on the strips `st`, vector loads where vec_ok
 int launch_ad_star2d_march(const Strips& st, const float* phiinv, const float* m0, float* out,
                            float* mw, int* flag, int N, int Nm, int H, int W, cudaStream_t stream) {
   const bool vec = vec_ok(st.px, W, {phiinv, m0, out, mw});
   switch (st.px * 2 + vec) {
     case 2:
-    case 3: return ad_star2d_march<1, false, PF>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
-    case 4: return ad_star2d_march<2, false, PF>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
-    case 5: return ad_star2d_march<2, true, PF>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
-    case 8: return ad_star2d_march<4, false, PF>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
-    case 9: return ad_star2d_march<4, true, PF>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
+    case 3: return ad_star2d_march<1, false>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
+    case 4: return ad_star2d_march<2, false>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
+    case 5: return ad_star2d_march<2, true>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
+    case 8: return ad_star2d_march<4, false>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
+    case 9: return ad_star2d_march<4, true>(st, phiinv, m0, out, mw, flag, N, Nm, H, W, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <int PX, bool VEC, bool PF>
+template <int PX, bool VEC>
 int compose2d_march(const Strips& st, const float* phiinv, const float* v, float s, float* out,
                     int* flag, int N, int H, int W, cudaStream_t stream) {
-  const auto kernel = compose2d_march_kernel<PX, VEC, PF>;
+  const auto kernel = compose2d_march_kernel<PX, VEC>;
   kernel<<<strip_blocks(st, N), kThreads, 0, stream>>>(phiinv, v, s, out, flag, N, H, W, st);
   return (int)cudaGetLastError();
 }
 
 // K11 on the strips `st`, as launch_ad_star2d_march
-template <bool PF>
 int launch_compose2d_march(const Strips& st, const float* phiinv, const float* v, float s,
                            float* out, int* flag, int N, int H, int W, cudaStream_t stream) {
   const bool vec = vec_ok(st.px, W, {phiinv, v, out});
   switch (st.px * 2 + vec) {
     case 2:
-    case 3: return compose2d_march<1, false, PF>(st, phiinv, v, s, out, flag, N, H, W, stream);
-    case 4: return compose2d_march<2, false, PF>(st, phiinv, v, s, out, flag, N, H, W, stream);
-    case 5: return compose2d_march<2, true, PF>(st, phiinv, v, s, out, flag, N, H, W, stream);
-    case 8: return compose2d_march<4, false, PF>(st, phiinv, v, s, out, flag, N, H, W, stream);
-    case 9: return compose2d_march<4, true, PF>(st, phiinv, v, s, out, flag, N, H, W, stream);
+    case 3: return compose2d_march<1, false>(st, phiinv, v, s, out, flag, N, H, W, stream);
+    case 4: return compose2d_march<2, false>(st, phiinv, v, s, out, flag, N, H, W, stream);
+    case 5: return compose2d_march<2, true>(st, phiinv, v, s, out, flag, N, H, W, stream);
+    case 8: return compose2d_march<4, false>(st, phiinv, v, s, out, flag, N, H, W, stream);
+    case 9: return compose2d_march<4, true>(st, phiinv, v, s, out, flag, N, H, W, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -510,12 +505,12 @@ int launch_compose2d_march(const Strips& st, const float* phiinv, const float* v
 // loads, whose resources the chooser reads
 const void* march_kernel(int which, int px) {
   if (which == 0)
-    return px == 4 ? (const void*)ad_star2d_march_kernel<4, true, true>
-         : px == 2 ? (const void*)ad_star2d_march_kernel<2, true, true>
-                   : (const void*)ad_star2d_march_kernel<1, false, true>;
-  return px == 4 ? (const void*)compose2d_march_kernel<4, true, true>
-       : px == 2 ? (const void*)compose2d_march_kernel<2, true, true>
-                 : (const void*)compose2d_march_kernel<1, false, true>;
+    return px == 4 ? (const void*)ad_star2d_march_kernel<4, true>
+         : px == 2 ? (const void*)ad_star2d_march_kernel<2, true>
+                   : (const void*)ad_star2d_march_kernel<1, false>;
+  return px == 4 ? (const void*)compose2d_march_kernel<4, true>
+       : px == 2 ? (const void*)compose2d_march_kernel<2, true>
+                 : (const void*)compose2d_march_kernel<1, false>;
 }
 
 // The launch of K10 (which 0) or K11 (1) on its strips at (N, H, W)
@@ -781,7 +776,7 @@ extern "C" int lagomorph_ad_star2d_fwd(const float* phiinv, const float* m0, flo
   FwdConfig c;
   const int err = fwd_config(0, N, H, W, march, &c);
   if (err != (int)cudaSuccess) return err;
-  return launch_ad_star2d_march<true>(c.st, phiinv, m0, out, mw, flag, N, Nm, H, W, st);
+  return launch_ad_star2d_march(c.st, phiinv, m0, out, mw, flag, N, Nm, H, W, st);
 }
 
 // phiinv, g, mw, d_phiinv: (N, 2, H, W); m0, d_m0: (Nm, 2, H, W), Nm in
@@ -827,7 +822,7 @@ extern "C" int lagomorph_compose2d_fwd(const float* phiinv, const float* v, floa
   FwdConfig c;
   const int err = fwd_config(1, N, H, W, march, &c);
   if (err != (int)cudaSuccess) return err;
-  return launch_compose2d_march<true>(c.st, phiinv, v, s, out, flag, N, H, W, st);
+  return launch_compose2d_march(c.st, phiinv, v, s, out, flag, N, H, W, st);
 }
 
 extern "C" int lagomorph_compose2d_bwd(const float* phiinv, const float* v, float s,

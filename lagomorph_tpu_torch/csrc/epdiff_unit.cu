@@ -344,10 +344,9 @@ __device__ __forceinline__ void adstar_voxel(const AdRing& q, const float* sm, i
   }
 }
 
-// PREFETCH: issue the loads of plane x + 2 before the arithmetic of plane
-// x, so they are in flight while it runs (false only in profile_warp.py's
-// variant, which loads after it)
-template <bool PREFETCH>
+// The loads of plane x + 2 are issued before the arithmetic of plane x, so
+// they are in flight while it runs (issued after it, the pass took 0.072
+// ms more at 128^3 b4 on an H100)
 __global__ void __launch_bounds__(AB_THREADS, 2)
     ad_star_bwd_first_kernel(const float* __restrict__ phiinv, const float* __restrict__ m0,
                              const float* __restrict__ g, const float* __restrict__ mw,
@@ -390,12 +389,11 @@ __global__ void __launch_bounds__(AB_THREADS, 2)
     const int k = x - x0 + 1;
     const bool more = x + 1 < x1;  // a next step, which needs plane x + 2
     const int next = x + 2 < X ? x + 2 : X - 1;
-    if (PREFETCH && more) adstar_load(r, h, ph, gn, mwn, mb, V, next, Y, Z, y0, z0);
+    if (more) adstar_load(r, h, ph, gn, mwn, mb, V, next, Y, Z, y0, z0);
     if (y < Y && z < Z) adstar_voxel(q, smem, k, x, y, z, X, Y, Z, y0, z0, dmw_out, dphi_out, V);
     if (more) {
       // plane x + 2 goes to slots that no thread reads in this step (m0's
       // of plane x - 2, the face channels' of plane x - 1)
-      if (!PREFETCH) adstar_load(r, h, ph, gn, mwn, mb, V, next, Y, Z, y0, z0);
       adstar_store(r, h, smem, k + 2);
       ring_push(q, r);
       __syncthreads();
@@ -425,8 +423,8 @@ static int resident_blocks(std::atomic<int>* cache, Kernel kernel, size_t smem) 
 // longer march stages fewer planes twice (2 a march) and starts fewer
 // prologues; a smaller grid leaves SMs short of warps to hide the loads'
 // latency.  So chosen, K6's first pass (2 blocks an SM) and K2 (4) each
-// take their fastest length of those timed by profile_warp.py at 128^3 and
-// 64^3 b4.
+// take their fastest length of those timed at 128^3 and 64^3 b4 on an
+// H100.
 static int march_length(int N, int X, int Y, int Z, int resident) {
   static std::atomic<int> sms_of[kDevices];
   const int sms = per_device(sms_of, 132, [](int dev, int* v) {
@@ -439,16 +437,15 @@ static int march_length(int N, int X, int Y, int Z, int resident) {
 }
 
 // march <= 0: march_length's choice
-template <bool PREFETCH>
 cudaError_t launch_ad_star_bwd_first(const float* phiinv, const float* m0, const float* g,
                                      const float* mw, float* d_mw, float* d_phi, int N, int Nm,
                                      int X, int Y, int Z, int march, cudaStream_t stream) {
   static std::atomic<int> resident[kDevices];
-  if (march <= 0)  // the main kernel's length, for the variant without prefetch too
-    march = march_length(N, X, Y, Z, resident_blocks(resident, ad_star_bwd_first_kernel<true>,
+  if (march <= 0)
+    march = march_length(N, X, Y, Z, resident_blocks(resident, ad_star_bwd_first_kernel,
                                                      AB_SMEM * sizeof(float)));
-  ad_star_bwd_first_kernel<PREFETCH><<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
-                                       AB_SMEM * sizeof(float), stream>>>(
+  ad_star_bwd_first_kernel<<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
+                             AB_SMEM * sizeof(float), stream>>>(
       phiinv, m0, g, mw, d_mw, d_phi, N, Nm, X, Y, Z, march);
   return cudaGetLastError();
 }
@@ -553,10 +550,9 @@ __device__ __forceinline__ bool compose_voxel(const float* sm, int k, const floa
   return in_unit(d[0]) && in_unit(d[1]) && in_unit(d[2]);
 }
 
-// PREFETCH: issue the loads of plane x + 2 (and of v at x + 1) before the
-// arithmetic of plane x (false only in profile_warp.py's variant, which
-// loads after it)
-template <bool PREFETCH>
+// The loads of plane x + 2 (and of v at x + 1) are issued before the
+// arithmetic of plane x (issued after it: 0.142 against 0.126 ms at 128^3
+// b4 on an H100)
 __global__ void __launch_bounds__(AB_THREADS)
     compose_fwd_kernel(const float* __restrict__ phiinv, const float* __restrict__ v, float s,
                        float* __restrict__ out, int* flag, int N, int X, int Y, int Z,
@@ -598,12 +594,11 @@ __global__ void __launch_bounds__(AB_THREADS)
     const int k = x - x0 + 1;
     const bool more = x + 1 < x1;  // a next step, which needs plane x + 2 and v at x + 1
     const int next = x + 2 < X ? x + 2 : X - 1;
-    if (PREFETCH && more) compose_load(r, h, ph, vn, V, next, x + 1, YZ, yz, in);
+    if (more) compose_load(r, h, ph, vn, V, next, x + 1, YZ, yz, in);
     if (in) ok &= compose_voxel(smem, k, vv, s, x, y, z, X, Y, Z, y0, z0, on + x * YZ + yz, V);
     if (more) {
       // plane x + 2 goes to the slot of plane x - 2, which no thread reads
       // in this step
-      if (!PREFETCH) compose_load(r, h, ph, vn, V, next, x + 1, YZ, yz, in);
       compose_store(r, h, smem, k + 2);
 #pragma unroll
       for (int c = 0; c < 3; ++c) vv[c] = r.v[c];
@@ -614,17 +609,16 @@ __global__ void __launch_bounds__(AB_THREADS)
 }
 
 // march <= 0: march_length's choice
-template <bool PREFETCH>
 cudaError_t launch_compose_fwd(const float* phiinv, const float* v, float s, float* out,
                                int* flag, int N, int X, int Y, int Z, int march,
                                cudaStream_t stream) {
   static std::atomic<int> resident[kDevices];
-  if (march <= 0)  // the main kernel's length, for the variant without prefetch too
-    march = march_length(N, X, Y, Z, resident_blocks(resident, compose_fwd_kernel<true>,
+  if (march <= 0)
+    march = march_length(N, X, Y, Z, resident_blocks(resident, compose_fwd_kernel,
                                                      CP_SMEM * sizeof(float)));
-  compose_fwd_kernel<PREFETCH><<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
-                                 CP_SMEM * sizeof(float), stream>>>(phiinv, v, s, out, flag,
-                                                                    N, X, Y, Z, march);
+  compose_fwd_kernel<<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
+                       CP_SMEM * sizeof(float), stream>>>(phiinv, v, s, out, flag, N, X, Y, Z,
+                                                          march);
   return cudaGetLastError();
 }
 
@@ -773,9 +767,8 @@ __device__ __forceinline__ bool ad_star_voxel(const float (&q)[3][3], const floa
   return in_unit(q[1][0]) && in_unit(q[1][1]) && in_unit(q[1][2]);
 }
 
-// PREFETCH: issue the loads of plane x + 2 before the arithmetic of plane
-// x (false only in profile_warp.py's variant, which loads after it)
-template <bool PREFETCH>
+// The loads of plane x + 2 are issued before the arithmetic of plane x
+// (issued after it: 0.199 against 0.171 ms at 128^3 b4 on an H100)
 __global__ void __launch_bounds__(AB_THREADS, 4)
     ad_star_fwd_kernel(const float* __restrict__ phiinv, const float* __restrict__ m0,
                        float* __restrict__ out, float* __restrict__ mw_out, int* flag, int N,
@@ -817,14 +810,13 @@ __global__ void __launch_bounds__(AB_THREADS, 4)
     const int k = x - x0 + 1;
     const bool more = x + 1 < x1;  // a next step, which needs plane x + 2
     const int next = x + 2 < X ? x + 2 : X - 1;
-    if (PREFETCH && more) ad_star_load(r, h, ph, mb, V, next, YZ, yz, in);
+    if (more) ad_star_load(r, h, ph, mb, V, next, YZ, yz, in);
     if (in)
       ok &= ad_star_voxel(q, smem, k, x, y, z, X, Y, Z, y0, z0, on + x * YZ + yz,
                           wn == nullptr ? nullptr : wn + x * YZ + yz, V);
     if (more) {
       // plane x + 2 goes to slots that no thread reads in this step (m0's
       // of plane x - 2, phiinv's of plane x - 1)
-      if (!PREFETCH) ad_star_load(r, h, ph, mb, V, next, YZ, yz, in);
       ad_star_store(r, h, smem, k + 2, q);
       __syncthreads();
     }
@@ -833,17 +825,16 @@ __global__ void __launch_bounds__(AB_THREADS, 4)
 }
 
 // march <= 0: march_length's choice
-template <bool PREFETCH>
 cudaError_t launch_ad_star_fwd(const float* phiinv, const float* m0, float* out, float* mw,
                                int* flag, int N, int Nm, int X, int Y, int Z, int march,
                                cudaStream_t stream) {
   static std::atomic<int> resident[kDevices];
-  if (march <= 0)  // the main kernel's length, for the variant without prefetch too
-    march = march_length(N, X, Y, Z, resident_blocks(resident, ad_star_fwd_kernel<true>,
+  if (march <= 0)
+    march = march_length(N, X, Y, Z, resident_blocks(resident, ad_star_fwd_kernel,
                                                      AS_SMEM * sizeof(float)));
-  ad_star_fwd_kernel<PREFETCH><<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
-                                 AS_SMEM * sizeof(float), stream>>>(phiinv, m0, out, mw, flag,
-                                                                    N, Nm, X, Y, Z, march);
+  ad_star_fwd_kernel<<<(unsigned)march_blocks(N, X, Y, Z, march), AB_THREADS,
+                       AS_SMEM * sizeof(float), stream>>>(phiinv, m0, out, mw, flag, N, Nm, X,
+                                                          Y, Z, march);
   return cudaGetLastError();
 }
 
@@ -854,8 +845,8 @@ cudaError_t launch_ad_star_fwd(const float* phiinv, const float* m0, float* out,
 extern "C" int lagomorph_ad_star_fwd(const float* phiinv, const float* m0, float* out, float* mw,
                                      int* flag, int N, int Nm, int X, int Y, int Z, int march,
                                      void* stream) {
-  return (int)lagomorph::launch_ad_star_fwd<true>(phiinv, m0, out, mw, flag, N, Nm, X, Y, Z,
-                                                  march, (cudaStream_t)stream);
+  return (int)lagomorph::launch_ad_star_fwd(phiinv, m0, out, mw, flag, N, Nm, X, Y, Z, march,
+                                            (cudaStream_t)stream);
 }
 
 extern "C" int lagomorph_ad_star_bwd(const float* phiinv, const float* m0,
@@ -864,8 +855,8 @@ extern "C" int lagomorph_ad_star_bwd(const float* phiinv, const float* m0,
                                      int N, int Nm, int X, int Y, int Z,
                                      void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err = lagomorph::launch_ad_star_bwd_first<true>(
-      phiinv, m0, g, mw, d_mw, d_phiinv, N, Nm, X, Y, Z, 0, st);
+  const cudaError_t err = lagomorph::launch_ad_star_bwd_first(phiinv, m0, g, mw, d_mw,
+                                                               d_phiinv, N, Nm, X, Y, Z, 0, st);
   if (err != cudaSuccess) return (int)err;
   return (int)lagomorph::launch_warp_bwd(nullptr, phiinv, 1.0f, d_mw, d_m0, nullptr, N, Nm, 3,
                                          X, Y, Z, false, st);
@@ -877,9 +868,8 @@ extern "C" int lagomorph_ad_star_bwd_first(const float* phiinv, const float* m0,
                                            const float* g, const float* mw, float* d_mw,
                                            float* d_phiinv, int N, int Nm, int X, int Y,
                                            int Z, int march, void* stream) {
-  return (int)lagomorph::launch_ad_star_bwd_first<true>(phiinv, m0, g, mw, d_mw, d_phiinv, N,
-                                                        Nm, X, Y, Z, march,
-                                                        (cudaStream_t)stream);
+  return (int)lagomorph::launch_ad_star_bwd_first(phiinv, m0, g, mw, d_mw, d_phiinv, N, Nm, X,
+                                                  Y, Z, march, (cudaStream_t)stream);
 }
 
 extern "C" int lagomorph_compose_bwd(const float* phiinv, const float* v,
@@ -894,6 +884,6 @@ extern "C" int lagomorph_compose_bwd(const float* phiinv, const float* v,
 extern "C" int lagomorph_compose_fwd(const float* phiinv, const float* v, float s, float* out,
                                      int* flag, int N, int X, int Y, int Z, int march,
                                      void* stream) {
-  return (int)lagomorph::launch_compose_fwd<true>(phiinv, v, s, out, flag, N, X, Y, Z, march,
-                                                  (cudaStream_t)stream);
+  return (int)lagomorph::launch_compose_fwd(phiinv, v, s, out, flag, N, X, Y, Z, march,
+                                            (cudaStream_t)stream);
 }

@@ -46,7 +46,7 @@
 //   bit-reversed positions are neighbours, so the spectrum moves through
 //   the line's exchange slots and the lanes load and store neighbouring
 //   words (element by element the forward took 2.6x as long at 256^3 b1 on
-//   an H100, profile_radix.py).
+//   an H100).
 // * tile (an axis longer than 256, up to 8192): that axis's pass holds TJ
 //   lines in a shared-memory tile [n][TJ + 1] and runs log2 N radix-2
 //   stages between barriers (radix_stages; DIF leaves bit-reversed order,

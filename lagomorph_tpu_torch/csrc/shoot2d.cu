@@ -45,8 +45,8 @@
 // (a halo row on each side of the tile inverse-transformed and composed,
 // phiinv_{t+1} staged in shared memory for Ad*, two scratch planes in turn:
 // 2 T barriers) was measured and lost on the H100 (80GB HBM3, 700 W), 0.0957
-// against 0.0937 ms at 256^2 b8 and 1.030 against 0.874 at 512^2 b8 (T = 4,
-// profile_shoot2d.py, which times the merged form): the halo rows' compose
+// against 0.0937 ms at 256^2 b8 and 1.030 against 0.874 at 512^2 b8 (T = 4):
+// the halo rows' compose
 // (a quarter more pixels at 8-row tiles) costs more than the barriers it
 // saves, and on the tile path the halo takes two of a tile's lines.  The
 // stencils' warps sum only
@@ -303,12 +303,11 @@ __host__ __device__ inline ShootCarve shoot_carve(bool fwd, bool reg, int H, int
 // after another), row j of the tile at out[j * rs + c * cs] (row-major on
 // the register path, the tile transforms' layout on the tile path).
 
-// Ad* (`s2d::adstar`, its warp on the 4 live taps with LIVE) at each pixel
+// Ad* (`s2d::adstar`, its warp on the 4 live taps) at each pixel
 // of the tile at l0 (nl rows), phiinv at P and its taps from device memory:
 // mw to mwt (the stash) and phiinv to p0 (phiinv_0 into the stash), each if
 // not null; m to out, rows nl .. rows - 1 zero.  Returns whether the
 // phiinv of a pixel left the unit regime.
-template <bool LIVE>
 __device__ __forceinline__ bool adstar_tile(const float* __restrict__ P, float* __restrict__ p0,
                                             const float* __restrict__ m0, int Nm,
                                             float* __restrict__ mwt, float2* __restrict__ out,
@@ -325,7 +324,7 @@ __device__ __forceinline__ bool adstar_tile(const float* __restrict__ P, float* 
       const int i = l - n * g.H;
       const int q = n * g.F + i * g.W + c;
       float m[2], mw[2];
-      bad |= !s2d::adstar<LIVE>(P + n * g.F, m0 + (Nm == 1 ? 0 : n * g.F), g.H, g.W, i, c, m, mw);
+      bad |= !s2d::adstar<true>(P + n * g.F, m0 + (Nm == 1 ? 0 : n * g.F), g.H, g.W, i, c, m, mw);
       if (p0) {
         p0[q] = P[q];
         p0[q + g.HW] = P[q + g.HW];
@@ -342,11 +341,10 @@ __device__ __forceinline__ bool adstar_tile(const float* __restrict__ P, float* 
 }
 
 // Phase C, once the inverse row DFT has put the tile's rows' v_t / scale at
-// v: compose (`s2d::compose`, phiinv_t = P, its warp on the 4 live taps
-// with LIVE) at each pixel gives phiinv_{t+1}, to Pn; v_t also to vt (the
+// v: compose (`s2d::compose`, phiinv_t = P, its warp on the 4 live taps)
+// at each pixel gives phiinv_{t+1}, to Pn; v_t also to vt (the
 // stash), if not null.  Returns whether s v at a pixel left the unit
 // regime.
-template <bool LIVE>
 __device__ __forceinline__ bool compose_tile(const float* __restrict__ P,
                                              const float2* __restrict__ v, int rs, int cs,
                                              float scale, float s, float* __restrict__ vt,
@@ -363,7 +361,7 @@ __device__ __forceinline__ bool compose_tile(const float* __restrict__ P,
     const float2 x = v[j * rs + c * cs];
     const float v0 = s2d::mul(x.x, scale), v1 = s2d::mul(x.y, scale);
     float o[2];
-    bad |= !s2d::compose<LIVE>(P + n * g.F, v0, v1, s, g.H, g.W, i, c, o);
+    bad |= !s2d::compose<true>(P + n * g.F, v0, v1, s, g.H, g.W, i, c, o);
     if (vt) {
       vt[q] = v0;
       vt[q + g.HW] = v1;
@@ -376,18 +374,18 @@ __device__ __forceinline__ bool compose_tile(const float* __restrict__ P,
 
 // Phase A on the tile at l0: Ad* (adstar_tile) and the forward DFT along W
 // of its rows to rows l0 .. of cbuf; the block synchronised on return
-template <int RW, bool LIVE>
+template <int RW>
 __device__ __forceinline__ bool adstar_rows(const float* P, float* p0,
                                             const float* __restrict__ m0, int Nm, float* mwt,
                                             float2* cbuf, float2* smem, const Tiles& sm, int l0,
                                             int nl, int TJ, const Geo& g) {
   bool bad;
   if constexpr (RW > 0) {
-    bad = adstar_tile<LIVE>(P, p0, m0, Nm, mwt, sm.S, RW, 1, l0, nl, nl, g);
+    bad = adstar_tile(P, p0, m0, Nm, mwt, sm.S, RW, 1, l0, nl, nl, g);
     __syncthreads();
     rows_forward<RW>(sm.S, cbuf, smem, sm.twW, l0, nl);
   } else {
-    bad = adstar_tile<LIVE>(P, p0, m0, Nm, mwt, sm.S, 1, TJ + 1, l0, nl, TJ, g);
+    bad = adstar_tile(P, p0, m0, Nm, mwt, sm.S, 1, TJ + 1, l0, nl, TJ, g);
     __syncthreads();
     store_rows(cbuf, transform_tile(sm.S, sm.O, sm.twW, g.W, TJ, -1.0f), l0, nl, g.W, TJ);
   }
@@ -399,7 +397,7 @@ __device__ __forceinline__ bool adstar_rows(const float* P, float* p0,
 // rows l0' - 1 .. l0' + nl' of l0' = l0 + 1, nl' = nl - 2: the tile's own
 // rows, row l0 + j in line j), then compose (compose_tile); the block
 // synchronised on return
-template <int RW, bool LIVE>
+template <int RW>
 __device__ __forceinline__ bool compose_rows(const float2* cbuf, const float* P, float s,
                                              float scale, float* vt, float* Pn, float2* smem,
                                              const Tiles& sm, int l0, int nl, int TJ,
@@ -419,18 +417,18 @@ __device__ __forceinline__ bool compose_rows(const float2* cbuf, const float* P,
     cs = TJ + 1;
   }
   __syncthreads();
-  const bool bad = compose_tile<LIVE>(P, v, rs, cs, scale, s, vt, Pn, l0, nl, g);
+  const bool bad = compose_tile(P, v, rs, cs, scale, s, vt, Pn, l0, nl, g);
   __syncthreads();  // before the next tile
   return bad;
 }
 
-// K8.  RH, RW: H and W on the register path; 0, 0 the tile path.  LIVE:
-// the stencils' warps sum their 4 live taps (`s2d::warp_live`, the
-// library's; it gives the 9-tap sums' values).  One cooperative launch of
+// K8.  RH, RW: H and W on the register path; 0, 0 the tile path.  The
+// stencils' warps sum their 4 live taps (`s2d::warp_live`, which gives the
+// 9-tap sums' values).  One cooperative launch of
 // kShootThreads-thread blocks; the grid may hold fewer blocks than the card
 // does (shoot2d_config).  Row tiles of TJ rows, column tiles of TJ columns;
 // cbuf: one complex plane of (N, H, W).
-template <int RH, int RW, bool LIVE>
+template <int RH, int RW>
 __global__ void __launch_bounds__(kShootThreads, 2)
 shoot2d_fwd_kernel(const float* __restrict__ phi0, const float* __restrict__ m0,
                    const float* __restrict__ Mn, float* __restrict__ out, int* flag,
@@ -465,8 +463,8 @@ shoot2d_fwd_kernel(const float* __restrict__ phi0, const float* __restrict__ m0,
 
   // A. Ad* at phiinv_0 (copied to the stash), forward along W
   for (int l0 = blockIdx.x * TJ; l0 < gm.NH; l0 += gridDim.x * TJ)
-    bad |= adstar_rows<RW, LIVE>(phi0, traj_p, m0, Nm, traj_mw, cbuf, smem, sm, l0,
-                                 gm.NH - l0 < TJ ? gm.NH - l0 : TJ, TJ, gm);
+    bad |= adstar_rows<RW>(phi0, traj_p, m0, Nm, traj_mw, cbuf, smem, sm, l0,
+                           gm.NH - l0 < TJ ? gm.NH - l0 : TJ, TJ, gm);
   grid.sync();
 
   for (int t = 0; t < T; ++t) {
@@ -485,15 +483,15 @@ shoot2d_fwd_kernel(const float* __restrict__ phi0, const float* __restrict__ m0,
 
     // C. inverse along W gives v_t; compose gives phiinv_{t+1}
     for (int l0 = blockIdx.x * TJ; l0 < gm.NH; l0 += gridDim.x * TJ)
-      bad |= compose_rows<RW, LIVE>(cbuf, P, s, scale, traj_v ? traj_v + t * NF : nullptr, Pn,
-                                    smem, sm, l0, gm.NH - l0 < TJ ? gm.NH - l0 : TJ, TJ, gm);
+      bad |= compose_rows<RW>(cbuf, P, s, scale, traj_v ? traj_v + t * NF : nullptr, Pn,
+                              smem, sm, l0, gm.NH - l0 < TJ ? gm.NH - l0 : TJ, TJ, gm);
     if (last) break;
     grid.sync();
 
     // A of substep t + 1: Ad* at phiinv_{t+1}, forward along W
     for (int l0 = blockIdx.x * TJ; l0 < gm.NH; l0 += gridDim.x * TJ)
-      bad |= adstar_rows<RW, LIVE>(Pn, nullptr, m0, Nm, traj_mw ? traj_mw + (t + 1) * NF : nullptr,
-                                   cbuf, smem, sm, l0, gm.NH - l0 < TJ ? gm.NH - l0 : TJ, TJ, gm);
+      bad |= adstar_rows<RW>(Pn, nullptr, m0, Nm, traj_mw ? traj_mw + (t + 1) * NF : nullptr,
+                             cbuf, smem, sm, l0, gm.NH - l0 < TJ ? gm.NH - l0 : TJ, TJ, gm);
     grid.sync();
   }
   clear_flag_if(bad, flag);
@@ -502,27 +500,25 @@ shoot2d_fwd_kernel(const float* __restrict__ phi0, const float* __restrict__ m0,
 typedef void (*FwdKernel)(const float*, const float*, const float*, float*, int*, float*, float*,
                           float*, float*, float2*, int, int, int, int, int, float, int);
 
-template <int RH, bool LIVE>
+template <int RH>
 static FwdKernel fwd_kernel_w(int W) {
   switch (W) {
-    case 32: return shoot2d_fwd_kernel<RH, 32, LIVE>;
-    case 64: return shoot2d_fwd_kernel<RH, 64, LIVE>;
-    case 128: return shoot2d_fwd_kernel<RH, 128, LIVE>;
-    case 256: return shoot2d_fwd_kernel<RH, 256, LIVE>;
+    case 32: return shoot2d_fwd_kernel<RH, 32>;
+    case 64: return shoot2d_fwd_kernel<RH, 64>;
+    case 128: return shoot2d_fwd_kernel<RH, 128>;
+    case 256: return shoot2d_fwd_kernel<RH, 256>;
   }
   return nullptr;
 }
 
-// K8 on a path: the library's on the live taps (LIVE), or on all 9 (a
-// profile variant)
-template <bool LIVE>
+// K8 on a path
 static FwdKernel fwd_kernel(bool reg, int H, int W) {
-  if (!reg) return shoot2d_fwd_kernel<0, 0, LIVE>;
+  if (!reg) return shoot2d_fwd_kernel<0, 0>;
   switch (H) {
-    case 32: return fwd_kernel_w<32, LIVE>(W);
-    case 64: return fwd_kernel_w<64, LIVE>(W);
-    case 128: return fwd_kernel_w<128, LIVE>(W);
-    case 256: return fwd_kernel_w<256, LIVE>(W);
+    case 32: return fwd_kernel_w<32>(W);
+    case 64: return fwd_kernel_w<64>(W);
+    case 128: return fwd_kernel_w<128>(W);
+    case 256: return fwd_kernel_w<256>(W);
   }
   return nullptr;
 }
@@ -799,7 +795,7 @@ static int shoot2d_config(bool fwd, K (*kernel_of)(bool, int, int), int N, int H
 }
 
 static int shoot2d_fwd_config(int N, int H, int W, int reg, int tile, FwdConfig* out) {
-  return shoot2d_config(true, fwd_kernel<true>, N, H, W, reg, tile, out);
+  return shoot2d_config(true, fwd_kernel, N, H, W, reg, tile, out);
 }
 
 static int shoot2d_bwd_config(int N, int H, int W, int reg, int tile, BwdConfig* out) {

@@ -78,8 +78,8 @@
 // output sums in one fixed order (source plane, subject, source row, source
 // z), so two launches agree bit for bit; no atomics.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (profile_warp.py, PERF.md
-// section 6), ms a call at 128^3 b4 / b50, against the two passes it
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), ms
+// a call at 128^3 b4 / b50, against the two passes it
 // replaced: K5 0.186 / 2.18 (0.389 / 4.37; bound 0.075 / 0.88), K6's
 // transpose 0.150 / 1.67 (0.338 / 4.28; 0.090 / 1.13), K7 0.306 / 3.06
 // (0.689 / 8.52; 0.150 / 1.88).  What chose the shapes, at b50: a ring of
@@ -87,7 +87,7 @@
 // K7 3.06 against 3.66 ms, K6 1.67 against 1.93), tiles of 16 rows against
 // 8 (K7 3.06 against 3.72 at 2 steps), the row loops rolled (unrolled, K7
 // took 3.95-4.50 ms and K6 2.38).  Why two load paths: with the cp.async
-// path forced at 128^3 (profile_warp.py), the pass takes K5 0.320 / 3.82
+// path forced at 128^3, the pass takes K5 0.320 / 3.82
 // ms, K6 0.369 / 3.69 and K7 0.600 / 6.10 at b4 / b50, against TMA's 0.186
 // / 2.20, 0.150 / 1.69 and 0.309 / 3.08; cp.async with 16-byte copies (a
 // trial, not kept: it needs the shapes TMA takes) 0.245 / 2.95, 0.206 /
@@ -683,17 +683,15 @@ static cudaError_t launch_chunk(bool tma, const float* I, const float* disp, flo
 
 static bool aligned16(const void* p) { return p == nullptr || (uintptr_t)p % 16 == 0; }
 
-// path: 1 TMA, 0 cp.async, -1 the one the shape allows (TMA where it can)
-static cudaError_t launch_warp_bwd_path(const float* I, const float* disp, float s,
-                                        const float* cot, float* out_t, float* out_dd, int N,
-                                        int NI, int C, int X, int Y, int Z, bool compose,
-                                        cudaStream_t stream, int path) {
+// The pass, one launch a chunk of up to WB_MAX_C channels, on TMA where the
+// shape allows it, else on cp.async
+cudaError_t launch_warp_bwd(const float* I, const float* disp, float s, const float* cot,
+                            float* out_t, float* out_dd, int N, int NI, int C, int X, int Y,
+                            int Z, bool compose, cudaStream_t stream) {
   // TMA reads rows of 16-byte multiples from 16-byte aligned bases; the
   // transpose's float4 stores need the same of its output
-  const bool can = Z % 4 == 0 && aligned16(I) && aligned16(disp) && aligned16(cot) &&
+  const bool tma = Z % 4 == 0 && aligned16(I) && aligned16(disp) && aligned16(cot) &&
                    aligned16(out_t) && aligned16(out_dd);
-  if (path > 0 && !can) return cudaErrorInvalidValue;
-  const bool tma = path < 0 ? can : path > 0;
   const bool dd = I != nullptr;
   for (int c0 = 0; c0 < C; c0 += WB_MAX_C) {
     const int cc = C - c0 < WB_MAX_C ? C - c0 : WB_MAX_C;
@@ -713,13 +711,6 @@ static cudaError_t launch_warp_bwd_path(const float* I, const float* disp, float
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-cudaError_t launch_warp_bwd(const float* I, const float* disp, float s, const float* cot,
-                            float* out_t, float* out_dd, int N, int NI, int C, int X, int Y,
-                            int Z, bool compose, cudaStream_t stream) {
-  return launch_warp_bwd_path(I, disp, s, cot, out_t, out_dd, N, NI, C, X, Y, Z, compose, stream,
-                              -1);
 }
 
 }  // namespace lagomorph

@@ -30,7 +30,10 @@ ordinary torch code, which autograd differentiates.
 
 Every kernel is a :class:`Kernel` record in :data:`KERNELS` whose
 ``launches`` counts the launches of that kernel (not the plain-version calls),
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels: one a call of
+its C entry point, but one a chunk of channels for the warp backwards K5 (3
+channels a chunk) and K18 (2), whose entry points launch their pass once a
+chunk.  It is the package's only count of launches.
 
 The debug mode (:func:`set_debug_mode`, the package's ``set_debug_mode``)
 synchronises the device after every launch and raises its CUDA error under

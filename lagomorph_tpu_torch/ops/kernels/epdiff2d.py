@@ -39,9 +39,6 @@ memory or a field has ``2**31`` elements or more, one thread a pixel in two
 launches through a ``d_mw`` field (the second sums ``d_m0`` over the
 subjects for a batch-1 ``m0``).  For batch-N momenta the two give the same
 bits.
-
-Each launch adds one to the count ``epdiff2d.LAUNCH.<K10|K11|K12|K13>``
-(:func:`...profiling.add`), beside its kernel's ``launches``.
 """
 from __future__ import annotations
 
@@ -49,7 +46,6 @@ import ctypes
 
 import torch
 
-from ...profiling import add as _count
 from . import _build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel
 from .epdiff_unit import ad_star_bwd_plain, ad_star_plain, compose_bwd_plain, compose_plain
 
@@ -144,7 +140,6 @@ def _launch_ad_star(phiinv, m0, want_mw=False, march=None):
         N, m0.shape[0], H, W, int(march), stream_of(phiinv),
     )
     AD_STAR.launches += 1
-    _count("epdiff2d.LAUNCH.K10", 1)
     return checked(AD_STAR, (out, flag.bool(), mw) if want_mw else (out, flag.bool()))
 
 
@@ -160,7 +155,6 @@ def _launch_compose(phiinv, v, s, march=None):
         N, H, W, int(march), stream_of(phiinv),
     )
     COMPOSE.launches += 1
-    _count("epdiff2d.LAUNCH.K11", 1)
     return checked(COMPOSE, (out, flag.bool()))
 
 
@@ -208,7 +202,6 @@ def _launch_ad_star_bwd(phiinv, m0, g, mw, tile=None):
         N, m0.shape[0], H, W, int(tile), stream_of(phiinv),
     )
     AD_STAR_BWD.launches += 1
-    _count("epdiff2d.LAUNCH.K12", 1)
     return checked(AD_STAR_BWD, (d_p, d_m0))
 
 
@@ -222,7 +215,6 @@ def _launch_compose_bwd(phiinv, v, s, g):
         d_v.data_ptr(), N, H, W, stream_of(phiinv),
     )
     COMPOSE_BWD.launches += 1
-    _count("epdiff2d.LAUNCH.K13", 1)
     return checked(COMPOSE_BWD, (d_p, d_v))
 
 

@@ -27,8 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from . import (_build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel,
-               warp_unit)
+from . import _build, check_cuda_f32, checked, grad_needed, register, stream_of, use_kernel
 from .warp_unit import sample_displacement_unit_bwd_plain
 from ..diff import jacobian_times_vectorfield, jacobian_times_vectorfield_adjoint
 from ..interp import in_unit
@@ -153,7 +152,6 @@ def _launch_ad_star_bwd(phiinv, m0, g, mw):
         N, m0.shape[0], X, Y, Z, stream_of(phiinv),
     )
     AD_STAR_BWD.launches += 1
-    warp_unit.PASS.transpose += 1
     return checked(AD_STAR_BWD, (d_p, d_m0))
 
 
@@ -167,7 +165,6 @@ def _launch_compose_bwd(phiinv, v, s, g):
         d_v.data_ptr(), N, X, Y, Z, stream_of(phiinv),
     )
     COMPOSE_BWD.launches += 1
-    warp_unit.PASS.weight_grad += 1
     return checked(COMPOSE_BWD, (d_p, d_v))
 
 

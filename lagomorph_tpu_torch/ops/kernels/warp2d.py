@@ -17,15 +17,13 @@ kernel.
   image) and ``d_disp`` (the weight-gradient path), from a tile and its
   halo staged in shared memory once a subject.
 
-Each launch adds one to the count ``warp2d.LAUNCH.<fwd|bwd>``
-(:func:`...profiling.add`), beside its kernel's ``launches``; K18 launches
-once a pair of channels.  See the source for the design.
+K18 launches once a pair of channels, and counts each in ``BWD.launches``.
+See the source for the design.
 """
 from __future__ import annotations
 
 import torch
 
-from ...profiling import add as _count
 from . import (_build, check_cuda_f32, checked, grad_needed, register, stream_of,
                use_kernel)
 from ..sampling import sample_displacement_unit as sample_displacement_unit_plain
@@ -54,7 +52,6 @@ def _launch(I, disp):
     _build.call("lagomorph_warp2d_fwd", I.data_ptr(), disp.data_ptr(), out.data_ptr(),
                 N, NI, C, H, W, stream_of(disp))
     KERNEL.launches += 1
-    _count("warp2d.LAUNCH.fwd", 1)
     return checked(KERNEL, out)
 
 
@@ -67,9 +64,7 @@ def _launch_bwd(I, disp, g):
     dd = torch.empty_like(disp)
     _build.call("lagomorph_warp2d_bwd", I.data_ptr(), disp.data_ptr(), g.data_ptr(),
                 dI.data_ptr(), dd.data_ptr(), N, NI, C, H, W, stream_of(disp))
-    launches = -(-C // 2)
-    BWD.launches += launches
-    _count("warp2d.LAUNCH.bwd", launches)
+    BWD.launches += -(-C // 2)  # one launch a pair of channels
     return checked(BWD, (dI, dd))
 
 

@@ -16,12 +16,10 @@ On the H100 K4 sums the 8 taps whose weights can be non-zero (bit-equal to
 the plain version on finite inputs); K5 is one pass, which K6 and K7 launch
 too, that stages x-planes of the volume with a halo in shared memory,
 asynchronously, and takes the transpose and the weight gradient from that
-one staging.  See the source for the design.  :data:`PASS` counts that
-pass's launches by mode.
+one staging, one launch per chunk of up to 3 channels (each counted in
+``BWD.launches``).  See the source for the design.
 """
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import torch
 
@@ -39,21 +37,6 @@ BWD = register(
     source="lagomorph_tpu_torch/csrc/warp_unit.cu",
     replaces="lagomorph_tpu/ops/pallas/warp_unit.py:607, 627, 1007, 1027",
 )
-
-
-@dataclass
-class PassLaunches:
-    """Launches of the warp backward's pass (``csrc/warp_unit.cu``
-    ``warp_bwd_kernel``), one per chunk of up to 3 channels, by mode."""
-
-    transpose: int = 0  # the transpose alone (K6)
-    weight_grad: int = 0  # the transpose and the weight gradient (K5, K7)
-
-    def reset(self) -> None:
-        self.transpose = self.weight_grad = 0
-
-
-PASS = PassLaunches()
 
 
 def sample_displacement_unit_bwd_plain(I: torch.Tensor, disp: torch.Tensor,
@@ -91,8 +74,7 @@ def _launch_bwd(I, disp, g):
         I.data_ptr(), disp.data_ptr(), g.data_ptr(), dI.data_ptr(), dd.data_ptr(),
         N, NI, C, X, Y, Z, stream_of(disp),
     )
-    BWD.launches += 1
-    PASS.weight_grad += -(-C // 3)
+    BWD.launches += -(-C // 3)  # one launch a chunk of up to 3 channels
     return checked(BWD, (dI, dd))
 
 

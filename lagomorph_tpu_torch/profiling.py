@@ -22,11 +22,9 @@ put counted under ``lt.stage.bytes``), ``lt.step`` (the atlas step),
 processes), ``lt.update_atlas`` (the atlas's update) and the host reads of
 the card, ``lt.read.flag``, ``lt.read.tier``, ``lt.read.loss`` and
 ``lt.read.reg``.  Counts that are not spans: ``fluid.route.<route>``,
-one a fluid solve by the route it takes (``ops.fluid.fluid_operator``), and
-``epdiff2d.LAUNCH.<K10|K11|K12|K13>``, one a launch of the 2D per-substep
-kernels (``ops.kernels.epdiff2d``), and ``warp2d.LAUNCH.<fwd|bwd>``, one a
-launch of the 2D unit-regime warp K17 and of its backward K18
-(``ops.kernels.warp2d``; a 2D atlas step 1 and 1, a 3D one none).
+one a fluid solve by the route it takes (``ops.fluid.fluid_operator``).
+The kernels' launches are counted by the kernels themselves
+(``ops.kernels.launch_counts``).
 """
 from __future__ import annotations
 

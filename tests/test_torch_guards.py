@@ -44,8 +44,7 @@ def test_port_never_imports_jax():
                     "lagomorph_tpu_torch.parallel.distributed, "
                     "lagomorph_tpu_torch.parallel.sharded_fft, "
                     "lagomorph_tpu_torch.parallel.sharded_epdiff, "
-                    "chip_smoke, profile_warp, profile_radix, profile_shoot2d, profile_epdiff2d, "
-                    "profile_atlas; "
+                    "chip_smoke, profile_atlas; "
                     "assert 'jax' not in sys.modules, 'jax imported'; "
                     "assert 'lagomorph_tpu' not in sys.modules; print('clean')"])
     assert r.returncode == 0, r.stderr

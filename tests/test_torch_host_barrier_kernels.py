@@ -67,7 +67,7 @@ ENTRY_POINTS = ("lagomorph_fluid_flat", "lagomorph_fluid_radix_zy", "lagomorph_f
 RTOL = 1e-5
 BWD_RTOL = 1e-5  # of 1 + max|ref|: the stencils' backwards
 PARAMS = (0.1, 0.0, 0.01)
-LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
+LAUNCH_SYNTAX = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
 
 
 def _top_level_args(text):
@@ -89,7 +89,7 @@ def _host_source(text):
     def launch(m):
         grid, block, smem = (_top_level_args(m.group(2)) + ["0"])[:3]
         return f"emu_launch({grid}, {block}, {smem}, [&] {{ {m.group(1)}({m.group(3)}); }});"
-    text = LAUNCH.sub(launch, text)
+    text = LAUNCH_SYNTAX.sub(launch, text)
     text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(float2?) (\w+)\[\];",
                   r"\1* \2 = (\1*)emu_smem_ptr;", text)
     text = re.sub(r"launch_cooperative\(\(const void\*\)(\w+),", r"emu_launch_cooperative(\1,",
@@ -419,10 +419,10 @@ def test_host_atlas_step_matches_plain(rng, host_kernels, monkeypatch):
 
 def test_host_pass_launches_in_atlas_steps(rng, host_kernels, monkeypatch):
     """Through the host-built kernels (K3 plain), one 3D atlas step launches
-    the warp backward's pass 5 times with the weight gradient (K5 once, K7 4
-    times) and 4 times without (K6); one 2D step (K8/K9) never.  The
-    counts agree with the wrappers' launches (a one-channel image: one
-    chunk a launch)."""
+    the warp backward's pass 5 times with the weight gradient (K5 once, a
+    one-channel image being one chunk, and K7 4 times) and 4 times without
+    (K6), as ``kernels.launch_counts()`` counts them; one 2D step (K8/K9)
+    never."""
     monkeypatch.setattr(fft_unit, "use_kernel", lambda _t: False)
     metric = lt.FluidMetric((0.1, 0.0, 0.01))
     for shape, want in (((2, 3, 4, 6, 8), (5, 4)), ((2, 2, 8, 16), (0, 0))):
@@ -430,13 +430,11 @@ def test_host_pass_launches_in_atlas_steps(rng, host_kernels, monkeypatch):
         I = f32(rng.standard_normal((1, 1) + shape[2:]))
         img = f32(rng.standard_normal((2, 1) + shape[2:]))
         step = lt.make_lddmm_atlas_step(metric, reg_weight=0.1, learning_rate_pose=1e-6)
-        warp_unit.PASS.reset()
         kernels.reset_launches()
         step(I, m, img)
-        assert (warp_unit.PASS.weight_grad, warp_unit.PASS.transpose) == want, shape
         counts = kernels.launch_counts()
-        assert warp_unit.PASS.weight_grad == counts["warp_unit_bwd"] + counts["compose_bwd"]
-        assert warp_unit.PASS.transpose == counts["ad_star_bwd"]
+        assert (counts["warp_unit_bwd"] + counts["compose_bwd"], counts["ad_star_bwd"]) == want, \
+            shape
 
 
 # shapes against the backward pass's column, a 16 x 32 (y, z) tile of
@@ -463,8 +461,9 @@ def test_host_warp_passes_edge_cases(rng, host_kernels, shape):
     launch, at shapes smaller than one tile, straddling tiles and with axes
     of length 1 or 2, on displacements with voxels
     outside the unit regime and at its edges: K4 (and K1, K2) bit-equal to
-    the plain versions; K5 with one-, three- and five-channel images (five:
-    two launches of the pass) of batch 1 and N, K6 with batch-1 and batch-N
+    the plain versions; K5 with one-, three-, four- and five-channel images
+    (four and five: two launches of the pass, each counted) of batch 1 and
+    N, K6 with batch-1 and batch-N
     momenta (where no axis has length 1), and K7's compose epilogue at s = -0.2 and s = 0.7, within
     1e-5 * (1 + max|ref|); a second launch of each backward bit-identical
     to the first."""
@@ -477,12 +476,15 @@ def test_host_warp_passes_edge_cases(rng, host_kernels, shape):
             close_stencil(f"{name} {what}", a, r, rtol)
         assert all(torch.equal(a, b) for a, b in zip(got, fn(*args))), f"{name}: rerun differs"
 
-    for nb, C in ((1, 1), (N, 1), (1, 3), (N, 3), (1, 5)):
+    for nb, C in ((1, 1), (N, 1), (1, 3), (N, 3), (N, 4), (1, 5)):
         I = f32(rng.standard_normal((nb, C, X, Y, Z)))
         close_stencil(f"K4 I({nb},{C})", warp_unit.sample_displacement_unit(I, p),
                       warp_unit.sample_displacement_unit_plain(I, p), 0.0)
+        before = kernels.launch_counts()["warp_unit_bwd"]
         hold(f"K5 I({nb},{C})", warp_unit._launch_bwd, warp_unit.sample_displacement_unit_bwd_plain,
              I, p, f32(rng.standard_normal((N, C, X, Y, Z))))
+        # two launches of K5 in hold, each one launch a chunk of 3 channels
+        assert kernels.launch_counts()["warp_unit_bwd"] - before == 2 * -(-C // 3), C
     # Ad*'s Jacobian refuses an axis of length 1 (as the JAX package does)
     for nb in (1, N) if min(X, Y, Z) > 1 else ():
         m0 = f32(rng.standard_normal((nb, 3, X, Y, Z)))

@@ -11,15 +11,11 @@ against the threaded emulation of the CUDA runtime
 barrier a ``std::barrier``), each launch and shared-memory declaration
 rewritten as ``tests/test_torch_host_barrier_kernels.py`` rewrites its
 sources, into a host library with the same C entry points, which the kernel
-wrappers then call in place of the card's library.  It is built from
-``csrc/profile/epdiff2d_variants.cu``, which includes ``epdiff2d.cu``, so
-the forms the library does not take (K10 and K11 one thread a pixel on
-their live taps, or at any strip width and band height, with or without the
-prefetch; K13 on K12's tiles, K12's tiles for a batch-1 m0), which ``profile_epdiff2d.py`` times on the card, are held
-here too.  The 2D unit-regime warp K17 and its one-pass backward K18
-(``csrc/warp2d.cu``, staging a tile and its halo in shared memory a
-subject) are built into the same library.  So the kernels' arithmetic, indexing, tiles and halos, clamp
-folds, batch-1 sums and flags are checked here, in float32, before the card
+wrappers then call in place of the card's library.  The 2D unit-regime warp
+K17 and its one-pass backward K18 (``csrc/warp2d.cu``, staging a tile and
+its halo in shared memory a subject) are built into the same library.  So
+the kernels' arithmetic, indexing, tiles and halos, clamp folds, batch-1
+sums and flags are checked here, in float32, before the card
 sees them; the card itself is checked by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.  The other kernels run on the threaded emulation of
 ``tests/test_torch_host_barrier_kernels.py``; here their wrappers run their
@@ -44,13 +40,12 @@ import lagomorph_tpu_torch as lt
 from lagomorph_tpu_torch import profiling
 from lagomorph_tpu_torch.ops import kernels
 from lagomorph_tpu_torch.ops.kernels import _build, epdiff2d, warp2d
-from profile_epdiff2d import FWD10, FWD11, PARTS12, PARTS13, PIXEL12, fwd10, fwd11, parts12, parts13
 from test_torch_host_barrier_kernels import SHIM, _host_source
 
 torch.set_num_threads(2)
 
-HEADERS = ("stencil2d.cuh", "tile2d.cuh", "epdiff2d.cu")
-SOURCES = (os.path.join("profile", "epdiff2d_variants.cu"), "warp2d.cu")
+HEADERS = ("stencil2d.cuh", "tile2d.cuh")
+SOURCES = ("epdiff2d.cu", "warp2d.cu")
 KERNELS_2D_PER_OP = ("ad_star2d_fwd", "compose2d_fwd", "ad_star2d_bwd", "compose2d_bwd")
 WARP2D = ("warp2d_fwd", "warp2d_bwd")  # K17, K18
 ENTRY_POINTS = ("lagomorph_ad_star2d_fwd", "lagomorph_compose2d_fwd", "lagomorph_ad_star2d_bwd",
@@ -67,7 +62,6 @@ def host_library(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' sources for the host")
     out = tmp_path_factory.mktemp("host_kernels")
-    (out / "profile").mkdir()
     for name in HEADERS + SOURCES:
         with open(os.path.join(_build.CSRC, name)) as f:
             (out / name).write_text(_host_source(f.read()))
@@ -84,11 +78,6 @@ def host_library(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     for name in ENTRY_POINTS:
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
-    for name, types in (("prof_epdiff2d_parts12", PARTS12), ("prof_epdiff2d_parts13", PARTS13),
-                        ("prof_epdiff2d_pixel12", PIXEL12), ("prof_ad_star2d_fwd", FWD10),
-                        ("prof_compose2d_fwd", FWD11)):
-        getattr(lib, name).argtypes = types
         getattr(lib, name).restype = ctypes.c_int
     lib.lagomorph_error_string.argtypes = [ctypes.c_int]
     lib.lagomorph_error_string.restype = ctypes.c_char_p
@@ -167,26 +156,27 @@ def test_host_stencil2d_matches_plain(rng, host_kernels, shape):
 
 
 # Shapes for K10's and K11's strips: a row narrower than a warp's strips,
-# W % PX != 0 (7, and 9 at PX 2 and 4 against 12), H = 2, H not a multiple
-# of the band height, a row of one strip, a row of several warps' strips
-STRIP_SHAPES = [(2, 2, 9, 12), (3, 2, 2, 7), (2, 2, 5, 40), (1, 2, 3, 2), (2, 2, 4, 136)]
-# (form, PX, RJ) of the profile's entry points: the march (1) at each strip
-# width and bands of 1 and 3 rows, without its prefetch (2), and one thread
-# a pixel on the live taps (0)
-STRIP_FORMS = [(1, px, rj) for px in (1, 2, 4) for rj in (1, 3)] + [(2, 4, 2), (0, 1, 1)]
+# W % PX != 0 (7), H = 2, H not a multiple of the band height, a row of one
+# strip, a row of several warps' strips at each width the chooser takes (1:
+# W = 40, 4 columns in 136, 2 in 66)
+STRIP_SHAPES = [(2, 2, 9, 12), (3, 2, 2, 7), (2, 2, 5, 40), (1, 2, 3, 2), (2, 2, 4, 136),
+                (2, 2, 3, 66)]
+MARCHES = (0, 1, 2)  # the chooser's band height, and bands of 1 and 2 rows
 
 
 @pytest.mark.parametrize("shape", STRIP_SHAPES)
-def test_host_epdiff2d_fwd_strips(rng, host_kernels, host_library, shape):
+def test_host_epdiff2d_fwd_strips(rng, host_kernels, shape):
     """K10 (out, with and without ``mw``; batch-1 and batch-N m0) and K11 (s
     = -0.2) on column strips of PX columns marching down bands of RJ rows
-    (their route below ``2**31`` elements a field):
-    the library's launch at its chooser's geometry and at forced band
-    heights, and the profile's forms at every strip width, ``torch.equal``
-    to the plain versions and to the per-thread kernels (``march`` -1), the
-    flags equal; and each form's flag false for one value out of the unit
-    regime at several places (the upper bound is open) and true at -1 (the
-    lower bound is closed)."""
+    (their route below ``2**31`` elements a field): the library's launch at
+    its chooser's geometry and at forced band heights, ``torch.equal`` to
+    the plain versions and to the per-thread kernels (``march`` -1), the
+    flags equal; across the shapes the chooser takes strips of 1, 2 and 4
+    columns for each kernel (here, where no kernel reports a spill; on the
+    card K10's 4-column kernel spills and is not taken); and the flag, on the strips at the chooser's
+    geometry and on the per-thread kernels, false for one value out of the
+    unit regime at several places (the upper bound is open) and true at -1
+    (the lower bound is closed)."""
     N, _, H, W = shape
     assert epdiff2d.fwd_route(N, H, W) == "march"
     assert epdiff2d.fwd_route(2**20, 2**5, 2**5) == "thread"  # 2**31 elements: int indices
@@ -195,6 +185,9 @@ def test_host_epdiff2d_fwd_strips(rng, host_kernels, host_library, shape):
     assert cfg["rj"] == 3 and cfg["px"] in (1, 2, 4)
     own = epdiff2d.fwd_launch_config("compose2d_fwd", N, H, W)
     assert W % own["px"] == 0 and own["blocks"] >= 1
+    for kernel in ("ad_star2d_fwd", "compose2d_fwd"):
+        assert {epdiff2d.fwd_launch_config(kernel, n, h, w)["px"]
+                for n, _, h, w in STRIP_SHAPES} == {1, 2, 4}, kernel
     p = f32(np.where(rng.uniform(size=shape) < 0.5, rng.uniform(-0.999, -0.001, shape),
                      rng.uniform(0.001, 0.999, shape)))
     v = f32(rng.uniform(-4.9, 4.9, shape))
@@ -202,21 +195,19 @@ def test_host_epdiff2d_fwd_strips(rng, host_kernels, host_library, shape):
         m0 = f32(rng.standard_normal((nb, 2, H, W)))
         ref = epdiff2d.ad_star2d_plain(p, m0, want_mw=True)
         thread = epdiff2d._launch_ad_star(p, m0, want_mw=True, march=epdiff2d.THREAD)
-        got = [epdiff2d._launch_ad_star(p, m0, want_mw=want_mw, march=rj) for rj in (0, 1, 2)]
-        got += [fwd10(host_library, f, p, m0, want_mw, None) for f in STRIP_FORMS]
-        for geo, (out, flag, *mw) in zip(["own", "rj 1", "rj 2", *STRIP_FORMS], got):
+        for rj in MARCHES:
+            out, flag, *mw = epdiff2d._launch_ad_star(p, m0, want_mw=want_mw, march=rj)
             assert torch.equal(out, ref[0]) and torch.equal(out, thread[0]), \
-                f"K10 out at {geo}, m0 batch {nb}"
+                f"K10 out at march {rj}, m0 batch {nb}"
             assert bool(flag) is bool(ref[1]) is bool(thread[1]) is True
             if want_mw:
                 assert torch.equal(mw[0], ref[2]) and torch.equal(mw[0], thread[2]), \
-                    f"K10 mw at {geo}, m0 batch {nb}"
+                    f"K10 mw at march {rj}, m0 batch {nb}"
     ref = epdiff2d.compose2d_plain(p, v, -0.2)
     thread = epdiff2d._launch_compose(p, v, -0.2, march=epdiff2d.THREAD)
-    got = [epdiff2d._launch_compose(p, v, -0.2, march=rj) for rj in (0, 1, 2)]
-    got += [fwd11(host_library, f, p, v, -0.2, None) for f in STRIP_FORMS]
-    for geo, (out, flag) in zip(["own", "rj 1", "rj 2", *STRIP_FORMS], got):
-        assert torch.equal(out, ref[0]) and torch.equal(out, thread[0]), f"K11 at {geo}"
+    for rj in MARCHES:
+        out, flag = epdiff2d._launch_compose(p, v, -0.2, march=rj)
+        assert torch.equal(out, ref[0]) and torch.equal(out, thread[0]), f"K11 at march {rj}"
         assert bool(flag) is bool(ref[1]) is bool(thread[1]) is True
     numel = N * 2 * H * W
     for at in sorted({0, W - 1, numel // 2 + 1, numel - W, numel - 1}):
@@ -224,11 +215,13 @@ def test_host_epdiff2d_fwd_strips(rng, host_kernels, host_library, shape):
         bad.view(-1)[at] = 1.0
         edge = f32(rng.uniform(-0.9, 0.9, shape))
         edge.view(-1)[at] = -1.0
-        for f in ((1, 4, 3), (1, 1, 1), (0, 1, 1)):
-            assert not fwd10(host_library, f, bad, bad, False, None)[1], f"K10 flag at {at}, {f}"
-            assert not fwd11(host_library, f, bad, bad, 1.0, None)[1], f"K11 flag at {at}, {f}"
-            assert fwd10(host_library, f, edge, edge, False, None)[1]
-            assert fwd11(host_library, f, edge, edge, 1.0, None)[1]
+        for march in (0, epdiff2d.THREAD):
+            assert not epdiff2d._launch_ad_star(bad, bad, march=march)[1], \
+                f"K10 flag at {at}, march {march}"
+            assert not epdiff2d._launch_compose(bad, bad, 1.0, march=march)[1], \
+                f"K11 flag at {at}, march {march}"
+            assert epdiff2d._launch_ad_star(edge, edge, march=march)[1]
+            assert epdiff2d._launch_compose(edge, edge, 1.0, march=march)[1]
         assert not bool(epdiff2d.ad_star2d(bad, bad)[1])
         assert not bool(epdiff2d.compose2d(bad, bad, 1.0)[1])
 
@@ -238,9 +231,8 @@ def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
     kernels K10-K13 and the atlas warp K17, K18, emulated; the fluid solve
     plain on both sides) against the plain versions, at momenta in the unit
     regime (max|v0| = 0.5), with 4 launches of each of K10-K13 and one of
-    K17 and K18 per step and no other kernel, counted under
-    ``epdiff2d.LAUNCH.<K10|K11|K12|K13>`` and ``warp2d.LAUNCH.<fwd|bwd>``, in
-    4 ``lt.substep`` spans and 5 fluid solves on the ``"rfftn"`` route."""
+    K17 and K18 per step and no other kernel (``kernels.launch_counts()``),
+    in 4 ``lt.substep`` spans and 5 fluid solves on the ``"rfftn"`` route."""
     shape = (2, 2, 12, 10)
     metric = lt.FluidMetric((0.1, 0.05, 0.01))
     m = f32(rng.standard_normal(shape))
@@ -259,10 +251,6 @@ def test_host_atlas_step_2d_beta_matches_plain(rng, host_kernels):
             k: (4 if k in KERNELS_2D_PER_OP else 1 if k in WARP2D else 0)
             for k in kernels.KERNELS}
         counts = profiling.counters()
-        assert {k: v for k, v in counts.items() if k.startswith("epdiff2d.")} == {
-            f"epdiff2d.LAUNCH.K{k}": 4 for k in (10, 11, 12, 13)}
-        assert {k: v for k, v in counts.items() if k.startswith("warp2d.")} == {
-            "warp2d.LAUNCH.fwd": 1, "warp2d.LAUNCH.bwd": 1}
         assert counts["lt.substep"] == 4
         assert {k: v for k, v in counts.items() if k.startswith("fluid.route.")} == {
             "fluid.route.rfftn": 5}
@@ -286,16 +274,15 @@ TILE_SHAPE = (3, 2, 12, 10)
 
 @pytest.mark.parametrize("tile", [0, 1, 4, 5, 16])
 @pytest.mark.parametrize("m_batch", [1, "N"])
-def test_host_epdiff2d_bwd_tiles(rng, host_kernels, host_library, tile, m_batch):
-    """K12 on row tiles of the height it chooses (0) and of forced ones:
-    for batch-N momenta the library's tile kernel (the launch reporting the
-    height it took), for a batch-1 m0 (which the library sends to the
-    per-thread route, refusing its tiles) the profile's tile form that
-    writes d_mw for the sum over the subjects; and K13 on the same tiles
-    (the profile's form).  Each against the plain version within 1e-5 * (1
-    + max|ref|), ``torch.equal`` to the per-thread kernel, a rerun
-    bit-identical; a batch-1 m0's d_m0 is the float32 sum, in subject
-    order, of the subjects' own (batch-N) d_m0, bit for bit."""
+def test_host_epdiff2d_bwd_tiles(rng, host_kernels, tile, m_batch):
+    """K12 on row tiles of the height it chooses (0) and of forced ones, for
+    batch-N momenta (the launch reporting the height it took), within 1e-5
+    * (1 + max|ref|) of the plain version, ``torch.equal`` to the per-thread
+    kernels and rerun bit-identical; for a batch-1 m0 the tiles refused and
+    the per-thread route (the library's for it) held to the plain version
+    and rerun bit-identical, its d_m0 the float32 sum, in subject order, of
+    the subjects' own (batch-N, on the tiles) d_m0, bit for bit; and K13,
+    one thread a pixel, against the plain version, rerun bit-identical."""
     N, _, H, W = TILE_SHAPE
     cfg = epdiff2d.bwd_launch_config(N, H, W, tile)
     assert cfg["tile"] == (tile or cfg["tile"]) and cfg["blocks"] == -(-N * H // cfg["tile"])
@@ -311,26 +298,24 @@ def test_host_epdiff2d_bwd_tiles(rng, host_kernels, host_library, tile, m_batch)
     if nb != N:
         with pytest.raises(RuntimeError, match="lagomorph_ad_star2d_bwd"):
             epdiff2d._launch_ad_star_bwd(p, m0, g, mw, tile)
-
-    def k12():
-        if nb == N:
-            return epdiff2d._launch_ad_star_bwd(p, m0, g, mw, tile)
-        return parts12(host_library, (3, 3, tile), p, m0, g, mw, None)
-
-    cases = (("K12", k12, lambda: epdiff2d._launch_ad_star_bwd(p, m0, g, mw, epdiff2d.THREAD),
+    route = tile if nb == N else epdiff2d.THREAD
+    cases = (("K12", lambda: epdiff2d._launch_ad_star_bwd(p, m0, g, mw, route),
               epdiff2d.ad_star2d_bwd_plain(p, m0, g, mw)),
-             ("K13", lambda: parts13(host_library, (3, 3, tile), p, v, -0.2, g, None),
-              lambda: epdiff2d._launch_compose_bwd(p, v, -0.2, g),
+             ("K13", lambda: epdiff2d._launch_compose_bwd(p, v, -0.2, g),
               epdiff2d.compose2d_bwd_plain(p, v, -0.2, g)))
-    for name, launch, thread, ref in cases:
+    for name, launch, ref in cases:
         got = launch()
         for what, a, b in zip(("d_phiinv", "d_m0" if name == "K12" else "d_v"), got, ref):
             close(f"{name} {what} (tile {tile}, m0 batch {m_batch})", a, b, BWD_RTOL)
-        assert all(torch.equal(a, b) for a, b in zip(got, thread())), \
-            f"{name} on tiles of {tile} differs from the per-thread kernel"
         assert all(torch.equal(a, b) for a, b in zip(got, launch())), \
             f"{name} is not deterministic (tile {tile})"
-        if name == "K12" and nb != N:  # d_m0 summed over the subjects in their order
+        if name != "K12":
+            continue
+        if nb == N:
+            thread = epdiff2d._launch_ad_star_bwd(p, m0, g, mw, epdiff2d.THREAD)
+            assert all(torch.equal(a, b) for a, b in zip(got, thread)), \
+                f"K12 on tiles of {tile} differs from the per-thread kernel"
+        else:  # d_m0 summed over the subjects in their order
             m0_n = m0.expand(N, -1, -1, -1).contiguous()
             each = epdiff2d._launch_ad_star_bwd(p, m0_n, g, mw, tile)[1]
             total = torch.zeros_like(m0)
@@ -388,8 +373,8 @@ def test_host_warp2d_matches_plain(rng, host_kernels, shape, batch):
     ``torch.equal``; K18's ``dI`` and ``d_disp`` within 1e-5 * (1 +
     max|ref|), through the autograd Function, a rerun bit-identical; a
     batch-1 ``dI`` the float32 sum, in subject order, of the subjects' own
-    (batch-N) ``dI``, bit for bit, and its ``d_disp`` theirs; one
-    ``warp2d.LAUNCH.fwd`` and one ``.bwd`` a pair of channels."""
+    (batch-N) ``dI``, bit for bit, and its ``d_disp`` theirs; one launch
+    of K17 a call and of K18 a pair of channels."""
     N, H, W = shape
     p = _unit_disp(rng, (N, 2, H, W))
     for C in (1, 2, 3):
@@ -397,7 +382,6 @@ def test_host_warp2d_matches_plain(rng, host_kernels, shape, batch):
         I = f32(rng.standard_normal((nb, C, H, W)))
         g = f32(rng.standard_normal((N, C, H, W)))
         kernels.reset_launches()
-        profiling.reset_counters()
         out = warp2d.sample_displacement_unit(I, p)
         assert torch.equal(out, warp2d.sample_displacement_unit_plain(I, p)), f"K17 C={C}"
         leaves = (I.clone().requires_grad_(True), p.clone().requires_grad_(True))
@@ -408,8 +392,6 @@ def test_host_warp2d_matches_plain(rng, host_kernels, shape, batch):
         pairs = -(-C // 2)
         assert kernels.launch_counts()["warp2d_fwd"] == 2
         assert kernels.launch_counts()["warp2d_bwd"] == pairs
-        assert {k: v for k, v in profiling.counters().items() if k.startswith("warp2d.")} == {
-            "warp2d.LAUNCH.fwd": 2, "warp2d.LAUNCH.bwd": pairs}
         again = warp2d._launch_bwd(I, p, g)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), "K18 is not deterministic"
         if nb == 1:
@@ -439,8 +421,7 @@ def test_host_atlas_step_2d_warp_matches_plain(rng, host_kernels):
     """Two chained 2D atlas steps with ``beta == 0`` (the whole shoot plain,
     the atlas warp on K17 and K18, emulated) against the plain versions at
     momenta in the unit regime (max|v0| = 0.5): one launch of K17 and one of
-    K18 a step, counted under ``warp2d.LAUNCH.fwd`` and ``.bwd``, and no
-    other kernel; the updated momenta, the atlas gradient and the loss as
+    K18 a step, and no other kernel; the updated momenta, the atlas gradient and the loss as
     the plain step's."""
     shape = (3, 2, 13, 37)
     metric = lt.FluidMetric((0.1, 0.0, 0.01))
@@ -452,12 +433,9 @@ def test_host_atlas_step_2d_warp_matches_plain(rng, host_kernels):
     got, mm = [], m
     for _ in range(2):
         kernels.reset_launches()
-        profiling.reset_counters()
         got.append(step(I, mm, img))
         mm = got[-1][0]
         assert kernels.launch_counts() == {k: (1 if k in WARP2D else 0) for k in kernels.KERNELS}
-        assert {k: v for k, v in profiling.counters().items() if k.startswith("warp2d.")} == {
-            "warp2d.LAUNCH.fwd": 1, "warp2d.LAUNCH.bwd": 1}
     ref, mm = [], m
     with kernels.plain_versions():
         for _ in range(2):

@@ -1,6 +1,6 @@
-"""The shooting's per-substep span and the counters of the fluid solve's
-route and of the 2D per-substep kernels' and the 2D warp's launches, on the
-CPU:
+"""The shooting's per-substep span, the counter of the fluid solve's
+route, and the launches of the 2D per-substep kernels and of the 2D warp
+(``kernels.launch_counts()``), on the CPU:
 
 * ``lt.substep``: one span a substep of the per-substep loop
   (``lddmm._expmap_fast_flagged``), 4 a shoot of 5 steps, each inside the
@@ -8,12 +8,12 @@ CPU:
   without checkpoints; none on the 2D ``beta == 0`` whole shoot (K8);
 * ``fluid.route.<route>``: one count a ``fluid_operator`` call, under the
   route that :func:`ops.fluid.fluid_route` names, for each route;
-* ``epdiff2d.LAUNCH.<K10|K11|K12|K13>``: 4 of each through a 2D atlas step
+* K10-K13's launches: 4 of each through a 2D atlas step
   with ``beta != 0``, and 5 solves on the ``"rfftn"`` route, with the
   kernels' C entry points replaced by their plain versions (the wrappers'
   Python, routes and allocations run as on the card); none in a step with
   ``beta == 0``;
-* ``warp2d.LAUNCH.<fwd|bwd>``: 1 and 1 through a 2D atlas step (the atlas
+* K17's and K18's launches: 1 and 1 through a 2D atlas step (the atlas
   warp K17 and its backward K18, the same plain entry points), with and
   without ``beta``; none in a 3D step; and ``interp_auto``'s 2D unit tier
   keeping CPU tensors, and on a card other dtypes than float32, on the
@@ -215,8 +215,6 @@ def test_2d_beta_step_counts_each_launch(plain_launches):
         profiling.reset_counters()
         got = step(I, m, img)
         counts = profiling.counters()
-        assert {k: v for k, v in counts.items() if k.startswith("epdiff2d.")} == {
-            f"epdiff2d.LAUNCH.K{k}": 4 for k in (10, 11, 12, 13)}
         assert {k: kernels.launch_counts()[k] for k in PER_SUBSTEP} == dict.fromkeys(PER_SUBSTEP, 4)
         # v0 and the 4 substeps; the backward differentiates torch.fft itself
         assert {k: v for k, v in counts.items() if k.startswith("fluid.route.")} == {
@@ -224,9 +222,9 @@ def test_2d_beta_step_counts_each_launch(plain_launches):
         assert counts["lt.substep"] == 4 and "lt.shoot.general" not in counts
         m = got[0]
     with kernels.plain_versions():
-        profiling.reset_counters()
+        kernels.reset_launches()
         ref = step(I, m, img)
-        assert not any(k.startswith("epdiff2d.") for k in profiling.counters())
+        assert not any(kernels.launch_counts()[k] for k in PER_SUBSTEP)
     got = step(I, m, img)
     for a, b in zip(got[:3], ref[:3]):
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-7 * float(b.abs().max()))
@@ -234,37 +232,36 @@ def test_2d_beta_step_counts_each_launch(plain_launches):
 
 def test_2d_flat_step_launches_no_per_substep_kernel(plain_launches):
     I, m, img = _inputs((12, 10), FLAT, 4)
+    kernels.reset_launches()
     profiling.reset_counters()
     _step(FLAT)(I, m, img)
     counts = profiling.counters()
-    assert not any(k.startswith("epdiff2d.") for k in counts) and "lt.substep" not in counts
+    assert not any(kernels.launch_counts()[k] for k in PER_SUBSTEP)
+    assert "lt.substep" not in counts
     assert counts["fluid.route.rfftn"] == 1  # v0; K8 solves its substeps itself
 
 
-WARP_COUNTS = {"warp2d.LAUNCH.fwd": 1, "warp2d.LAUNCH.bwd": 1}
+WARP_COUNTS = {"warp2d_fwd": 1, "warp2d_bwd": 1}
 
 
 def _warp_counts():
-    return {k: v for k, v in profiling.counters().items() if k.startswith("warp2d.")}
+    """K17's and K18's launches, those that are not 0."""
+    return {k: n for k, n in kernels.launch_counts().items() if k.startswith("warp2d_") and n}
 
 
 @pytest.mark.parametrize("params", [FLAT, BETA], ids=["flat", "beta"])
 def test_2d_step_counts_one_warp_launch_each_way(plain_launches, params):
     """A 2D atlas step warps the atlas once through K17 and takes its
-    gradient once through K18 (``warp2d.LAUNCH.fwd`` / ``.bwd`` 1 and 1, the
-    kernels' ``launches`` too), with ``beta`` 0 (K8/K9 plain here) and not
+    gradient once through K18 (their ``launches`` 1 and 1), with ``beta`` 0 (K8/K9 plain here) and not
     (K10-K13); under ``plain_versions`` none, and the same step."""
     I, m, img = _inputs((12, 10), params, 5)
     step = _step(params)
     for _ in range(2):
         kernels.reset_launches()
-        profiling.reset_counters()
         got = step(I, m, img)
         assert _warp_counts() == WARP_COUNTS
-        assert {k: kernels.launch_counts()[k] for k in ("warp2d_fwd", "warp2d_bwd")} == {
-            "warp2d_fwd": 1, "warp2d_bwd": 1}
     with kernels.plain_versions():
-        profiling.reset_counters()
+        kernels.reset_launches()
         ref = step(I, m, img)
         assert _warp_counts() == {}
     for a, b in zip(got[:3], ref[:3]):
@@ -274,6 +271,7 @@ def test_2d_step_counts_one_warp_launch_each_way(plain_launches, params):
 def test_3d_step_counts_no_warp2d_launch(plain_launches):
     """The 3D atlas step's warp is K4's (plain here): no K17 or K18."""
     I, m, img = _inputs((6, 5, 4), FLAT, 6)
+    kernels.reset_launches()
     profiling.reset_counters()
     _step(FLAT)(I, m, img)
     assert _warp_counts() == {} and profiling.counters()["lt.warp"] == 1
@@ -289,17 +287,15 @@ def test_interp_auto_2d_keeps_cpu_and_other_dtypes_plain(request):
     d = torch.rand((2, 2, 9, 11), generator=g) * 1.98 - 0.99
     I = torch.randn((1, 1, 9, 11), generator=g)
     kernels.reset_launches()
-    profiling.reset_counters()
     for dtype in (torch.float32, torch.bfloat16):
         got = interp_auto(I.to(dtype), d.to(dtype))
         assert got.dtype == dtype
         assert torch.equal(got, sampling.sample_displacement_unit(I.to(dtype), d.to(dtype)))
-    assert kernels.launch_counts()["warp2d_fwd"] == 0 and _warp_counts() == {}
+    assert _warp_counts() == {}
     request.getfixturevalue("plain_launches")
     assert torch.equal(interp_auto(I, d), sampling.sample_displacement_unit(I, d))
-    assert _warp_counts() == {"warp2d.LAUNCH.fwd": 1}
+    assert _warp_counts() == {"warp2d_fwd": 1}
     for dtype in (torch.bfloat16, torch.float64):
         got = interp_auto(I.to(dtype), d.to(dtype))
         assert torch.equal(got, sampling.sample_displacement_unit(I.to(dtype), d.to(dtype)))
-    assert _warp_counts() == {"warp2d.LAUNCH.fwd": 1}
-    assert kernels.launch_counts()["warp2d_fwd"] == 1
+    assert _warp_counts() == {"warp2d_fwd": 1}
